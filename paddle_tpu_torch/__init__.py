@@ -1,0 +1,17 @@
+"""paddle_tpu_torch: the PyTorch / CUDA port of paddle_tpu for NVIDIA
+Hopper (H100).
+
+The JAX package `paddle_tpu` stays the reference; this package imports
+`torch` and never `jax` or anything of `paddle_tpu`. Its entry points run
+on the card ("cuda") unless the caller passes device="cpu", where every
+hand-written kernel gives way to its plain PyTorch version.
+
+What is ported so far: LLaMA served through the paged-KV ServingEngine,
+with hand-written kernels for flash-attention forward
+(`ops.flash_attention`, CUDA), fused RMSNorm/LayerNorm forward
+(`ops.norm`, Triton) and paged decode attention
+(`serving.attention.paged_decode_attention`, CUDA).
+"""
+from .device import get_device, resolve_device, set_device
+
+__all__ = ["get_device", "resolve_device", "set_device"]

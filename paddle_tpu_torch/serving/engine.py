@@ -1,0 +1,741 @@
+"""ServingEngine: continuous-batching generation over a paged KV cache
+(ported from paddle_tpu/serving/engine.py).
+
+The engine multiplexes a request stream onto a decoder model that follows
+the `forward(input_ids, caches=..., start_pos=...)` cache protocol
+(models/llama.py), passing one `PagedLayerCache` view per layer:
+
+- prefill: one request per step, its prompt padded up to the smallest
+  prompt bucket, the first token sampled on the device;
+- decode: a block of `decode_horizon` model steps per dispatch - model
+  step, sampling, EOS/budget masking and position advance all on the
+  device - returning a (b, horizon) token block. Rows that finish
+  mid-block emit PAD and park their write position at the table-overflow
+  slot (routed to the null page), so the host syncs once per block;
+- host/device overlap: block k+1 is dispatched from block k's device-side
+  carries BEFORE block k's tokens are pulled to the host. Each block's
+  tokens start their copy to pinned host memory as soon as the block is
+  enqueued, and the drain waits on that copy's event alone, so Python
+  bookkeeping and scheduling run while the card computes.
+
+PyTorch runs eagerly, so there are no compiled executables to bound; the
+KV pools are CUDA tensors written in place (`serving.attention`).
+
+Sampling. Greedy (temperature 0) is exact argmax. Otherwise a request's
+n-th sampled token uses Gumbel noise that is a counter-based function of
+(request seed, n, vocab index) computed on the device, so a stream depends
+neither on the decode horizon nor on the batch it rode in, and survives
+preemption. The JAX engine's threefry bits are not reproduced.
+
+Not ported yet, and refused with NotImplementedError naming the ROADMAP
+item rather than ignored: prefix caching, chunked prefill and the ragged
+step, speculative decoding, tensor parallelism, quantized KV pools, the
+request journal, fault injection, deadlines, SLO classes, the flight
+recorder and post-mortem dumps.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, same_device
+from ..observability import Histogram, MetricsRegistry
+from .attention import advance_positions
+from .kv_cache import (KV_DTYPES, PagedKVCache, host_to_device,
+                       overflow_position, pages_for)
+from .resilience import TERMINAL_STATUSES
+from .scheduler import Request, SamplingParams, Scheduler
+
+__all__ = ["ServingEngine", "ServingObs", "PAD_TOKEN"]
+
+# emitted by dead rows inside a decode block (finished / padding); the
+# host drain trims each row at its first PAD
+PAD_TOKEN = -1
+
+_M32 = 0xFFFFFFFF
+
+
+def _default_buckets(max_seq_len: int) -> Tuple[int, ...]:
+    """Power-of-two prompt buckets up to max_seq_len (always included)."""
+    buckets = []
+    b = 16
+    while b < max_seq_len:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_seq_len)
+    return tuple(buckets)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2**32 for int64 x in [0, 2**32), in 16-bit halves of c so
+    no int64 product overflows."""
+    return ((x * (c & 0xFFFF)) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer (a bijection of [0, 2**32))."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _uniforms(seeds: torch.Tensor, draws: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+    """(b, vocab) fp32 uniforms in (0, 1): a counter-based function of
+    (seed, draw index, vocab index), identical on every device."""
+    row = _fmix32(_fmix32((seeds & _M32) ^ 0x9E3779B9) ^ (draws & _M32))
+    idx = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
+    x = _fmix32((row[:, None] + _mul32(idx, 0x9E3779B9)[None, :]) & _M32)
+    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def _sample_batch(logits: torch.Tensor, knobs: dict,
+                  draws: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling, mirroring the reference `_sample_batch`: greedy
+    where temperature == 0, else temperature -> top-k -> top-p ->
+    categorical, the last by Gumbel-max over `_uniforms`."""
+    logits = logits.float()
+    greedy = logits.argmax(dim=-1)
+    if knobs["greedy_only"]:
+        return greedy
+    temps, top_ks, top_ps = knobs["temps"], knobs["top_ks"], knobs["top_ps"]
+    vocab = logits.shape[-1]
+    t_safe = torch.where(temps > 0.0, temps, torch.ones_like(temps))
+    scaled = logits / t_safe[:, None]
+    # top-k as a rank threshold (top_k <= 0 keeps all V)
+    k_eff = torch.where(top_ks > 0, top_ks.clamp(max=vocab),
+                        torch.full_like(top_ks, vocab))
+    sorted_desc = scaled.sort(dim=-1, descending=True).values
+    kth = sorted_desc.gather(-1, (k_eff - 1)[:, None])
+    masked = scaled.masked_fill(scaled < kth, float("-inf"))
+    # top-p over the top-k-masked distribution
+    sorted_m = masked.sort(dim=-1, descending=True).values
+    cum = sorted_m.softmax(dim=-1).cumsum(dim=-1)
+    cutoff_idx = (cum < top_ps[:, None]).sum(dim=-1, keepdim=True).clamp(
+        max=vocab - 1)
+    cutoff = sorted_m.gather(-1, cutoff_idx)
+    masked = masked.masked_fill(masked < cutoff, float("-inf"))
+    gumbel = -torch.log(-torch.log(_uniforms(knobs["seeds"], draws, vocab)))
+    sampled = (masked + gumbel).argmax(dim=-1)
+    return torch.where(temps == 0.0, greedy, sampled)
+
+
+def _start_host_copy(t: torch.Tensor):
+    """Begin copying `t` to the host without waiting: (host tensor, CUDA
+    event to wait on, or None when `t` is already on the CPU)."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return host, event
+
+
+class ServingObs:
+    """Every observability handle the serving hot path touches, resolved
+    ONCE against the engine's MetricsRegistry. With
+    `enable_metrics=False` the engine holds None instead and does no
+    metrics work at all."""
+
+    def __init__(self, registry: MetricsRegistry):
+        self.registry = registry
+        c, g, h = registry.counter, registry.gauge, registry.histogram
+        self.prefill_steps = c("serving_prefill_steps_total",
+                               "prefill dispatches")
+        self.decode_steps = c("serving_decode_steps_total",
+                              "decode-block dispatches")
+        self.tokens = c("serving_tokens_generated_total",
+                        "tokens emitted to the host")
+        self.host_syncs = c("serving_host_syncs_total",
+                            "device->host sync points")
+        self.dispatches = c("serving_dispatches_total",
+                            "prefill and decode-block dispatches")
+        self.preemptions = c("serving_preemptions_total",
+                             "requests preempted and requeued")
+        self.parked = c("serving_requests_parked_total",
+                        "preemption-storm guard trips (victim requeued at "
+                        "the back of the queue)")
+        self.prefill_seconds = c("serving_prefill_seconds_total",
+                                 "wall time in prefill dispatch+sync")
+        self.decode_seconds = c(
+            "serving_decode_seconds_total",
+            "decode wall time (async-overlap deduplicated)")
+        self.ttft = h("serving_ttft_seconds",
+                      "request arrival to first token on the host")
+        self.inter_token = h(
+            "serving_inter_token_seconds",
+            "per-token gap between host-visible emissions (a decode "
+            "block's gap is spread evenly over its tokens)")
+        # wall time per step by phase: schedule (policy + page
+        # reservation), assemble (host-side batch packing), dispatch
+        # (enqueueing the block's work; asynchronous, so NOT device time)
+        # and drain (the one host sync pulling a block's tokens back)
+        self.step_phase = {
+            phase: h("serving_step_phase_seconds",
+                     "per-step wall time by phase", labels={"phase": phase})
+            for phase in ("schedule", "assemble", "dispatch", "drain")}
+        self.queue_waiting = g("serving_queue_depth", "scheduler queue depth",
+                               labels={"state": "waiting"})
+        self.queue_running = g("serving_queue_depth", "scheduler queue depth",
+                               labels={"state": "running"})
+        self.free_pages = g("serving_kv_free_pages",
+                            "allocatable KV pages right now")
+        self.kv_util = g("serving_kv_page_utilization",
+                         "fraction of allocatable KV pages in use")
+
+    # --------------------------------------------------- scheduler hooks
+    def preempted(self, req: Request) -> None:
+        self.preemptions.inc()
+        if req.parked:
+            self.parked.inc()
+
+    def sample_queues(self, waiting: int, running: int, allocator) -> None:
+        self.queue_waiting.set(waiting)
+        self.queue_running.set(running)
+        free = allocator.num_free
+        total = allocator.num_allocatable
+        self.free_pages.set(free)
+        self.kv_util.set(1.0 - free / total if total else 0.0)
+
+
+# engine knobs of the reference that the port does not run yet, with the
+# ROADMAP item that ports each
+_NOT_PORTED = {
+    "enable_prefix_caching": "queue 1, S2 (prefix cache)",
+    "enable_chunked_prefill": "queue 1, S3 (chunked prefill, ragged "
+                              "step, kernel K7)",
+    "spec_config": "queue 1, S4 (speculative decoding)",
+    "tp_size": "queue 1, S5 (tensor-parallel serving)",
+    "kv_dtype": "queue 1, S6 (int8/fp8 KV pools, K6 dequant variant)",
+    "journal": "queue 1, S7 (journal and recovery)",
+    "fault_injector": "queue 1, S8 (resilience: fault injection, "
+                      "deadlines)",
+    "deadline_s": "queue 1, S8 (resilience: fault injection, deadlines)",
+    "slo_classes": "queue 1, S9 (SLO tracking, flight recorder, "
+                   "post-mortems)",
+    "flight_recorder": "queue 1, S9 (SLO tracking, flight recorder, "
+                       "post-mortems)",
+    "postmortem_dir": "queue 1, S9 (SLO tracking, flight recorder, "
+                      "post-mortems)",
+}
+
+
+def _not_ported(knob: str, value) -> NotImplementedError:
+    return NotImplementedError(
+        f"{knob}={value!r} is not ported to paddle_tpu_torch yet "
+        f"(ROADMAP {_NOT_PORTED[knob]})")
+
+
+class ServingEngine:
+    def __init__(self, model, *, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 max_batch_size: int = 8,
+                 max_seq_len: Optional[int] = None,
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 kv_dtype: str = "fp32",
+                 decode_horizon: int = 8,
+                 enable_metrics: bool = True,
+                 metrics: Optional[MetricsRegistry] = None,
+                 max_waiting: Optional[int] = None,
+                 max_preemptions: Optional[int] = 8,
+                 device=None,
+                 enable_prefix_caching: bool = False,
+                 enable_chunked_prefill: bool = False,
+                 spec_config=None,
+                 tp_size: int = 1,
+                 journal=None,
+                 fault_injector=None,
+                 slo_classes: Optional[Sequence] = None,
+                 flight_recorder=None,
+                 postmortem_dir: Optional[str] = None):
+        from ..models.generation import _config_of
+
+        for knob, value in (
+                ("enable_prefix_caching", enable_prefix_caching),
+                ("enable_chunked_prefill", enable_chunked_prefill),
+                ("spec_config", spec_config), ("journal", journal),
+                ("fault_injector", fault_injector),
+                ("slo_classes", slo_classes),
+                ("flight_recorder", flight_recorder),
+                ("postmortem_dir", postmortem_dir)):
+            if value:
+                raise _not_ported(knob, value)
+        if int(tp_size) != 1:
+            raise _not_ported("tp_size", tp_size)
+        if kv_dtype in ("int8", "fp8"):
+            raise _not_ported("kv_dtype", kv_dtype)
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}: expected one "
+                             "of 'fp32', 'bf16', 'int8', 'fp8'")
+        self.device = resolve_device(device)
+        param = next(iter(model.parameters()))
+        if not same_device(param.device, self.device):
+            raise ValueError(f"model lives on {param.device}, engine asked "
+                             f"for {self.device}: move one of them")
+        self.model = model
+        model.eval()
+        cfg = _config_of(model)
+        self.kv_dtype = {"float32": "fp32", "bfloat16": "bf16"}.get(
+            kv_dtype, kv_dtype)
+        self.page_size = page_size
+        self.max_batch_size = max_batch_size
+        self.max_seq_len = max_seq_len or cfg.max_position_embeddings
+        self.max_pages_per_seq = pages_for(self.max_seq_len, page_size)
+        self.decode_horizon = int(decode_horizon)
+        if self.decode_horizon < 1:
+            raise ValueError("decode_horizon must be >= 1")
+        if num_pages is None:
+            # worst case every slot runs a full-length sequence, +1 null
+            num_pages = max_batch_size * self.max_pages_per_seq + 1
+        self.cache = PagedKVCache.for_model(model, num_pages, page_size,
+                                            kv_dtype=self.kv_dtype)
+        self.metrics = metrics if metrics is not None else (
+            MetricsRegistry() if enable_metrics else None)
+        self._obs = (ServingObs(self.metrics)
+                     if self.metrics is not None else None)
+        if self.metrics is not None:
+            self.cache.allocator.bind_metrics(self.metrics)
+            self.metrics.gauge(
+                "serving_kv_pool_bytes", "bytes held by the paged KV pools",
+                labels={"kv_dtype": self.cache.kv_dtype}).set(
+                    self.cache.pool_bytes)
+        self.prefill_buckets = tuple(sorted(
+            prefill_buckets or _default_buckets(self.max_seq_len)))
+        if self.prefill_buckets[-1] < self.max_seq_len:
+            raise ValueError("prefill_buckets must cover max_seq_len "
+                             "(preempted requests re-prefill at their "
+                             "full current length)")
+        self.scheduler = Scheduler(self.cache.allocator, page_size,
+                                   max_batch_size, self.max_pages_per_seq,
+                                   decode_horizon=self.decode_horizon,
+                                   drain_hook=self._drain_for_scheduler,
+                                   obs=self._obs, max_waiting=max_waiting,
+                                   max_preemptions=max_preemptions,
+                                   max_prefill_tokens=self.prefill_buckets[-1])
+        self.requests: Dict[int, Request] = {}
+        # per-request sampling state: the seed, and how many tokens the
+        # request has sampled so far (its next draw index)
+        self._seeds: Dict[int, int] = {}
+        self._draws: Dict[int, int] = {}
+        # the dispatched-but-undrained decode block (overlap depth 1)
+        self._pending: Optional[dict] = None
+        # events produced when the scheduler's drain_hook fires inside
+        # schedule(); step() returns them ahead of its own
+        self._spill: List[Tuple[int, int]] = []
+        self._last_drain_t = 0.0
+
+    # ----------------------------------------------------------- request API
+    def add_request(self, prompt_ids, max_new_tokens: int = 32,
+                    temperature: float = 0.0, top_k: int = 0,
+                    top_p: float = 1.0, seed: Optional[int] = None,
+                    eos_token_id: Optional[int] = None,
+                    deadline_s: Optional[float] = None) -> int:
+        """Queue one prompt; returns a request id. Non-blocking: the
+        request runs as `step()`/`stream()` turn the crank. All validation
+        happens up front, so a rejected request leaves no trace. Raises
+        `EngineOverloaded` when the bounded waiting queue is full."""
+        if deadline_s is not None:
+            raise _not_ported("deadline_s", deadline_s)
+        prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if len(prompt) + max_new_tokens > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_seq_len "
+                f"{self.max_seq_len}")
+        if len(prompt) > self.prefill_buckets[-1]:
+            raise ValueError(
+                f"prompt length {len(prompt)} exceeds the largest "
+                f"prefill bucket {self.prefill_buckets[-1]}")
+        req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
+                      sampling=SamplingParams(temperature, top_k, top_p,
+                                              seed),
+                      eos_token_id=eos_token_id)
+        self.scheduler.add(req)       # may raise: register only after
+        self.requests[req.request_id] = req
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        self._seeds[req.request_id] = int(seed)
+        self._draws[req.request_id] = 0
+        return req.request_id
+
+    def output(self, request_id: int) -> List[int]:
+        """prompt + generated tokens so far (a preempted request's prompt
+        absorbs its generated tokens, so this is always the full
+        sequence)."""
+        req = self.requests[request_id]
+        return list(req.prompt) + list(req.generated)
+
+    def status(self, request_id: int) -> Tuple[str, Optional[str]]:
+        """(status, error) for one request; error is always None here (the
+        port has no failure isolation yet)."""
+        return self.requests[request_id].status, None
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a waiting or running request. A request with tokens in
+        the pending decode block is drained first, so already-sampled
+        tokens surface through the next `step()` and no dispatched work
+        still writes into released pages. Returns True if the request was
+        live and is now "cancelled"."""
+        req = self.requests.get(request_id)
+        if req is None or req.status in TERMINAL_STATUSES:
+            return False
+        if self._pending is not None \
+                and request_id in self._pending["rids"]:
+            self._spill.extend(self._drain_pending())
+            if req.status in TERMINAL_STATUSES:
+                return False      # the drained tokens finished it
+        return self.scheduler.finalize(req, "cancelled")
+
+    # ---------------------------------------------------------------- steps
+    def step(self) -> List[Tuple[int, int]]:
+        """One scheduler decision + at most one dispatch. Returns the
+        (request_id, token) pairs that reached the host this step: a
+        decode block's tokens surface one step AFTER its dispatch."""
+        t_sched = time.perf_counter()
+        decision = self.scheduler.schedule()   # drain_hook may spill here
+        if self._obs is not None:
+            self._obs.step_phase["schedule"].observe(
+                time.perf_counter() - t_sched)
+        spilled, self._spill = self._spill, []
+        if decision.kind == "prefill":
+            return spilled + self._prefill(decision.prefill)
+        if decision.kind == "decode":
+            return spilled + self._decode(decision.decode)
+        return spilled + self._drain_pending()
+
+    def drain_all(self) -> List[Tuple[int, int]]:
+        """Flush everything already computed out to the caller."""
+        spilled, self._spill = self._spill, []
+        return spilled + self._drain_pending()
+
+    def stream(self):
+        """Generator of (request_id, token, done) events until every
+        queued request completes."""
+        while (self.scheduler.has_work() or self._pending is not None
+               or self._spill):
+            if self.scheduler.has_work():
+                events = self.step()
+            else:
+                events = self.drain_all()
+            for i, (rid, tok) in enumerate(events):
+                done = (self.requests[rid].status == "finished"
+                        and all(r != rid for r, _ in events[i + 1:]))
+                yield rid, tok, done
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain all queued requests; returns request_id -> full tokens."""
+        for _ in self.stream():
+            pass
+        return {rid: self.output(rid) for rid in self.requests}
+
+    # ------------------------------------------------------------ sampling
+    def _knobs(self, reqs: Sequence[Request], rows: int) -> dict:
+        """Per-row sampling knobs on the device for `rows` rows (rows past
+        `reqs` are padding: greedy, no EOS)."""
+        seeds = np.zeros((rows,), np.int64)
+        temps = np.zeros((rows,), np.float32)
+        top_ks = np.zeros((rows,), np.int64)
+        top_ps = np.ones((rows,), np.float32)
+        eos_ids = np.full((rows,), PAD_TOKEN, np.int64)
+        for i, req in enumerate(reqs):
+            sp = req.sampling
+            seeds[i] = self._seeds[req.request_id]
+            temps[i], top_ks[i], top_ps[i] = (sp.temperature, sp.top_k,
+                                              sp.top_p)
+            if req.eos_token_id is not None:
+                eos_ids[i] = req.eos_token_id
+        dev = self.device
+        return {"seeds": host_to_device(seeds, dev),
+                "temps": host_to_device(temps, dev),
+                "top_ks": host_to_device(top_ks, dev),
+                "top_ps": host_to_device(top_ps, dev),
+                "eos_ids": host_to_device(eos_ids, dev),
+                "greedy_only": all(r.sampling.temperature == 0.0
+                                   for r in reqs)}
+
+    def _emit(self, req: Request, token: int, now: float
+              ) -> Tuple[int, int]:
+        req.generated.append(token)
+        self._draws[req.request_id] += 1
+        o = self._obs
+        if o is not None:
+            o.tokens.inc()
+        if req.first_token_t is None:
+            req.first_token_t = now
+            if o is not None:
+                o.ttft.observe(max(now - req.arrival_t, 0.0))
+        req.last_token_t = now
+        if req.is_done():
+            req.finish_t = now
+            self.scheduler.finish(req)
+        return (req.request_id, token)
+
+    # -------------------------------------------------------------- prefill
+    def _bucket_for(self, n: int) -> int:
+        for b in self.prefill_buckets:
+            if b >= n:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest bucket")
+
+    def _prefill(self, req: Request) -> List[Tuple[int, int]]:
+        t_in = time.perf_counter()
+        prompt = req.prompt
+        bucket = self._bucket_for(len(prompt))
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :len(prompt)] = prompt
+        ids = host_to_device(ids, self.device)
+        page_table = self.cache.page_table_array([req.pages],
+                                                 self.max_pages_per_seq)
+        knobs = self._knobs([req], 1)
+        draws = host_to_device(
+            np.asarray([self._draws[req.request_id]], np.int64), self.device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = self.model(ids, caches=self.cache.layer_views(
+                page_table), start_pos=0)
+            tok = _sample_batch(logits[:, len(prompt) - 1], knobs, draws)
+            token = int(tok[0])                # the prefill's host sync
+        now = time.perf_counter()
+        o = self._obs
+        prev_t = req.last_token_t              # set => this is a re-prefill
+        if o is not None:
+            o.prefill_steps.inc()
+            o.dispatches.inc()
+            o.host_syncs.inc()
+            o.prefill_seconds.inc(now - t0)
+            o.step_phase["assemble"].observe(t0 - t_in)
+            o.step_phase["dispatch"].observe(now - t0)
+        events = [self._emit(req, token, now)]
+        if o is not None and prev_t is not None:
+            o.inter_token.observe(max(now - prev_t, 0.0))
+        return events
+
+    # --------------------------------------------------------------- decode
+    def _decode_block(self, tokens, page_tables, positions, draws, knobs,
+                      remaining):
+        """`decode_horizon` model steps with sampling, EOS/budget masking
+        and position advance, all enqueued on the device with no host
+        sync. Returns the (b, horizon) emitted block and the carries the
+        next chained block consumes."""
+        max_pages = page_tables.shape[1]
+        views = self.cache.layer_views(page_tables)
+        eos_ids = knobs["eos_ids"]
+        emitted = []
+        for _ in range(self.decode_horizon):
+            logits, _ = self.model(tokens[:, None], caches=views,
+                                   start_pos=positions)
+            nxt = _sample_batch(logits[:, 0], knobs, draws)
+            alive = remaining > 0
+            hit_eos = alive & (eos_ids >= 0) & (nxt == eos_ids)
+            emitted.append(torch.where(alive, nxt,
+                                       torch.full_like(nxt, PAD_TOKEN)))
+            remaining = torch.where(alive, remaining - 1, remaining)
+            remaining = torch.where(hit_eos, torch.zeros_like(remaining),
+                                    remaining)
+            tokens = torch.where(alive, nxt, tokens)
+            draws = draws + alive.to(draws.dtype)
+            positions = advance_positions(positions, remaining > 0,
+                                          max_pages, self.page_size)
+        return torch.stack(emitted, dim=1), tokens, positions, draws, \
+            remaining
+
+    def _decode_rows(self, n: int) -> int:
+        """Dispatched decode row count: the next power of two >= n, capped
+        at max_batch_size."""
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, self.max_batch_size)
+
+    def _decode(self, reqs: Sequence[Request]) -> List[Tuple[int, int]]:
+        t_in = time.perf_counter()
+        reqs = [r for r in reqs if r.status == "running"]
+        if not reqs:
+            return self._drain_pending()
+        h = self.decode_horizon
+        rids = tuple(r.request_id for r in reqs)
+        events_prev: List[Tuple[int, int]] = []
+        prev = self._pending
+        if prev is not None and prev["rids"] != rids:
+            # batch composition changed (admission / finish / preemption):
+            # sync and go fresh
+            events_prev = self._drain_pending()
+            reqs = [r for r in reqs if r.status == "running"]
+            if not reqs:
+                return events_prev
+            rids = tuple(r.request_id for r in reqs)
+            prev = None
+        b = self._decode_rows(len(reqs))
+        page_lists: List[Sequence[int]] = [()] * b
+        for i, req in enumerate(reqs):
+            page_lists[i] = req.pages
+        page_tables = self.cache.page_table_array(page_lists,
+                                                  self.max_pages_per_seq)
+        if prev is None:
+            # fresh block: inputs from (drained, accurate) host state
+            park = overflow_position(self.max_pages_per_seq, self.page_size)
+            tokens = np.zeros((b,), np.int64)
+            positions = np.full((b,), park, np.int32)
+            remaining = np.zeros((b,), np.int32)
+            draws = np.zeros((b,), np.int64)
+            for i, req in enumerate(reqs):
+                tokens[i] = (req.generated[-1] if req.generated
+                             else req.prompt[-1])
+                # the input token's K/V lands at its own position; the step
+                # predicts the token after it
+                positions[i] = req.num_tokens - 1
+                remaining[i] = req.max_new_tokens - len(req.generated)
+                draws[i] = self._draws[req.request_id]
+            knobs = self._knobs(reqs, b)
+            dev = self.device
+            tokens, positions, remaining, draws = (
+                host_to_device(x, dev)
+                for x in (tokens, positions, remaining, draws))
+        else:
+            # chained block: the pending block's device carries, no sync
+            tokens, positions = prev["tokens"], prev["positions"]
+            draws, remaining = prev["draws"], prev["remaining"]
+            knobs = prev["knobs"]
+        # the block may add up to min(h, budget) tokens per row before the
+        # host sees them; the scheduler reserves pages against this bound
+        incr = [max(min(h, r.max_new_tokens - len(r.generated) - r.inflight),
+                    0) for r in reqs]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            emitted, tokens, positions, draws, remaining = \
+                self._decode_block(tokens, page_tables, positions, draws,
+                                   knobs, remaining)
+        host, event = _start_host_copy(emitted)
+        for req, n in zip(reqs, incr):
+            req.inflight += n
+        if self._obs is not None:
+            self._obs.step_phase["assemble"].observe(t0 - t_in)
+            self._obs.step_phase["dispatch"].observe(
+                time.perf_counter() - t0)
+            self._obs.decode_steps.inc()
+            self._obs.dispatches.inc()
+        self._pending = {
+            "rids": rids, "reqs": list(reqs), "incr": incr,
+            "host": host, "event": event, "tokens": tokens,
+            "positions": positions, "draws": draws, "remaining": remaining,
+            "knobs": knobs, "t0": t0,
+        }
+        if prev is not None:
+            # block k+1 is enqueued; pulling block k's tokens now waits
+            # only for block k's copy
+            return events_prev + self._drain_record(prev)
+        return events_prev
+
+    # ---------------------------------------------------------------- drain
+    def _drain_for_scheduler(self) -> None:
+        """Scheduler drain_hook: drained events surface through step()'s
+        spill queue so callers still see every token."""
+        self._spill.extend(self._drain_pending())
+
+    def _drain_pending(self) -> List[Tuple[int, int]]:
+        rec, self._pending = self._pending, None
+        if rec is None:
+            return []
+        return self._drain_record(rec)
+
+    def _drain_record(self, rec: dict) -> List[Tuple[int, int]]:
+        """THE host sync of a decode block: wait for its token copy,
+        append per-request tokens trimmed at PAD, finish requests."""
+        o = self._obs
+        t_in = time.perf_counter()
+        if rec["event"] is not None:
+            rec["event"].synchronize()
+        toks = rec["host"].numpy()
+        if o is not None:
+            o.host_syncs.inc()
+        now = time.perf_counter()
+        events: List[Tuple[int, int]] = []
+        for i, req in enumerate(rec["reqs"]):
+            req.inflight = max(req.inflight - rec["incr"][i], 0)
+            if req.status != "running":
+                continue
+            prev_t = req.last_token_t
+            k0 = len(events)
+            for t in toks[i]:
+                t = int(t)
+                if t == PAD_TOKEN:
+                    break
+                events.append(self._emit(req, t, now))
+                if req.status != "running":
+                    break
+            k = len(events) - k0
+            if o is not None and k and prev_t is not None:
+                # the block lands as a burst: spread its host-visible gap
+                # evenly over the k tokens it carried
+                per_tok = max(now - prev_t, 0.0) / k
+                for _ in range(k):
+                    o.inter_token.observe(per_tok)
+        # decode wall time without double-counting overlapped block spans
+        start = max(rec["t0"], self._last_drain_t)
+        if o is not None:
+            o.decode_seconds.inc(max(now - start, 0.0))
+            o.step_phase["drain"].observe(now - t_in)
+        self._last_drain_t = now
+        return events
+
+    # -------------------------------------------------------------- metrics
+    def stats(self) -> Dict[str, object]:
+        """Aggregate serving metrics, a thin view over the metrics
+        registry. With `enable_metrics=False` the same shape comes back
+        with the counters zeroed (request-derived fields stay filled)."""
+        o = self._obs
+        keys = ("prefill_steps", "decode_steps", "dispatches",
+                "tokens_generated", "host_syncs")
+        if o is not None:
+            s = {"prefill_steps": int(o.prefill_steps.value),
+                 "decode_steps": int(o.decode_steps.value),
+                 "dispatches": int(o.dispatches.value),
+                 "tokens_generated": int(o.tokens.value),
+                 "host_syncs": int(o.host_syncs.value),
+                 "prefill_time_s": float(o.prefill_seconds.value),
+                 "decode_time_s": float(o.decode_seconds.value),
+                 "preemptions": int(o.preemptions.value)}
+        else:
+            s = dict.fromkeys(keys, 0)
+            s.update(prefill_time_s=0.0, decode_time_s=0.0,
+                     preemptions=sum(r.preemptions
+                                     for r in self.requests.values()))
+        dt = s["decode_time_s"]
+        s["decode_tokens_per_s"] = (s["tokens_generated"] / dt
+                                    if dt > 0 else 0.0)
+        s["tokens_per_sync"] = (s["tokens_generated"] / s["host_syncs"]
+                                if s["host_syncs"] else 0.0)
+        s["decode_horizon"] = self.decode_horizon
+        s["kv_dtype"] = self.kv_dtype
+        s["num_requests"] = len(self.requests)
+        s["num_finished"] = sum(r.status == "finished"
+                                for r in self.requests.values())
+        s["free_pages"] = self.cache.allocator.num_free
+        empty = Histogram.empty_summary()
+        s["latency"] = {
+            "ttft": o.ttft.summary() if o is not None else empty,
+            "inter_token": (o.inter_token.summary() if o is not None
+                            else empty),
+        }
+        s["step_breakdown"] = {
+            phase: (o.step_phase[phase].summary() if o is not None
+                    else empty)
+            for phase in ("schedule", "assemble", "dispatch", "drain")}
+        s["requests"] = {
+            rid: {"ttft_s": (req.first_token_t - req.arrival_t
+                             if req.first_token_t else None),
+                  "latency_s": (req.finish_t - req.arrival_t
+                                if req.finish_t else None),
+                  "tokens": len(req.generated),
+                  "preemptions": req.preemptions,
+                  "status": req.status}
+            for rid, req in self.requests.items()}
+        return s

@@ -1,0 +1,326 @@
+"""Continuous-batching scheduler, Orca-style iteration-level scheduling
+(ported from paddle_tpu/serving/scheduler.py without chunked prefill,
+speculative decoding or the prefix cache, which are still to be ported).
+
+Policy, as in the reference:
+
+- admission by free-page budget: a waiting request is admitted only when
+  the pool can hold its whole prompt plus its first decode block, so a
+  prefill never fails mid-flight;
+- prefill priority, one request per step, padded to the smallest prompt
+  bucket;
+- decode batches every running request;
+- copy-on-extend one decode BLOCK at a time: before a block, each running
+  request is topped up to the block's worst-case page demand
+  (`num_tokens + inflight` undrained upper bound), so no allocation is
+  needed mid-block. On pool exhaustion the engine's pending block is
+  drained once (`drain_hook`), then the YOUNGEST running request is
+  preempted: its pages return to the free list and it re-queues at the
+  front with prompt + generated tokens, to be re-prefilled later.
+  Eviction costs recompute, never correctness.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import List, Optional, Sequence
+
+from .kv_cache import NULL_PAGE, BlockAllocator, pages_for
+from .resilience import TERMINAL_STATUSES, EngineOverloaded
+
+__all__ = ["Request", "SamplingParams", "Scheduler", "ScheduleDecision"]
+
+_REQUEST_IDS = itertools.count()
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    temperature: float = 0.0            # 0.0 = greedy
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: Optional[int] = None
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request plus its serving-side bookkeeping."""
+
+    prompt: List[int]
+    max_new_tokens: int
+    sampling: SamplingParams
+    eos_token_id: Optional[int] = None
+    request_id: int = dataclasses.field(
+        default_factory=lambda: next(_REQUEST_IDS))
+
+    # waiting | running, then exactly one terminal status
+    # (resilience.TERMINAL_STATUSES)
+    status: str = "waiting"
+    generated: List[int] = dataclasses.field(default_factory=list)
+    pages: List[int] = dataclasses.field(default_factory=list)
+    preemptions: int = 0
+    # preemption-storm guard tripped: requeued at the BACK of the queue
+    parked: bool = False
+    # upper bound on tokens sampled by a dispatched-but-undrained decode
+    # block (the engine's async overlap): page demand must cover them
+    inflight: int = 0
+
+    # metrics (perf_counter timestamps, filled by the engine)
+    arrival_t: float = dataclasses.field(default_factory=time.perf_counter)
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
+    last_token_t: Optional[float] = None
+
+    @property
+    def num_tokens(self) -> int:
+        """Tokens resident in the cache once prefilled + decoded so far."""
+        return len(self.prompt) + len(self.generated)
+
+    @property
+    def next_pos(self) -> int:
+        """Position the next decode token will occupy."""
+        return self.num_tokens
+
+    def is_done(self) -> bool:
+        if len(self.generated) >= self.max_new_tokens:
+            return True
+        return (self.eos_token_id is not None and bool(self.generated)
+                and self.generated[-1] == self.eos_token_id)
+
+
+@dataclasses.dataclass
+class ScheduleDecision:
+    kind: str                           # "prefill" | "decode" | "idle"
+    prefill: Optional[Request] = None
+    decode: Sequence[Request] = ()
+
+
+class Scheduler:
+    def __init__(self, allocator: BlockAllocator, page_size: int,
+                 max_batch_size: int, max_pages_per_seq: int,
+                 decode_horizon: int = 1, drain_hook=None, obs=None,
+                 max_waiting: Optional[int] = None,
+                 max_preemptions: Optional[int] = None,
+                 max_prefill_tokens: Optional[int] = None):
+        self.allocator = allocator
+        self.page_size = page_size
+        self.max_batch_size = max_batch_size
+        self.max_pages_per_seq = max_pages_per_seq
+        self.decode_horizon = max(int(decode_horizon), 1)
+        # bounded waiting queue: add() past this raises EngineOverloaded
+        self.max_waiting = max_waiting
+        # a victim preempted more than this many times is parked
+        # (requeued at the back) instead of jumping the line again
+        self.max_preemptions = max_preemptions
+        # largest prompt the engine can prefill (its biggest bucket)
+        self.max_prefill_tokens = max_prefill_tokens
+        # called once per _ensure_decode_pages on pool exhaustion, before
+        # any preemption: the engine drains its in-flight decode block
+        self.drain_hook = drain_hook
+        # the engine's ServingObs (preemption counter, queue gauges)
+        self.obs = obs
+        self.waiting: List[Request] = []
+        self.running: List[Request] = []
+
+    # ------------------------------------------------------------ lifecycle
+    def add(self, req: Request) -> None:
+        need = pages_for(len(req.prompt) + req.max_new_tokens,
+                         self.page_size)
+        if need > self.max_pages_per_seq:
+            raise ValueError(
+                f"request needs {need} pages > max_pages_per_seq "
+                f"{self.max_pages_per_seq}; raise max_seq_len/page budget")
+        if self.max_waiting is not None and \
+                len(self.waiting) >= self.max_waiting:
+            raise EngineOverloaded(
+                f"waiting queue is full ({len(self.waiting)} >= "
+                f"max_waiting={self.max_waiting}); retry later")
+        self.waiting.append(req)
+
+    def finish(self, req: Request) -> None:
+        """Drop a completed request's page references."""
+        req.status = "finished"
+        self.allocator.free_all(req.pages)
+        req.pages = []
+        if req in self.running:
+            self.running.remove(req)
+
+    def finalize(self, req: Request, status: str) -> bool:
+        """Terminal transition for the failure-side statuses (cancelled,
+        ...): pull the request out of its queue and release its pages.
+        Idempotent: a request already terminal is left alone (returns
+        False). The engine drains any in-flight decode block first."""
+        if req.status in TERMINAL_STATUSES:
+            return False
+        if status not in TERMINAL_STATUSES or status == "finished":
+            raise ValueError(f"finalize cannot set status {status!r}")
+        req.status = status
+        req.inflight = 0
+        req.finish_t = time.perf_counter()
+        self.allocator.free_all(req.pages)
+        req.pages = []
+        if req in self.running:
+            self.running.remove(req)
+        if req in self.waiting:
+            self.waiting.remove(req)
+        return True
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    # ------------------------------------------------------------- policy
+    def _admission_pages(self, req: Request) -> int:
+        # prompt + the first decode BLOCK: prefill writes the prompt, and
+        # the first block of `decode_horizon` steps writes K/V at positions
+        # prompt .. prompt + min(horizon, max_new-1) - 1
+        first_block = max(1, min(self.decode_horizon,
+                                 req.max_new_tokens - 1))
+        return pages_for(len(req.prompt) + first_block, self.page_size)
+
+    def _block_pages(self, req: Request) -> int:
+        """Pages the NEXT decode block needs resident for `req`: host
+        state plus the undrained in-flight bound, advanced by one block of
+        writes (the block's last sampled token never gets K/V written in
+        it, hence the -1)."""
+        assumed = req.num_tokens + req.inflight
+        rem = max(req.max_new_tokens - len(req.generated) - req.inflight,
+                  0)
+        want = max(assumed - 1 + min(self.decode_horizon, rem),
+                   req.num_tokens)
+        return pages_for(want, self.page_size)
+
+    def _try_admit(self) -> Optional[Request]:
+        if not self.waiting or len(self.running) >= self.max_batch_size:
+            return None
+        req = self.waiting[0]
+        pages = self.allocator.alloc_n(self._admission_pages(req))
+        if pages is None:
+            return None
+        self.waiting.pop(0)
+        req.pages = pages
+        req.status = "running"
+        self.running.append(req)
+        return req
+
+    def _preempt(self, victim: Request) -> None:
+        """Evict a running request and requeue it at the FRONT of the
+        waiting queue with its generated tokens folded into the prompt
+        (re-prefill resumes it exactly). Past `max_preemptions` it is
+        parked at the BACK instead."""
+        folded = len(victim.prompt) + len(victim.generated)
+        if self.max_prefill_tokens is not None \
+                and folded > self.max_prefill_tokens:
+            raise RuntimeError(
+                f"cannot preempt request {victim.request_id}: its folded "
+                f"prompt+generated length {folded} exceeds the largest "
+                f"prefill bucket ({self.max_prefill_tokens} tokens) — "
+                "re-prefill after requeue would be impossible. "
+                "prefill_buckets must cover max_seq_len")
+        self.running.remove(victim)
+        self.allocator.free_all(victim.pages)
+        victim.pages = []
+        victim.inflight = 0     # drain_hook ran first: nothing undrained
+        victim.prompt = victim.prompt + victim.generated
+        victim.max_new_tokens -= len(victim.generated)
+        victim.generated = []
+        victim.status = "waiting"
+        victim.preemptions += 1
+        if self.max_preemptions is not None \
+                and victim.preemptions > self.max_preemptions:
+            victim.parked = True
+            self.waiting.append(victim)
+        else:
+            self.waiting.insert(0, victim)
+        if self.obs is not None:
+            self.obs.preempted(victim)
+
+    def _ensure_decode_pages(self) -> None:
+        """Copy-on-extend, one decode BLOCK at a time (see module doc)."""
+        drained = False
+        for req in list(self.running):
+            if req not in self.running:   # preempted by an older peer
+                continue
+            while req in self.running and \
+                    self._block_pages(req) > len(req.pages):
+                page = self.allocator.alloc()
+                if page is not None:
+                    req.pages.append(page)
+                    continue
+                if self.drain_hook is not None and not drained:
+                    drained = True
+                    self.drain_hook()     # may finish reqs / free pages
+                    continue
+                victim = self.running[-1]
+                if victim is req and len(self.running) == 1:
+                    raise RuntimeError(
+                        "KV page pool too small for a single request: "
+                        f"request {req.request_id} at position "
+                        f"{req.next_pos} with "
+                        f"{self.allocator.num_allocatable} "
+                        "allocatable pages in total")
+                self._preempt(victim)
+                if victim is req:         # self-preempted: sit this one out
+                    break
+
+    def schedule(self) -> ScheduleDecision:
+        if self.obs is not None:
+            self.obs.sample_queues(len(self.waiting), len(self.running),
+                                   self.allocator)
+        admitted = self._try_admit()
+        if admitted is not None:
+            return ScheduleDecision(kind="prefill", prefill=admitted)
+        if self.running:
+            self._ensure_decode_pages()
+            batch = self.running[:self.max_batch_size]
+            return ScheduleDecision(kind="decode", decode=list(batch))
+        self._check_head_fits()
+        return ScheduleDecision(kind="idle")
+
+    def _check_head_fits(self) -> None:
+        """About to go idle with requests still waiting: if nothing runs
+        and the head request cannot fit even in an EMPTY pool, raise now
+        instead of idling forever."""
+        if self.running or not self.waiting:
+            return
+        req = self.waiting[0]
+        need = self._admission_pages(req)
+        if need > self.allocator.num_allocatable:
+            raise RuntimeError(
+                f"request {req.request_id} needs {need} pages but "
+                f"the pool has {self.allocator.num_allocatable} "
+                "allocatable in total")
+
+    # ----------------------------------------------------------- invariants
+    def check_consistency(self) -> bool:
+        """Scheduler + allocator invariant audit: queues disjoint with
+        matching statuses, every running request's pages live (never the
+        null page), waiting requests holding none. Raises RuntimeError on
+        the first violation."""
+        self.allocator.check_consistency()
+        if set(map(id, self.waiting)) & set(map(id, self.running)):
+            raise RuntimeError("scheduler corrupt: request in both "
+                               "waiting and running queues")
+        for req in self.running:
+            if req.status != "running":
+                raise RuntimeError(
+                    f"scheduler corrupt: request {req.request_id} in the "
+                    f"running queue with status {req.status!r}")
+            for p in req.pages:
+                if p == NULL_PAGE:
+                    raise RuntimeError(
+                        f"scheduler corrupt: request {req.request_id} "
+                        "holds the null page")
+                if self.allocator.ref_count(p) < 1:
+                    raise RuntimeError(
+                        f"scheduler corrupt: request {req.request_id} "
+                        f"holds freed page {p}")
+        for req in self.waiting:
+            if req.status != "waiting":
+                raise RuntimeError(
+                    f"scheduler corrupt: request {req.request_id} in the "
+                    f"waiting queue with status {req.status!r}")
+            if req.pages:
+                raise RuntimeError(
+                    f"scheduler corrupt: waiting request "
+                    f"{req.request_id} holds pages {req.pages}")
+        return True
