@@ -2,34 +2,57 @@
 """Drive paddle_tpu_torch, the PyTorch / CUDA port, on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
-[--out DIR] [--profile]
+[--out DIR] [--profile] [--phases LIST]
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without the final result line:
 
 1. device: `nvidia-smi` name and power limit, torch's device name;
 2. build: every CUDA kernel of the port with nvcc (sm_90a), in parallel;
-3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the main path's shapes, in bf16 and fp32, max abs error
-   beside the tolerance; kernel, plain-version and library (yardstick
-   only) device times by CUDA events over calls queued behind a spin (and
-   the kernel's time when issued call by call from Python), and the
-   bound: the larger of bytes over 3.35 TB/s and operations over the
-   peak rate of the input type;
-4. slice: LLaMA-7B at full width (random bf16 weights from --seed, drawn
+3. kernels: each hand-written kernel of the serving path (K1, K4, K6)
+   against its plain PyTorch version on the card at the serving shapes, in
+   bf16 and fp32, max abs error beside the tolerance; kernel, plain-version
+   and library (yardstick only) device times by CUDA events over calls
+   queued behind a spin (and the kernel's time when issued call by call
+   from Python), and the bound: the larger of bytes over 3.35 TB/s and
+   operations over the peak rate of the input type;
+4. train_kernels: the same for the training path's kernels at ERNIE-base
+   shapes (b 32, S 512, 12 heads of 64; 16384 rows of 768): K1 with
+   attention dropout 0.1, K2 + K3 through `FlashAttention.backward` with
+   and without a (32, 1, 1, 512) padding mask, K4 and K5 in LayerNorm mode,
+   in the O1 type (fp32) and bf16;
+5. serve: LLaMA-7B at full width (random bf16 weights from --seed, drawn
    on the card) served by ServingEngine (page_size 16, 8 rows,
    max_seq_len 1024, decode_horizon 8, bf16 pools): 8 greedy requests,
    two arriving after the first steps. Launch counters are zeroed just
    before and read just after; each kernel must have launched. Two
    requests are re-scored by the no-cache forward: wherever its top-2
    logit margin exceeds the stated tolerance, the engine's token must be
-   its argmax.
+   its argmax;
+6. train: the ERNIE-1.0 pretrain step at full width (ErnieConfig.ernie_base,
+   random weights from --seed, batch 32, seq 512, fused MLM loss, bf16 O1
+   autocast, hidden and attention dropout 0.1, Adam lr 1e-4, one fixed
+   batch): 3 warm-up and 10 timed steps. Launch counters are zeroed before
+   the timed steps; K1, K2, K3, K4 and K5 must launch exactly 12, 12, 12,
+   26 and 26 times a step. The loss must be finite at every step and lower
+   at the last than at the first. Prints tokens/s/chip, step ms, MFU (the
+   FLOPs per token of bench.py over 989 TFLOP/s) and peak memory;
+7. step_check: a 2-layer ERNIE at full width, fp32, dropout 0, batch 2,
+   seq 512: loss and every parameter gradient on the card (through the
+   kernels) against the same model on the CPU (the plain versions), from
+   the same weights;
+8. with --profile: torch.profiler windows of one prefill and two decode
+   blocks of the served slice, and of one train step: device busy share,
+   top kernels and top host ops.
 
 The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}. This script imports no JAX and nothing of
-paddle_tpu; the card machine has neither.
+{"ok": true, "device": {...}}. With --phases (a comma-separated subset of
+the phases above, for iterating on one part) the script prints neither and
+exits 3. This script imports no JAX and nothing of paddle_tpu; the card
+machine has neither.
 """
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -51,6 +74,24 @@ TOL = {
     "K4": {torch.float32: 1e-4, torch.bfloat16: 6e-2},
     "K6": {torch.float32: 2e-4, torch.bfloat16: 3e-2},
 }
+# tolerances of the training kernels vs their plain versions, relative to
+# the largest magnitude of the plain output (max abs error <= rel * max|ref|).
+# The backward kernels and their plain versions round dS and P_dropped to
+# the input type at the same places, so bf16 leaves about one output ulp
+# (2^-8 relative) of rounding; fp32 leaves summation order only.
+TOL_REL = {
+    "K2": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
+    "K3": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
+    "K5": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+}
+# whole-step check, card (kernels) against CPU (plain versions), both fp32:
+# |loss difference| <= LOSS_RTOL * |loss|, and for every parameter
+# max |grad difference| <= GRAD_RTOL * max |CPU grad|
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 2e-3
+# the training step's launches per step: K1-K3 once per layer, K4 / K5
+# for the embedding norm, two norms per layer and the MLM norm
+TRAIN_LAUNCHES = {"K1": 12, "K2": 12, "K3": 12, "K4": 26, "K5": 26}
 # the engine's greedy token must be the no-cache argmax wherever the top-2
 # margin of the no-cache logits exceeds this: the paged and no-cache bf16
 # paths round differently, and on an H100 positions whose tokens differed
@@ -99,6 +140,16 @@ def check(name, err, dtype):
     if not err <= tol:      # NaN fails too
         raise AssertionError(f"{name} {dtype}: max abs error {err} > {tol}")
     return tol
+
+
+def check_rel(name, got, ref, dtype):
+    """(max abs error, its tolerance) of got vs ref under TOL_REL."""
+    err = max_err(got, ref)
+    tol = TOL_REL[name][dtype] * float(ref.float().abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{name} {dtype}: max abs error {err} > {tol} "
+                             f"({TOL_REL[name][dtype]} x max|ref|)")
+    return err, tol
 
 
 def nbytes(*ts):
@@ -327,6 +378,392 @@ def k6_cases(rows, dev):
     return main
 
 
+def _row(dtype, label, err, tol, ms, plain_ms, lib_ms, bms, by, **extra):
+    return dict(dtype=str(dtype)[6:], case=label, max_abs_err=err, tol=tol,
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, **extra)
+
+
+def _log_row(kernel, r):
+    lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+    log(f"[{kernel}] {r['dtype']} {r['case']}: max_abs_err "
+        f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g}) kernel {r['ms']:.4f} "
+        f"ms plain {r['plain_ms']:.4f} ms library {lib} bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+# ERNIE-base attention at the bench batch: (b, S, heads, head_dim)
+TRAIN_ATTN = (32, 512, 12, 64)
+TRAIN_DROPOUT = 0.1
+
+
+def k1_train_cases(rows, dev):
+    """K1 with attention dropout 0.1 at ERNIE-base shapes: bf16 at batch
+    32 (the training path), fp32 at batch 4. The plain version draws the
+    identical keep mask, so the comparison is exact up to rounding."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    b0, s, h, d = TRAIN_ATTN
+    p = TRAIN_DROPOUT
+    seed = torch.tensor([20260], dtype=torch.int32, device=dev)
+    main = None
+    for dtype, b in ((torch.bfloat16, b0), (torch.float32, 4)):
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, dropout_p=p,
+                                      seed=seed)
+        ref, rlse = fa.flash_attention_reference(q, k, v, return_lse=True,
+                                                 dropout_p=p, seed=seed)
+        undropped = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err = max(max_err(out, ref), max_err(lse, rlse))
+        tol = check("K1", err, dtype)
+        if max_err(out, undropped) < 1e-3:
+            raise AssertionError("K1 dropout changed nothing")
+        ms = time_ms(lambda: fa.flash_attention(
+            q, k, v, return_lse=True, dropout_p=p, seed=seed))
+        # the same call without dropout: what the keep-mask hashing costs
+        ms_undropped = time_ms(lambda: fa.flash_attention(
+            q, k, v, return_lse=True))
+        plain_ms = time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, return_lse=True, dropout_p=p, seed=seed), 5, 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(qt, kt, vt,
+                                                       dropout_p=p))
+        bms, by = bound(nbytes(q, k, v, out, lse), 4 * b * h * d * s * s,
+                        dtype)
+        row = _row(dtype, f"dropout {p} ({b}, {s}, {h}, {d})", err, tol, ms,
+                   plain_ms, lib_ms, bms, by, dropout_p=p,
+                   ms_without_dropout=ms_undropped)
+        _log_row("K1", row)
+        log(f"[K1] {str(dtype)[6:]} the same call without dropout: "
+            f"{ms_undropped:.4f} ms")
+        rows.append(("K1", row))
+        if dtype == torch.bfloat16:
+            main = row
+        del q, k, v, out, ref, undropped
+    return main
+
+
+def k23_cases(rows, dev):
+    """K2 and K3 through FlashAttention.backward (dropout 0.1) at ERNIE-base
+    shapes, without and with a (b, 1, 1, 512) padding mask; bf16 at batch
+    32, fp32 at batch 4. Each gradient is held to the plain backward on the
+    same inputs; each kernel is timed alone."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    b0, s, h, d = TRAIN_ATTN
+    p = TRAIN_DROPOUT
+    seed = torch.tensor([777], dtype=torch.int32, device=dev)
+    main = {}
+    for dtype, b in ((torch.bfloat16, b0), (torch.float32, 4)):
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
+                         .to(dtype) for _ in range(4))
+        pad = torch.zeros(b, 1, 1, s, device=dev)
+        pad[::2, ..., s - 96:] = -1e4          # every other row padded
+        for label, mask in (("no mask", None), ("padding mask", pad)):
+            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+            out = fa.FlashAttention.apply(qg, kg, vg, mask, False, p, seed)
+            out.backward(dout)
+            _, lse = fa.flash_attention(q, k, v, mask, return_lse=True,
+                                        dropout_p=p, seed=seed)
+            delta = fa.attention_delta(out.detach(), dout)
+            rdq, rdk, rdv = fa.flash_attention_backward_reference(
+                q, k, v, dout, lse, delta, mask, False, p, seed)
+            torch.cuda.synchronize()
+            e2, t2 = check_rel("K2", qg.grad, rdq, dtype)
+            ek, tk = check_rel("K3", kg.grad, rdk, dtype)
+            ev, tv = check_rel("K3", vg.grad, rdv, dtype)
+            e3, t3 = (ek, tk) if ek / tk >= ev / tv else (ev, tv)
+            args = (q, k, v, dout, lse, delta, mask, False, p, seed)
+            ms2 = time_ms(lambda: fa.flash_attention_dq(*args))
+            ms3 = time_ms(lambda: fa.flash_attention_dkv(*args))
+            plain_ms = time_ms(
+                lambda: fa.flash_attention_backward_reference(*args), 5, 1)
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=None if mask is None else mask.to(
+                    dtype), dropout_p=p)
+            dout_t = dout.transpose(1, 2)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dout_t, retain_graph=True))
+            pd_bytes = nbytes(lse, delta) + (nbytes(mask) if mask is not None
+                                             else 0)
+            b2 = bound(nbytes(q, k, v, dout, q) + pd_bytes,
+                       6 * b * h * d * s * s, dtype)
+            b3 = bound(nbytes(q, k, v, dout, k, v) + pd_bytes,
+                       8 * b * h * d * s * s, dtype)
+            case = f"{label} ({b}, {s}, {h}, {d}), dropout {p}"
+            r2 = _row(dtype, case, e2, t2, ms2, plain_ms, lib_ms, *b2,
+                      library_note="sdpa backward, dQ+dK+dV together")
+            r3 = _row(dtype, case, e3, t3, ms3, plain_ms, lib_ms, *b3,
+                      library_note="sdpa backward, dQ+dK+dV together")
+            _log_row("K2", r2)
+            _log_row("K3", r3)
+            rows.append(("K2", r2))
+            rows.append(("K3", r3))
+            if dtype == torch.bfloat16 and mask is None:
+                main = {"K2": r2, "K3": r3}
+            del qg, kg, vg, out, lib_out, qt, kt, vt
+    return main
+
+
+def flash_edge_cases(dev):
+    """Correctness only: K1 (dropout) and K2 / K3 against their plain
+    versions on the branches the training shapes do not reach: causal
+    tile skipping, ragged S, a full (1, h, S, S) mask, the bf16 tensor-core
+    path at head_dim 128 and the FMA path at a head_dim that is not a
+    multiple of 32."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    seed = torch.tensor([31337], dtype=torch.int32, device=dev)
+    worst = {}
+    for dtype, (b, s, h, d), causal, full_mask in (
+            (torch.bfloat16, (2, 200, 2, 128), True, False),
+            (torch.bfloat16, (2, 131, 3, 64), False, True),
+            (torch.float32, (2, 200, 4, 40), True, True)):
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
+                         .to(dtype) for _ in range(4))
+        mask = None
+        if full_mask:
+            mask = torch.where(
+                torch.rand(1, h, s, s, generator=g, device=dev) < 0.2,
+                -1e4, 0.0)
+        out, lse = fa.flash_attention(q, k, v, mask, causal, True,
+                                      TRAIN_DROPOUT, seed)
+        ref, rlse = fa.flash_attention_reference(q, k, v, mask, causal, True,
+                                                 TRAIN_DROPOUT, seed)
+        delta = fa.attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, mask, causal, TRAIN_DROPOUT, seed)
+        dq = fa.flash_attention_dq(*args)
+        dk, dv = fa.flash_attention_dkv(*args)
+        rdq, rdk, rdv = fa.flash_attention_backward_reference(*args)
+        torch.cuda.synchronize()
+        label = (f"{str(dtype)[6:]} ({b}, {s}, {h}, {d})"
+                 f"{' causal' if causal else ''}"
+                 f"{' full mask' if full_mask else ''}")
+        e1 = max(max_err(out, ref), max_err(lse, rlse))
+        check("K1", e1, dtype)
+        errs = {"K1": e1, "K2": check_rel("K2", dq, rdq, dtype)[0],
+                "K3": max(check_rel("K3", dk, rdk, dtype)[0],
+                          check_rel("K3", dv, rdv, dtype)[0])}
+        log(f"[edge] {label}, dropout {TRAIN_DROPOUT}: max abs error "
+            + ", ".join(f"{kk} {e:.3g}" for kk, e in errs.items())
+            + " (within tolerance)")
+        worst[label] = errs
+    return worst
+
+
+def k45_train_cases(rows, dev):
+    """K4 and K5 in LayerNorm mode at ERNIE's (16384, 768): fp32 (the O1
+    type of every LayerNorm) and bf16."""
+    from paddle_tpu_torch.ops import norm
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    n, hd = TRAIN_ATTN[0] * TRAIN_ATTN[1], 768
+    eps = 1e-12
+    tF = torch.nn.functional
+    main = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(n, hd, generator=g, device=dev) * 2 + 0.3).to(dtype)
+        w = (1 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
+        bias = (0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
+        dy = torch.randn(n, hd, generator=g, device=dev).to(dtype)
+        y, mu, rs = norm.norm_forward(x, w, bias, eps, True)
+        ry, rmu, rrs = norm.norm_forward_reference(x, w, bias, eps, True)
+        dx = norm.norm_backward(x, w, dy, mu, rs, True)
+        rdx = norm.norm_backward_reference(x, w, dy, mu, rs, True)
+        torch.cuda.synchronize()
+        err4 = max(max_err(y, ry), max_err(mu, rmu),
+                   max_err(rs, rrs) / float(rrs.abs().max()))
+        tol4 = check("K4", err4, dtype)
+        err5, tol5 = check_rel("K5", dx, rdx, dtype)
+        ms4 = time_ms(lambda: norm.norm_forward(x, w, bias, eps, True))
+        plain4 = time_ms(lambda: norm.norm_forward_reference(x, w, bias, eps,
+                                                             True))
+        lib4 = time_ms(lambda: tF.layer_norm(x, (hd,), w, bias, eps))
+        ms5 = time_ms(lambda: norm.norm_backward(x, w, dy, mu, rs, True))
+        plain5 = time_ms(lambda: norm.norm_backward_reference(x, w, dy, mu,
+                                                              rs, True))
+        xl = x.detach().requires_grad_()
+        yl = tF.layer_norm(xl, (hd,), w, bias, eps)
+        lib5 = time_ms(lambda: torch.autograd.grad(yl, xl, dy,
+                                                   retain_graph=True))
+        b4 = bound(nbytes(x, w, bias, y, mu, rs), 8 * x.numel(), dtype)
+        b5 = bound(nbytes(x, w, dy, mu, rs, dx), 10 * x.numel(), dtype)
+        case = f"layer ({n}, {hd})"
+        r4 = _row(dtype, case, err4, tol4, ms4, plain4, lib4, *b4)
+        r5 = _row(dtype, case, err5, tol5, ms5, plain5, lib5, *b5,
+                  library_note="F.layer_norm backward (dx, and dw / db)")
+        _log_row("K4", r4)
+        _log_row("K5", r5)
+        rows.append(("K4", r4))
+        rows.append(("K5", r5))
+        if dtype == torch.float32:
+            main = {"K4": r4, "K5": r5}
+        del x, dy, y, dx, rdx, xl, yl
+    return main
+
+
+def train_counters():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import norm
+
+    return {"K1": fa.flash_attention, "K2": fa.flash_attention_dq,
+            "K3": fa.flash_attention_dkv, "K4": norm.norm_forward,
+            "K5": norm.norm_backward}
+
+
+def flops_per_token(model, cfg, seq):
+    """bench.py:1253-1254: 6 N per token (forward + backward) plus the
+    attention term 12 L H S."""
+    n_params = sum(p.numel() for p in model.parameters())
+    return 6 * n_params + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+
+
+def phase_train(seed, dev, profile=False, out_dir=None):
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.training import make_train_step
+
+    cfg = ErnieConfig.ernie_base()
+    cfg.fused_mlm_loss = True
+    batch, seq, warmup, steps = 32, 512, 3, 10
+    held = torch.cuda.memory_allocated()    # left by earlier phases
+    model = ErnieForPretraining(cfg, device=dev, seed=seed)
+    opt = Adam(learning_rate=1e-4, parameters=model.parameters())
+    step = make_train_step(model, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq))
+                           ).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq))
+                              ).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log(f"[train] ERNIE-1.0 base ({cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e6:.2f} M params), batch {batch} x "
+        f"seq {seq}, bf16 O1, dropout {cfg.hidden_dropout_prob}/"
+        f"{cfg.attention_probs_dropout_prob}, fused MLM loss, Adam 1e-4")
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        # the last warm-up step runs with CUDA's sync debug mode at
+        # "error": any operation that waits for the card raises, which
+        # shows the step makes no host sync
+        torch.cuda.set_sync_debug_mode("error" if i == warmup - 1 else 0)
+        try:
+            losses.append(step(ids, labels, gen))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log("[train] a warm-up step ran under torch.cuda.set_sync_debug_mode"
+        "('error'): no host sync in the step")
+    counters = train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(ids, labels, gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    loss_vals = [float(x) for x in losses]
+    tps = batch * seq * steps / wall
+    fpt = flops_per_token(model, cfg, seq)
+    mfu = tps * fpt / PEAK_FLOPS[torch.bfloat16]
+    log(f"[train] warm-up {warmup} steps {warm_s:.2f} s; {steps} timed "
+        f"steps {wall:.3f} s: {tps:.1f} tokens/s/chip, step "
+        f"{wall / steps * 1e3:.2f} ms, MFU {mfu:.4f} ({fpt / 1e6:.1f} "
+        f"MFLOP/token over 989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB "
+        f"({held / 2**30:.2f} GiB held before the phase)")
+    log(f"[train] loss by step: " + ", ".join(f"{x:.4f}" for x in loss_vals))
+    log(f"[train] launches in the {steps} timed steps: {launches}")
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"non-finite training loss: {loss_vals}")
+    if not loss_vals[-1] < loss_vals[0]:
+        raise AssertionError(f"loss did not fall: {loss_vals}")
+    wrong = {k: n for k, n in launches.items()
+             if n != TRAIN_LAUNCHES[k] * steps}
+    if wrong:
+        raise AssertionError(f"launches per step {wrong} (over {steps} "
+                             f"steps) != expected {TRAIN_LAUNCHES}")
+    prof = None
+    if profile:
+        prof = profile_window("train_step", lambda: step(ids, labels, gen),
+                              out_dir)
+    return dict(launches=launches, tokens_per_s=tps, step_ms=wall / steps *
+                1e3, mfu=mfu, flops_per_token=fpt, n_params=n_params,
+                peak_bytes=peak, held_bytes=held, losses=loss_vals,
+                wall_s=wall,
+                warmup_s=warm_s, profile=prof)
+
+
+def phase_step_check(seed, dev):
+    """A 2-layer ERNIE at full width, fp32, dropout 0, batch 2, seq 512:
+    the card (kernels) against the CPU (plain versions)."""
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+
+    cfg = ErnieConfig.ernie_base()
+    cfg.num_hidden_layers = 2
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    cfg.fused_mlm_loss = True
+    card = ErnieForPretraining(cfg, device=dev, seed=seed)
+    cpu = ErnieForPretraining(cfg, device="cpu", seed=seed)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(seed + 1)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512)))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512)))
+    labels[:, ::7] = -100                       # some ignored rows
+    counters = train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    losses = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        m.train()
+        d = next(m.parameters()).device
+        loss, _ = m(ids.to(d), masked_lm_labels=labels.to(d))
+        loss.backward()
+        losses[name] = float(loss.detach())
+    ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+    if any(n <= 0 for n in ran.values()):
+        raise AssertionError(f"the card's step skipped a kernel: {ran}")
+    dl = abs(losses["card"] - losses["cpu"])
+    if not dl <= LOSS_RTOL * abs(losses["cpu"]):
+        raise AssertionError(f"loss card {losses['card']} vs cpu "
+                             f"{losses['cpu']}")
+    worst, worst_name = 0.0, None
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        gc, gp = p.grad, cpu_params[name].grad
+        if (gc is None) != (gp is None):
+            raise AssertionError(f"{name}: gradient on one side only")
+        if gc is None:
+            continue
+        err = float((gc.cpu() - gp).abs().max())
+        scale = float(gp.abs().max())
+        rel = err / scale if scale > 0 else err
+        if not err <= GRAD_RTOL * scale + 1e-12:
+            raise AssertionError(f"{name}: grad max abs error {err} > "
+                                 f"{GRAD_RTOL} x {scale}")
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"[step_check] 2-layer full width fp32: loss card "
+        f"{losses['card']:.6f} cpu {losses['cpu']:.6f} (|diff| {dl:.3g}, "
+        f"tol {LOSS_RTOL} x |loss|); every gradient within {GRAD_RTOL} x "
+        f"max|cpu grad|, worst {worst:.3g} ({worst_name}); kernels "
+        f"launched {ran}")
+    return dict(loss_card=losses["card"], loss_cpu=losses["cpu"],
+                worst_grad_rel=worst, worst_grad=worst_name, launches=ran)
+
+
 def serve(engine, prompts, late, max_new):
     """Add all but the `late` last prompts, step twice, add the rest, run.
     Returns the request ids and the wall seconds."""
@@ -511,13 +948,44 @@ KERNELS = {
     "K1": dict(name="flash_attention_forward", route="cuda",
                source="paddle_tpu_torch/csrc/flash_fwd.cu",
                replaces="paddle_tpu/ops/pallas_kernels.py:164"),
+    "K2": dict(name="flash_attention_backward_dq", route="cuda",
+               source="paddle_tpu_torch/csrc/flash_bwd.cu",
+               replaces="paddle_tpu/ops/pallas_kernels.py:357"),
+    "K3": dict(name="flash_attention_backward_dkv", route="cuda",
+               source="paddle_tpu_torch/csrc/flash_bwd.cu",
+               replaces="paddle_tpu/ops/pallas_kernels.py:474"),
     "K4": dict(name="norm_forward", route="triton",
                source="paddle_tpu_torch/ops/norm.py",
                replaces="paddle_tpu/ops/pallas_kernels.py:796"),
+    "K5": dict(name="norm_backward", route="triton",
+               source="paddle_tpu_torch/ops/norm.py",
+               replaces="paddle_tpu/ops/pallas_kernels.py:846"),
     "K6": dict(name="paged_decode_attention", route="cuda",
                source="paddle_tpu_torch/csrc/paged_decode.cu",
                replaces="paddle_tpu/serving/attention.py:530"),
 }
+PHASES = ("kernels", "train_kernels", "serve", "train", "step_check")
+
+
+def summarize(main_rows, launches_by_path):
+    """The kernels' JSON summary: each kernel's main-path row (the training
+    path's shapes for K1-K5, the serving path's for K6) and its launches,
+    summed over the paths that run it."""
+    out = []
+    for k, meta in KERNELS.items():
+        r = main_rows[k]
+        paths = {path: counts[k] for path, counts in launches_by_path.items()
+                 if k in counts}
+        entry = dict(meta, launches=sum(paths.values()),
+                     launches_by_path=paths, max_abs_err=r["max_abs_err"],
+                     ms=r["ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     library_ms=r["library_ms"], dtype=r["dtype"],
+                     case=r["case"])
+        if k == "K1":
+            entry["dropout_p"] = r.get("dropout_p", 0.0)
+        out.append(entry)
+    return {"kernels": out}
 
 
 def main(argv=None):
@@ -527,38 +995,66 @@ def main(argv=None):
                     help="directory for the full results JSON and the "
                          "ptxas reports")
     ap.add_argument("--profile", action="store_true",
-                    help="after the served run, profile one prefill and "
-                         "two decode blocks with torch.profiler")
+                    help="profile one prefill and two decode blocks of the "
+                         "served slice and one train step with "
+                         "torch.profiler")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES) +
+                         " (a partial run prints no summary and exits 3)")
     args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
     t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    build_s = phase_build(args.out)
-    rows = []
-    main_rows = {"K1": k1_cases(rows, dev), "K4": k4_cases(rows, dev),
-                 "K6": k6_cases(rows, dev)}
-    torch.cuda.empty_cache()
-    result = {"nvidia_smi": smi, "build_s": build_s,
-              "cases": [dict(kernel=k, **r) for k, r in rows]}
-    result["slice"] = phase_slice(args.seed, dev, args.profile, args.out)
-    launches = result["slice"]["launches"]
-    summary = {"kernels": [
-        dict(KERNELS[k], launches=launches[k],
-             max_abs_err=main_rows[k]["max_abs_err"], ms=main_rows[k]["ms"],
-             plain_ms=main_rows[k]["plain_ms"],
-             bound_ms=main_rows[k]["bound_ms"],
-             bound_by=main_rows[k]["bound_by"],
-             library_ms=main_rows[k]["library_ms"])
-        for k in KERNELS]}
-    result["summary"] = summary
+    result = {"nvidia_smi": smi, "build_s": phase_build(args.out)}
+    rows, main_rows, launches = [], {}, {}
+    if "kernels" in phases:
+        k1_cases(rows, dev)     # the summary's K1 / K4 rows are the
+        k4_cases(rows, dev)     # training path's (train_kernels)
+        main_rows["K6"] = k6_cases(rows, dev)
+    if "train_kernels" in phases:
+        main_rows["K1"] = k1_train_cases(rows, dev)
+        main_rows.update(k23_cases(rows, dev))
+        result["edge_cases"] = flash_edge_cases(dev)
+        main_rows.update(k45_train_cases(rows, dev))
+    result["cases"] = [dict(kernel=k, **r) for k, r in rows]
+
+    def release():
+        # the engine and model of a phase hold reference cycles: collect
+        # them before the next phase measures its own peak memory
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    release()
+    if "serve" in phases:
+        result["slice"] = phase_slice(args.seed, dev, args.profile,
+                                      args.out)
+        launches["serve"] = result["slice"]["launches"]
+        release()
+    if "train" in phases:
+        result["train"] = phase_train(args.seed, dev, args.profile,
+                                      args.out)
+        launches["train"] = result["train"]["launches"]
+        release()
+    if "step_check" in phases:
+        result["step_check"] = phase_step_check(args.seed, dev)
     result["seconds"] = time.perf_counter() - t_start
+    complete = set(phases) == set(PHASES)
+    if complete:
+        result["summary"] = summarize(main_rows, launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(result, f, indent=1)
     log(f"[done] {result['seconds']:.1f} s in all")
-    print(json.dumps(summary), flush=True)
+    if not complete:
+        log(f"[done] partial run ({','.join(phases)}): no summary")
+        return 3
+    print(json.dumps(result["summary"]), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -40,6 +40,67 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Copy kTileRows rows of D bf16 values (row stride `rs` elements in device
+// memory, starting at row0) into shared memory with row stride DP, as
+// 16-byte vectors; rows at or past `rows` are zero. D % 8 == 0 and the
+// source rows 16-byte aligned.
+template <int D, int DP, int kTileRows, int kThreads>
+__device__ __forceinline__ void load_tile_bf16(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
+    int rows, long long rs) {
+  constexpr int V = D / 8;
+  for (int i = threadIdx.x; i < kTileRows * V; i += kThreads) {
+    const int r = i / V, c = (i % V) * 8;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row0 + r < rows)
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
+    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
+  }
+}
+
+// Attention-dropout keep mask, a counter-based hash of (seed, batch, head,
+// query row, key column); the same function as
+// paddle_tpu_torch/ops/dropout_mask.py, which documents it. It does not
+// depend on tiling, so the forward, both backward kernels and the plain
+// versions draw the identical mask.
+constexpr unsigned kGolden = 0x9E3779B9u;
+
+__device__ __forceinline__ unsigned fmix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+// per (batch, head): computed once per block
+__device__ __forceinline__ unsigned dropout_head_key(unsigned seed, int b,
+                                                     int h) {
+  return fmix32(fmix32(fmix32(seed ^ kGolden) ^ (unsigned)b) ^ (unsigned)h);
+}
+
+// per query row: computed once per row
+__device__ __forceinline__ unsigned dropout_row_key(unsigned head_key,
+                                                   int row) {
+  return fmix32(head_key ^ (unsigned)row);
+}
+
+// per element: keep iff the bits reach the threshold floor(p * 2^32)
+__device__ __forceinline__ bool dropout_keep(unsigned row_key, int col,
+                                             unsigned threshold) {
+  return fmix32(row_key + (unsigned)col * kGolden) >= threshold;
+}
+
+// Dropout parameters as the kernels take them: `seed` points at a device
+// int32 (read inside the kernel, so drawing a seed never syncs the host);
+// threshold = floor(p * 2^32); inv_keep = 1 / (1 - p). p = 0 is seed ==
+// nullptr.
+struct Dropout {
+  const int* seed;
+  unsigned threshold;
+  float inv_keep;
+};
+
 }  // namespace ptt
 
 extern "C" const char* ptt_error_string(int err) {

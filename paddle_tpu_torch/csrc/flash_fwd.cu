@@ -4,7 +4,12 @@
 // pallas_call at :303): softmax(q k^T * scale + mask) v with the softmax
 // taken online over key tiles in fp32, an additive float mask whose batch,
 // head and query dims may be size-1 broadcasts, top-left causal masking,
-// and the row log-sum-exp as an optional second output.
+// the row log-sum-exp as an optional second output, and attention dropout
+// (upscale_in_train: the P.V product takes where(keep, p / (1 - r), 0)
+// while the softmax denominator sums the undropped p, as the TPU kernel at
+// :247-255). The keep bit is the counter-based hash of (seed, batch, head,
+// row, column) in common.cuh, so the backward kernels (flash_bwd.cu) and
+// the plain version redraw the identical mask.
 //
 // Layout is the public (batch, seq, heads, head_dim) one, read in place:
 // no transpose, no padding of S to the TPU's 512 blocks or of head_dim to
@@ -60,7 +65,8 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, const float* __restrict__ mask,
                      T* __restrict__ out, float* __restrict__ lse, int sq,
                      int sk, int h, int d, long long msb, long long msh,
-                     long long msq, int is_causal, float scale) {
+                     long long msq, int is_causal, float scale,
+                     ptt::Dropout drop) {
   constexpr int DP = NC * 32;
   constexpr int KP = DP + 4;
   extern __shared__ float4 smem4[];
@@ -98,6 +104,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   float* pw = p_s + warp * kRows * kBlockK;
   const int row0 = q0 + warp * kRows;
+  // dropout: one hash key per row, the per-element hash in the score loop
+  const unsigned hkey =
+      drop.seed ? ptt::dropout_head_key((unsigned)*drop.seed, bb, hh) : 0u;
+  unsigned rkey[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+    rkey[r] = ptt::dropout_row_key(hkey, row0 + r);
   // top-left causal: query row r sees key columns <= r
   const int k_end = is_causal ? min(sk, q0 + kBlockQ) : sk;
 
@@ -147,7 +160,10 @@ __global__ void __launch_bounds__(kThreads)
       m[r] = m_new;
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      pw[r * kBlockK + lane] = p;
+      // dropout acts on P.V only; l above summed the undropped p
+      const bool keep =
+          !drop.seed || ptt::dropout_keep(rkey[r], col, drop.threshold);
+      pw[r * kBlockK + lane] = keep ? p * drop.inv_keep : 0.f;
     }
     __syncwarp();
 
@@ -194,7 +210,7 @@ template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* out, float* lse, int b, int sq, int sk, int h, int d,
            long long msb, long long msh, long long msq, int is_causal,
-           float scale, cudaStream_t stream) {
+           float scale, ptt::Dropout drop, cudaStream_t stream) {
   const size_t smem = smem_floats<NC>() * sizeof(float);
   auto kern = flash_fwd_kernel<T, NC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -204,7 +220,7 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, sq, sk, h, d,
-      msb, msh, msq, is_causal, scale);
+      msb, msh, msq, is_causal, scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -212,18 +228,18 @@ template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const float* mask,
                void* out, float* lse, int b, int sq, int sk, int h, int d,
                long long msb, long long msh, long long msq, int is_causal,
-               float scale, cudaStream_t st) {
+               float scale, ptt::Dropout drop, cudaStream_t st) {
   if (d <= 32)
     return launch<T, 1>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh,
-                        msq, is_causal, scale, st);
+                        msq, is_causal, scale, drop, st);
   if (d <= 64)
     return launch<T, 2>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh,
-                        msq, is_causal, scale, st);
+                        msq, is_causal, scale, drop, st);
   if (d <= 128)
     return launch<T, 4>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh,
-                        msq, is_causal, scale, st);
+                        msq, is_causal, scale, drop, st);
   return launch<T, 8>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh, msq,
-                      is_causal, scale, st);
+                      is_causal, scale, drop, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -262,16 +278,9 @@ template <int D>
 __device__ __forceinline__ void load_tile_bf16(
     __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src, int row0,
     int rows, long long rs) {
-  // kWQ == kWK rows of D bf16, 16-byte vectors, zero past `rows`
-  constexpr int DP = WmmaSmem<D>::DP;
-  constexpr int V = D / 8;
-  for (int i = threadIdx.x; i < kWQ * V; i += kWWarps * 32) {
-    const int r = i / V, c = (i % V) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * DP + c) = val;
-  }
+  // kWQ == kWK rows of D bf16, zero past `rows`
+  ptt::load_tile_bf16<D, WmmaSmem<D>::DP, kWQ, kWWarps * 32>(dst, src, row0,
+                                                              rows, rs);
 }
 
 template <int D>
@@ -283,7 +292,7 @@ __global__ void __launch_bounds__(kWWarps * 32)
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse, int sq, int sk, int h,
                           long long msb, long long msh, long long msq,
-                          int is_causal, float scale) {
+                          int is_causal, float scale, ptt::Dropout drop) {
   using L = WmmaSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
@@ -309,6 +318,10 @@ __global__ void __launch_bounds__(kWWarps * 32)
   // lane -> (row r of the warp's 16, half of the key / head_dim columns)
   const int r = lane >> 1, half = lane & 1;
   const int row = q0 + warp * kWRows + r;
+  const unsigned rkey =
+      drop.seed ? ptt::dropout_row_key(
+                      ptt::dropout_head_key((unsigned)*drop.seed, bb, hh), row)
+                : 0u;
   float m = -INFINITY, l = 0.f;
   const int k_end = is_causal ? min(sk, q0 + kWQ) : sk;
 
@@ -359,8 +372,12 @@ __global__ void __launch_bounds__(kWWarps * 32)
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const float pv = x[c] == -INFINITY ? 0.f : expf(x[c] - m_safe);
-      sum += pv;
-      p_w[r * L::PP + half * 32 + c] = __float2bfloat16(pv);
+      sum += pv;  // the denominator takes the undropped p
+      const bool keep =
+          !drop.seed ||
+          ptt::dropout_keep(rkey, k0 + half * 32 + c, drop.threshold);
+      p_w[r * L::PP + half * 32 + c] =
+          __float2bfloat16(keep ? pv * drop.inv_keep : 0.f);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     l = l * alpha + sum;
@@ -407,7 +424,8 @@ template <int D>
 int launch_wmma(const void* q, const void* k, const void* v,
                 const float* mask, void* out, float* lse, int b, int sq,
                 int sk, int h, long long msb, long long msh, long long msq,
-                int is_causal, float scale, cudaStream_t stream) {
+                int is_causal, float scale, ptt::Dropout drop,
+                cudaStream_t stream) {
   const size_t smem = WmmaSmem<D>::bytes;
   auto kern = flash_fwd_wmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -419,7 +437,7 @@ int launch_wmma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask,
       static_cast<__nv_bfloat16*>(out), lse, sq, sk, h, msb, msh, msq,
-      is_causal, scale);
+      is_causal, scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -427,28 +445,34 @@ int launch_wmma(const void* q, const void* k, const void* v,
 
 // q/k/v/out: contiguous (b, s, h, d) of `dtype` (0 fp32, 1 bf16), d <= 256;
 // mask: nullptr or fp32 with element strides msb/msh/msq (0 = broadcast
-// dim) and unit stride over keys; lse: nullptr or (b, h, sq) fp32.
+// dim) and unit stride over keys; lse: nullptr or (b, h, sq) fp32;
+// seed: nullptr (no dropout) or a device int32, with threshold =
+// floor(p * 2^32) and inv_keep = 1 / (1 - p).
 // Returns cudaGetLastError() after the launch.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* out, void* lse, int b,
                              int sq, int sk, int h, int d, long long msb,
                              long long msh, long long msq, int is_causal,
-                             float scale, int dtype, void* stream) {
+                             float scale, const void* seed,
+                             unsigned threshold, float inv_keep, int dtype,
+                             void* stream) {
   if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  const ptt::Dropout drop{static_cast<const int*>(seed), threshold,
+                          seed ? inv_keep : 1.f};
   auto m = static_cast<const float*>(mask);
   auto l = static_cast<float*>(lse);
   if (dtype == ptt::kBF16 && d == 128)
     return launch_wmma<128>(q, k, v, m, out, l, b, sq, sk, h, msb, msh, msq,
-                            is_causal, scale, st);
+                            is_causal, scale, drop, st);
   if (dtype == ptt::kBF16 && d == 64)
     return launch_wmma<64>(q, k, v, m, out, l, b, sq, sk, h, msb, msh, msq,
-                           is_causal, scale, st);
+                           is_causal, scale, drop, st);
   if (dtype == ptt::kBF16)
     return dispatch_d<__nv_bfloat16>(q, k, v, m, out, l, b, sq, sk, h, d, msb,
-                                     msh, msq, is_causal, scale, st);
+                                     msh, msq, is_causal, scale, drop, st);
   if (dtype == ptt::kF32)
     return dispatch_d<float>(q, k, v, m, out, l, b, sq, sk, h, d, msb, msh,
-                             msq, is_causal, scale, st);
+                             msq, is_causal, scale, drop, st);
   return (int)cudaErrorInvalidValue;
 }

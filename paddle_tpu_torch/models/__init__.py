@@ -1,6 +1,10 @@
 """Models of the port."""
+from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForPretraining,
+                    ErnieLayer, ErnieModel, ErnieSelfAttention)
 from .llama import (LlamaAttention, LlamaConfig, LlamaDecoderLayer,
                     LlamaForCausalLM, LlamaMLP, LlamaModel)
 
-__all__ = ["LlamaAttention", "LlamaConfig", "LlamaDecoderLayer",
+__all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieForPretraining",
+           "ErnieLayer", "ErnieModel", "ErnieSelfAttention",
+           "LlamaAttention", "LlamaConfig", "LlamaDecoderLayer",
            "LlamaForCausalLM", "LlamaMLP", "LlamaModel"]

@@ -1,16 +1,22 @@
-"""Flash-attention forward: the CUDA kernel `csrc/flash_fwd.cu`, its plain
-PyTorch version, and a launch counter.
+"""Flash attention: the forward kernel K1 (`csrc/flash_fwd.cu`), the
+backward kernels K2 (dQ) and K3 (dK, dV) (`csrc/flash_bwd.cu`), their plain
+PyTorch versions, launch counters, and the autograd Function joining them.
 
-Replaces the TPU kernel `_fwd_call` (paddle_tpu/ops/pallas_kernels.py:164,
-pallas_call at :303), reached through `flash_attention` (:729) and
+K1 replaces the TPU kernel `_fwd_call` (paddle_tpu/ops/pallas_kernels.py
+:164, pallas_call at :303); K2 `_bwd_dq_call` (:357, pallas_call :462); K3
+`_bwd_dkv_call` (:474, pallas_call :572); `FlashAttention` the custom-vjp
+glue `_flash_vjp` (:587-660), reached through `flash_attention` (:729) and
 `_flash_attention_data` (:667). Public layout (batch, seq, heads,
 head_dim), as `F.scaled_dot_product_attention` takes it; an optional
-additive float mask of shape (b|1, h|1, sq|1, sk) and top-left causal
-masking; optional lse (b, h, sq) fp32. Dropout and the ring offsets of
-the TPU kernel are not ported yet.
+additive float mask of shape (b|1, h|1, sq|1, sk); top-left causal
+masking; lse (b, h, sq) fp32; attention dropout (upscale_in_train, the
+softmax denominator undropped) whose keep mask is the counter-based hash
+of `ops.dropout_mask`, drawn from a one-element int32 `seed` tensor on the
+device. The ring offsets of the TPU kernel and d(mask) are not ported yet.
 
-See the header of `csrc/flash_fwd.cu` for the kernel's design and what
-bounds it.
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version only for CPU tensors. See the headers of the .cu files for the
+kernels' design and what bounds them.
 """
 from __future__ import annotations
 
@@ -21,39 +27,63 @@ from typing import Optional, Tuple, Union
 import torch
 
 from .. import _build
+from .dropout_mask import keep_mask, threshold
 
-__all__ = ["flash_attention", "flash_attention_reference"]
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_dq", "flash_attention_dkv",
+           "flash_attention_backward", "flash_attention_backward_reference",
+           "attention_delta", "FlashAttention", "attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _keep(seed, b, h, sq, sk, dropout_p, device):
+    return keep_mask(seed.to(device), b, h, sq, sk, dropout_p)
+
+
+def _causal_keep(sq, sk, device):
+    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril()
+
+
+def _acc_dtype(x):
+    """The plain versions' arithmetic type: fp32, or fp64 for fp64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               attn_mask: Optional[torch.Tensor] = None,
                               is_causal: bool = False,
-                              return_lse: bool = False
+                              return_lse: bool = False,
+                              dropout_p: float = 0.0,
+                              seed: Optional[torch.Tensor] = None
                               ) -> Union[torch.Tensor,
                                          Tuple[torch.Tensor, torch.Tensor]]:
     """Plain version: the materialized-softmax attention of the reference
     op (paddle_tpu/ops/nn_ops.py scaled_dot_product_attention): fp32
-    logits and softmax, probabilities cast back to the input type.
-    Rows whose every column is -inf give 0 and lse 0, as the kernel."""
-    d = q.shape[-1]
-    sq, sk = q.shape[1], k.shape[1]
+    (fp64 for fp64 inputs) logits and softmax, probabilities cast back to
+    the input type. Rows whose every column is -inf give 0 and lse 0, as
+    the kernel. With dropout the probabilities are where(keep, p / (1 - r),
+    0) and lse is the undropped one."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (b, h, s, d)
-    logits = (qt @ kt.transpose(-1, -2)).float() * (1.0 / math.sqrt(d))
+    acc = _acc_dtype(q)
+    logits = (qt @ kt.transpose(-1, -2)).to(acc) * (1.0 / math.sqrt(d))
     if attn_mask is not None:
-        logits = logits + attn_mask.float()
+        logits = logits + attn_mask.to(acc)
     if is_causal:
-        keep = torch.ones((sq, sk), dtype=torch.bool,
-                          device=q.device).tril()
-        logits = logits.masked_fill(~keep, float("-inf"))
+        logits = logits.masked_fill(~_causal_keep(sq, sk, q.device),
+                                    float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isinf(m) & (m < 0), torch.zeros_like(m), m)
     p = torch.exp(logits - m_safe)
     l_sum = p.sum(dim=-1, keepdim=True)
-    probs = (p / l_sum.clamp_min(1e-30)).to(q.dtype)
-    out = (probs @ vt).transpose(1, 2)
+    probs = p / l_sum.clamp_min(1e-30)
+    if dropout_p > 0.0:
+        keep = _keep(seed, b, h, sq, sk, dropout_p, q.device)
+        probs = torch.where(keep, probs * (1.0 / (1.0 - dropout_p)), 0.0)
+    out = (probs.to(q.dtype) @ vt).transpose(1, 2)
     if not return_lse:
         return out
     lse = (m + torch.log(l_sum.clamp_min(1e-30)))[..., 0]
@@ -62,79 +92,323 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-def _lib():
-    lib = _build.load("flash_fwd")
-    fn = lib.ptt_flash_fwd
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32 (fp64 for fp64 inputs), (b, h, sq):
+    the backward's row term, computed outside the kernels as `_flash_vjp`
+    does (:627-633)."""
+    acc = _acc_dtype(out)
+    return (dout.to(acc) * out.to(acc)).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None, is_causal: bool = False,
+        dropout_p: float = 0.0, seed: Optional[torch.Tensor] = None,
+        need_dq: bool = True, need_dkv: bool = True
+        ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                   Optional[torch.Tensor]]:
+    """Plain version of K2 and K3: (dq, dk, dv), each None when not asked
+    for. The arithmetic of `_recompute_p_ds` and the two TPU kernels: fp32
+    (fp64 for fp64 inputs) products of the input-type values, p = exp(s -
+    lse), dS = p * (dP - delta), and dS / P_dropped rounded to the input
+    type before their products, as the kernels feed them to the matrix
+    units."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    acc = _acc_dtype(q)
+    qt, kt, vt, dot = (x.transpose(1, 2).to(acc) for x in (q, k, v, dout))
+    s = (qt @ kt.transpose(-1, -2)) * scale
+    if attn_mask is not None:
+        s = s + attn_mask.to(acc)
+    if is_causal:
+        s = s.masked_fill(~_causal_keep(sq, sk, q.device), float("-inf"))
+    p = torch.exp(s - lse.to(acc)[..., None])
+    dp = dot @ vt.transpose(-1, -2)
+    p_drop = p
+    if dropout_p > 0.0:
+        keep = _keep(seed, b, h, sq, sk, dropout_p, q.device)
+        inv = 1.0 / (1.0 - dropout_p)
+        p_drop = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    ds = (p * (dp - delta.to(acc)[..., None])).to(q.dtype).to(acc)
+    dq = dk = dv = None
+    if need_dq:
+        dq = ((ds @ kt) * scale).transpose(1, 2).to(q.dtype)
+    if need_dkv:
+        dk = ((ds.transpose(-1, -2) @ qt) * scale).transpose(1, 2).to(k.dtype)
+        dv = (p_drop.to(q.dtype).to(acc).transpose(-1, -2) @ dot
+              ).transpose(1, 2).to(v.dtype)
+    return dq, dk, dv
+
+
+# ------------------------------------------------------- kernel launches
+
+def _fn(lib_name, sym, argtypes):
+    lib = _build.load(lib_name)
+    fn = getattr(lib, sym)
     if fn.argtypes is None:
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                       i64, i64, i64, i32, ctypes.c_float, i32, vp]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _launch(q, k, v, mask, want_lse, is_causal):
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    out = torch.empty_like(q)
-    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-           if want_lse else None)
-    msb = msh = msq = 0
-    if mask is not None:
-        mb, mh, mq, _ = mask.shape
-        msb = mask.stride(0) if mb > 1 else 0
-        msh = mask.stride(1) if mh > 1 else 0
-        msq = mask.stride(2) if mq > 1 else 0
-    lib, fn = _lib()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             mask.data_ptr() if mask is not None else None, out.data_ptr(),
-             lse.data_ptr() if lse is not None else None, b, sq, sk, h, d,
-             msb, msh, msq, int(bool(is_causal)), 1.0 / math.sqrt(d),
-             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_fwd", lib)
-    return out, lse
+_VP, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_longlong, ctypes.c_uint,
+                               ctypes.c_float)
+_FWD_ARGS = [_VP] * 6 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
+                                                    _F32, _I32, _VP]
+_DQ_ARGS = [_VP] * 8 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
+                                                   _F32, _I32, _VP]
+_DKV_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
+                                                    _F32, _I32, _VP]
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    attn_mask: Optional[torch.Tensor] = None,
-                    is_causal: bool = False, return_lse: bool = False
-                    ) -> Union[torch.Tensor,
-                               Tuple[torch.Tensor, torch.Tensor]]:
-    """softmax(q k^T / sqrt(d) + mask) v over (b, s, h, d) tensors. CUDA
-    tensors launch the kernel (counted in `flash_attention.launches`); CPU
-    tensors run `flash_attention_reference`."""
-    if not q.is_cuda:
-        return flash_attention_reference(q, k, v, attn_mask, is_causal,
-                                         return_lse)
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous, and 16-byte aligned for the kernels' vector loads."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _check_qkv(q, k, v, what):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"flash_attention takes (b, s, h, d) q/k/v, got "
+        raise ValueError(f"{what} takes (b, s, h, d) q/k/v, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
-        raise ValueError("flash_attention needs k/v with q's batch, heads "
-                         "and head_dim (expand grouped kv heads first)")
+        raise ValueError(f"{what} needs k/v with q's batch, heads and "
+                         "head_dim (expand grouped kv heads first)")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes fp32 or bf16 q/k/v of one "
-                        f"type, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"{what} takes fp32 or bf16 q/k/v of one type, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not 1 <= d <= 256:
-        raise ValueError(f"flash_attention takes head_dim 1..256, got {d}")
+        raise ValueError(f"{what} takes head_dim 1..256, got {d}")
     if not (k.is_cuda and v.is_cuda):
         raise ValueError("q, k and v must all be CUDA tensors")
-    mask = None
-    if attn_mask is not None:
-        if attn_mask.dim() != 4 or not attn_mask.is_floating_point():
-            raise ValueError("attn_mask must be a 4-D additive float mask")
-        mb, mh, mq, mk = attn_mask.shape
-        if (mb not in (1, b) or mh not in (1, h) or mq not in (1, sq)
-                or mk != k.shape[1]):
-            raise ValueError(f"attn_mask {tuple(attn_mask.shape)} does not "
-                             f"broadcast to ({b}, {h}, {sq}, {k.shape[1]})")
-        mask = attn_mask.float().contiguous()
-    out, lse = _launch(q.contiguous(), k.contiguous(), v.contiguous(), mask,
-                       return_lse, is_causal)
+
+
+def _mask_args(attn_mask, q, sk):
+    """(mask fp32 contiguous or None, msb, msh, msq): size-1 dims of the
+    mask become zero strides."""
+    if attn_mask is None:
+        return None, 0, 0, 0
+    b, sq, h, _ = q.shape
+    if attn_mask.dim() != 4 or not attn_mask.is_floating_point():
+        raise ValueError("attn_mask must be a 4-D additive float mask")
+    mb, mh, mq, mk = attn_mask.shape
+    if mb not in (1, b) or mh not in (1, h) or mq not in (1, sq) or mk != sk:
+        raise ValueError(f"attn_mask {tuple(attn_mask.shape)} does not "
+                         f"broadcast to ({b}, {h}, {sq}, {sk})")
+    if not attn_mask.is_cuda:
+        raise ValueError("attn_mask must be a CUDA tensor beside q")
+    mask = attn_mask.detach().float().contiguous()
+    return (mask, mask.stride(0) if mb > 1 else 0,
+            mask.stride(1) if mh > 1 else 0, mask.stride(2) if mq > 1 else 0)
+
+
+def _dropout_args(dropout_p, seed, q):
+    """(seed tensor or None, threshold, inv_keep) for the C interface."""
+    if dropout_p <= 0.0:
+        return None, 0, 1.0
+    if not 0.0 < dropout_p < 1.0:
+        raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
+    if seed is None or seed.numel() < 1 or seed.is_floating_point():
+        raise ValueError("dropout needs a one-element integer seed tensor")
+    if seed.device != q.device:
+        raise ValueError(f"the dropout seed lies on {seed.device}, q on "
+                         f"{q.device}")
+    return (seed.reshape(-1)[:1].to(torch.int32).contiguous(),
+            threshold(dropout_p), 1.0 / (1.0 - dropout_p))
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    attn_mask: Optional[torch.Tensor] = None,
+                    is_causal: bool = False, return_lse: bool = False,
+                    dropout_p: float = 0.0,
+                    seed: Optional[torch.Tensor] = None
+                    ) -> Union[torch.Tensor,
+                               Tuple[torch.Tensor, torch.Tensor]]:
+    """softmax(q k^T / sqrt(d) + mask) v over (b, s, h, d) tensors, with
+    attention dropout `dropout_p` keyed by `seed` (a one-element int32
+    tensor on q's device). CUDA tensors launch K1 (counted in
+    `flash_attention.launches`); CPU tensors run
+    `flash_attention_reference`."""
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, attn_mask, is_causal,
+                                         return_lse, dropout_p, seed)
+    _check_qkv(q, k, v, "flash_attention")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    mask, msb, msh, msq = _mask_args(attn_mask, q, sk)
+    seed_t, thresh, inv = _dropout_args(dropout_p, seed, q)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    lib, fn = _fn("flash_fwd", "ptt_flash_fwd", _FWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+             out.data_ptr(), _ptr(lse), b, sq, sk, h, d, msb, msh, msq,
+             int(bool(is_causal)), 1.0 / math.sqrt(d), _ptr(seed_t), thresh,
+             inv, _DTYPES[q.dtype], _stream(q))
+    _build.check(err, "flash_fwd", lib)
     flash_attention.launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def _bwd_common(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed, what):
+    _check_qkv(q, k, v, what)
+    if dout.shape != q.shape:
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} is not q's "
+                         f"shape {tuple(q.shape)}")
+    b, sq, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be ({b}, {h}, {sq}) fp32 "
+                             f"on the card, got {tuple(t.shape)} {t.dtype}")
+    mask, msb, msh, msq = _mask_args(attn_mask, q, k.shape[1])
+    seed_t, thresh, inv = _dropout_args(dropout_p, seed, q)
+    tensors = [_aligned(x) for x in (q, k, v, dout.to(q.dtype))]
+    return (tensors, lse.contiguous(), delta.contiguous(),
+            (mask, msb, msh, msq), (seed_t, thresh, inv))
+
+
+def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor,
+                       attn_mask: Optional[torch.Tensor] = None,
+                       is_causal: bool = False, dropout_p: float = 0.0,
+                       seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dQ. CUDA tensors launch K2 (counted in `flash_attention_dq.launches`);
+    CPU tensors run the dq part of `flash_attention_backward_reference`."""
+    if not q.is_cuda:
+        return flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
+            need_dkv=False)[0]
+    (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
+                                                         inv) = _bwd_common(
+        q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
+        "flash_attention_dq")
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dq", _DQ_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             b, sq, k.shape[1], h, d, msb, msh, msq, int(bool(is_causal)),
+             1.0 / math.sqrt(d), _ptr(seed_t), thresh, inv, _DTYPES[q.dtype],
+             _stream(q))
+    _build.check(err, "flash_bwd_dq", lib)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        delta: torch.Tensor,
+                        attn_mask: Optional[torch.Tensor] = None,
+                        is_causal: bool = False, dropout_p: float = 0.0,
+                        seed: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV). CUDA tensors launch K3 (counted in
+    `flash_attention_dkv.launches`); CPU tensors run the dk / dv part of
+    `flash_attention_backward_reference`."""
+    if not q.is_cuda:
+        return flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
+            need_dq=False)[1:]
+    (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
+                                                         inv) = _bwd_common(
+        q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
+        "flash_attention_dkv")
+    b, sq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dkv", _DKV_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), b, sq, k.shape[1], h, d, msb, msh, msq,
+             int(bool(is_causal)), 1.0 / math.sqrt(d), _ptr(seed_t), thresh,
+             inv, _DTYPES[q.dtype], _stream(q))
+    _build.check(err, "flash_bwd_dkv", lib)
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             attn_mask: Optional[torch.Tensor] = None,
+                             is_causal: bool = False, dropout_p: float = 0.0,
+                             seed: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) from the forward's out and lse: delta outside the
+    kernels, then K2 and K3 for CUDA tensors, the plain version (once) for
+    CPU tensors."""
+    delta = attention_delta(out, dout)
+    if not q.is_cuda:
+        return flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed)
+    dq = flash_attention_dq(q, k, v, dout, lse, delta, attn_mask, is_causal,
+                            dropout_p, seed)
+    dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, attn_mask,
+                                 is_causal, dropout_p, seed)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 + K3 backward (the TPU's `_flash_vjp`). The forward
+    saves q, k, v, the mask, the seed, out and lse; the mask gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_mask, is_causal, dropout_p, seed):
+        out, lse = flash_attention(q, k, v, attn_mask, is_causal, True,
+                                   dropout_p, seed)
+        ctx.save_for_backward(q, k, v, attn_mask, seed, out, lse)
+        ctx.is_causal = is_causal
+        ctx.dropout_p = dropout_p
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, attn_mask, seed, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, attn_mask, ctx.is_causal, ctx.dropout_p,
+            seed)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              attn_mask: Optional[torch.Tensor] = None,
+              is_causal: bool = False, dropout_p: float = 0.0,
+              seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable flash attention: `FlashAttention` when a gradient is
+    wanted, the forward kernel alone otherwise."""
+    if attn_mask is not None and attn_mask.requires_grad:
+        raise NotImplementedError(
+            "a trainable attention mask needs d(mask) from K2, which is not "
+            "ported yet (ROADMAP queue 2: K2's dmask, for T5)")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, attn_mask, is_causal, dropout_p,
+                                    seed)
+    return flash_attention(q, k, v, attn_mask, is_causal, False, dropout_p,
+                           seed)

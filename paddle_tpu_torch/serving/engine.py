@@ -43,6 +43,9 @@ import torch
 
 from ..device import resolve_device, same_device
 from ..observability import Histogram, MetricsRegistry
+from ..ops.dropout_mask import M32 as _M32
+from ..ops.dropout_mask import fmix32 as _fmix32
+from ..ops.dropout_mask import mul32 as _mul32
 from .attention import advance_positions
 from .kv_cache import (KV_DTYPES, PagedKVCache, host_to_device,
                        overflow_position, pages_for)
@@ -55,8 +58,6 @@ __all__ = ["ServingEngine", "ServingObs", "PAD_TOKEN"]
 # host drain trims each row at its first PAD
 PAD_TOKEN = -1
 
-_M32 = 0xFFFFFFFF
-
 
 def _default_buckets(max_seq_len: int) -> Tuple[int, ...]:
     """Power-of-two prompt buckets up to max_seq_len (always included)."""
@@ -67,21 +68,6 @@ def _default_buckets(max_seq_len: int) -> Tuple[int, ...]:
         b *= 2
     buckets.append(max_seq_len)
     return tuple(buckets)
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """x * c mod 2**32 for int64 x in [0, 2**32), in 16-bit halves of c so
-    no int64 product overflows."""
-    return ((x * (c & 0xFFFF)) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix32(x: torch.Tensor) -> torch.Tensor:
-    """MurmurHash3's 32-bit finalizer (a bijection of [0, 2**32))."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
 
 
 def _uniforms(seeds: torch.Tensor, draws: torch.Tensor,

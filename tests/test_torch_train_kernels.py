@@ -1,0 +1,325 @@
+"""The training path's kernels in paddle_tpu_torch, by their plain versions
+on the CPU, against the JAX package on the same numpy inputs.
+
+- K2 / K3 (flash backward, through `FlashAttention`): against `jax.vjp` of
+  `_flash_attention_data(..., interpret=True)`, the Pallas kernels run in
+  interpret mode as tests/test_pallas_flash.py drives them.
+- K5 (norm backward, through `FusedNorm`): against `jax.vjp` of
+  `_fused_norm_data(..., interpret=True)`.
+- `fused_linear_cross_entropy` and `cross_entropy`: against the reference
+  ops of paddle_tpu/ops/nn_ops.py.
+- Attention dropout, on the port alone (its keep mask is a counter-based
+  hash; the TPU's masks come from the TPU's generator and cannot match):
+  keep rate, seeding, independence from tiling, and the FlashAttention
+  gradients against autograd through materialized attention with the same
+  explicit mask, in float64.
+
+fp32 tolerances rtol 1e-4 / atol 1e-5 unless stated; JAX matmuls run at
+"highest" precision (conftest).
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import nn_ops
+from paddle_tpu.ops import pallas_kernels as pk
+
+from paddle_tpu_torch.ops import cross_entropy as tce
+from paddle_tpu_torch.ops import dropout_mask as tdm
+from paddle_tpu_torch.ops import flash_attention as tflash
+from paddle_tpu_torch.ops import norm as tnorm
+
+RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """PyTorch's CPU ops would spread over every core; the suite runs in
+    parallel workers on a shared machine, so keep this file to one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _t(a, grad=False):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.requires_grad_() if grad else t
+
+
+def _close(got, ref, rtol=RTOL, atol=ATOL, msg=""):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=rtol,
+                               atol=atol, err_msg=msg)
+
+
+# ---------------------------------------------------- K2 / K3 flash backward
+
+FLASH_CASES = {
+    # name: (b, sq, sk, h, d, mask shape or None, causal)
+    "no mask": (2, 40, 40, 2, 16, None, False),
+    "padding mask (b,1,1,s)": (2, 48, 48, 2, 32, "b11k", False),
+    "full mask (b,h,s,s)": (1, 32, 32, 2, 16, "bhqk", False),
+    "causal": (1, 64, 64, 2, 64, None, True),
+    "ragged S": (1, 37, 53, 3, 16, "b11k", False),
+}
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_backward_matches_pallas_vjp(case):
+    b, sq, sk, h, d, mshape, causal = FLASH_CASES[case]
+    r = np.random.RandomState(11)
+    q = r.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = r.standard_normal((b, sk, h, d)).astype(np.float32)
+    v = r.standard_normal((b, sk, h, d)).astype(np.float32)
+    dout = r.standard_normal((b, sq, h, d)).astype(np.float32)
+    mask = None
+    if mshape is not None:
+        shape = (b, 1, 1, sk) if mshape == "b11k" else (b, h, sq, sk)
+        mask = np.where(r.random_sample(shape) < 0.25, -1e4,
+                        0.5 * r.standard_normal(shape)).astype(np.float32)
+
+    def f(q_, k_, v_):
+        return pk._flash_attention_data(
+            q_, k_, v_, None if mask is None else jnp.asarray(mask),
+            is_causal=causal, has_mask=mask is not None, interpret=True)
+
+    ref_out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp(jnp.asarray(dout))
+
+    qt, kt, vt = _t(q, True), _t(k, True), _t(v, True)
+    out = tflash.attention(qt, kt, vt, None if mask is None else _t(mask),
+                           is_causal=causal)
+    out.backward(_t(dout))
+    _close(out.detach().numpy(), ref_out, msg="out")
+    for name, got, ref in zip("qkv", (qt.grad, kt.grad, vt.grad),
+                              ref_grads):
+        _close(got.numpy(), ref, msg=f"d{name}")
+
+
+def test_backward_wrappers_split_the_plain_version():
+    """dq and (dk, dv) wrappers on CPU tensors: the parts of the one plain
+    backward, with no launch counted."""
+    r = np.random.RandomState(12)
+    q, k, v, dout = (_t(r.standard_normal((1, 20, 2, 8)).astype(np.float32))
+                     for _ in range(4))
+    out, lse = tflash.flash_attention(q, k, v, return_lse=True)
+    delta = tflash.attention_delta(out, dout)
+    before = (tflash.flash_attention_dq.launches,
+              tflash.flash_attention_dkv.launches)
+    dq = tflash.flash_attention_dq(q, k, v, dout, lse, delta)
+    dk, dv = tflash.flash_attention_dkv(q, k, v, dout, lse, delta)
+    full = tflash.flash_attention_backward(q, k, v, out, lse, dout)
+    for got, ref in zip((dq, dk, dv), full):
+        assert torch.equal(got, ref)
+    assert (tflash.flash_attention_dq.launches,
+            tflash.flash_attention_dkv.launches) == before
+
+
+def test_trainable_mask_raises_naming_the_roadmap_item():
+    q = torch.randn(1, 4, 1, 8, requires_grad=True)
+    mask = torch.zeros(1, 1, 1, 4, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        tflash.attention(q, q, q, mask)
+
+
+# -------------------------------------------------------- K5 norm backward
+
+@pytest.mark.parametrize("mode", ["rms", "layer", "layer no bias"])
+def test_norm_backward_matches_pallas_vjp(mode):
+    r = np.random.RandomState(13)
+    x = (r.standard_normal((3, 7, 256)) * 1.5 + 0.3).astype(np.float32)
+    w = (r.standard_normal(256) * 0.1 + 1.0).astype(np.float32)
+    b = (r.standard_normal(256) * 0.1).astype(np.float32)
+    dy = r.standard_normal((3, 7, 256)).astype(np.float32)
+    sub = mode != "rms"
+    with_bias = mode == "layer"
+    eps = 1e-5
+
+    def f(x_, w_, b_):
+        return pk._fused_norm_data(x_, w_, b_ if with_bias else None, eps,
+                                   subtract_mean=sub, interpret=True)
+
+    ref_y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    rdx, rdw, rdb = vjp(jnp.asarray(dy))
+
+    xt, wt, bt = _t(x, True), _t(w, True), _t(b, True)
+    if sub:
+        y = tnorm.layer_norm(xt, wt, bt if with_bias else None, eps)
+    else:
+        y = tnorm.rms_norm(xt, wt, eps)
+    y.backward(_t(dy))
+    _close(y.detach().numpy(), ref_y, msg="y")
+    _close(xt.grad.numpy(), rdx, msg="dx")
+    _close(wt.grad.numpy(), rdw, msg="dw")
+    if with_bias:
+        _close(bt.grad.numpy(), rdb, msg="db")
+    else:
+        assert bt.grad is None
+
+
+def test_norm_backward_plain_matches_autograd():
+    """The plain K5 formula against autograd through F.layer_norm."""
+    r = np.random.RandomState(14)
+    x = _t(r.standard_normal((5, 96)).astype(np.float32), True)
+    w = _t((r.standard_normal(96) * 0.2 + 1.0).astype(np.float32))
+    dy = _t(r.standard_normal((5, 96)).astype(np.float32))
+    _, mean, rstd = tnorm.norm_forward(x.detach(), w, None, 1e-6, True)
+    torch.nn.functional.layer_norm(x, (96,), w, None, 1e-6).backward(dy)
+    dx = tnorm.norm_backward_reference(x.detach(), w, dy, mean, rstd, True)
+    _close(dx.numpy(), x.grad.numpy())
+
+
+def test_norm_cpu_tensor_never_counts_a_launch():
+    x = torch.randn(4, 128, requires_grad=True)
+    before = (tnorm.norm_forward.launches, tnorm.norm_backward.launches)
+    tnorm.layer_norm(x, torch.ones(128), torch.zeros(128)).sum().backward()
+    assert (tnorm.norm_forward.launches,
+            tnorm.norm_backward.launches) == before
+
+
+# -------------------------------------------- fused linear cross-entropy
+
+@pytest.mark.parametrize("transpose_y", [True, False])
+def test_fused_linear_cross_entropy_matches_reference(transpose_y):
+    """A ragged final chunk (45 rows in chunks of 16) and ignore_index
+    rows: loss and the gradients of x, w and b."""
+    r = np.random.RandomState(15)
+    n, hdim, vocab = 45, 24, 70
+    x = r.standard_normal((n, hdim)).astype(np.float32)
+    wshape = (vocab, hdim) if transpose_y else (hdim, vocab)
+    w = (r.standard_normal(wshape) * 0.3).astype(np.float32)
+    b = (r.standard_normal(vocab) * 0.1).astype(np.float32)
+    lbl = r.randint(0, vocab, n).astype(np.int64)
+    lbl[[3, 17, 44]] = -100
+
+    def f(x_, w_, b_):
+        return nn_ops.fused_linear_cross_entropy(
+            x_, w_, b_, jnp.asarray(lbl), ignore_index=-100,
+            transpose_y=transpose_y, chunk_size=16)
+
+    ref_loss, ref_grads = jax.value_and_grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    xt, wt, bt = _t(x, True), _t(w, True), _t(b, True)
+    loss = tce.fused_linear_cross_entropy(xt, wt, bt, _t(lbl),
+                                          ignore_index=-100,
+                                          transpose_y=transpose_y,
+                                          chunk_size=16)
+    loss.backward()
+    _close(loss.item(), float(ref_loss), msg="loss")
+    for name, got, ref in zip(("dx", "dw", "db"),
+                              (xt.grad, wt.grad, bt.grad), ref_grads):
+        _close(got.numpy(), ref, msg=name)
+    # the unchunked plain cross-entropy gives the same loss
+    logits = (xt @ (wt.t() if transpose_y else wt)) + bt
+    _close(tce.cross_entropy(logits, _t(lbl)).item(), float(ref_loss))
+
+
+def test_cross_entropy_matches_reference():
+    r = np.random.RandomState(16)
+    logits = r.standard_normal((3, 5, 11)).astype(np.float32)
+    lbl = r.randint(0, 11, (3, 5)).astype(np.int64)
+    lbl[1, 2] = -100
+    for reduction in ("mean", "sum", "none"):
+        ref = nn_ops.cross_entropy(jnp.asarray(logits), jnp.asarray(lbl),
+                                   reduction=reduction)
+        got = tce.cross_entropy(_t(logits), _t(lbl), reduction=reduction)
+        _close(got.numpy(), ref, msg=reduction)
+
+
+# ------------------------------------------------------- attention dropout
+
+def _seed(s):
+    return torch.tensor([s], dtype=torch.int32)
+
+
+def test_keep_rate_within_four_sigma():
+    p = 0.1
+    keep = tdm.keep_mask(_seed(3), 2, 3, 128, 128, p)
+    n = keep.numel()
+    kept = int(keep.sum())
+    sigma = math.sqrt(n * p * (1 - p))
+    assert abs(kept - n * (1 - p)) <= 4 * sigma, (kept, n)
+
+
+def test_same_seed_same_mask_other_seed_other_mask():
+    a = tdm.keep_mask(_seed(7), 2, 2, 40, 40, 0.1)
+    b = tdm.keep_mask(_seed(7), 2, 2, 40, 40, 0.1)
+    c = tdm.keep_mask(_seed(8), 2, 2, 40, 40, 0.1)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    # every (batch, head) draws its own pattern
+    assert not torch.equal(a[0, 0], a[0, 1])
+    assert not torch.equal(a[0, 0], a[1, 0])
+
+
+@pytest.mark.parametrize("tile", [(64, 32), (48, 40), (7, 128)])
+def test_mask_does_not_depend_on_tiles(tile):
+    """A mask assembled tile by tile from each tile's absolute coordinates
+    equals the mask drawn whole: the kernels' tilings (64 x 32 in the FMA
+    path, 64 x 64 in the tensor-core path) draw the same bits."""
+    seed, sq, sk = _seed(99), 100, 130
+    whole = tdm.keep_mask(seed, 2, 3, sq, sk, 0.25)
+    tq, tk = tile
+    tiled = torch.empty_like(whole)
+    for q0 in range(0, sq, tq):
+        for k0 in range(0, sk, tk):
+            rows = torch.arange(q0, min(q0 + tq, sq))
+            cols = torch.arange(k0, min(k0 + tk, sk))
+            tiled[:, :, q0:q0 + tq, k0:k0 + tk] = tdm.keep_mask(
+                seed, 2, 3, rows, cols, 0.25)
+    assert torch.equal(whole, tiled)
+
+
+def test_threshold_is_the_tpu_rule():
+    assert tdm.threshold(0.1) == int(0.1 * 2 ** 32)
+    assert tdm.threshold(1.0) == 2 ** 32 - 1
+    assert tdm.threshold(0.0) == 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_dropout_gradients_match_materialized_attention_fp64(masked):
+    """FlashAttention (plain forward and backward on CPU) with dropout 0.2
+    against autograd through materialized softmax attention that applies
+    the same explicit keep mask, in float64."""
+    r = np.random.RandomState(17)
+    b, s, h, d, p = 2, 24, 2, 8, 0.2
+    q, k, v, dout = (r.standard_normal((b, s, h, d)) for _ in range(4))
+    mask = (np.where(r.random_sample((b, 1, 1, s)) < 0.2, -1e4, 0.0)
+            if masked else None)
+    seed = _seed(1234)
+
+    qa, ka, va = _t(q, True), _t(k, True), _t(v, True)
+    out = tflash.attention(qa, ka, va, None if mask is None else _t(mask),
+                           dropout_p=p, seed=seed)
+    out.backward(_t(dout))
+
+    qb, kb, vb = _t(q, True), _t(k, True), _t(v, True)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qb, kb) / math.sqrt(d)
+    if mask is not None:
+        logits = logits + _t(mask)
+    probs = torch.softmax(logits, dim=-1)
+    keep = tdm.keep_mask(seed, b, h, s, s, p)
+    dropped = torch.where(keep, probs / (1 - p), 0.0)
+    ref = torch.einsum("bhqk,bkhd->bqhd", dropped, vb)
+    ref.backward(_t(dout))
+
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               rtol=1e-10, atol=1e-12)
+    for got, want in ((qa, qb), (ka, kb), (va, vb)):
+        np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                   rtol=1e-9, atol=1e-11)
+    # dropout really dropped: without it the output differs
+    plain = tflash.attention(_t(q), _t(k), _t(v),
+                             None if mask is None else _t(mask))
+    assert not np.allclose(plain.numpy(), ref.detach().numpy())
+
+
+def test_dropout_needs_a_seed_on_the_card():
+    """The CUDA wrapper refuses dropout without a seed before any launch
+    (checked without a card: the argument check precedes the device)."""
+    with pytest.raises(ValueError, match="seed"):
+        tflash._dropout_args(0.1, None, torch.zeros(1))
