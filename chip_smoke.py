@@ -2,7 +2,7 @@
 """Drive paddle_tpu_torch, the PyTorch / CUDA port, on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py [--seed N]
-[--out DIR] [--profile] [--phases LIST]
+[--out DIR] [--profile]
 
 Phases, each printing its own lines; any failure raises and exits non-zero
 without the final result line:
@@ -46,10 +46,8 @@ without the final result line:
    top kernels and top host ops.
 
 The line before the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}. With --phases (a comma-separated subset of
-the phases above, for iterating on one part) the script prints neither and
-exits 3. This script imports no JAX and nothing of paddle_tpu; the card
-machine has neither.
+{"ok": true, "device": {...}}. This script imports no JAX and nothing of
+paddle_tpu; the card machine has neither.
 """
 import argparse
 import gc
@@ -76,19 +74,26 @@ TOL = {
 }
 # tolerances of the training kernels vs their plain versions, relative to
 # the largest magnitude of the plain output (max abs error <= rel * max|ref|).
-# The backward kernels and their plain versions round dS and P_dropped to
-# the input type at the same places, so bf16 leaves about one output ulp
-# (2^-8 relative) of rounding; fp32 leaves summation order only.
+# The kernels round to bf16 where their plain versions do, so bf16 leaves
+# the output's own rounding (half an ulp, 2^-9 of the value) and a little
+# summation order; fp32 leaves summation order only. K1 is held to its
+# plain version on the same values in fp32 (check_k1). Each bf16 limit is a
+# few times the largest error read on an H100 (PERF.md, PR 2).
 TOL_REL = {
-    "K2": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
-    "K3": {torch.float32: 1e-4, torch.bfloat16: 2e-2},
+    "K1": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+    "K2": {torch.float32: 1e-4, torch.bfloat16: 5e-3},
+    "K3": {torch.float32: 1e-4, torch.bfloat16: 5e-3},
     "K5": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
 }
+# K1's lse (fp32) max abs error: about ten times the largest read on an
+# H100 (9.54e-7, two fp32 ulps of lse ~ 7; PERF.md, PR 2)
+TOL_LSE = 1e-5
 # whole-step check, card (kernels) against CPU (plain versions), both fp32:
 # |loss difference| <= LOSS_RTOL * |loss|, and for every parameter
-# max |grad difference| <= GRAD_RTOL * max |CPU grad|
-LOSS_RTOL = 1e-4
-GRAD_RTOL = 2e-3
+# max |grad difference| <= GRAD_RTOL * max |CPU grad|; about ten times the
+# largest gradient error read on an H100 (1.51e-6, PERF.md, PR 2)
+LOSS_RTOL = 2e-5
+GRAD_RTOL = 2e-5
 # the training step's launches per step: K1-K3 once per layer, K4 / K5
 # for the embedding norm, two norms per layer and the MLM norm
 TRAIN_LAUNCHES = {"K1": 12, "K2": 12, "K3": 12, "K4": 26, "K5": 26}
@@ -150,6 +155,26 @@ def check_rel(name, got, ref, dtype):
         raise AssertionError(f"{name} {dtype}: max abs error {err} > {tol} "
                              f"({TOL_REL[name][dtype]} x max|ref|)")
     return err, tol
+
+
+def check_k1(out, lse, q, k, v, dtype, mask=None, causal=False,
+             dropout_p=0.0, seed=None):
+    """K1's output under TOL_REL and its lse under TOL_LSE, against the
+    plain version on q / k / v cast to fp32, with the same keep mask. The
+    kernel forms the logits in fp32 from either input type; the plain
+    version on bf16 inputs rounds them to bf16, which moves its largest
+    outputs by ~1.4% (0.0117 of 0.85 on an H100, PERF.md, PR 2). Returns
+    (output error, its tolerance, lse error)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    ref, ref_lse = fa.flash_attention_reference(
+        q.float(), k.float(), v.float(), mask, causal, True, dropout_p, seed)
+    e_out, t_out = check_rel("K1", out, ref, dtype)
+    e_lse = max_err(lse, ref_lse)
+    if not e_lse <= TOL_LSE:
+        raise AssertionError(f"K1 {dtype}: lse max abs error {e_lse} > "
+                             f"{TOL_LSE}")
+    return e_out, t_out, e_lse
 
 
 def nbytes(*ts):
@@ -400,7 +425,8 @@ TRAIN_DROPOUT = 0.1
 def k1_train_cases(rows, dev):
     """K1 with attention dropout 0.1 at ERNIE-base shapes: bf16 at batch
     32 (the training path), fp32 at batch 4. The plain version draws the
-    identical keep mask, so the comparison is exact up to rounding."""
+    identical keep mask, so the comparison is exact up to rounding; it is
+    timed on the kernel's own inputs."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(4)
@@ -413,12 +439,10 @@ def k1_train_cases(rows, dev):
                    for _ in range(3))
         out, lse = fa.flash_attention(q, k, v, return_lse=True, dropout_p=p,
                                       seed=seed)
-        ref, rlse = fa.flash_attention_reference(q, k, v, return_lse=True,
-                                                 dropout_p=p, seed=seed)
         undropped = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
-        err = max(max_err(out, ref), max_err(lse, rlse))
-        tol = check("K1", err, dtype)
+        err, tol, lse_err = check_k1(out, lse, q, k, v, dtype, dropout_p=p,
+                                     seed=seed)
         if max_err(out, undropped) < 1e-3:
             raise AssertionError("K1 dropout changed nothing")
         ms = time_ms(lambda: fa.flash_attention(
@@ -436,14 +460,15 @@ def k1_train_cases(rows, dev):
                         dtype)
         row = _row(dtype, f"dropout {p} ({b}, {s}, {h}, {d})", err, tol, ms,
                    plain_ms, lib_ms, bms, by, dropout_p=p,
-                   ms_without_dropout=ms_undropped)
+                   ms_without_dropout=ms_undropped, lse_err=lse_err)
         _log_row("K1", row)
-        log(f"[K1] {str(dtype)[6:]} the same call without dropout: "
+        log(f"[K1] {str(dtype)[6:]} lse max_abs_err {lse_err:.3g} (tol "
+            f"{TOL_LSE}); the same call without dropout: "
             f"{ms_undropped:.4f} ms")
         rows.append(("K1", row))
         if dtype == torch.bfloat16:
             main = row
-        del q, k, v, out, ref, undropped
+        del q, k, v, out, undropped
     return main
 
 
@@ -536,8 +561,6 @@ def flash_edge_cases(dev):
                 -1e4, 0.0)
         out, lse = fa.flash_attention(q, k, v, mask, causal, True,
                                       TRAIN_DROPOUT, seed)
-        ref, rlse = fa.flash_attention_reference(q, k, v, mask, causal, True,
-                                                 TRAIN_DROPOUT, seed)
         delta = fa.attention_delta(out, dout)
         args = (q, k, v, dout, lse, delta, mask, causal, TRAIN_DROPOUT, seed)
         dq = fa.flash_attention_dq(*args)
@@ -547,14 +570,15 @@ def flash_edge_cases(dev):
         label = (f"{str(dtype)[6:]} ({b}, {s}, {h}, {d})"
                  f"{' causal' if causal else ''}"
                  f"{' full mask' if full_mask else ''}")
-        e1 = max(max_err(out, ref), max_err(lse, rlse))
-        check("K1", e1, dtype)
-        errs = {"K1": e1, "K2": check_rel("K2", dq, rdq, dtype)[0],
-                "K3": max(check_rel("K3", dk, rdk, dtype)[0],
-                          check_rel("K3", dv, rdv, dtype)[0])}
+        e1, t1, e_lse = check_k1(out, lse, q, k, v, dtype, mask, causal,
+                                 TRAIN_DROPOUT, seed)
+        e3 = max(check_rel("K3", dk, rdk, dtype),
+                 check_rel("K3", dv, rdv, dtype), key=lambda et: et[0] / et[1])
+        errs = {"K1": (e1, t1), "K1 lse": (e_lse, TOL_LSE),
+                "K2": check_rel("K2", dq, rdq, dtype), "K3": e3}
         log(f"[edge] {label}, dropout {TRAIN_DROPOUT}: max abs error "
-            + ", ".join(f"{kk} {e:.3g}" for kk, e in errs.items())
-            + " (within tolerance)")
+            + ", ".join(f"{kk} {e:.3g} (tol {t:.3g})"
+                        for kk, (e, t) in errs.items()))
         worst[label] = errs
     return worst
 
@@ -756,7 +780,7 @@ def phase_step_check(seed, dev):
         if rel >= worst:
             worst, worst_name = rel, name
     log(f"[step_check] 2-layer full width fp32: loss card "
-        f"{losses['card']:.6f} cpu {losses['cpu']:.6f} (|diff| {dl:.3g}, "
+        f"{losses['card']!r} cpu {losses['cpu']!r} (|diff| {dl:.3g}, "
         f"tol {LOSS_RTOL} x |loss|); every gradient within {GRAD_RTOL} x "
         f"max|cpu grad|, worst {worst:.3g} ({worst_name}); kernels "
         f"launched {ran}")
@@ -964,7 +988,6 @@ KERNELS = {
                source="paddle_tpu_torch/csrc/paged_decode.cu",
                replaces="paddle_tpu/serving/attention.py:530"),
 }
-PHASES = ("kernels", "train_kernels", "serve", "train", "step_check")
 
 
 def summarize(main_rows, launches_by_path):
@@ -984,6 +1007,7 @@ def summarize(main_rows, launches_by_path):
                      case=r["case"])
         if k == "K1":
             entry["dropout_p"] = r.get("dropout_p", 0.0)
+            entry["lse_max_abs_err"] = r.get("lse_err")
         out.append(entry)
     return {"kernels": out}
 
@@ -998,14 +1022,7 @@ def main(argv=None):
                     help="profile one prefill and two decode blocks of the "
                          "served slice and one train step with "
                          "torch.profiler")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES) +
-                         " (a partial run prints no summary and exits 3)")
     args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    unknown = sorted(set(phases) - set(PHASES))
-    if unknown:
-        ap.error(f"unknown phases {unknown}")
     t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1013,15 +1030,13 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
     result = {"nvidia_smi": smi, "build_s": phase_build(args.out)}
     rows, main_rows, launches = [], {}, {}
-    if "kernels" in phases:
-        k1_cases(rows, dev)     # the summary's K1 / K4 rows are the
-        k4_cases(rows, dev)     # training path's (train_kernels)
-        main_rows["K6"] = k6_cases(rows, dev)
-    if "train_kernels" in phases:
-        main_rows["K1"] = k1_train_cases(rows, dev)
-        main_rows.update(k23_cases(rows, dev))
-        result["edge_cases"] = flash_edge_cases(dev)
-        main_rows.update(k45_train_cases(rows, dev))
+    k1_cases(rows, dev)         # the summary's K1 / K4 rows are the
+    k4_cases(rows, dev)         # training path's (k1 / k45_train_cases)
+    main_rows["K6"] = k6_cases(rows, dev)
+    main_rows["K1"] = k1_train_cases(rows, dev)
+    main_rows.update(k23_cases(rows, dev))
+    result["edge_cases"] = flash_edge_cases(dev)
+    main_rows.update(k45_train_cases(rows, dev))
     result["cases"] = [dict(kernel=k, **r) for k, r in rows]
 
     def release():
@@ -1031,29 +1046,19 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     release()
-    if "serve" in phases:
-        result["slice"] = phase_slice(args.seed, dev, args.profile,
-                                      args.out)
-        launches["serve"] = result["slice"]["launches"]
-        release()
-    if "train" in phases:
-        result["train"] = phase_train(args.seed, dev, args.profile,
-                                      args.out)
-        launches["train"] = result["train"]["launches"]
-        release()
-    if "step_check" in phases:
-        result["step_check"] = phase_step_check(args.seed, dev)
+    result["slice"] = phase_slice(args.seed, dev, args.profile, args.out)
+    launches["serve"] = result["slice"]["launches"]
+    release()
+    result["train"] = phase_train(args.seed, dev, args.profile, args.out)
+    launches["train"] = result["train"]["launches"]
+    release()
+    result["step_check"] = phase_step_check(args.seed, dev)
     result["seconds"] = time.perf_counter() - t_start
-    complete = set(phases) == set(PHASES)
-    if complete:
-        result["summary"] = summarize(main_rows, launches)
+    result["summary"] = summarize(main_rows, launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(result, f, indent=1)
     log(f"[done] {result['seconds']:.1f} s in all")
-    if not complete:
-        log(f"[done] partial run ({','.join(phases)}): no summary")
-        return 3
     print(json.dumps(result["summary"]), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -268,7 +268,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 
 
-def _bwd_common(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed, what):
+def _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
+                 what):
+    """K2's and K3's inputs, checked and laid out once for both: ((q, k, v,
+    dout) contiguous and aligned, lse, delta, mask args, dropout args)."""
     _check_qkv(q, k, v, what)
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} is not q's "
@@ -278,11 +281,43 @@ def _bwd_common(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed, what):
         if t.shape != (b, h, sq) or t.dtype != torch.float32 or not t.is_cuda:
             raise ValueError(f"{what}: {name} must be ({b}, {h}, {sq}) fp32 "
                              f"on the card, got {tuple(t.shape)} {t.dtype}")
-    mask, msb, msh, msq = _mask_args(attn_mask, q, k.shape[1])
-    seed_t, thresh, inv = _dropout_args(dropout_p, seed, q)
-    tensors = [_aligned(x) for x in (q, k, v, dout.to(q.dtype))]
-    return (tensors, lse.contiguous(), delta.contiguous(),
-            (mask, msb, msh, msq), (seed_t, thresh, inv))
+    mask_args = _mask_args(attn_mask, q, k.shape[1])
+    drop_args = _dropout_args(dropout_p, seed, q)
+    tensors = tuple(_aligned(x) for x in (q, k, v, dout.to(q.dtype)))
+    return (tensors, lse.contiguous(), delta.contiguous(), mask_args,
+            drop_args)
+
+
+def _launch_dq(prep, is_causal):
+    (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
+                                                         inv) = prep
+    b, sq, h, d = q.shape
+    dq = torch.empty_like(q)
+    lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dq", _DQ_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             b, sq, k.shape[1], h, d, msb, msh, msq, int(bool(is_causal)),
+             1.0 / math.sqrt(d), _ptr(seed_t), thresh, inv, _DTYPES[q.dtype],
+             _stream(q))
+    _build.check(err, "flash_bwd_dq", lib)
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(prep, is_causal):
+    (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
+                                                         inv) = prep
+    b, sq, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dkv", _DKV_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), b, sq, k.shape[1], h, d, msb, msh, msq,
+             int(bool(is_causal)), 1.0 / math.sqrt(d), _ptr(seed_t), thresh,
+             inv, _DTYPES[q.dtype], _stream(q))
+    _build.check(err, "flash_bwd_dkv", lib)
+    flash_attention_dkv.launches += 1
+    return dk, dv
 
 
 def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -297,21 +332,9 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_backward_reference(
             q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
             need_dkv=False)[0]
-    (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
-                                                         inv) = _bwd_common(
-        q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
-        "flash_attention_dq")
-    b, sq, h, d = q.shape
-    dq = torch.empty_like(q)
-    lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dq", _DQ_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             b, sq, k.shape[1], h, d, msb, msh, msq, int(bool(is_causal)),
-             1.0 / math.sqrt(d), _ptr(seed_t), thresh, inv, _DTYPES[q.dtype],
-             _stream(q))
-    _build.check(err, "flash_bwd_dq", lib)
-    flash_attention_dq.launches += 1
-    return dq
+    return _launch_dq(_bwd_prepare(q, k, v, dout, lse, delta, attn_mask,
+                                   dropout_p, seed, "flash_attention_dq"),
+                      is_causal)
 
 
 flash_attention_dq.launches = 0
@@ -331,21 +354,9 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_backward_reference(
             q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
             need_dq=False)[1:]
-    (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
-                                                         inv) = _bwd_common(
-        q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
-        "flash_attention_dkv")
-    b, sq, h, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dkv", _DKV_ARGS)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), b, sq, k.shape[1], h, d, msb, msh, msq,
-             int(bool(is_causal)), 1.0 / math.sqrt(d), _ptr(seed_t), thresh,
-             inv, _DTYPES[q.dtype], _stream(q))
-    _build.check(err, "flash_bwd_dkv", lib)
-    flash_attention_dkv.launches += 1
-    return dk, dv
+    return _launch_dkv(_bwd_prepare(q, k, v, dout, lse, delta, attn_mask,
+                                    dropout_p, seed, "flash_attention_dkv"),
+                       is_causal)
 
 
 flash_attention_dkv.launches = 0
@@ -360,26 +371,31 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(dq, dk, dv) from the forward's out and lse: delta outside the
-    kernels, then K2 and K3 for CUDA tensors, the plain version (once) for
-    CPU tensors."""
+    kernels, then K2 and K3 on inputs checked and laid out once for CUDA
+    tensors, the plain version (once) for CPU tensors."""
     delta = attention_delta(out, dout)
     if not q.is_cuda:
         return flash_attention_backward_reference(
             q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed)
-    dq = flash_attention_dq(q, k, v, dout, lse, delta, attn_mask, is_causal,
-                            dropout_p, seed)
-    dk, dv = flash_attention_dkv(q, k, v, dout, lse, delta, attn_mask,
-                                 is_causal, dropout_p, seed)
+    prep = _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p,
+                        seed, "flash_attention_backward")
+    dq = _launch_dq(prep, is_causal)
+    dk, dv = _launch_dkv(prep, is_causal)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (the TPU's `_flash_vjp`). The forward
-    saves q, k, v, the mask, the seed, out and lse; the mask gets no
-    gradient."""
+    saves q, k, v (as the kernels read them), the mask, the seed, out and
+    lse; the mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, attn_mask, is_causal, dropout_p, seed):
+        if q.is_cuda:
+            # the kernels read contiguous, aligned q / k / v (the fused QKV
+            # projection gives strided views): lay them out once here and
+            # save those, so the backward copies none of them again
+            q, k, v = _aligned(q), _aligned(k), _aligned(v)
         out, lse = flash_attention(q, k, v, attn_mask, is_causal, True,
                                    dropout_p, seed)
         ctx.save_for_backward(q, k, v, attn_mask, seed, out, lse)
