@@ -16,12 +16,20 @@ without the final result line:
    queued behind a spin (and the kernel's time when issued call by call
    from Python), and the bound: the larger of bytes over 3.35 TB/s and
    operations over the peak rate of the input type;
-4. train_kernels: the same for the training path's kernels at ERNIE-base
+4. kernels_serve_chunked: the same for the chunked serving path's kernels:
+   K6q (K6 over int8 / fp8 pools with scale slabs) at the decode shape
+   (b 8, positions 0..1023), and K7 (ragged paged attention) on the flat
+   step of the chunked serve (8 decode tokens at 0..1023 plus one
+   256-token chunk at 512, padded to T = 328) over bf16, fp32, int8 and fp8
+   pools, with a GQA rep-4 case and parked tokens, which must come out
+   zero. The library yardstick is sdpa over the gathered, dequantized
+   pages;
+5. train_kernels: the same for the training path's kernels at ERNIE-base
    shapes (b 32, S 512, 12 heads of 64; 16384 rows of 768): K1 with
    attention dropout 0.1, K2 + K3 through `FlashAttention.backward` with
    and without a (32, 1, 1, 512) padding mask, K4 and K5 in LayerNorm mode,
    in the O1 type (fp32) and bf16;
-5. serve: LLaMA-7B at full width (random bf16 weights from --seed, drawn
+6. serve: LLaMA-7B at full width (random bf16 weights from --seed, drawn
    on the card) served by ServingEngine (page_size 16, 8 rows,
    max_seq_len 1024, decode_horizon 8, bf16 pools): 8 greedy requests,
    two arriving after the first steps. Launch counters are zeroed just
@@ -29,7 +37,16 @@ without the final result line:
    requests are re-scored by the no-cache forward: wherever its top-2
    logit margin exceeds the stated tolerance, the engine's token must be
    its argmax;
-6. train: the ERNIE-1.0 pretrain step at full width (ErnieConfig.ernie_base,
+7. serve_chunked: the same model and engine with chunked prefill (chunks
+   of 256, the ragged step) over bf16, then int8, then fp8 pools: 8 greedy
+   requests with prompts of 64..960 tokens, 32 new tokens each, 2 late.
+   K7 (in the pools' form) and the decode kernel (K6 or K6q) must launch,
+   K1 must not; the margin check runs with the pool type's tolerance;
+   prints tokens/s, mean TTFT, decode tokens/s, the decode-stall sum, pool
+   bytes and peak memory;
+8. serve_chained: chunked prefill without the ragged step (bf16, 3
+   requests): K1 must launch, through the paged chunk prefill;
+9. train: the ERNIE-1.0 pretrain step at full width (ErnieConfig.ernie_base,
    random weights from --seed, batch 32, seq 512, fused MLM loss, bf16 O1
    autocast, hidden and attention dropout 0.1, Adam lr 1e-4, one fixed
    batch): 3 warm-up and 10 timed steps. Launch counters are zeroed before
@@ -37,13 +54,14 @@ without the final result line:
    26 and 26 times a step. The loss must be finite at every step and lower
    at the last than at the first. Prints tokens/s/chip, step ms, MFU (the
    FLOPs per token of bench.py over 989 TFLOP/s) and peak memory;
-7. step_check: a 2-layer ERNIE at full width, fp32, dropout 0, batch 2,
+10. step_check: a 2-layer ERNIE at full width, fp32, dropout 0, batch 2,
    seq 512: loss and every parameter gradient on the card (through the
    kernels) against the same model on the CPU (the plain versions), from
    the same weights;
-8. with --profile: torch.profiler windows of one prefill and two decode
-   blocks of the served slice, and of one train step: device busy share,
-   top kernels and top host ops.
+11. with --profile: torch.profiler windows of one prefill and two decode
+   blocks of the served slice, two ragged steps of the bf16 chunked
+   serve, and one train step: device busy share, top kernels and top host
+   ops.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -71,6 +89,14 @@ TOL = {
     "K1": {torch.float32: 2e-4, torch.bfloat16: 5e-2},
     "K4": {torch.float32: 1e-4, torch.bfloat16: 6e-2},
     "K6": {torch.float32: 2e-4, torch.bfloat16: 3e-2},
+    # K7 over fp32 / bf16 pools: the plain version computes in the pools'
+    # type as K6's does, so the same limits
+    "K7": {torch.float32: 2e-4, torch.bfloat16: 3e-2},
+    # the dequantizing forms: the plain versions dequantize to fp32 and
+    # compute in fp32 as the kernels do, so only the bf16 rounding of the
+    # output (half an ulp of values below 1) and summation order remain
+    "K6q": {torch.float32: 2e-4, torch.bfloat16: 1e-2},
+    "K7q": {torch.float32: 2e-4, torch.bfloat16: 1e-2},
 }
 # tolerances of the training kernels vs their plain versions, relative to
 # the largest magnitude of the plain output (max abs error <= rel * max|ref|).
@@ -98,10 +124,14 @@ GRAD_RTOL = 2e-5
 # for the embedding norm, two norms per layer and the MLM norm
 TRAIN_LAUNCHES = {"K1": 12, "K2": 12, "K3": 12, "K4": 26, "K5": 26}
 # the engine's greedy token must be the no-cache argmax wherever the top-2
-# margin of the no-cache logits exceeds this: the paged and no-cache bf16
-# paths round differently, and on an H100 positions whose tokens differed
-# had margins below 0.05 (PERF.md), so 0.15 leaves a 3x guard band
-MARGIN_TOL = 0.15
+# margin of the no-cache logits exceeds this, by KV pool type: the paged and
+# no-cache bf16 paths round differently, and on an H100 positions whose
+# tokens differed had margins below 0.05 (PERF.md), so 0.15 leaves a 3x
+# guard band. Quantized pools move the logits further: the first reading
+# on an H100 had differing positions up to 0.1328 (int8) and 0.2891 (fp8)
+# (PERF.md, PR 3); random weights give few margins above ~0.4, so the
+# quantized limits keep a smaller guard band
+MARGIN_TOL = {"bf16": 0.15, "int8": 0.2, "fp8": 0.35}
 
 
 def log(*parts):
@@ -400,6 +430,183 @@ def k6_cases(rows, dev):
             if dtype == torch.bfloat16 and label.startswith("rep 1, pos"):
                 main = row
             del kp, vp, kg, vg
+    return main
+
+
+QUANT_KV = ("int8", "fp8")
+
+
+def _pools(kvh, num_pages, ps, hd, kv, g, dev):
+    """(k, v, k_scale, v_scale) pools of KV type `kv`: random bf16 / fp32
+    values, or random fp32 values quantized by the port's serving.quant
+    (data slabs plus fp32 scale slabs)."""
+    shape = (kvh, num_pages, ps, hd)
+    if kv not in QUANT_KV:
+        dt = {"bf16": torch.bfloat16, "fp32": torch.float32}[kv]
+        return (torch.randn(shape, generator=g, device=dev).to(dt),
+                torch.randn(shape, generator=g, device=dev).to(dt),
+                None, None)
+    from paddle_tpu_torch.serving.quant import (quantize_tokens,
+                                                resolve_kv_dtype)
+
+    spec = resolve_kv_dtype(kv)
+    (kd, ks), (vd, vs) = (quantize_tokens(
+        torch.randn(shape, generator=g, device=dev), spec) for _ in range(2))
+    return kd, vd, ks, vs
+
+
+def _gathered_sdpa(q, kp, vp, ks, vs, table, pos, rep, dtype):
+    """The library yardstick of the paged kernels: PyTorch's sdpa over the
+    pages of each query row gathered (and dequantized) beforehand, which
+    the port never calls. q: (n, 1, heads, hd); table: (n, maxP); pos:
+    (n,). Returns the timed call."""
+    from paddle_tpu_torch.serving import attention as att
+
+    pt = table.long()
+    kg, vg = (att._gather(p, pt, sc).to(dtype).transpose(1, 2)
+              .repeat_interleave(rep, 1) for p, sc in ((kp, ks), (vp, vs)))
+    length = kg.shape[2]
+    allowed = (torch.arange(length, device=q.device)[None, :]
+               <= pos.long()[:, None])
+    mask = torch.where(allowed, 0.0, float("-inf")).to(dtype)[:, None, None]
+    qt = q.transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kg, vg, attn_mask=mask)
+
+
+def k6q_cases(rows, dev):
+    """K6q, the dequantizing paged decode, at the serving decode shape (b=8,
+    hd=128, page 16, 64 pages a row, positions spread over 0..1023) over
+    int8 and fp8 pools with bf16 queries."""
+    from paddle_tpu_torch.serving import attention as att
+    from paddle_tpu_torch.serving.kv_cache import PagedLayerCache
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.RandomState(9)
+    b, hd, ps, maxp = 8, 128, 16, 64
+    num_pages = b * maxp + 1
+    pos_np = np.linspace(0, 1023, b).astype(np.int32)
+    dtype = torch.bfloat16
+    main = None
+    for kv, heads, kvh in (("int8", 32, 32), ("fp8", 32, 32),
+                           ("int8", 32, 8)):
+        kp, vp, ks, vs = _pools(kvh, num_pages, ps, hd, kv, g, dev)
+        table = torch.from_numpy(
+            rng.permutation(np.arange(1, num_pages))[:b * maxp]
+            .reshape(b, maxp).astype(np.int32)).to(dev)
+        pos = torch.from_numpy(pos_np).to(dev)
+        q = torch.randn(b, 1, heads, hd, generator=g, device=dev).to(dtype)
+        cache = PagedLayerCache(kp, vp, table, k_scale=ks, v_scale=vs)
+        rep = heads // kvh
+        got = att.paged_decode_attention(q, cache, pos, rep)
+        ref = att._paged_decode_reference(q, cache, pos, rep)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        tol = check("K6q", err, dtype)
+        ms = time_ms(lambda: att.paged_decode_attention(q, cache, pos, rep))
+        plain_ms = time_ms(lambda: att._paged_decode_reference(
+            q, cache, pos, rep), 5, 1)
+        lib_ms = time_ms(_gathered_sdpa(q, kp, vp, ks, vs, table, pos, rep,
+                                        dtype))
+        toks = int((pos_np + 1).sum())
+        io = toks * 2 * kvh * (hd * kp.element_size() + 4) + nbytes(
+            q, got, table, pos)
+        bms, by = bound(io, 4 * heads * hd * toks, dtype)
+        label = f"{kv} pools, rep {rep}, b=8, positions 0..1023"
+        row = _row(dtype, label, err, tol, ms, plain_ms, lib_ms, bms, by,
+                   kv_dtype=kv)
+        _log_row("K6q", row)
+        rows.append(("K6q", row))
+        if kv == "int8" and rep == 1:
+            main = row
+        del kp, vp, ks, vs
+    return main
+
+
+# the flat step of the chunked LLaMA-7B serve: 8 decode tokens at positions
+# spread over 0..1023, then one 256-token chunk at 512..767, padded with
+# parked tokens to the engine's largest token bucket (8 + 256 + 8 x 8)
+FLAT_T = 328
+
+
+def k7_cases(rows, dev):
+    """K7, ragged paged attention, on the flat step above at LLaMA-7B
+    width (32 heads of 128, page 16, 64 pages a row; rows 0..7 decode, row
+    8 the chunk): bf16 and fp32 pools, then int8 and fp8 pools with bf16
+    queries; bf16 and int8 also at GQA rep 4 with 6 more parked tokens
+    among the real ones. Parked tokens must come out exactly zero."""
+    from paddle_tpu_torch.serving import attention as att
+    from paddle_tpu_torch.serving.kv_cache import PagedLayerCache
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    rng = np.random.RandomState(8)
+    hd, ps, maxp, nrows = 128, 16, 64, 9
+    cap = maxp * ps
+    num_pages = nrows * maxp + 1
+    main = {}
+    for kv in ("bf16", "fp32") + QUANT_KV:
+        dtype = torch.float32 if kv == "fp32" else torch.bfloat16
+        cases = [("rep 1", 32, 32, ())]
+        if kv in ("bf16", "int8"):
+            cases.append(("gqa rep 4, 6 parked", 32, 8,
+                          (2, 5, 108, 109, 110, 111)))
+        for label, heads, kvh, parked in cases:
+            kp, vp, ks, vs = _pools(kvh, num_pages, ps, hd, kv, g, dev)
+            table = torch.from_numpy(
+                rng.permutation(np.arange(1, num_pages))[:nrows * maxp]
+                .reshape(nrows, maxp).astype(np.int32)).to(dev)
+            pos_np = np.full((FLAT_T,), cap, np.int32)
+            rid_np = np.zeros((FLAT_T,), np.int32)
+            pos_np[:8] = np.linspace(0, cap - 1, 8).astype(np.int32)
+            rid_np[:8] = np.arange(8)
+            pos_np[8:264] = np.arange(512, 768)
+            rid_np[8:264] = 8
+            pos_np[list(parked)] = cap
+            pos = torch.from_numpy(pos_np).to(dev)[None]
+            rid = torch.from_numpy(rid_np).to(dev)
+            q = torch.randn(1, FLAT_T, heads, hd, generator=g,
+                            device=dev).to(dtype)
+            cache = PagedLayerCache(kp, vp, table, rid, k_scale=ks,
+                                    v_scale=vs, routing={})
+            rep = heads // kvh
+            got = att.ragged_paged_attention(q, cache, pos, rep)
+            ref = att._ragged_attention_reference(q, cache, pos, rep)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            name = "K7q" if kv in QUANT_KV else "K7"
+            tol = check(name, err, dtype)
+            live = pos_np < cap
+            zeros = float(got[0, torch.from_numpy(~live).to(dev)].abs().max())
+            if zeros != 0.0:
+                raise AssertionError(f"K7 {kv}: parked tokens gave {zeros}, "
+                                     "not zeros")
+            ms = time_ms(lambda: att.ragged_paged_attention(q, cache, pos,
+                                                            rep))
+            plain_ms = time_ms(lambda: att._ragged_attention_reference(
+                q, cache, pos, rep), 5, 1)
+            lib_ms = time_ms(_gathered_sdpa(
+                q[0][:, None], kp, vp, ks, vs, table[rid.long()], pos[0],
+                rep, dtype))
+            # each row's K/V read once up to its furthest real token, and
+            # q . k plus p . v for every (token, key) a token attends
+            span = {}
+            for p, r in zip(pos_np[live], rid_np[live]):
+                span[r] = max(span.get(r, 0), int(p) + 1)
+            per_pos = 2 * kvh * (hd * kp.element_size()
+                                 + (4 if kv in QUANT_KV else 0))
+            io = sum(span.values()) * per_pos + nbytes(q, got, table, pos,
+                                                       rid)
+            flops = 4 * heads * hd * int((pos_np[live] + 1).sum())
+            bms, by = bound(io, flops, dtype)
+            case = (f"{kv} pools, {label}: 8 decode tokens + a 256-token "
+                    f"chunk at 512, T={FLAT_T}")
+            row = _row(dtype, case, err, tol, ms, plain_ms, lib_ms, bms, by,
+                       kv_dtype=kv)
+            _log_row(name, row)
+            rows.append((name, row))
+            if label == "rep 1" and kv in ("bf16", "int8"):
+                main[name] = row
+            del kp, vp, ks, vs
     return main
 
 
@@ -803,23 +1010,90 @@ def serve(engine, prompts, late, max_new):
     return rids, time.perf_counter() - t0
 
 
-def phase_slice(seed, dev, profile=False, out_dir=None):
+def load_llama7b(seed, dev):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import norm
-    from paddle_tpu_torch.serving import ServingEngine
-    from paddle_tpu_torch.serving import attention as att
 
     cfg = LlamaConfig.llama7b()
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=seed)
     torch.cuda.synchronize()
+    for p in model.parameters():
+        p.requires_grad_(False)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[slice] LLaMA-7B ({cfg.num_hidden_layers} layers, hidden "
         f"{cfg.hidden_size}, {n_params / 1e9:.3f} B params, bf16) drawn on "
         f"the card in {time.perf_counter() - t0:.1f} s")
-    for p in model.parameters():
-        p.requires_grad_(False)
+    return model
+
+
+def serve_counters():
+    """The serving path's launch counters: (name, read, reset)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import norm
+    from paddle_tpu_torch.serving import attention as att
+
+    dec, rag = att.paged_decode_attention, att.ragged_paged_attention
+    return {"K1": (fa.flash_attention, "launches"),
+            "K4": (norm.norm_forward, "launches"),
+            "K6": (dec, "launches"), "K6q": (dec, "quant_launches"),
+            "K7": (rag, "launches"), "K7q": (rag, "quant_launches")}
+
+
+def zero_counters(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counters(counters):
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def rescore(model, engine, prompts, rids, tol, dev, tag):
+    """Re-score the longest and the shortest request with the no-cache
+    forward: wherever its top-2 logit margin exceeds `tol`, the engine's
+    greedy token must be its argmax. Returns (positions checked, positions
+    that differ, the largest margin among those)."""
+    checked = mismatched = total = 0
+    worst = 0.0
+    margins = []
+    lens = [len(p) for p in prompts]
+    order = np.argsort(lens)
+    for i in (order[-1], order[0]):
+        seq = engine.output(rids[i])
+        n = len(prompts[i])
+        with torch.no_grad():
+            logits = model(torch.tensor([seq], device=dev))[0].float()
+        if not torch.isfinite(logits).all():
+            raise AssertionError("non-finite logits in the no-cache forward")
+        top2 = logits[n - 1:-1].topk(2, dim=-1)
+        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        argmax = top2.indices[:, 0].cpu().numpy()
+        margins.extend(margin.tolist())
+        for j, tok in enumerate(seq[n:]):
+            total += 1
+            checked += bool(margin[j] > tol)
+            if int(argmax[j]) != tok:
+                mismatched += 1
+                worst = max(worst, float(margin[j]))
+                if margin[j] > tol:
+                    raise AssertionError(
+                        f"{tag}: request {rids[i]} position {n + j}: engine "
+                        f"token {tok} != no-cache argmax {int(argmax[j])} "
+                        f"with margin {margin[j]:.3f} > {tol}")
+    log(f"[{tag}] greedy check: {checked} of {total} generated positions had "
+        f"a top-2 margin > {tol} and all matched the no-cache argmax; "
+        f"{mismatched} positions differ, the largest margin among them "
+        f"{worst:.4f}; largest margins "
+        f"{[round(x, 4) for x in sorted(margins)[-5:]]}")
+    if checked == 0:
+        raise AssertionError(f"{tag}: greedy check compared no position")
+    return checked, mismatched, worst
+
+
+def phase_slice(model, seed, dev, profile=False, out_dir=None):
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.llama.config
     engine = ServingEngine(model, page_size=16, max_batch_size=8,
                            max_seq_len=1024, decode_horizon=8,
                            kv_dtype="bf16", device=dev)
@@ -829,16 +1103,15 @@ def phase_slice(seed, dev, profile=False, out_dir=None):
           1, 9)
     lens = rng.randint(32, 513, 8)
     prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
-    counters = {"K1": fa.flash_attention, "K4": norm.norm_forward,
-                "K6": att.paged_decode_attention}
+    counters = serve_counters()
     engine = ServingEngine(model, page_size=16, max_batch_size=8,
                            max_seq_len=1024, decode_horizon=8,
                            kv_dtype="bf16", device=dev)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    zero_counters(counters)
     rids, wall = serve(engine, prompts, 2, 32)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: n for k, n in read_counters(counters).items()
+                if k in ("K1", "K4", "K6")}
     stats = engine.stats()
     peak = torch.cuda.max_memory_allocated()
     tokens = stats["tokens_generated"]
@@ -858,36 +1131,8 @@ def phase_slice(seed, dev, profile=False, out_dir=None):
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    # re-score the longest and the shortest request without the cache
-    checked = mismatched = 0
-    worst = 0.0          # largest top-2 margin at a position that differs
-    order = np.argsort(lens)
-    for i in (order[-1], order[0]):
-        seq = engine.output(rids[i])
-        n = len(prompts[i])
-        with torch.no_grad():
-            logits = model(torch.tensor([seq], device=dev))[0].float()
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite logits in the no-cache forward")
-        top2 = logits[n - 1:-1].topk(2, dim=-1)
-        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
-        argmax = top2.indices[:, 0].cpu().numpy()
-        for j, tok in enumerate(seq[n:]):
-            checked += bool(margin[j] > MARGIN_TOL)
-            if int(argmax[j]) != tok:
-                mismatched += 1
-                worst = max(worst, float(margin[j]))
-                if margin[j] > MARGIN_TOL:
-                    raise AssertionError(
-                        f"request {rids[i]} position {n + j}: engine token "
-                        f"{tok} != no-cache argmax {int(argmax[j])} with "
-                        f"margin {margin[j]:.3f} > {MARGIN_TOL}")
-    log(f"[slice] greedy check: {checked} of 64 generated positions had a "
-        f"top-2 margin > {MARGIN_TOL} and all matched the no-cache argmax; "
-        f"{mismatched} positions differ, the largest margin among them "
-        f"{worst:.4f}")
-    if checked == 0:
-        raise AssertionError("greedy check compared no position")
+    checked, _, _ = rescore(model, engine, prompts, rids, MARGIN_TOL["bf16"],
+                            dev, "slice")
     prof = phase_profile(model, prompts, dev, out_dir) if profile else None
     br = stats["step_breakdown"]
     log("[slice] host wall by step phase (s): " + ", ".join(
@@ -902,6 +1147,102 @@ def phase_slice(seed, dev, profile=False, out_dir=None):
                 decode_tokens_per_s=stats["decode_tokens_per_s"],
                 peak_bytes=peak, checked=checked, prompt_lens=lens.tolist(),
                 profile=prof)
+
+
+def chunked_engine(model, dev, kv, ragged=True):
+    from paddle_tpu_torch.serving import ServingEngine
+
+    return ServingEngine(model, page_size=16, max_batch_size=8,
+                         max_seq_len=1024, decode_horizon=8,
+                         enable_chunked_prefill=True, prefill_chunk_tokens=256,
+                         enable_ragged_step=ragged, kv_dtype=kv, device=dev)
+
+
+def phase_serve_chunked(model, seed, dev, kv, n_requests=8, ragged=True,
+                        profile=False, out_dir=None):
+    """The chunked serve: `n_requests` greedy requests with prompts drawn
+    from 64..960 tokens (2-4 chunks of 256 for most), 32 new tokens each,
+    the last two arriving after two steps, on a fresh engine after an
+    unmeasured warm-up. Checks the launch counts of the path (ragged: K7 and
+    the decode kernel launch and K1 never does; chained: K1 launches through
+    the paged chunk prefill), the no-cache margin check, and prints
+    tokens/s, mean TTFT, decode tokens/s, the decode-stall sum, pool bytes
+    and peak memory."""
+    cfg = model.llama.config
+    tag = f"serve_{'chunked' if ragged else 'chained'}_{kv}"
+    rng = np.random.RandomState(seed + 1)
+    warm = chunked_engine(model, dev, kv, ragged)
+    serve(warm, [rng.randint(0, cfg.vocab_size, (n,)) for n in (300, 40)],
+          1, 9)
+    del warm
+    gc.collect()
+    lens = rng.randint(64, 961, n_requests)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
+    counters = serve_counters()
+    engine = chunked_engine(model, dev, kv, ragged)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    rids, wall = serve(engine, prompts, 2 if n_requests > 2 else 0, 32)
+    launches = read_counters(counters)
+    stats = engine.stats()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = stats["tokens_generated"]
+    ttfts = [stats["requests"][r]["ttft_s"] for r in rids]
+    stall = stats["latency"]["decode_stall"]
+    log(f"[{tag}] prompts {sorted(int(n) for n in lens)}, 32 new tokens "
+        f"each: {stats['num_finished']}/{n_requests} finished, {tokens} "
+        f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; mean TTFT "
+        f"{np.mean(ttfts) * 1e3:.1f} ms; decode "
+        f"{stats['decode_tokens_per_s']:.1f} tokens/s; decode stall sum "
+        f"{stall['sum']:.3f} s over {stall['count']} gaps; "
+        f"{stats['prefill_chunks']} chunks, {stats['ragged_steps']} ragged "
+        f"steps, {stats['decode_steps']} decode dispatches; pool "
+        f"{engine.cache.pool_bytes / 2**30:.3f} GiB ({kv}); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"[{tag}] launches in the served run: {launches}")
+    if stats["num_finished"] != n_requests or tokens != n_requests * 32:
+        raise AssertionError(f"{tag}: served run incomplete: "
+                             f"{stats['num_finished']} finished, {tokens} "
+                             "tokens")
+    quant = kv in QUANT_KV
+    dec = launches["K6q" if quant else "K6"]
+    if ragged:
+        want = {"K7q" if quant else "K7": launches["K7q" if quant else "K7"],
+                "K6q" if quant else "K6": dec, "K4": launches["K4"]}
+        if launches["K1"] != 0:
+            raise AssertionError(f"{tag}: K1 launched {launches['K1']} "
+                                 "times on the ragged path")
+    else:
+        want = {"K1": launches["K1"], "K6q" if quant else "K6": dec,
+                "K4": launches["K4"]}
+    missing = [k for k, n in want.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    checked, mismatched, worst = rescore(model, engine, prompts, rids,
+                                         MARGIN_TOL[kv], dev, tag)
+    prof = None
+    if profile:
+        # two steps of a fresh engine holding all the requests, once the
+        # first ones decode beside the later ones' chunks
+        engine = chunked_engine(model, dev, kv, ragged)
+        for p in prompts:
+            engine.add_request(p, max_new_tokens=32)
+        for _ in range(4):
+            engine.step()
+        prof = profile_window(f"{tag}_2_steps",
+                              lambda: (engine.step(), engine.step()),
+                              out_dir)
+    return dict(kv_dtype=kv, ragged=ragged, launches=launches,
+                tokens_per_s=tokens / wall, wall_s=wall,
+                mean_ttft_s=float(np.mean(ttfts)),
+                decode_tokens_per_s=stats["decode_tokens_per_s"],
+                decode_stall_sum_s=stall["sum"],
+                decode_stall_count=stall["count"],
+                pool_bytes=engine.cache.pool_bytes, peak_bytes=peak,
+                prefill_chunks=stats["prefill_chunks"],
+                ragged_steps=stats["ragged_steps"],
+                margin_checked=checked, margin_mismatched=mismatched,
+                margin_worst=worst, prompt_lens=lens.tolist(), profile=prof)
 
 
 def _device_us(evt):
@@ -987,17 +1328,27 @@ KERNELS = {
     "K6": dict(name="paged_decode_attention", route="cuda",
                source="paddle_tpu_torch/csrc/paged_decode.cu",
                replaces="paddle_tpu/serving/attention.py:530"),
+    "K6q": dict(name="paged_decode_attention_dequantizing", route="cuda",
+                source="paddle_tpu_torch/csrc/paged_decode.cu",
+                replaces="paddle_tpu/serving/attention.py:530"),
+    "K7": dict(name="ragged_paged_attention", route="cuda",
+               source="paddle_tpu_torch/csrc/ragged_paged.cu",
+               replaces="paddle_tpu/serving/attention.py:659"),
 }
 
 
 def summarize(main_rows, launches_by_path):
     """The kernels' JSON summary: each kernel's main-path row (the training
-    path's shapes for K1-K5, the serving path's for K6) and its launches,
-    summed over the paths that run it."""
+    path's shapes for K1-K5, the serving path's for K6, K6q and K7) and its
+    launches, summed over the paths that run it. K7's launches count both
+    its forms (fp32 / bf16 pools, and int8 / fp8 pools: K7q in the paths'
+    counts)."""
     out = []
     for k, meta in KERNELS.items():
         r = main_rows[k]
-        paths = {path: counts[k] for path, counts in launches_by_path.items()
+        paths = {path: counts.get(k, 0) + (counts.get("K7q", 0)
+                                           if k == "K7" else 0)
+                 for path, counts in launches_by_path.items()
                  if k in counts}
         entry = dict(meta, launches=sum(paths.values()),
                      launches_by_path=paths, max_abs_err=r["max_abs_err"],
@@ -1008,6 +1359,15 @@ def summarize(main_rows, launches_by_path):
         if k == "K1":
             entry["dropout_p"] = r.get("dropout_p", 0.0)
             entry["lse_max_abs_err"] = r.get("lse_err")
+        if k == "K7":
+            q = main_rows["K7q"]
+            entry["quantized"] = dict(
+                launches=sum(c.get("K7q", 0)
+                             for c in launches_by_path.values()),
+                max_abs_err=q["max_abs_err"], ms=q["ms"],
+                plain_ms=q["plain_ms"], bound_ms=q["bound_ms"],
+                bound_by=q["bound_by"], library_ms=q["library_ms"],
+                case=q["case"])
         out.append(entry)
     return {"kernels": out}
 
@@ -1020,8 +1380,8 @@ def main(argv=None):
                          "ptxas reports")
     ap.add_argument("--profile", action="store_true",
                     help="profile one prefill and two decode blocks of the "
-                         "served slice and one train step with "
-                         "torch.profiler")
+                         "served slice, two ragged steps of the chunked "
+                         "serve and one train step with torch.profiler")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1033,6 +1393,8 @@ def main(argv=None):
     k1_cases(rows, dev)         # the summary's K1 / K4 rows are the
     k4_cases(rows, dev)         # training path's (k1 / k45_train_cases)
     main_rows["K6"] = k6_cases(rows, dev)
+    main_rows["K6q"] = k6q_cases(rows, dev)
+    main_rows.update(k7_cases(rows, dev))
     main_rows["K1"] = k1_train_cases(rows, dev)
     main_rows.update(k23_cases(rows, dev))
     result["edge_cases"] = flash_edge_cases(dev)
@@ -1046,8 +1408,23 @@ def main(argv=None):
         torch.cuda.empty_cache()
 
     release()
-    result["slice"] = phase_slice(args.seed, dev, args.profile, args.out)
+    model = load_llama7b(args.seed, dev)
+    result["slice"] = phase_slice(model, args.seed, dev, args.profile,
+                                  args.out)
     launches["serve"] = result["slice"]["launches"]
+    release()
+    for kv in ("bf16",) + QUANT_KV:
+        r = phase_serve_chunked(model, args.seed, dev, kv,
+                                profile=args.profile and kv == "bf16",
+                                out_dir=args.out)
+        result[f"serve_chunked_{kv}"] = r
+        launches[f"serve_chunked_{kv}"] = r["launches"]
+        release()
+    r = phase_serve_chunked(model, args.seed, dev, "bf16", n_requests=3,
+                            ragged=False)
+    result["serve_chained"] = r
+    launches["serve_chained"] = r["launches"]
+    del model
     release()
     result["train"] = phase_train(args.seed, dev, args.profile, args.out)
     launches["train"] = result["train"]["launches"]

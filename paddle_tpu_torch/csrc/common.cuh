@@ -1,19 +1,35 @@
 // Shared helpers of the port's CUDA kernels: element conversion between
-// the storage types the kernels take (fp32, bf16) and fp32 compute, and
-// the error-string entry point every kernel library exports.
+// the storage types the kernels take (fp32, bf16, and the quantized KV
+// pools' int8 and fp8 e4m3) and fp32 compute, and the error-string entry
+// point every kernel library exports.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 
 // dtype codes passed across the C interface (the wrappers' _DTYPES maps)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
+
+// the quantized KV pool types, whose elements carry a per-slot scale
+template <typename T>
+constexpr bool kQuantized = std::is_same<T, int8_t>::value ||
+                            std::is_same<T, __nv_fp8_e4m3>::value;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>

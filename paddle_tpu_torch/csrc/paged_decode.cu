@@ -4,8 +4,10 @@
 // attention.py:530, pallas_call at :578, body `_paged_decode_kernel` :460):
 // for every batch row, its single query token attends over the K/V pages
 // its page-table row names, up to and including its own position `pos`.
-// Unquantized pools only (fp32 or bf16); the int8/fp8 variant is still to
-// be ported.
+// Pools are fp32 or bf16 (K6) or, as K6q, the dequantizing variant of the
+// TPU kernel (body :473-516): int8 or fp8 e4m3 pools with fp32 scale slabs
+// of shape (kvh, P, ps, 1), each K/V element times its slot's scale as it
+// is loaded, the scale read through the same page-table entry as the data.
 //
 // Semantics kept from the TPU kernel at the edges:
 //   - key columns past `pos` are masked; pages wholly past `pos` are not
@@ -20,7 +22,9 @@
 // What bounds it on an H100: bytes. At b=8 rows of 512 tokens, 32 kv
 // heads, hd=128, bf16, one layer's call must read 2 * 8*512*32*128*2 B =
 // 67 MB of K/V (~20 us at 3.35 TB/s) and does ~1 flop per byte read, far
-// below the ~295 flop/byte where the matrix units would take over.
+// below the ~295 flop/byte where the matrix units would take over. An
+// int8/fp8 pool halves those bytes and adds 8 bytes of scales per token
+// and kv head.
 //
 // Design (split-KV, "flash-decoding"): the TPU walks one row's pages on a
 // sequential grid axis; here every (kv head, row, split of kSplitTokens
@@ -66,12 +70,15 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* out) {
   }
 }
 
-// grid (kvh, b, n_splits); VEC = head_dim / 32; REP = heads / kvh
+// grid (kvh, b, n_splits); VEC = head_dim / 32; REP = heads / kvh;
+// k_scale / v_scale are read only for int8 / fp8 pools
 template <typename TQ, typename TKV, int VEC, int REP>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_split_kernel(const TQ* __restrict__ q,
                               const TKV* __restrict__ k_pool,
                               const TKV* __restrict__ v_pool,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
                               const int* __restrict__ page_table,
                               const int* __restrict__ pos_arr,
                               float* __restrict__ part_ml,
@@ -119,10 +126,18 @@ __global__ void __launch_bounds__(kThreads)
       const int t = t0 + u * kWarps;
       live[u] = t < t_end;
       if (live[u]) {
-        const long long off =
-            ((head_base + pt[t / ps]) * ps + t % ps) * HD + lane * VEC;
+        const long long slot = (head_base + pt[t / ps]) * ps + t % ps;
+        const long long off = slot * HD + lane * VEC;
         load_vec<TKV, VEC>(k_pool + off, kk[u]);
         load_vec<TKV, VEC>(v_pool + off, vv[u]);
+        if constexpr (ptt::kQuantized<TKV>) {
+          const float ks = k_scale[slot], vs = v_scale[slot];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) {
+            kk[u][i] *= ks;
+            vv[u][i] *= vs;
+          }
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) kk[u][i] = vv[u][i] = 0.f;
@@ -213,57 +228,59 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part_ml,
       ptt::from_f32<TQ>(sum_a / fmaxf(sum_l, 1e-30f));
 }
 
+// the pointer and size arguments every launch passes along
+struct Args {
+  const void *q, *kp, *vp;
+  const float *ks, *vs;
+  const int *pt, *pos;
+  void* out;
+  float *ml, *acc;
+  int b, heads, kvh, num_pages, ps, max_pages, n_splits;
+  float scale;
+  cudaStream_t st;
+};
+
 template <typename TQ, typename TKV, int VEC, int REP>
-int launch(const void* q, const void* kp, const void* vp, const int* pt,
-           const int* pos, void* out, float* part_ml, float* part_acc, int b,
-           int heads, int kvh, int num_pages, int ps, int max_pages,
-           int n_splits, float scale, cudaStream_t st) {
-  dim3 grid(kvh, b, n_splits);
-  paged_decode_split_kernel<TQ, TKV, VEC, REP><<<grid, kThreads, 0, st>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), pt, pos, part_ml, part_acc, heads, kvh,
-      num_pages, ps, max_pages, scale);
+int launch(const Args& a) {
+  dim3 grid(a.kvh, a.b, a.n_splits);
+  paged_decode_split_kernel<TQ, TKV, VEC, REP><<<grid, kThreads, 0, a.st>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
+      static_cast<const TKV*>(a.vp), a.ks, a.vs, a.pt, a.pos, a.ml, a.acc,
+      a.heads, a.kvh, a.num_pages, a.ps, a.max_pages, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  paged_decode_merge_kernel<TQ><<<dim3(heads, b), VEC * 32, 0, st>>>(
-      part_ml, part_acc, static_cast<TQ*>(out), heads, VEC * 32, n_splits);
+  paged_decode_merge_kernel<TQ><<<dim3(a.heads, a.b), VEC * 32, 0, a.st>>>(
+      a.ml, a.acc, static_cast<TQ*>(a.out), a.heads, VEC * 32, a.n_splits);
   return (int)cudaGetLastError();
 }
 
 template <typename TQ, typename TKV, int VEC>
-int dispatch_rep(int rep, const void* q, const void* kp, const void* vp,
-                 const int* pt, const int* pos, void* out, float* ml,
-                 float* acc, int b, int heads, int kvh, int num_pages, int ps,
-                 int max_pages, int n_splits, float scale, cudaStream_t st) {
-#define PTT_REP(R)                                                          \
-  if (rep == R)                                                             \
-  return launch<TQ, TKV, VEC, R>(q, kp, vp, pt, pos, out, ml, acc, b, heads, \
-                                 kvh, num_pages, ps, max_pages, n_splits,   \
-                                 scale, st)
-  PTT_REP(1);
-  PTT_REP(2);
-  PTT_REP(4);
-  PTT_REP(8);
-#undef PTT_REP
+int dispatch_rep(int rep, const Args& a) {
+  if (rep == 1) return launch<TQ, TKV, VEC, 1>(a);
+  if (rep == 2) return launch<TQ, TKV, VEC, 2>(a);
+  if (rep == 4) return launch<TQ, TKV, VEC, 4>(a);
+  if (rep == 8) return launch<TQ, TKV, VEC, 8>(a);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV>
-int dispatch_hd(int hd, int rep, const void* q, const void* kp,
-                const void* vp, const int* pt, const int* pos, void* out,
-                float* ml, float* acc, int b, int heads, int kvh,
-                int num_pages, int ps, int max_pages, int n_splits,
-                float scale, cudaStream_t st) {
-#define PTT_HD(V)                                                           \
-  if (hd == V * 32)                                                         \
-  return dispatch_rep<TQ, TKV, V>(rep, q, kp, vp, pt, pos, out, ml, acc, b, \
-                                  heads, kvh, num_pages, ps, max_pages,     \
-                                  n_splits, scale, st)
-  PTT_HD(1);
-  PTT_HD(2);
-  PTT_HD(4);
-  PTT_HD(8);
-#undef PTT_HD
+int dispatch_hd(int hd, int rep, const Args& a) {
+  if (hd == 32) return dispatch_rep<TQ, TKV, 1>(rep, a);
+  if (hd == 64) return dispatch_rep<TQ, TKV, 2>(rep, a);
+  if (hd == 128) return dispatch_rep<TQ, TKV, 4>(rep, a);
+  if (hd == 256) return dispatch_rep<TQ, TKV, 8>(rep, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TQ>
+int dispatch_kv(int kv_dtype, int hd, int rep, const Args& a) {
+  if (kv_dtype == ptt::kF32) return dispatch_hd<TQ, float>(hd, rep, a);
+  if (kv_dtype == ptt::kBF16)
+    return dispatch_hd<TQ, __nv_bfloat16>(hd, rep, a);
+  if (a.ks == nullptr || a.vs == nullptr) return (int)cudaErrorInvalidValue;
+  if (kv_dtype == ptt::kI8) return dispatch_hd<TQ, int8_t>(hd, rep, a);
+  if (kv_dtype == ptt::kFP8)
+    return dispatch_hd<TQ, __nv_fp8_e4m3>(hd, rep, a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -274,14 +291,17 @@ extern "C" int ptt_paged_decode_splits(int max_pages, int ps) {
   return (max_pages * ps + kSplitTokens - 1) / kSplitTokens;
 }
 
-// q/out: contiguous (b, 1, heads, hd) of q_dtype; k_pool/v_pool: contiguous
-// (kvh, num_pages, ps, hd) of kv_dtype (0 fp32, 1 bf16); page_table:
+// q/out: contiguous (b, 1, heads, hd) of q_dtype (0 fp32, 1 bf16);
+// k_pool/v_pool: contiguous (kvh, num_pages, ps, hd) of kv_dtype (0 fp32,
+// 1 bf16, 2 int8, 3 fp8 e4m3); k_scale/v_scale: contiguous fp32 (kvh,
+// num_pages, ps, 1) for int8/fp8 pools, else null; page_table:
 // (b, max_pages) int32; pos: (b,) int32; part_ml / part_acc: fp32 scratch
 // of b*heads*n_splits*2 and b*heads*n_splits*hd elements, n_splits from
 // ptt_paged_decode_splits. hd in {32, 64, 128, 256}, heads/kvh in
 // {1, 2, 4, 8}. Returns cudaGetLastError() after the launches.
 extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
-                                const void* v_pool, const void* page_table,
+                                const void* v_pool, const void* k_scale,
+                                const void* v_scale, const void* page_table,
                                 const void* pos, void* out, void* part_ml,
                                 void* part_acc, int b, int heads, int kvh,
                                 int hd, int num_pages, int ps, int max_pages,
@@ -289,24 +309,18 @@ extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
                                 void* stream) {
   if (kvh < 1 || heads % kvh != 0 || ps < 1 || max_pages < 1)
     return (int)cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool,
+               static_cast<const float*>(k_scale),
+               static_cast<const float*>(v_scale),
+               static_cast<const int*>(page_table),
+               static_cast<const int*>(pos), out,
+               static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+               b, heads, kvh, num_pages, ps, max_pages,
+               ptt_paged_decode_splits(max_pages, ps), scale,
+               static_cast<cudaStream_t>(stream)};
   const int rep = heads / kvh;
-  const int n_splits = ptt_paged_decode_splits(max_pages, ps);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto pt = static_cast<const int*>(page_table);
-  auto ps_ = static_cast<const int*>(pos);
-  auto ml = static_cast<float*>(part_ml);
-  auto acc = static_cast<float*>(part_acc);
-#define PTT_DISPATCH(TQ, TKV)                                                \
-  return dispatch_hd<TQ, TKV>(hd, rep, q, k_pool, v_pool, pt, ps_, out, ml,  \
-                              acc, b, heads, kvh, num_pages, ps, max_pages,  \
-                              n_splits, scale, st)
-  if (q_dtype == ptt::kF32 && kv_dtype == ptt::kF32) PTT_DISPATCH(float, float);
-  if (q_dtype == ptt::kBF16 && kv_dtype == ptt::kBF16)
-    PTT_DISPATCH(__nv_bfloat16, __nv_bfloat16);
-  if (q_dtype == ptt::kF32 && kv_dtype == ptt::kBF16)
-    PTT_DISPATCH(float, __nv_bfloat16);
-  if (q_dtype == ptt::kBF16 && kv_dtype == ptt::kF32)
-    PTT_DISPATCH(__nv_bfloat16, float);
-#undef PTT_DISPATCH
+  if (q_dtype == ptt::kF32) return dispatch_kv<float>(kv_dtype, hd, rep, a);
+  if (q_dtype == ptt::kBF16)
+    return dispatch_kv<__nv_bfloat16>(kv_dtype, hd, rep, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,17 @@ the `forward(input_ids, caches=..., start_pos=...)` cache protocol
   carries BEFORE block k's tokens are pulled to the host. Each block's
   tokens start their copy to pinned host memory as soon as the block is
   enqueued, and the drain waits on that copy's event alone, so Python
-  bookkeeping and scheduling run while the card computes.
+  bookkeeping and scheduling run while the card computes;
+- chunked prefill (`enable_chunked_prefill=True`): prompts run in
+  page-aligned chunks of `prefill_chunk_tokens`, scheduled beside the
+  running decoders under a per-step token budget. With the ragged step
+  (`enable_ragged_step=True`, the default) a step that carries chunk work
+  is ONE flat (1, T) forward over every row's tokens through the ragged
+  attention kernel, then the decode body for horizon-1 iterations over
+  the decode rows; without it, the decode block runs and each chunk is
+  its own prefill call at its offset ("mixed" steps);
+- quantized KV pools (`kv_dtype="int8"` / `"fp8"`): K/V quantized once at
+  page-write time with per-slot fp32 scales (serving.quant).
 
 PyTorch runs eagerly, so there are no compiled executables to bound; the
 KV pools are CUDA tensors written in place (`serving.attention`).
@@ -24,14 +34,15 @@ KV pools are CUDA tensors written in place (`serving.attention`).
 Sampling. Greedy (temperature 0) is exact argmax. Otherwise a request's
 n-th sampled token uses Gumbel noise that is a counter-based function of
 (request seed, n, vocab index) computed on the device, so a stream depends
-neither on the decode horizon nor on the batch it rode in, and survives
-preemption. The JAX engine's threefry bits are not reproduced.
+neither on the decode horizon nor on the batch it rode in, survives
+preemption, and is the same chunked or unchunked: an intermediate chunk
+draws nothing and a final chunk samples at the request's next draw index.
+The JAX engine's threefry bits are not reproduced.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item rather than ignored: prefix caching, chunked prefill and the ragged
-step, speculative decoding, tensor parallelism, quantized KV pools, the
-request journal, fault injection, deadlines, SLO classes, the flight
-recorder and post-mortem dumps.
+item rather than ignored: prefix caching, speculative decoding, tensor
+parallelism, the request journal, fault injection, deadlines, SLO classes,
+the flight recorder and post-mortem dumps.
 """
 from __future__ import annotations
 
@@ -49,6 +60,7 @@ from ..ops.dropout_mask import mul32 as _mul32
 from .attention import advance_positions
 from .kv_cache import (KV_DTYPES, PagedKVCache, host_to_device,
                        overflow_position, pages_for)
+from .ragged import build_ragged_inputs, token_buckets
 from .resilience import TERMINAL_STATUSES
 from .scheduler import Request, SamplingParams, Scheduler
 
@@ -134,8 +146,14 @@ class ServingObs:
         c, g, h = registry.counter, registry.gauge, registry.histogram
         self.prefill_steps = c("serving_prefill_steps_total",
                                "prefill dispatches")
+        self.prefill_chunks = c("serving_prefill_chunks_total",
+                                "chunked-prefill chunk dispatches")
         self.decode_steps = c("serving_decode_steps_total",
                               "decode-block dispatches")
+        self.ragged_steps = c("serving_ragged_steps_total",
+                              "flat ragged mixed-step dispatches (one flat "
+                              "forward carrying the step's decode rows AND "
+                              "prefill chunks)")
         self.tokens = c("serving_tokens_generated_total",
                         "tokens emitted to the host")
         self.host_syncs = c("serving_host_syncs_total",
@@ -158,6 +176,13 @@ class ServingObs:
             "serving_inter_token_seconds",
             "per-token gap between host-visible emissions (a decode "
             "block's gap is spread evenly over its tokens)")
+        # the head-of-line metric chunked prefill exists to shrink: the
+        # wall gap between consecutive decode dispatches while some
+        # running request is decode-ready
+        self.decode_stall = h(
+            "serving_decode_stall_seconds",
+            "gap between consecutive decode-block dispatches while "
+            "requests are running")
         # wall time per step by phase: schedule (policy + page
         # reservation), assemble (host-side batch packing), dispatch
         # (enqueueing the block's work; asynchronous, so NOT device time)
@@ -174,6 +199,26 @@ class ServingObs:
                             "allocatable KV pages right now")
         self.kv_util = g("serving_kv_page_utilization",
                          "fraction of allocatable KV pages in use")
+
+    def bind_kv_pool(self, kv_dtype: str, pool_bytes: int,
+                     fp32_pool_bytes: int,
+                     rms_error: Optional[float] = None) -> None:
+        """KV-pool capacity gauges: pool bytes (data + scale slabs) by
+        storage format, plus, for quantized pools, the capacity ratio
+        against an equal-page fp32 pool and the construction-time
+        quantization-error probe."""
+        r = self.registry
+        r.gauge("serving_kv_pool_bytes",
+                "bytes held by the paged KV pools (data + scale slabs)",
+                labels={"kv_dtype": kv_dtype}).set(pool_bytes)
+        if rms_error is not None:
+            r.gauge("serving_kv_capacity_ratio",
+                    "fp32 pool bytes / this pool's bytes at equal page "
+                    "count").set(fp32_pool_bytes / pool_bytes)
+            r.gauge("serving_kv_quant_rms_error",
+                    "quantize->dequantize RMS relative error, one-shot "
+                    "construction-time probe on gaussian K/V"
+                    ).set(rms_error)
 
     # --------------------------------------------------- scheduler hooks
     def preempted(self, req: Request) -> None:
@@ -194,11 +239,8 @@ class ServingObs:
 # ROADMAP item that ports each
 _NOT_PORTED = {
     "enable_prefix_caching": "queue 1, S2 (prefix cache)",
-    "enable_chunked_prefill": "queue 1, S3 (chunked prefill, ragged "
-                              "step, kernel K7)",
     "spec_config": "queue 1, S4 (speculative decoding)",
     "tp_size": "queue 1, S5 (tensor-parallel serving)",
-    "kv_dtype": "queue 1, S6 (int8/fp8 KV pools, K6 dequant variant)",
     "journal": "queue 1, S7 (journal and recovery)",
     "fault_injector": "queue 1, S8 (resilience: fault injection, "
                       "deadlines)",
@@ -226,13 +268,16 @@ class ServingEngine:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  kv_dtype: str = "fp32",
                  decode_horizon: int = 8,
+                 enable_chunked_prefill: bool = False,
+                 prefill_chunk_tokens: int = 256,
+                 max_num_batched_tokens: Optional[int] = None,
+                 enable_ragged_step: bool = True,
                  enable_metrics: bool = True,
                  metrics: Optional[MetricsRegistry] = None,
                  max_waiting: Optional[int] = None,
                  max_preemptions: Optional[int] = 8,
                  device=None,
                  enable_prefix_caching: bool = False,
-                 enable_chunked_prefill: bool = False,
                  spec_config=None,
                  tp_size: int = 1,
                  journal=None,
@@ -244,7 +289,6 @@ class ServingEngine:
 
         for knob, value in (
                 ("enable_prefix_caching", enable_prefix_caching),
-                ("enable_chunked_prefill", enable_chunked_prefill),
                 ("spec_config", spec_config), ("journal", journal),
                 ("fault_injector", fault_injector),
                 ("slo_classes", slo_classes),
@@ -254,9 +298,7 @@ class ServingEngine:
                 raise _not_ported(knob, value)
         if int(tp_size) != 1:
             raise _not_ported("tp_size", tp_size)
-        if kv_dtype in ("int8", "fp8"):
-            raise _not_ported("kv_dtype", kv_dtype)
-        if kv_dtype not in KV_DTYPES:
+        if kv_dtype not in KV_DTYPES and kv_dtype not in ("int8", "fp8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}: expected one "
                              "of 'fp32', 'bf16', 'int8', 'fp8'")
         self.device = resolve_device(device)
@@ -276,6 +318,40 @@ class ServingEngine:
         self.decode_horizon = int(decode_horizon)
         if self.decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
+        # chunked prefill: page-aligned chunks co-scheduled with decode
+        # under a per-step token budget. The chunk width must be a
+        # positive multiple of page_size (chunk starts stay page-aligned)
+        # and the budget must fit one chunk, or prefill never progresses
+        self.enable_chunked_prefill = bool(enable_chunked_prefill)
+        if self.enable_chunked_prefill:
+            self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+            if self.prefill_chunk_tokens < page_size or \
+                    self.prefill_chunk_tokens % page_size:
+                raise ValueError(
+                    f"prefill_chunk_tokens ({prefill_chunk_tokens}) must "
+                    f"be a positive multiple of page_size ({page_size})")
+            if max_num_batched_tokens is None:
+                # one full chunk always fits beside a full decode batch
+                max_num_batched_tokens = (self.prefill_chunk_tokens
+                                          + max_batch_size
+                                          * self.decode_horizon)
+            self.max_num_batched_tokens = int(max_num_batched_tokens)
+            if self.max_num_batched_tokens < self.prefill_chunk_tokens:
+                raise ValueError(
+                    f"max_num_batched_tokens ({max_num_batched_tokens}) "
+                    "must be >= prefill_chunk_tokens "
+                    f"({self.prefill_chunk_tokens})")
+            # ragged mixed steps (on by default under chunking): a step
+            # with chunk work is ONE flat forward, padded to a token bucket
+            self.enable_ragged_step = bool(enable_ragged_step)
+            self.token_buckets = (
+                token_buckets(max_batch_size, self.max_num_batched_tokens)
+                if self.enable_ragged_step else None)
+        else:
+            self.prefill_chunk_tokens = None
+            self.max_num_batched_tokens = None
+            self.enable_ragged_step = False
+            self.token_buckets = None
         if num_pages is None:
             # worst case every slot runs a full-length sequence, +1 null
             num_pages = max_batch_size * self.max_pages_per_seq + 1
@@ -287,10 +363,14 @@ class ServingEngine:
                      if self.metrics is not None else None)
         if self.metrics is not None:
             self.cache.allocator.bind_metrics(self.metrics)
-            self.metrics.gauge(
-                "serving_kv_pool_bytes", "bytes held by the paged KV pools",
-                labels={"kv_dtype": self.cache.kv_dtype}).set(
-                    self.cache.pool_bytes)
+            c = self.cache
+            rms = None
+            if c.quantized:
+                from .quant import measure_roundtrip_error
+
+                rms = measure_roundtrip_error(c.quant_spec, c.head_dim)
+            self._obs.bind_kv_pool(c.kv_dtype, c.pool_bytes,
+                                   self._fp32_pool_bytes(), rms)
         self.prefill_buckets = tuple(sorted(
             prefill_buckets or _default_buckets(self.max_seq_len)))
         if self.prefill_buckets[-1] < self.max_seq_len:
@@ -303,7 +383,16 @@ class ServingEngine:
                                    drain_hook=self._drain_for_scheduler,
                                    obs=self._obs, max_waiting=max_waiting,
                                    max_preemptions=max_preemptions,
-                                   max_prefill_tokens=self.prefill_buckets[-1])
+                                   # chunked prefill takes any folded
+                                   # length: no bucket ceiling to guard
+                                   max_prefill_tokens=(
+                                       None if self.enable_chunked_prefill
+                                       else self.prefill_buckets[-1]),
+                                   prefill_chunk_tokens=(
+                                       self.prefill_chunk_tokens),
+                                   max_num_batched_tokens=(
+                                       self.max_num_batched_tokens),
+                                   ragged_steps=self.enable_ragged_step)
         self.requests: Dict[int, Request] = {}
         # per-request sampling state: the seed, and how many tokens the
         # request has sampled so far (its next draw index)
@@ -315,6 +404,15 @@ class ServingEngine:
         # schedule(); step() returns them ahead of its own
         self._spill: List[Tuple[int, int]] = []
         self._last_drain_t = 0.0
+        # perf_counter of the latest decode dispatch, cleared whenever no
+        # running request is decode-ready, so the decode-stall histogram
+        # only sees gaps while some request was being served
+        self._last_decode_dispatch_t: Optional[float] = None
+
+    def _fp32_pool_bytes(self) -> int:
+        c = self.cache
+        return (c.num_layers * c.num_pages * c.page_size * 2
+                * c.num_kv_heads * c.head_dim * 4)
 
     # ----------------------------------------------------------- request API
     def add_request(self, prompt_ids, max_new_tokens: int = 32,
@@ -336,7 +434,10 @@ class ServingEngine:
                 f"prompt ({len(prompt)}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_seq_len "
                 f"{self.max_seq_len}")
-        if len(prompt) > self.prefill_buckets[-1]:
+        if not self.enable_chunked_prefill \
+                and len(prompt) > self.prefill_buckets[-1]:
+            # chunked prefill has no bucket ceiling: any prompt under
+            # max_seq_len runs chunk by chunk
             raise ValueError(
                 f"prompt length {len(prompt)} exceeds the largest "
                 f"prefill bucket {self.prefill_buckets[-1]}")
@@ -385,6 +486,11 @@ class ServingEngine:
         """One scheduler decision + at most one dispatch. Returns the
         (request_id, token) pairs that reached the host this step: a
         decode block's tokens surface one step AFTER its dispatch."""
+        if not any(r.prefill_done for r in self.scheduler.running):
+            # decode-stall gaps only count while some request continuously
+            # wanted decode steps: a wave boundary, or a stretch where
+            # every running request is mid-prefill, resets the clock
+            self._last_decode_dispatch_t = None
         t_sched = time.perf_counter()
         decision = self.scheduler.schedule()   # drain_hook may spill here
         if self._obs is not None:
@@ -395,7 +501,31 @@ class ServingEngine:
             return spilled + self._prefill(decision.prefill)
         if decision.kind == "decode":
             return spilled + self._decode(decision.decode)
+        if decision.kind == "ragged":
+            return spilled + self._ragged_step(decision)
+        if decision.kind == "mixed":
+            return spilled + self._mixed_step(decision)
         return spilled + self._drain_pending()
+
+    def _mixed_step(self, decision) -> List[Tuple[int, int]]:
+        """One chained chunked-prefill step: the decode block dispatches
+        FIRST (its drain overlaps the chunks' device time), then each
+        scheduled chunk runs as its own prefill at its offset, on the
+        same stream. Intermediate chunks sync nothing."""
+        events: List[Tuple[int, int]] = []
+        if decision.decode:
+            events.extend(self._decode(decision.decode))
+        elif self._pending is not None:
+            events.extend(self._drain_pending())
+        for task in decision.chunks:
+            if task.req.status != "running":
+                continue    # finalized mid-step (cancel)
+            if task.start != task.req.num_computed_tokens:
+                # stale extent: the request was preempted (and possibly
+                # re-admitted) after this task was queued
+                continue
+            events.extend(self._chunk_prefill(task))
+        return events
 
     def drain_all(self) -> List[Tuple[int, int]]:
         """Flush everything already computed out to the caller."""
@@ -489,6 +619,7 @@ class ServingEngine:
                 page_table), start_pos=0)
             tok = _sample_batch(logits[:, len(prompt) - 1], knobs, draws)
             token = int(tok[0])                # the prefill's host sync
+        req.num_computed_tokens = len(prompt)
         now = time.perf_counter()
         o = self._obs
         prev_t = req.last_token_t              # set => this is a re-prefill
@@ -504,7 +635,177 @@ class ServingEngine:
             o.inter_token.observe(max(now - prev_t, 0.0))
         return events
 
+    # ------------------------------------------------------ chunked prefill
+    def _chunk_prefill(self, task) -> List[Tuple[int, int]]:
+        """One scheduled prefill chunk at its offset, attending over the
+        request's earlier pages through its page table. Intermediate
+        chunks write K/V and return without a host sync or a draw; the
+        final chunk samples the first token at the request's next draw
+        index, exactly like the tail of `_prefill`."""
+        t_in = time.perf_counter()
+        req, start, n = task.req, task.start, task.length
+        final = task.is_final
+        dev = self.device
+        ids = host_to_device(np.asarray([req.prompt[start:start + n]],
+                                        np.int64), dev)
+        page_table = self.cache.page_table_array([req.pages],
+                                                 self.max_pages_per_seq)
+        # the offset rides as a tensor, so even a first chunk at 0 takes
+        # the paged path every chunk takes (serving.attention)
+        offset = host_to_device(np.asarray([start], np.int64), dev)
+        if final:
+            knobs = self._knobs([req], 1)
+            draws = host_to_device(
+                np.asarray([self._draws[req.request_id]], np.int64), dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = self.model(ids, caches=self.cache.layer_views(
+                page_table), start_pos=offset)
+            if final:
+                tok = _sample_batch(logits[:, n - 1], knobs, draws)
+                token = int(tok[0])            # the final chunk's host sync
+        req.num_computed_tokens = start + n
+        now = time.perf_counter()
+        o = self._obs
+        if o is not None:
+            o.prefill_chunks.inc()
+            o.dispatches.inc()
+            o.prefill_seconds.inc(now - t0)
+            o.step_phase["assemble"].observe(t0 - t_in)
+            o.step_phase["dispatch"].observe(now - t0)
+        if not final:
+            return []
+        prev_t = req.last_token_t              # set => this is a re-prefill
+        if o is not None:
+            o.prefill_steps.inc()
+            o.host_syncs.inc()
+        events = [self._emit(req, token, now)]
+        if o is not None and prev_t is not None:
+            o.inter_token.observe(max(now - prev_t, 0.0))
+        return events
+
+    # ---------------------------------------------------------- ragged step
+    def _ragged_step(self, decision) -> List[Tuple[int, int]]:
+        """One flat ragged step: iteration 0 is a single (1, T) forward
+        carrying every row's input tokens - each decode row's one token
+        and every chunk's extent, routed through their own page-table rows
+        by the ragged attention kernel - followed by the decode body for
+        horizon-1 iterations over the decode rows. A final chunk is a row
+        with an emit budget of 1, an intermediate chunk a row with budget
+        0. Flat inputs come from host request state, so any pending block
+        drains FIRST; the record this step leaves drains under the next
+        step's device time, so a final chunk's token surfaces at the next
+        drain."""
+        events = self._drain_pending()
+        t_in = time.perf_counter()      # assemble starts after the drain
+        decode = [r for r in decision.decode if r.status == "running"]
+        chunks = [t for t in decision.chunks
+                  if t.req.status == "running"
+                  and t.start == t.req.num_computed_tokens]
+        if not chunks:
+            # every chunk went stale during the drain: plain decode
+            return events + (self._decode(decode) if decode else [])
+        max_pages = self.max_pages_per_seq
+        batch = build_ragged_inputs(
+            decode, chunks, buckets=self.token_buckets,
+            max_batch=self.max_batch_size, horizon=self.decode_horizon,
+            page_size=self.page_size, max_pages=max_pages,
+            draws=self._draws)
+        if batch is None:
+            return events
+        dev = self.device
+        page_tables = self.cache.page_table_array(batch.page_lists,
+                                                  max_pages)
+        flat_ids, last_idx, tokens = (
+            host_to_device(x.astype(np.int64), dev)
+            for x in (batch.flat_ids, batch.last_idx, batch.tokens))
+        flat_pos, row_ids, positions, remaining, draws = (
+            host_to_device(x, dev)
+            for x in (batch.flat_pos, batch.row_ids, batch.positions,
+                      batch.remaining, batch.draws))
+        knobs = self._knobs(batch.reqs, self.max_batch_size)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = self.model(
+                flat_ids, caches=self.cache.layer_views(page_tables,
+                                                        row_ids),
+                start_pos=flat_pos)
+            nxt = _sample_batch(logits[0, last_idx], knobs, draws)
+            emit, tokens, positions, draws, remaining = self._advance(
+                nxt, tokens, positions, draws, knobs, remaining, max_pages)
+            emitted = [emit]
+            if decode:
+                # chunk rows are parked now; a chunk-only step skips the
+                # iterations in which every row would be dead
+                views = self.cache.layer_views(page_tables)
+                for _ in range(self.decode_horizon - 1):
+                    emit, tokens, positions, draws, remaining = \
+                        self._decode_iter(views, tokens, positions, draws,
+                                          knobs, remaining, max_pages)
+                    emitted.append(emit)
+            emitted = torch.stack(emitted, dim=1)
+        host, event = _start_host_copy(emitted)
+        for req, n in zip(batch.reqs, batch.incr):
+            req.inflight += n
+        now = time.perf_counter()
+        o = self._obs
+        for task in chunks:
+            task.req.num_computed_tokens = task.start + task.length
+            if o is not None:
+                o.prefill_chunks.inc()
+                if task.is_final:
+                    o.prefill_steps.inc()
+        if o is not None:
+            o.ragged_steps.inc()
+            o.dispatches.inc()
+            o.step_phase["assemble"].observe(t0 - t_in)
+            o.step_phase["dispatch"].observe(now - t0)
+            if decode:
+                o.decode_steps.inc()
+                if self._last_decode_dispatch_t is not None:
+                    o.decode_stall.observe(
+                        max(t0 - self._last_decode_dispatch_t, 0.0))
+        if decode:
+            self._last_decode_dispatch_t = t0
+        if decode or any(t.is_final for t in chunks):
+            self._pending = {
+                "kind": "ragged",
+                "rids": tuple(r.request_id for r in batch.reqs),
+                "reqs": list(batch.reqs), "incr": list(batch.incr),
+                "host": host, "event": event, "t0": t0,
+            }
+        # else: intermediate chunks only - nothing can emit, so no record
+        # (and no host sync) is left behind
+        return events
+
     # --------------------------------------------------------------- decode
+    def _advance(self, nxt, tokens, positions, draws, knobs, remaining,
+                 max_pages: int):
+        """The decode body's bookkeeping after sampling `nxt`: EOS and
+        budget masking, the draw counters, the position advance (dead rows
+        park). Returns (emitted, tokens, positions, draws, remaining)."""
+        eos_ids = knobs["eos_ids"]
+        alive = remaining > 0
+        hit_eos = alive & (eos_ids >= 0) & (nxt == eos_ids)
+        emit = torch.where(alive, nxt, torch.full_like(nxt, PAD_TOKEN))
+        remaining = torch.where(alive, remaining - 1, remaining)
+        remaining = torch.where(hit_eos, torch.zeros_like(remaining),
+                                remaining)
+        tokens = torch.where(alive, nxt, tokens)
+        draws = draws + alive.to(draws.dtype)
+        positions = advance_positions(positions, remaining > 0, max_pages,
+                                      self.page_size)
+        return emit, tokens, positions, draws, remaining
+
+    def _decode_iter(self, views, tokens, positions, draws, knobs,
+                     remaining, max_pages: int):
+        """One model step of every row with sampling and `_advance`."""
+        logits, _ = self.model(tokens[:, None], caches=views,
+                               start_pos=positions)
+        nxt = _sample_batch(logits[:, 0], knobs, draws)
+        return self._advance(nxt, tokens, positions, draws, knobs,
+                             remaining, max_pages)
+
     def _decode_block(self, tokens, page_tables, positions, draws, knobs,
                       remaining):
         """`decode_horizon` model steps with sampling, EOS/budget masking
@@ -513,23 +814,11 @@ class ServingEngine:
         next chained block consumes."""
         max_pages = page_tables.shape[1]
         views = self.cache.layer_views(page_tables)
-        eos_ids = knobs["eos_ids"]
         emitted = []
         for _ in range(self.decode_horizon):
-            logits, _ = self.model(tokens[:, None], caches=views,
-                                   start_pos=positions)
-            nxt = _sample_batch(logits[:, 0], knobs, draws)
-            alive = remaining > 0
-            hit_eos = alive & (eos_ids >= 0) & (nxt == eos_ids)
-            emitted.append(torch.where(alive, nxt,
-                                       torch.full_like(nxt, PAD_TOKEN)))
-            remaining = torch.where(alive, remaining - 1, remaining)
-            remaining = torch.where(hit_eos, torch.zeros_like(remaining),
-                                    remaining)
-            tokens = torch.where(alive, nxt, tokens)
-            draws = draws + alive.to(draws.dtype)
-            positions = advance_positions(positions, remaining > 0,
-                                          max_pages, self.page_size)
+            emit, tokens, positions, draws, remaining = self._decode_iter(
+                views, tokens, positions, draws, knobs, remaining, max_pages)
+            emitted.append(emit)
         return torch.stack(emitted, dim=1), tokens, positions, draws, \
             remaining
 
@@ -550,9 +839,11 @@ class ServingEngine:
         rids = tuple(r.request_id for r in reqs)
         events_prev: List[Tuple[int, int]] = []
         prev = self._pending
-        if prev is not None and prev["rids"] != rids:
-            # batch composition changed (admission / finish / preemption):
-            # sync and go fresh
+        if prev is not None and (prev["kind"] != "decode"
+                                 or prev["rids"] != rids):
+            # batch composition changed (admission / finish / preemption),
+            # or the pending record is a ragged step (it leaves no decode
+            # carries): sync and go fresh
             events_prev = self._drain_pending()
             reqs = [r for r in reqs if r.status == "running"]
             if not reqs:
@@ -608,8 +899,14 @@ class ServingEngine:
                 time.perf_counter() - t0)
             self._obs.decode_steps.inc()
             self._obs.dispatches.inc()
+            if self._last_decode_dispatch_t is not None:
+                # dispatch-to-dispatch gap while requests were running:
+                # whatever kept the engine from decode shows up here
+                self._obs.decode_stall.observe(
+                    max(t0 - self._last_decode_dispatch_t, 0.0))
+        self._last_decode_dispatch_t = t0
         self._pending = {
-            "rids": rids, "reqs": list(reqs), "incr": incr,
+            "kind": "decode", "rids": rids, "reqs": list(reqs), "incr": incr,
             "host": host, "event": event, "tokens": tokens,
             "positions": positions, "draws": draws, "remaining": remaining,
             "knobs": knobs, "t0": t0,
@@ -678,11 +975,14 @@ class ServingEngine:
         registry. With `enable_metrics=False` the same shape comes back
         with the counters zeroed (request-derived fields stay filled)."""
         o = self._obs
-        keys = ("prefill_steps", "decode_steps", "dispatches",
-                "tokens_generated", "host_syncs")
+        keys = ("prefill_steps", "prefill_chunks", "decode_steps",
+                "ragged_steps", "dispatches", "tokens_generated",
+                "host_syncs")
         if o is not None:
             s = {"prefill_steps": int(o.prefill_steps.value),
+                 "prefill_chunks": int(o.prefill_chunks.value),
                  "decode_steps": int(o.decode_steps.value),
+                 "ragged_steps": int(o.ragged_steps.value),
                  "dispatches": int(o.dispatches.value),
                  "tokens_generated": int(o.tokens.value),
                  "host_syncs": int(o.host_syncs.value),
@@ -701,6 +1001,12 @@ class ServingEngine:
                                 if s["host_syncs"] else 0.0)
         s["decode_horizon"] = self.decode_horizon
         s["kv_dtype"] = self.kv_dtype
+        if self.cache.quantized:
+            c = self.cache
+            s["quant"] = {"kv_dtype": c.kv_dtype,
+                          "pool_bytes": c.pool_bytes,
+                          "page_bytes": c.page_bytes,
+                          "fp32_pool_bytes": self._fp32_pool_bytes()}
         s["num_requests"] = len(self.requests)
         s["num_finished"] = sum(r.status == "finished"
                                 for r in self.requests.values())
@@ -710,6 +1016,8 @@ class ServingEngine:
             "ttft": o.ttft.summary() if o is not None else empty,
             "inter_token": (o.inter_token.summary() if o is not None
                             else empty),
+            "decode_stall": (o.decode_stall.summary() if o is not None
+                             else empty),
         }
         s["step_breakdown"] = {
             phase: (o.step_phase[phase].summary() if o is not None

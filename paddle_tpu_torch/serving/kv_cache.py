@@ -13,6 +13,13 @@ the CPU), one (k, v) pair per layer in the (kv_heads, num_pages,
 page_size, head_dim) layout, and each step WRITES THEM IN PLACE
 (`serving.attention.paged_attend`) where the JAX engine threads donated
 arrays through its jitted steps.
+
+Quantized pools (kv_dtype "int8" / "fp8") hold a (k, v, k_scale, v_scale)
+4-tuple per layer: int8 or float8_e4m3fn data slabs and fp32 (kv_heads,
+num_pages, page_size, 1) scale slabs, one scale per (head, page, slot),
+written through the same page/slot arithmetic as the data. A logical page
+is a data slab plus a scale slab, so the allocator and page tables never
+see the difference. Only quantized pools import `serving.quant`.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PagedLayerCache",
            "NULL_PAGE", "pages_for", "overflow_position",
@@ -182,65 +191,116 @@ class PagedLayerCache:
                    place by `paged_attend`
     page_table:    (B, max_pages) int32 - logical page j of row i lives in
                    physical page page_table[i, j] (0 = null page padding)
+    row_ids:       optional (T,) int32 - ragged flat-batch mode: the step
+                   carries all rows' tokens in ONE (1, T) sequence axis and
+                   row_ids[t] names the page-table row token t belongs to
+    k_scale/v_scale: optional (kv_heads, num_pages, page_size, 1) fp32 -
+                   quantized pools only: one dequantization scale per
+                   (head, page, slot), written like the data
     routing:       a dict shared by the views of one step, where the first
                    layer's `paged_attend` leaves the write positions it
-                   derived from the page table and `start_pos`, for the
-                   other layers to reuse (None: every layer derives them)
+                   derived from the page table, `row_ids` and `start_pos`,
+                   for the other layers to reuse (None: every layer
+                   derives them)
     """
 
     k_pool: torch.Tensor
     v_pool: torch.Tensor
     page_table: torch.Tensor
+    row_ids: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
     routing: Optional[dict] = None
 
     @property
     def page_size(self) -> int:
         return self.k_pool.shape[2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
-def views_from_pools(pools: Sequence[Tuple[torch.Tensor, torch.Tensor]],
-                     page_table: torch.Tensor) -> List[PagedLayerCache]:
-    """Per-layer PagedLayerCache list from (k, v) pool pairs, sharing one
+
+def views_from_pools(pools: Sequence[Tuple[torch.Tensor, ...]],
+                     page_table: torch.Tensor,
+                     row_ids: Optional[torch.Tensor] = None
+                     ) -> List[PagedLayerCache]:
+    """Per-layer PagedLayerCache list from pool tuples - (k, v) for plain
+    pools, (k, v, k_scale, v_scale) for quantized ones - sharing one
     routing dict."""
     routing: dict = {}
-    return [PagedLayerCache(k, v, page_table, routing) for k, v in pools]
-
+    return [PagedLayerCache(p[0], p[1], page_table, row_ids,
+                            k_scale=p[2] if len(p) == 4 else None,
+                            v_scale=p[3] if len(p) == 4 else None,
+                            routing=routing)
+            for p in pools]
 
 
 class PagedKVCache:
-    """The per-layer pools plus the allocator."""
+    """The per-layer pools plus the allocator, on `device` (default: the
+    port's default device, which raises without a card)."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, kv_dtype: str = "fp32",
-                 device: Optional[torch.device] = None):
-        if kv_dtype not in KV_DTYPES:
-            raise ValueError(f"unknown kv_dtype {kv_dtype!r}: expected "
-                             "'fp32' or 'bf16'")
+                 device: Optional[torch.device] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
+        if kv_dtype not in KV_DTYPES and kv_dtype not in ("int8", "fp8"):
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r}: expected one "
+                             "of 'fp32', 'bf16', 'int8', 'fp8'")
         self.num_layers = num_layers
         self.num_pages = num_pages
         self.page_size = page_size
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
-        self.dtype = KV_DTYPES[kv_dtype]
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         shape = (num_kv_heads, num_pages, page_size, head_dim)
-        self.pools = [(torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device),
-                       torch.zeros(shape, dtype=self.dtype,
-                                   device=self.device))
-                      for _ in range(num_layers)]
+        self.quant_spec = None
+        if kv_dtype in KV_DTYPES:
+            self.dtype = KV_DTYPES[kv_dtype]
+            self.pools = [(torch.zeros(shape, dtype=self.dtype,
+                                       device=self.device),
+                           torch.zeros(shape, dtype=self.dtype,
+                                       device=self.device))
+                          for _ in range(num_layers)]
+        else:
+            # quantized pools ONLY: the fp32/bf16 path above never
+            # imports serving.quant
+            from .quant import SCALE_DTYPE, resolve_kv_dtype
+
+            self.quant_spec = resolve_kv_dtype(kv_dtype, compute_dtype)
+            self.dtype = self.quant_spec.storage_dtype
+            sshape = (num_kv_heads, num_pages, page_size, 1)
+
+            def slab(shp, dt, fill):
+                return torch.full(shp, fill, dtype=dt, device=self.device)
+
+            self.pools = [(slab(shape, self.dtype, 0), slab(shape,
+                                                            self.dtype, 0),
+                           slab(sshape, SCALE_DTYPE, 1.0),
+                           slab(sshape, SCALE_DTYPE, 1.0))
+                          for _ in range(num_layers)]
         self.allocator = BlockAllocator(num_pages)
 
     @property
     def kv_dtype(self) -> str:
+        """Canonical name of the pool storage format."""
+        if self.quant_spec is not None:
+            return self.quant_spec.name
         return "bf16" if self.dtype == torch.bfloat16 else "fp32"
 
     @property
+    def quantized(self) -> bool:
+        return self.quant_spec is not None
+
+    @property
     def page_bytes(self) -> int:
-        """Bytes one logical page occupies across all layers (K + V)."""
+        """Bytes one logical page occupies across all layers: K + V data
+        slabs plus, for quantized pools, the 4-byte scale of every slot and
+        head."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        return (self.num_layers * self.page_size * 2 * self.num_kv_heads
-                * self.head_dim * itemsize)
+        per_slot = 2 * self.num_kv_heads * (
+            self.head_dim * itemsize + (4 if self.quantized else 0))
+        return self.num_layers * self.page_size * per_slot
 
     @property
     def pool_bytes(self) -> int:
@@ -262,7 +322,7 @@ class PagedKVCache:
                 f"paged serving needs a float32/bfloat16 model, got "
                 f"parameters of dtype {param.dtype}")
         return cls(cfg.num_hidden_layers, num_pages, page_size, kv_heads,
-                   head_dim, kv_dtype, param.device)
+                   head_dim, kv_dtype, param.device, param.dtype)
 
     def page_table_array(self, page_lists: Sequence[Sequence[int]],
                          max_pages: int) -> torch.Tensor:
@@ -276,7 +336,9 @@ class PagedKVCache:
             out[i, :len(pages)] = pages
         return host_to_device(out, self.device)
 
-    def layer_views(self, page_table: torch.Tensor) -> List[PagedLayerCache]:
+    def layer_views(self, page_table: torch.Tensor,
+                    row_ids: Optional[torch.Tensor] = None
+                    ) -> List[PagedLayerCache]:
         """Per-layer PagedLayerCache list in the shape the models expect
         for their `caches` argument."""
-        return views_from_pools(self.pools, page_table)
+        return views_from_pools(self.pools, page_table, row_ids)

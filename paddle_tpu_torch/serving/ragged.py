@@ -1,0 +1,192 @@
+"""Flat-batch assembly for the one-dispatch ragged mixed step (the port's
+own copy of paddle_tpu/serving/ragged.py; host-only numpy).
+
+A chunked-prefill step can run as a CHAIN: one decode block plus one
+prefill call per scheduled chunk. The ragged step runs the rows together
+instead: this module packs a step's decode rows (one input token each)
+and prefill-chunk rows (their page-aligned extents) into ONE flat (1, T)
+token buffer with per-token positions and page-table row ids, bucketed to
+a small set of total-token sizes, for one flat forward through the model
+and the ragged attention kernel.
+
+Nothing here touches a device: inputs come from host request state
+(`generated`, cursors, sampling parameters, the engine's draw counters),
+never from device carries.
+
+Row layout (R = max_batch_size rows, fixed per engine):
+  rows 0..D-1          the step's decode requests, scheduler order
+  rows D..D+C-1        the step's chunk requests, scheduler order
+  rows D+C..R-1        dead padding (remaining 0, parked positions)
+Flat layout (T = token bucket): decode row i contributes token i;
+chunk j's tokens sit contiguously after all decode tokens; padding
+tokens park at the page-table capacity so attention masks them out (the
+ragged kernel emits zeros for them) and their K/V routes to the null
+page.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = ["RaggedBatch", "token_buckets", "bucket_for",
+           "build_ragged_inputs"]
+
+# "no EOS configured" sentinel, the engine's PAD_TOKEN (a literal, so this
+# module never imports the engine)
+_NO_EOS = -1
+
+
+def token_buckets(max_batch_size: int,
+                  max_num_batched_tokens: int) -> Tuple[int, ...]:
+    """Power-of-two flat-token buckets up to the worst-case flat step.
+
+    The ceiling is `max_batch_size + max_num_batched_tokens`: the budget
+    bounds horizon-charged decode rows plus chunk extents, but a decode
+    row only occupies ONE flat token, so batch-size decode tokens on top
+    of a budget's worth of chunk tokens can never overflow it. The
+    ceiling itself is always a bucket, so every legal step fits."""
+    cap = max_batch_size + max_num_batched_tokens
+    buckets = []
+    b = 16
+    while b < cap:
+        buckets.append(b)
+        b *= 2
+    buckets.append(cap)
+    return tuple(buckets)
+
+
+def bucket_for(buckets: Sequence[int], need: int) -> int:
+    for b in buckets:
+        if b >= need:
+            return b
+    raise ValueError(f"flat step of {need} tokens exceeds largest "
+                     f"ragged bucket {buckets[-1]}")
+
+
+@dataclasses.dataclass
+class RaggedBatch:
+    """One assembled flat step. Arrays are numpy (the engine copies them
+    to the device once); `reqs` holds the live rows' requests in row order
+    (decode rows then chunk rows) and `incr` their in-flight token upper
+    bounds (decode rows: a full horizon capped by budget; final chunks:
+    the one sampled first token; intermediate chunks: 0)."""
+
+    t_bucket: int
+    flat_ids: np.ndarray        # (1, T) int32
+    flat_pos: np.ndarray        # (1, T) int32, padding parked
+    row_ids: np.ndarray         # (T,) int32
+    last_idx: np.ndarray        # (R,) int32 flat index of the row's
+                                # sampled-logit token
+    tokens: np.ndarray          # (R,) int32 decode-body seed tokens
+    positions: np.ndarray       # (R,) int32 per-row write positions
+    remaining: np.ndarray       # (R,) int32 emit budget (0 = dead row)
+    draws: np.ndarray           # (R,) int64 each row's next draw index
+    temps: np.ndarray           # (R,) float32
+    top_ks: np.ndarray          # (R,) int32
+    top_ps: np.ndarray          # (R,) float32
+    eos_ids: np.ndarray         # (R,) int32
+    decode_mask: np.ndarray     # (R,) bool - rows decoding the whole
+                                # horizon
+    final_mask: np.ndarray      # (R,) bool - final chunks (one token)
+    reqs: List                  # live rows' Requests, row order
+    page_lists: List[Sequence[int]]   # (R,) per-row page lists
+    incr: List[int]             # per live row
+
+
+def build_ragged_inputs(decode: Sequence, chunks: Sequence, *,
+                        buckets: Sequence[int], max_batch: int,
+                        horizon: int, page_size: int, max_pages: int,
+                        draws: Optional[Dict[int, int]] = None
+                        ) -> Optional[RaggedBatch]:
+    """Pack one scheduler decision's rows into a RaggedBatch.
+
+    `decode` are running prefill-done requests (one input token each,
+    taken from host state: the engine drained any pending block first);
+    `chunks` are ChunkTasks with valid cursors; `draws` maps a request id
+    to its next sampling draw index (0 when absent). Returns None when no
+    live rows remain."""
+    d, c = len(decode), len(chunks)
+    if d + c == 0 or d + c > max_batch:
+        return None
+    draws = draws or {}
+    need = d + sum(t.length for t in chunks)
+    t_bucket = bucket_for(buckets, need)
+    r = max_batch
+    park = max_pages * page_size      # overflow_position: masked + null
+
+    flat_ids = np.zeros((1, t_bucket), np.int32)
+    flat_pos = np.full((1, t_bucket), park, np.int32)
+    row_ids = np.zeros((t_bucket,), np.int32)
+    last_idx = np.full((r,), t_bucket - 1, np.int32)
+    tokens = np.zeros((r,), np.int32)
+    positions = np.full((r,), park, np.int32)
+    remaining = np.zeros((r,), np.int32)
+    row_draws = np.zeros((r,), np.int64)
+    temps = np.zeros((r,), np.float32)
+    top_ks = np.zeros((r,), np.int32)
+    top_ps = np.ones((r,), np.float32)
+    eos_ids = np.full((r,), _NO_EOS, np.int32)
+    decode_mask = np.zeros((r,), bool)
+    final_mask = np.zeros((r,), bool)
+    page_lists: List[Sequence[int]] = [()] * r
+    incr: List[int] = []
+
+    def knobs(row, req):
+        sp = req.sampling
+        temps[row], top_ks[row], top_ps[row] = (sp.temperature, sp.top_k,
+                                                sp.top_p)
+        if req.eos_token_id is not None:
+            eos_ids[row] = req.eos_token_id
+        row_draws[row] = draws.get(req.request_id, 0)
+
+    for i, req in enumerate(decode):
+        tok = req.generated[-1] if req.generated else req.prompt[-1]
+        # same input semantics as a fresh decode block: the input token's
+        # K/V lands at its own position, the step predicts the token
+        # after it
+        flat_ids[0, i] = tok
+        flat_pos[0, i] = req.num_tokens - 1
+        row_ids[i] = i
+        last_idx[i] = i
+        tokens[i] = tok
+        positions[i] = req.num_tokens - 1
+        remaining[i] = req.max_new_tokens - len(req.generated)
+        knobs(i, req)
+        decode_mask[i] = True
+        page_lists[i] = req.pages
+        cap = req.max_new_tokens - len(req.generated) - req.inflight
+        incr.append(max(min(horizon, cap), 0))
+
+    cursor = d
+    for j, task in enumerate(chunks):
+        row = d + j
+        req, start, n = task.req, task.start, task.length
+        flat_ids[0, cursor:cursor + n] = req.prompt[start:start + n]
+        flat_pos[0, cursor:cursor + n] = np.arange(start, start + n,
+                                                   dtype=np.int32)
+        row_ids[cursor:cursor + n] = row
+        last_idx[row] = cursor + n - 1
+        positions[row] = start + n - 1
+        page_lists[row] = req.pages
+        if task.is_final:
+            # the final chunk samples the prompt's first token exactly like
+            # the tail of a chunked prefill: one emit, then the row parks
+            remaining[row] = 1
+            final_mask[row] = True
+            knobs(row, req)
+            incr.append(1)
+        else:
+            incr.append(0)
+        cursor += n
+
+    return RaggedBatch(t_bucket=t_bucket, flat_ids=flat_ids,
+                       flat_pos=flat_pos, row_ids=row_ids,
+                       last_idx=last_idx, tokens=tokens,
+                       positions=positions, remaining=remaining,
+                       draws=row_draws, temps=temps, top_ks=top_ks,
+                       top_ps=top_ps, eos_ids=eos_ids,
+                       decode_mask=decode_mask, final_mask=final_mask,
+                       reqs=list(decode) + [t.req for t in chunks],
+                       page_lists=page_lists, incr=incr)

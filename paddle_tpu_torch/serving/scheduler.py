@@ -1,6 +1,6 @@
 """Continuous-batching scheduler, Orca-style iteration-level scheduling
-(ported from paddle_tpu/serving/scheduler.py without chunked prefill,
-speculative decoding or the prefix cache, which are still to be ported).
+(ported from paddle_tpu/serving/scheduler.py without speculative decoding
+or the prefix cache, which are still to be ported).
 
 Policy, as in the reference:
 
@@ -17,7 +17,19 @@ Policy, as in the reference:
   drained once (`drain_hook`), then the YOUNGEST running request is
   preempted: its pages return to the free list and it re-queues at the
   front with prompt + generated tokens, to be re-prefilled later.
-  Eviction costs recompute, never correctness.
+  Eviction costs recompute, never correctness;
+- chunked prefill (`prefill_chunk_tokens=C`, Sarathi-Serve style): the
+  prefill-XOR-decode policy is replaced by MIXED steps under a per-step
+  token budget (`max_num_batched_tokens`). A prompt runs in page-aligned
+  chunks of C tokens, tracked by the request's `num_computed_tokens`
+  cursor; every step schedules ALL running decoders first, then as many
+  chunks as the leftover budget allows, admitting several new requests a
+  step when they fit. Pages are charged chunk by chunk: admission
+  reserves only the first chunk, later chunks top the request up, and the
+  final chunk reserves through the first decode block exactly like
+  `_admission_pages`. With `ragged_steps` a step carrying chunk work is
+  one flat kind="ragged" decision (one flat forward), otherwise
+  kind="mixed" (decode block, then one call per chunk).
 """
 from __future__ import annotations
 
@@ -29,7 +41,8 @@ from typing import List, Optional, Sequence
 from .kv_cache import NULL_PAGE, BlockAllocator, pages_for
 from .resilience import TERMINAL_STATUSES, EngineOverloaded
 
-__all__ = ["Request", "SamplingParams", "Scheduler", "ScheduleDecision"]
+__all__ = ["ChunkTask", "Request", "SamplingParams", "Scheduler",
+           "ScheduleDecision"]
 
 _REQUEST_IDS = itertools.count()
 
@@ -64,6 +77,11 @@ class Request:
     # upper bound on tokens sampled by a dispatched-but-undrained decode
     # block (the engine's async overlap): page demand must cover them
     inflight: int = 0
+    # prompt tokens whose K/V is resident: every chunk dispatched so far
+    # (the engine advances it after a dispatch). A request with
+    # num_computed_tokens < len(prompt) is mid-prefill: it never joins the
+    # decode batch, and its pages cover exactly its computed tokens
+    num_computed_tokens: int = 0
 
     # metrics (perf_counter timestamps, filled by the engine)
     arrival_t: float = dataclasses.field(default_factory=time.perf_counter)
@@ -81,6 +99,13 @@ class Request:
         """Position the next decode token will occupy."""
         return self.num_tokens
 
+    @property
+    def prefill_done(self) -> bool:
+        """The whole prompt's K/V is resident: the request can decode.
+        Preemption folds generated tokens into the prompt and resets the
+        cursor, so a requeued victim re-prefills from scratch."""
+        return self.num_computed_tokens >= len(self.prompt)
+
     def is_done(self) -> bool:
         if len(self.generated) >= self.max_new_tokens:
             return True
@@ -89,10 +114,31 @@ class Request:
 
 
 @dataclasses.dataclass
+class ChunkTask:
+    """One page-aligned prefill chunk of one request, scheduled into a
+    mixed step: compute prompt[start : start+length] at offset `start`,
+    attending over the request's earlier pages through its page table."""
+
+    req: Request
+    start: int
+    length: int
+
+    @property
+    def is_final(self) -> bool:
+        return self.start + self.length >= len(self.req.prompt)
+
+
+@dataclasses.dataclass
 class ScheduleDecision:
-    kind: str                           # "prefill" | "decode" | "idle"
+    # "prefill" | "decode" | "idle"; under chunked prefill "mixed" (decode
+    # block plus chunks, one call each) or, with ragged steps, "ragged"
+    # (the same rows as ONE flat step; chunk-free steps stay "decode").
+    # `flat_tokens` is the flat token count before bucket padding.
+    kind: str
     prefill: Optional[Request] = None
     decode: Sequence[Request] = ()
+    chunks: Sequence[ChunkTask] = ()
+    flat_tokens: int = 0
 
 
 class Scheduler:
@@ -101,7 +147,10 @@ class Scheduler:
                  decode_horizon: int = 1, drain_hook=None, obs=None,
                  max_waiting: Optional[int] = None,
                  max_preemptions: Optional[int] = None,
-                 max_prefill_tokens: Optional[int] = None):
+                 max_prefill_tokens: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 max_num_batched_tokens: Optional[int] = None,
+                 ragged_steps: bool = False):
         self.allocator = allocator
         self.page_size = page_size
         self.max_batch_size = max_batch_size
@@ -112,8 +161,17 @@ class Scheduler:
         # a victim preempted more than this many times is parked
         # (requeued at the back) instead of jumping the line again
         self.max_preemptions = max_preemptions
-        # largest prompt the engine can prefill (its biggest bucket)
+        # largest prompt the engine can prefill (its biggest bucket; None
+        # under chunked prefill, which takes any length)
         self.max_prefill_tokens = max_prefill_tokens
+        # chunked prefill: None = prefill-XOR-decode; an int C (a positive
+        # multiple of page_size, validated by the engine) = mixed steps
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        # per-step token budget of mixed steps: each running decoder
+        # charges decode_horizon, each chunk the full chunk width
+        self.max_num_batched_tokens = max_num_batched_tokens
+        # steps with chunk work come back as ONE kind="ragged" decision
+        self.ragged_steps = bool(ragged_steps)
         # called once per _ensure_decode_pages on pool exhaustion, before
         # any preemption: the engine drains its in-flight decode block
         self.drain_hook = drain_hook
@@ -198,6 +256,9 @@ class Scheduler:
             return None
         self.waiting.pop(0)
         req.pages = pages
+        # the engine advances the cursor to len(prompt) once the prefill
+        # dispatch succeeds
+        req.num_computed_tokens = 0
         req.status = "running"
         self.running.append(req)
         return req
@@ -219,6 +280,7 @@ class Scheduler:
         self.running.remove(victim)
         self.allocator.free_all(victim.pages)
         victim.pages = []
+        victim.num_computed_tokens = 0   # re-prefill from scratch
         victim.inflight = 0     # drain_hook ran first: nothing undrained
         victim.prompt = victim.prompt + victim.generated
         victim.max_new_tokens -= len(victim.generated)
@@ -239,6 +301,12 @@ class Scheduler:
         drained = False
         for req in list(self.running):
             if req not in self.running:   # preempted by an older peer
+                continue
+            if self.prefill_chunk_tokens is not None \
+                    and not req.prefill_done:
+                # mid-prefill under chunking: the request does not decode
+                # this step, and _block_pages would charge its WHOLE
+                # prompt; its pages are charged chunk by chunk instead
                 continue
             while req in self.running and \
                     self._block_pages(req) > len(req.pages):
@@ -266,6 +334,8 @@ class Scheduler:
         if self.obs is not None:
             self.obs.sample_queues(len(self.waiting), len(self.running),
                                    self.allocator)
+        if self.prefill_chunk_tokens is not None:
+            return self._schedule_chunked()
         admitted = self._try_admit()
         if admitted is not None:
             return ScheduleDecision(kind="prefill", prefill=admitted)
@@ -290,6 +360,127 @@ class Scheduler:
                 f"the pool has {self.allocator.num_allocatable} "
                 "allocatable in total")
 
+    # ------------------------------------------------------ chunked prefill
+    def _schedule_chunked(self) -> ScheduleDecision:
+        """Mixed-step assembly under the per-step token budget: ALL
+        running decoders first (a decode step is never skipped because
+        prefill work exists), then prefill chunks from the leftover
+        budget: partially prefilled running requests oldest first, then
+        NEW admissions while batch slots and budget last."""
+        budget = self.max_num_batched_tokens
+        chunk = self.prefill_chunk_tokens
+        decode: List[Request] = []
+        if any(r.prefill_done for r in self.running):
+            self._ensure_decode_pages()      # may drain and/or preempt
+            decode = [r for r in self.running
+                      if r.prefill_done][:self.max_batch_size]
+            budget -= self.decode_horizon * len(decode)
+        chunks: List[ChunkTask] = []
+        for req in list(self.running):
+            if budget < chunk:
+                break
+            if req not in self.running or req.prefill_done:
+                continue
+            task = self._next_chunk(req)
+            if task is not None:
+                chunks.append(task)
+                budget -= chunk
+        while (budget >= chunk and self.waiting
+               and len(self.running) < self.max_batch_size):
+            req = self._admit_chunked()
+            if req is None:
+                break
+            task = self._next_chunk(req)
+            if task is None:      # admission just paid for this chunk
+                break
+            chunks.append(task)
+            budget -= chunk
+        # chunk-page reservation may have preempted a request already
+        # picked for this step's decode batch (or holding a chunk): keep
+        # only entries still running (the engine also drops a task whose
+        # start no longer matches its request's cursor)
+        decode = [r for r in decode
+                  if r.status == "running" and r.prefill_done]
+        chunks = [t for t in chunks if t.req.status == "running"]
+        flat = len(decode) + sum(t.length for t in chunks)
+        if self.ragged_steps:
+            if chunks:
+                return ScheduleDecision(kind="ragged", decode=decode,
+                                        chunks=chunks, flat_tokens=flat)
+            if decode:
+                return ScheduleDecision(kind="decode", decode=decode)
+        elif decode or chunks:
+            return ScheduleDecision(kind="mixed", decode=decode,
+                                    chunks=chunks, flat_tokens=flat)
+        self._check_head_fits()
+        return ScheduleDecision(kind="idle")
+
+    def _chunk_pages_needed(self, req: Request, end: int) -> int:
+        """Pages `req` must hold once its prompt is computed up to `end`:
+        the final chunk reserves through the first decode block (as
+        `_admission_pages`); earlier chunks exactly their computed
+        tokens."""
+        if end >= len(req.prompt):
+            return self._admission_pages(req)
+        return pages_for(end, self.page_size)
+
+    def _admit_chunked(self) -> Optional[Request]:
+        """Admission under chunking: charge the pool for the FIRST chunk
+        only, not the whole prompt."""
+        req = self.waiting[0]
+        need = self._chunk_pages_needed(
+            req, min(self.prefill_chunk_tokens, len(req.prompt)))
+        pages = self.allocator.alloc_n(need)
+        if pages is None:
+            return None
+        self.waiting.pop(0)
+        req.pages = pages
+        req.num_computed_tokens = 0
+        req.status = "running"
+        self.running.append(req)
+        return req
+
+    def _next_chunk(self, req: Request) -> Optional[ChunkTask]:
+        """The next chunk of a mid-prefill request with its pages
+        reserved, or None when the pool cannot cover it this step (the
+        request keeps its pages and waits)."""
+        start = req.num_computed_tokens
+        n = min(self.prefill_chunk_tokens, len(req.prompt) - start)
+        if n <= 0:
+            return None
+        if not self._reserve_chunk_pages(
+                req, self._chunk_pages_needed(req, start + n)):
+            return None
+        return ChunkTask(req=req, start=start, length=n)
+
+    def _reserve_chunk_pages(self, req: Request, need: int) -> bool:
+        """Top `req` up to `need` pages: drain the pending block once (may
+        free pages), then preempt the YOUNGEST running request - never
+        `req` itself: if it is the youngest it sits the step out, unless
+        it is alone and over the pool's whole capacity."""
+        drained = False
+        while need > len(req.pages) and req in self.running:
+            pages = self.allocator.alloc_n(need - len(req.pages))
+            if pages is not None:
+                req.pages.extend(pages)
+                return True
+            if self.drain_hook is not None and not drained:
+                drained = True
+                self.drain_hook()     # may finish reqs / free pages
+                continue
+            victim = self.running[-1]
+            if victim is req:
+                if len(self.running) == 1 \
+                        and need > self.allocator.num_allocatable:
+                    raise RuntimeError(
+                        "KV page pool too small for a single request: "
+                        f"request {req.request_id} needs {need} pages "
+                        f"with {self.allocator.num_allocatable} "
+                        "allocatable pages in total")
+                return False
+            self._preempt(victim)
+        return req in self.running and len(req.pages) >= need
+
     # ----------------------------------------------------------- invariants
     def check_consistency(self) -> bool:
         """Scheduler + allocator invariant audit: queues disjoint with
@@ -305,6 +496,14 @@ class Scheduler:
                 raise RuntimeError(
                     f"scheduler corrupt: request {req.request_id} in the "
                     f"running queue with status {req.status!r}")
+            if self.prefill_chunk_tokens is not None and (
+                    req.num_computed_tokens > len(req.prompt)
+                    or pages_for(req.num_computed_tokens, self.page_size)
+                    > len(req.pages)):
+                raise RuntimeError(
+                    f"scheduler corrupt: request {req.request_id} computed "
+                    f"{req.num_computed_tokens} of {len(req.prompt)} prompt "
+                    f"tokens and holds {len(req.pages)} pages")
             for p in req.pages:
                 if p == NULL_PAGE:
                     raise RuntimeError(

@@ -26,8 +26,8 @@ from paddle_tpu.serving import ServingEngine as JServingEngine
 
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.serving import (
-    NULL_PAGE, BlockAllocator, EngineOverloaded, Request, SamplingParams,
-    Scheduler, ServingEngine, pages_for,
+    NULL_PAGE, BlockAllocator, EngineOverloaded, PagedKVCache, Request,
+    SamplingParams, Scheduler, ServingEngine, pages_for,
 )
 from paddle_tpu_torch.weights import load_reference_state
 
@@ -193,9 +193,8 @@ class TestPortInvariants:
 
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value", [
-        ("enable_prefix_caching", True), ("enable_chunked_prefill", True),
-        ("spec_config", object()), ("tp_size", 2), ("kv_dtype", "int8"),
-        ("kv_dtype", "fp8"), ("journal", object()),
+        ("enable_prefix_caching", True), ("spec_config", object()),
+        ("tp_size", 2), ("journal", object()),
         ("fault_injector", object()), ("slo_classes", [object()]),
         ("flight_recorder", object()), ("postmortem_dir", "/tmp/x"),
     ])
@@ -214,6 +213,19 @@ class TestEngineSurface:
                         "machine")
         with pytest.raises(RuntimeError, match="cuda"):
             ServingEngine(_port_llama())
+
+    def test_kv_cache_default_device_raises_without_a_card(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device exists; the raise needs a card-less "
+                        "machine")
+        with pytest.raises(RuntimeError, match="cuda"):
+            PagedKVCache(2, 4, 8, 2, 16)
+
+    def test_kv_cache_on_the_cpu_when_asked(self):
+        cache = PagedKVCache(2, 4, 8, 2, 16, kv_dtype="bf16", device="cpu")
+        assert cache.device == torch.device("cpu")
+        assert all(t.device.type == "cpu" for layer in cache.pools
+                   for t in layer)
 
     def test_request_validation_and_backpressure(self):
         eng = _engine(_port_llama(), max_waiting=1)
