@@ -28,7 +28,7 @@ without the final result line:
    shapes (b 32, S 512, 12 heads of 64; 16384 rows of 768): K1 with
    attention dropout 0.1, K2 + K3 through `FlashAttention.backward` with
    and without a (32, 1, 1, 512) padding mask, K4 and K5 in LayerNorm mode,
-   in the O1 type (fp32) and bf16;
+   in the O1 type (fp32) and bf16, and in RMS mode (T5's) in fp32;
 6. serve: LLaMA-7B at full width (random bf16 weights from --seed, drawn
    on the card) served by ServingEngine (page_size 16, 8 rows,
    max_seq_len 1024, decode_horizon 8, bf16 pools): 8 greedy requests,
@@ -58,10 +58,30 @@ without the final result line:
    seq 512: loss and every parameter gradient on the card (through the
    kernels) against the same model on the CPU (the plain versions), from
    the same weights;
-11. with --profile: torch.profiler windows of one prefill and two decode
+11. t5_train_kernels: K1, K2 (with d(mask) for a trainable (1, 12, q, k)
+   bias) and K3 at T5-base's three attention shapes, batch 32 in bf16 and
+   4 in fp32: the encoder (512 x 512, bidirectional bias, dropout 0.1), the
+   decoder self-attention (114 x 114, causal plus bias) and the
+   cross-attention (114 x 512, no mask). Prints each gradient's max abs
+   error beside its limit, K2's time with and without d(mask), the time of
+   the batch sum, the bound of the d(mask) buffer's bytes, and PyTorch's
+   sdpa backward with a float mask that requires grad as a yardstick;
+12. train_t5: the T5-base pretraining step at full width
+   (T5Config.t5_base, 222.9 M parameters, random weights from --seed):
+   batch 32 x 512 source and 114 target tokens, -100 on a few target
+   positions, bf16 O1, dropout 0.1, Adam lr 1e-4, one fixed batch, 3
+   warm-up (the last under sync debug mode "error") and 10 timed steps.
+   K1, K2, K3, K4 and K5 must launch exactly 36, 36, 36, 62 and 62 times a
+   step, 24 of the K2 launches with d(mask); the loss must be finite and
+   fall. Prints tokens/s/chip over source + target tokens, step ms, MFU
+   (T5_FLOPS below) and peak memory;
+13. t5_step_check: a 2-layer T5 at full width, fp32, dropout 0, batch 2,
+   512 / 114: loss and every gradient (both bias tables included) on the
+   card against the CPU, as step_check;
+14. with --profile: torch.profiler windows of one prefill and two decode
    blocks of the served slice, two ragged steps of the bf16 chunked
-   serve, and one train step: device busy share, top kernels and top host
-   ops.
+   serve, one ERNIE train step and one T5 train step: device busy share,
+   top kernels and top host ops.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -110,6 +130,11 @@ TOL_REL = {
     "K2": {torch.float32: 1e-4, torch.bfloat16: 5e-3},
     "K3": {torch.float32: 1e-4, torch.bfloat16: 5e-3},
     "K5": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+    # K2's d(mask): the fp32 dS of the same products as the plain version,
+    # summed over the batch, so only summation order differs: about ten
+    # times the largest reading on an H100 (1.07e-6 x max|ref| fp32, 8.9e-7
+    # bf16; PERF.md, section 6)
+    "K2m": {torch.float32: 1e-5, torch.bfloat16: 1e-5},
 }
 # K1's lse (fp32) max abs error: about ten times the largest read on an
 # H100 (9.54e-7, two fp32 ulps of lse ~ 7; PERF.md, PR 2)
@@ -120,9 +145,19 @@ TOL_LSE = 1e-5
 # largest gradient error read on an H100 (1.51e-6, PERF.md, PR 2)
 LOSS_RTOL = 2e-5
 GRAD_RTOL = 2e-5
+# the T5 step check's gradient limit (gated-GELU FFN): T5 at init is worse
+# conditioned than ERNIE, and the plain versions run on the card already
+# read 2.51e-5 against the CPU (the kernels 2.28e-5; PERF.md, section 6):
+# about four times that reading
+T5_GRAD_RTOL = 1e-4
 # the training step's launches per step: K1-K3 once per layer, K4 / K5
 # for the embedding norm, two norms per layer and the MLM norm
 TRAIN_LAUNCHES = {"K1": 12, "K2": 12, "K3": 12, "K4": 26, "K5": 26}
+# the T5-base step's launches per step: K1-K3 for 12 encoder self, 12
+# decoder self and 12 cross attentions, K2 with d(mask) for the 24 that
+# take the trainable bias; K4 / K5 for 2 norms per encoder layer, 3 per
+# decoder layer and the two final norms
+T5_LAUNCHES = {"K1": 36, "K2": 36, "K2m": 24, "K3": 36, "K4": 62, "K5": 62}
 # the engine's greedy token must be the no-cache argmax wherever the top-2
 # margin of the no-cache logits exceeds this, by KV pool type: the paged and
 # no-cache bf16 paths round differently, and on an H100 positions whose
@@ -791,51 +826,62 @@ def flash_edge_cases(dev):
 
 
 def k45_train_cases(rows, dev):
-    """K4 and K5 in LayerNorm mode at ERNIE's (16384, 768): fp32 (the O1
-    type of every LayerNorm) and bf16."""
+    """K4 and K5 at the training width, 16384 rows of 768: LayerNorm mode
+    (ERNIE, eps 1e-12) in fp32 (the O1 type of every norm) and bf16, and
+    RMS mode (T5, eps 1e-6; its encoder's 32 x 512 rows) in fp32."""
     from paddle_tpu_torch.ops import norm
 
     g = torch.Generator(device=dev).manual_seed(6)
     n, hd = TRAIN_ATTN[0] * TRAIN_ATTN[1], 768
-    eps = 1e-12
     tF = torch.nn.functional
     main = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, sub in ((torch.float32, True), (torch.bfloat16, True),
+                       (torch.float32, False)):
+        eps = 1e-12 if sub else 1e-6
         x = (torch.randn(n, hd, generator=g, device=dev) * 2 + 0.3).to(dtype)
         w = (1 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
-        bias = (0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
+        bias = ((0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
+                if sub else None)
         dy = torch.randn(n, hd, generator=g, device=dev).to(dtype)
-        y, mu, rs = norm.norm_forward(x, w, bias, eps, True)
-        ry, rmu, rrs = norm.norm_forward_reference(x, w, bias, eps, True)
-        dx = norm.norm_backward(x, w, dy, mu, rs, True)
-        rdx = norm.norm_backward_reference(x, w, dy, mu, rs, True)
+        y, mu, rs = norm.norm_forward(x, w, bias, eps, sub)
+        ry, rmu, rrs = norm.norm_forward_reference(x, w, bias, eps, sub)
+        dx = norm.norm_backward(x, w, dy, mu, rs, sub)
+        rdx = norm.norm_backward_reference(x, w, dy, mu, rs, sub)
         torch.cuda.synchronize()
         err4 = max(max_err(y, ry), max_err(mu, rmu),
                    max_err(rs, rrs) / float(rrs.abs().max()))
         tol4 = check("K4", err4, dtype)
         err5, tol5 = check_rel("K5", dx, rdx, dtype)
-        ms4 = time_ms(lambda: norm.norm_forward(x, w, bias, eps, True))
+        ms4 = time_ms(lambda: norm.norm_forward(x, w, bias, eps, sub))
         plain4 = time_ms(lambda: norm.norm_forward_reference(x, w, bias, eps,
-                                                             True))
-        lib4 = time_ms(lambda: tF.layer_norm(x, (hd,), w, bias, eps))
-        ms5 = time_ms(lambda: norm.norm_backward(x, w, dy, mu, rs, True))
-        plain5 = time_ms(lambda: norm.norm_backward_reference(x, w, dy, mu,
-                                                              rs, True))
+                                                             sub))
         xl = x.detach().requires_grad_()
-        yl = tF.layer_norm(xl, (hd,), w, bias, eps)
+        if sub:
+            def lib(x_):
+                return tF.layer_norm(x_, (hd,), w, bias, eps)
+        else:
+            def lib(x_):
+                return tF.rms_norm(x_, (hd,), w, eps)
+        lib4 = time_ms(lambda: lib(x))
+        ms5 = time_ms(lambda: norm.norm_backward(x, w, dy, mu, rs, sub))
+        plain5 = time_ms(lambda: norm.norm_backward_reference(x, w, dy, mu,
+                                                              rs, sub))
+        yl = lib(xl)
         lib5 = time_ms(lambda: torch.autograd.grad(yl, xl, dy,
                                                    retain_graph=True))
-        b4 = bound(nbytes(x, w, bias, y, mu, rs), 8 * x.numel(), dtype)
+        extra = nbytes(bias) if sub else 0
+        b4 = bound(nbytes(x, w, y, mu, rs) + extra, 8 * x.numel(), dtype)
         b5 = bound(nbytes(x, w, dy, mu, rs, dx), 10 * x.numel(), dtype)
-        case = f"layer ({n}, {hd})"
+        mode = "layer" if sub else "rms"
+        case = f"{mode} ({n}, {hd})"
         r4 = _row(dtype, case, err4, tol4, ms4, plain4, lib4, *b4)
         r5 = _row(dtype, case, err5, tol5, ms5, plain5, lib5, *b5,
-                  library_note="F.layer_norm backward (dx, and dw / db)")
+                  library_note=f"F.{mode}_norm backward (dx, and dw)")
         _log_row("K4", r4)
         _log_row("K5", r5)
         rows.append(("K4", r4))
         rows.append(("K5", r5))
-        if dtype == torch.float32:
+        if dtype == torch.float32 and sub:
             main = {"K4": r4, "K5": r5}
         del x, dy, y, dx, rdx, xl, yl
     return main
@@ -967,25 +1013,8 @@ def phase_step_check(seed, dev):
     if any(n <= 0 for n in ran.values()):
         raise AssertionError(f"the card's step skipped a kernel: {ran}")
     dl = abs(losses["card"] - losses["cpu"])
-    if not dl <= LOSS_RTOL * abs(losses["cpu"]):
-        raise AssertionError(f"loss card {losses['card']} vs cpu "
-                             f"{losses['cpu']}")
-    worst, worst_name = 0.0, None
-    cpu_params = dict(cpu.named_parameters())
-    for name, p in card.named_parameters():
-        gc, gp = p.grad, cpu_params[name].grad
-        if (gc is None) != (gp is None):
-            raise AssertionError(f"{name}: gradient on one side only")
-        if gc is None:
-            continue
-        err = float((gc.cpu() - gp).abs().max())
-        scale = float(gp.abs().max())
-        rel = err / scale if scale > 0 else err
-        if not err <= GRAD_RTOL * scale + 1e-12:
-            raise AssertionError(f"{name}: grad max abs error {err} > "
-                                 f"{GRAD_RTOL} x {scale}")
-        if rel >= worst:
-            worst, worst_name = rel, name
+    worst, worst_name = check_grads(grad_errors(card, cpu), losses,
+                                    "step_check", GRAD_RTOL)
     log(f"[step_check] 2-layer full width fp32: loss card "
         f"{losses['card']!r} cpu {losses['cpu']!r} (|diff| {dl:.3g}, "
         f"tol {LOSS_RTOL} x |loss|); every gradient within {GRAD_RTOL} x "
@@ -993,6 +1022,404 @@ def phase_step_check(seed, dev):
         f"launched {ran}")
     return dict(loss_card=losses["card"], loss_cpu=losses["cpu"],
                 worst_grad_rel=worst, worst_grad=worst_name, launches=ran)
+
+
+# T5-base attention at the T5 paper's span-corruption lengths for 512
+# source tokens (114 targets), batch 32: (label, b, sq, sk, heads,
+# head_dim, causal, trainable bias)
+T5_ATTN = (("encoder self", 32, 512, 512, 12, 64, False, True),
+           ("decoder self", 32, 114, 114, 12, 64, True, True),
+           ("cross", 32, 114, 512, 12, 64, False, False))
+
+
+def t5_kernel_cases(rows, dev):
+    """K1, K2 (with d(mask) where the bias is trainable) and K3 through
+    FlashAttention at T5-base's three attention shapes (T5_ATTN), dropout
+    0.1, bf16 at batch 32 and fp32 at batch 4. Every gradient is held to
+    the plain backward on the same inputs. Times: K1, K2 with and without
+    d(mask), the batch sum of the d(mask) buffer, K3, the plain backward,
+    and PyTorch's sdpa backward with a float mask that requires grad (the
+    yardstick, and its forward beside K1; a causal case hands it the bias
+    plus the causal -inf as one mask). Returns the encoder case's bf16
+    rows."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    p = TRAIN_DROPOUT
+    seed = torch.tensor([4242], dtype=torch.int32, device=dev)
+    main = {}
+    for label, b0, sq, sk, h, d, causal, trainable in T5_ATTN:
+        for dtype, b in ((torch.bfloat16, b0), (torch.float32, 4)):
+            def rnd(*shape):
+                return torch.randn(*shape, generator=g, device=dev).to(dtype)
+            q, dout = rnd(b, sq, h, d), rnd(b, sq, h, d)
+            k, v = rnd(b, sk, h, d), rnd(b, sk, h, d)
+            bias = (0.5 * torch.randn(1, h, sq, sk, generator=g, device=dev)
+                    if trainable else None)
+            bias_g = None if bias is None else bias.clone().requires_grad_()
+            qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+            before = fa.flash_attention_dq.dmask_launches
+            out = fa.FlashAttention.apply(qg, kg, vg, bias_g, causal, p, seed)
+            out.backward(dout)
+            n_dmask = fa.flash_attention_dq.dmask_launches - before
+            if n_dmask != int(trainable):
+                raise AssertionError(f"K2 {label}: {n_dmask} d(mask) "
+                                     "launches in one backward")
+            fwd, lse = fa.flash_attention(q, k, v, bias, causal, True, p, seed)
+            delta = fa.attention_delta(out.detach(), dout)
+            args = (q, k, v, dout, lse, delta, bias, causal, p, seed)
+            ref = fa.flash_attention_backward_reference(
+                *args, need_dmask=trainable)
+            torch.cuda.synchronize()
+            e1, t1, e_lse = check_k1(fwd, lse, q, k, v, dtype, bias, causal,
+                                     p, seed)
+            errs = {"K1": (e1, t1), "K2": check_rel("K2", qg.grad, ref[0],
+                                                    dtype)}
+            errs["K3"] = max(check_rel("K3", kg.grad, ref[1], dtype),
+                             check_rel("K3", vg.grad, ref[2], dtype),
+                             key=lambda et: et[0] / et[1])
+            if trainable:
+                errs["K2m"] = check_rel("K2m", bias_g.grad, ref[3], dtype)
+            prep = fa._bwd_prepare(q, k, v, dout, lse, delta, bias, p, seed,
+                                   "t5_kernel_cases")
+            ms1 = time_ms(lambda: fa.flash_attention(q, k, v, bias, causal,
+                                                     True, p, seed))
+            ms2 = time_ms(lambda: fa._launch_dq(prep, causal))
+            ms3 = time_ms(lambda: fa._launch_dkv(prep, causal))
+            plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(
+                *args, need_dmask=trainable), 5, 1)
+            plain1_ms = time_ms(lambda: fa.flash_attention_reference(
+                q, k, v, bias, causal, True, p, seed), 5, 1)
+            # the yardsticks: sdpa's forward, and its backward from one
+            # forward
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            lib_mask, lib_leaf = None, None
+            if trainable:
+                lib_leaf = bias.to(dtype).requires_grad_()
+                lib_mask = lib_leaf
+                if causal:
+                    lib_mask = lib_leaf + torch.full(
+                        (sq, sk), float("-inf"), device=dev,
+                        dtype=dtype).triu(1)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_out = sdpa(qt, kt, vt, attn_mask=lib_mask, dropout_p=p,
+                           is_causal=causal and lib_mask is None)
+            with torch.no_grad():
+                lib1_ms = time_ms(lambda: sdpa(
+                    qt, kt, vt, attn_mask=lib_mask, dropout_p=p,
+                    is_causal=causal and lib_mask is None))
+            wrt = (qt, kt, vt) + ((lib_leaf,) if trainable else ())
+            dout_t = dout.transpose(1, 2)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, wrt, dout_t, retain_graph=True))
+            pairs = sq * (sq + 1) // 2 if causal else sq * sk
+            io_in = nbytes(q, k, v, dout, lse, delta) + (
+                nbytes(bias) if trainable else 0)
+            b1 = bound(nbytes(q, k, v, fwd, lse) + (nbytes(bias) if trainable
+                                                    else 0),
+                       4 * b * h * d * pairs, dtype)
+            b2 = bound(io_in + nbytes(q), 6 * b * h * d * pairs, dtype)
+            b3 = bound(io_in + nbytes(k, v), 8 * b * h * d * pairs, dtype)
+            case = (f"T5 {label} ({b}, {sq}, {sk}, {h}, {d})"
+                    f"{', causal' if causal else ''}"
+                    f"{', (1, h, q, k) bias' if trainable else ''}, "
+                    f"dropout {p}")
+            note = ("sdpa backward, all grads together"
+                    + (", the float mask's included" if trainable else ""))
+            r1 = _row(dtype, case, e1, t1, ms1, plain1_ms, lib1_ms, *b1,
+                      lse_err=e_lse, library_note="sdpa forward")
+            r2 = _row(dtype, case, *errs["K2"], ms2, plain_ms, lib_ms, *b2,
+                      library_note=note)
+            r3 = _row(dtype, case, *errs["K3"], ms3, plain_ms, lib_ms, *b3,
+                      library_note=note)
+            for name, r in (("K1", r1), ("K2", r2), ("K3", r3)):
+                _log_row(name, r)
+                rows.append((name, r))
+            if trainable:
+                full = fa._launch_dq(prep, causal, True)[1]
+                ms2m = time_ms(lambda: fa._launch_dq(prep, causal, True))
+                sum_ms = time_ms(lambda: fa.reduce_dmask(full, bias))
+                buf_ms = nbytes(full) / HBM_BYTES_PER_S * 1e3
+                bm = bound(io_in + nbytes(q, bias), 6 * b * h * d * pairs,
+                           dtype)
+                rm = _row(dtype, case, *errs["K2m"], ms2m + sum_ms, plain_ms,
+                          lib_ms, *bm, kernel_ms=ms2m, ms_without_dmask=ms2,
+                          batch_sum_ms=sum_ms, buffer_bytes=nbytes(full),
+                          buffer_bound_ms=buf_ms, library_note=note)
+                _log_row("K2m", rm)
+                log(f"[K2m] {rm['dtype']} {label}: K2 with d(mask) "
+                    f"{ms2m:.4f} ms, without {ms2:.4f} ms; batch sum "
+                    f"{sum_ms:.4f} ms; the {nbytes(full) / 1e6:.1f} MB "
+                    f"buffer written alone takes {buf_ms:.4f} ms at 3.35 "
+                    f"TB/s")
+                rows.append(("K2m", rm))
+                del full
+            if dtype == torch.bfloat16 and label == "encoder self":
+                main = {"K2m": rm}
+            del qg, kg, vg, out, lib_out, qt, kt, vt, ref, prep
+    return main
+
+
+def t5_counters():
+    """The T5 step's launch counters: (fn, attribute) by kernel."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    out = {k: (fn, "launches") for k, fn in train_counters().items()}
+    out["K2m"] = (fa.flash_attention_dq, "dmask_launches")
+    return out
+
+
+def t5_flops_per_step(model, batch, src, tgt):
+    """FLOPs of one T5 training step: 6 x (each encoder matrix x source
+    tokens + the cross-attention K / V matrices x source tokens + each
+    other decoder matrix x target tokens) + 6 x d x vocab x target tokens
+    (the tied head) + 12 x b x h x d_kv x sum of sq x sk over the 36
+    attention calls. Embedding lookups, norms and the bias tables do no
+    matrix work and are left out."""
+    cfg = model.config
+    t5 = model.t5
+
+    def mats(mod, skip=()):
+        return sum(m.weight.numel() for n, m in mod.named_modules()
+                   if isinstance(m, torch.nn.Linear)
+                   and not any(n.endswith(s) for s in skip))
+
+    t_src, t_tgt = batch * src, batch * tgt
+    n_enc = mats(t5.encoder_layers)
+    n_cross_kv = sum(mats(layer.cross_attn) - mats(layer.cross_attn,
+                                                   ("k", "v"))
+                     for layer in t5.decoder_layers)
+    n_dec = mats(t5.decoder_layers) - n_cross_kv
+    n_enc_l, n_dec_l = len(t5.encoder_layers), len(t5.decoder_layers)
+    pairs = n_enc_l * src * src + n_dec_l * (tgt * tgt + tgt * src)
+    return (6 * ((n_enc + n_cross_kv) * t_src + n_dec * t_tgt)
+            + 6 * cfg.d_model * cfg.vocab_size * t_tgt
+            + 12 * batch * cfg.num_heads * cfg.d_kv * pairs)
+
+
+def phase_train_t5(seed, dev, profile=False, out_dir=None):
+    from paddle_tpu_torch.models import T5Config, T5ForConditionalGeneration
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.training import make_seq2seq_train_step
+
+    cfg = T5Config.t5_base()
+    batch, src, tgt, warmup, steps = 32, 512, 114, 3, 10
+    held = torch.cuda.memory_allocated()    # left by earlier phases
+    model = T5ForConditionalGeneration(cfg, device=dev, seed=seed)
+    opt = Adam(learning_rate=1e-4, parameters=model.parameters())
+    step = make_seq2seq_train_step(model, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(seed + 3)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, src))
+                           ).to(dev)
+    labels_np = rng.randint(1, cfg.vocab_size, (batch, tgt))
+    labels_np[::4, -6:] = -100                  # a few ignored targets
+    labels = torch.from_numpy(labels_np).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log(f"[train_t5] T5-base ({cfg.num_layers} + {cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.d_kv}, d_ff "
+        f"{cfg.d_ff}, {cfg.feed_forward_proj}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e6:.1f} M params), batch {batch} x {src} source + "
+        f"{tgt} target tokens, bf16 O1, dropout {cfg.dropout_rate}, Adam "
+        f"1e-4")
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        torch.cuda.set_sync_debug_mode("error" if i == warmup - 1 else 0)
+        try:
+            losses.append(step(ids, labels, gen))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log("[train_t5] a warm-up step ran under torch.cuda.set_sync_debug_mode"
+        "('error'): no host sync in the step")
+    counters = t5_counters()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(ids, labels, gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    peak = torch.cuda.max_memory_allocated()
+    loss_vals = [float(x) for x in losses]
+    tokens = batch * (src + tgt)
+    tps = tokens * steps / wall
+    flops = t5_flops_per_step(model, batch, src, tgt)
+    mfu = flops * steps / wall / PEAK_FLOPS[torch.bfloat16]
+    log(f"[train_t5] warm-up {warmup} steps {warm_s:.2f} s; {steps} timed "
+        f"steps {wall:.3f} s: {tps:.1f} tokens/s/chip ({tokens} source + "
+        f"target tokens a step), step {wall / steps * 1e3:.2f} ms, MFU "
+        f"{mfu:.4f} ({flops / 1e12:.3f} TFLOP a step over 989 TFLOP/s), "
+        f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held "
+        f"before the phase)")
+    log(f"[train_t5] loss by step: " + ", ".join(f"{x:.4f}"
+                                                 for x in loss_vals))
+    log(f"[train_t5] launches in the {steps} timed steps: {launches}")
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"non-finite T5 loss: {loss_vals}")
+    if not loss_vals[-1] < loss_vals[0]:
+        raise AssertionError(f"T5 loss did not fall: {loss_vals}")
+    wrong = {k: n for k, n in launches.items()
+             if n != T5_LAUNCHES[k] * steps}
+    if wrong:
+        raise AssertionError(f"T5 launches {wrong} (over {steps} steps) != "
+                             f"expected per step {T5_LAUNCHES}")
+    prof = None
+    if profile:
+        prof = profile_window("train_t5_step",
+                              lambda: step(ids, labels, gen), out_dir)
+    return dict(launches=launches, tokens_per_s=tps,
+                step_ms=wall / steps * 1e3, mfu=mfu, flops_per_step=flops,
+                n_params=n_params, peak_bytes=peak, held_bytes=held,
+                losses=loss_vals, wall_s=wall, warmup_s=warm_s, profile=prof)
+
+
+def grad_errors(model, ref):
+    """{name: (max abs error, max |ref grad|)} of every parameter gradient
+    of `model` against the same-named gradient of `ref`."""
+    ref_params = dict(ref.named_parameters())
+    out = {}
+    for name, p in model.named_parameters():
+        g, gr = p.grad, ref_params[name].grad
+        if (g is None) != (gr is None):
+            raise AssertionError(f"{name}: gradient on one side only")
+        if g is not None:
+            out[name] = (float((g.cpu() - gr).abs().max()),
+                         float(gr.abs().max()))
+    return out
+
+
+def check_grads(errs, losses, tag, rtol):
+    """Loss and every parameter gradient, card against CPU: |loss
+    difference| <= LOSS_RTOL x |loss| and every max abs gradient error of
+    `errs` (grad_errors' result) <= rtol x max |CPU grad|. Returns (worst
+    relative error, its name)."""
+    dl = abs(losses["card"] - losses["cpu"])
+    if not dl <= LOSS_RTOL * abs(losses["cpu"]):
+        raise AssertionError(f"{tag}: loss card {losses['card']} vs cpu "
+                             f"{losses['cpu']}")
+    bad = {n: e for n, e in errs.items() if not e[0] <= rtol * e[1] + 1e-12}
+    if bad:
+        raise AssertionError(f"{tag}: gradients beyond {rtol} x max|cpu "
+                             f"grad| (max abs error, max|cpu grad|): {bad}")
+    return worst_rel(errs)
+
+
+def worst_rel(errs):
+    """(worst relative error, its name) of grad_errors' result."""
+    rel = {n: e / s if s > 0 else e for n, (e, s) in errs.items()}
+    name = max(rel, key=rel.get)
+    return rel[name], name
+
+
+class plain_versions:
+    """Context in which the port's functional layer runs attention and
+    RMSNorm through their plain PyTorch versions (autograd through them)
+    even on CUDA tensors: the card's own reference for a whole step."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.ops import flash_attention as fa
+        from paddle_tpu_torch.ops import norm
+
+        self._F = F
+        self._saved = F._attention, F._rms_norm
+        F._attention = (lambda q, k, v, m, c, p, s:
+                        fa.flash_attention_reference(q, k, v, m, c, False, p,
+                                                     s))
+        F._rms_norm = (lambda x, w, eps:
+                       norm.norm_forward_reference(x, w, None, eps, False)[0])
+        return self
+
+    def __exit__(self, *exc):
+        self._F._attention, self._F._rms_norm = self._saved
+        return False
+
+
+def phase_t5_step_check(seed, dev):
+    """A 2-layer T5 at full width (2 encoder + 2 decoder layers), fp32,
+    dropout 0, batch 2, 512 source / 114 target tokens: loss and every
+    gradient on the card, through the kernels (d(mask) included) and again
+    through the plain versions on the card, against the CPU (plain
+    versions). Gated-GELU: the loss under LOSS_RTOL, every kernel-path
+    gradient under T5_GRAD_RTOL. ReLU (T5-base's own FFN): the loss under
+    LOSS_RTOL; its gradients are printed, not held, since an fp32 rounding
+    difference anywhere upstream flips the ReLU mask of activations near
+    zero and moves a gradient by a whole token's share (the plain versions
+    on the card move as far as the kernels)."""
+    from paddle_tpu_torch.models import T5Config, T5ForConditionalGeneration
+
+    rng = np.random.RandomState(seed + 4)
+    counters = t5_counters()
+    out = {}
+    for ff in ("gated-gelu", "relu"):
+        cfg = T5Config.t5_base()
+        cfg.num_layers = 2
+        cfg.dropout_rate = 0.0
+        cfg.feed_forward_proj = ff
+        card = T5ForConditionalGeneration(cfg, device=dev, seed=seed)
+        cpu = T5ForConditionalGeneration(cfg, device="cpu", seed=seed)
+        state = {k: v.cpu() for k, v in card.state_dict().items()}
+        cpu.load_state_dict(state)
+        ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512)))
+        labels = torch.from_numpy(rng.randint(1, cfg.vocab_size, (2, 114)))
+        labels[:, ::9] = -100                   # some ignored targets
+
+        def run(m):
+            m.zero_grad(set_to_none=True)
+            m.train()
+            d = next(m.parameters()).device
+            lab = labels.to(d)
+            loss = m.loss(m(ids.to(d), m.shift_right(lab)), lab)
+            loss.backward()
+            return float(loss.detach())
+
+        loss_cpu = run(cpu)
+        before = read_counters(counters)
+        loss_card = run(card)
+        ran = {k: n - before[k] for k, n in read_counters(counters).items()}
+        if any(n <= 0 for n in ran.values()):
+            raise AssertionError(f"the card's T5 step skipped a kernel: "
+                                 f"{ran}")
+        kernels = grad_errors(card, cpu)
+        with plain_versions():
+            loss_plain = run(card)
+        plain = grad_errors(card, cpu)
+        losses = {"card": loss_card, "cpu": loss_cpu}
+        if ff == "gated-gelu":
+            worst = check_grads(kernels, losses, "t5_step_check",
+                                T5_GRAD_RTOL)
+        else:
+            dl = abs(loss_card - loss_cpu)
+            if not dl <= LOSS_RTOL * abs(loss_cpu):
+                raise AssertionError(f"t5_step_check relu: loss card "
+                                     f"{loss_card} vs cpu {loss_cpu}")
+            worst = worst_rel(kernels)
+        worst_plain = worst_rel(plain)
+        bias = {n.split(".")[1] + "." + n.split(".")[2]:
+                kernels[n][0] / kernels[n][1] for n in kernels
+                if "relative_attention_bias" in n}
+        held = (f"every gradient within {T5_GRAD_RTOL} x max|cpu grad|"
+                if ff == "gated-gelu" else "gradients not held")
+        log(f"[t5_step_check] {ff}, 2 + 2 layers full width fp32, 512 / "
+            f"114: loss card {loss_card!r} cpu {loss_cpu!r} (plain on the "
+            f"card {loss_plain!r}); {held}: kernels worst {worst[0]:.3g} "
+            f"({worst[1]}), plain versions on the card worst "
+            f"{worst_plain[0]:.3g} ({worst_plain[1]}); bias tables "
+            f"{ {k: f'{v:.3g}' for k, v in bias.items()} }; kernels launched "
+            f"{ran}")
+        out[ff] = dict(loss_card=loss_card, loss_cpu=loss_cpu,
+                       loss_plain_on_card=loss_plain, worst_grad_rel=worst[0],
+                       worst_grad=worst[1],
+                       worst_plain_grad_rel=worst_plain[0],
+                       worst_plain_grad=worst_plain[1], bias_grad_rel=bias,
+                       launches=ran)
+        del card, cpu
+    return out
 
 
 def serve(engine, prompts, late, max_new):
@@ -1316,6 +1743,9 @@ KERNELS = {
     "K2": dict(name="flash_attention_backward_dq", route="cuda",
                source="paddle_tpu_torch/csrc/flash_bwd.cu",
                replaces="paddle_tpu/ops/pallas_kernels.py:357"),
+    "K2m": dict(name="flash_attention_backward_dq_dmask", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_bwd.cu",
+                replaces="paddle_tpu/ops/pallas_kernels.py:357"),
     "K3": dict(name="flash_attention_backward_dkv", route="cuda",
                source="paddle_tpu_torch/csrc/flash_bwd.cu",
                replaces="paddle_tpu/ops/pallas_kernels.py:474"),
@@ -1338,11 +1768,12 @@ KERNELS = {
 
 
 def summarize(main_rows, launches_by_path):
-    """The kernels' JSON summary: each kernel's main-path row (the training
-    path's shapes for K1-K5, the serving path's for K6, K6q and K7) and its
-    launches, summed over the paths that run it. K7's launches count both
-    its forms (fp32 / bf16 pools, and int8 / fp8 pools: K7q in the paths'
-    counts)."""
+    """The kernels' JSON summary: each kernel's main-path row (the ERNIE
+    training path's shapes for K1-K5, T5's encoder for K2 with d(mask) (its
+    ms is the kernel plus the batch sum), the serving path's for K6, K6q
+    and K7) and its launches, summed over the paths that run it. K7's
+    launches count both its forms (fp32 / bf16 pools, and int8 / fp8 pools:
+    K7q in the paths' counts)."""
     out = []
     for k, meta in KERNELS.items():
         r = main_rows[k]
@@ -1356,6 +1787,10 @@ def summarize(main_rows, launches_by_path):
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=r["library_ms"], dtype=r["dtype"],
                      case=r["case"])
+        if k == "K2m":
+            entry.update({x: r[x] for x in (
+                "kernel_ms", "ms_without_dmask", "batch_sum_ms",
+                "buffer_bytes", "buffer_bound_ms")})
         if k == "K1":
             entry["dropout_p"] = r.get("dropout_p", 0.0)
             entry["lse_max_abs_err"] = r.get("lse_err")
@@ -1381,7 +1816,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile one prefill and two decode blocks of the "
                          "served slice, two ragged steps of the chunked "
-                         "serve and one train step with torch.profiler")
+                         "serve, one ERNIE and one T5 train step with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1399,6 +1835,7 @@ def main(argv=None):
     main_rows.update(k23_cases(rows, dev))
     result["edge_cases"] = flash_edge_cases(dev)
     main_rows.update(k45_train_cases(rows, dev))
+    main_rows.update(t5_kernel_cases(rows, dev))
     result["cases"] = [dict(kernel=k, **r) for k, r in rows]
 
     def release():
@@ -1430,6 +1867,12 @@ def main(argv=None):
     launches["train"] = result["train"]["launches"]
     release()
     result["step_check"] = phase_step_check(args.seed, dev)
+    release()
+    result["train_t5"] = phase_train_t5(args.seed, dev, args.profile,
+                                        args.out)
+    launches["train_t5"] = result["train_t5"]["launches"]
+    release()
+    result["t5_step_check"] = phase_t5_step_check(args.seed, dev)
     result["seconds"] = time.perf_counter() - t_start
     result["summary"] = summarize(main_rows, launches)
     if args.out:

@@ -8,14 +8,23 @@ the `amp:` fields of paddle_tpu/ops/ops.yaml (never read at run time):
 
     white: linear (:2114), matmul (:1765), scaled_dot_product_attention
            (:2197), fused_linear_cross_entropy (:2126)
-    black: layer_norm (:2062), cross_entropy (:2120)
+    black: layer_norm (:2062), rms_norm (:2068), cross_entropy (:2120)
 
-`gelu`, `dropout`, `embedding`, `tanh` and additions are in neither list
-and follow their inputs. The port's functional layer (`nn.functional`)
-asks `cast_inputs(op, ...)` before each listed op, so under O1 the
-residual stream and every LayerNorm stay fp32 while the products and
-attention run in bf16; gradients flow back through the casts into the
+`gelu`, `relu`, `dropout`, `embedding`, `tanh` and additions are in
+neither list and follow their inputs. The port's functional layer
+(`nn.functional`) asks `cast_inputs(op, ...)` before each listed op, so
+under O1 the residual stream and every norm stay fp32 while the products
+and attention run in bf16; gradients flow back through the casts into the
 fp32 parameters.
+
+The cast is the one of the reference's op dispatch (paddle_tpu/core/
+dispatch.py:67-68), which casts EVERY float input of a listed op: for
+`scaled_dot_product_attention` that includes a float attention mask, so
+T5's trainable position bias enters attention in bf16 and its gradient
+flows back through that cast. That dispatch is what the JAX package runs on
+the CPU, in its tests and in the port's parity tests. Its TPU flash path
+(`apply_callable`, dispatch.py:125) casts nothing; the port follows the op
+dispatch.
 
 `torch.autocast` is not used: it keys its own lists on aten ops (its fp32
 list alone covers exp, log, pow, sum and more than the reference casts),
@@ -33,7 +42,7 @@ __all__ = ["auto_cast", "cast_inputs", "WHITE_LIST", "BLACK_LIST"]
 
 WHITE_LIST = frozenset({"linear", "matmul", "scaled_dot_product_attention",
                         "fused_linear_cross_entropy"})
-BLACK_LIST = frozenset({"layer_norm", "cross_entropy"})
+BLACK_LIST = frozenset({"layer_norm", "rms_norm", "cross_entropy"})
 
 _STATE = {"enabled": False, "dtype": torch.bfloat16}
 

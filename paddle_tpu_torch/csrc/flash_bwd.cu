@@ -13,8 +13,18 @@
 // (fp32, computed by the caller as `_flash_vjp` does at :627-633). The
 // dropout keep bit is the forward's counter-based hash (common.cuh), so no
 // mask is stored between the passes. The additive float mask keeps its
-// size-1 batch / head / query dims as zero strides; d(mask) is not
-// produced (trainable masks are not on the port's path yet).
+// size-1 batch / head / query dims as zero strides.
+//
+// d(mask). Since s = scale * q k^T + mask, d(mask) = dS, unscaled, in fp32
+// before dS is rounded to the operand type (the `want_dmask` store of
+// `_bwd_dq_call`, :382-415). Given a `dmask` buffer, K2 writes it there as
+// (batch, heads, sq, sk) fp32, only for live (row < sq, col < sk) elements;
+// the caller sums it over the mask's size-1 dims, as `_flash_vjp` does
+// (:643-652). Key tiles past the causal diagonal are never visited, so the
+// caller hands K2 a zeroed buffer under `is_causal`. The store is a
+// template flag: without a buffer K2 compiles and runs as before. With
+// dropout, dS already uses the dropped and rescaled dP, so d(mask) is the
+// forward's own mask's gradient.
 //
 // Layout is the public (batch, seq, heads, head_dim) one for q, k, v, dO and
 // the outputs; lse and delta are (batch, heads, seq) fp32.
@@ -40,7 +50,10 @@
 // at the bf16 peak) and moves ~126 MB (0.038 ms); K3 four products (51.5
 // GFLOP, 0.052 ms) and ~151 MB. Both are bound by operations; these first
 // versions are limited by the shared-memory round trips of S, dP and dS
-// and by the per-lane elementwise work (PERF.md has their times).
+// and by the per-lane elementwise work (PERF.md has their times). With
+// d(mask), K2 also writes b*h*sq*sk fp32: 402.7 MB at T5-base's encoder
+// shape (b 32, h 12, 512 x 512), 0.120 ms at 3.35 TB/s, which then binds
+// it by bytes.
 
 #include <math.h>
 #include <mma.h>
@@ -98,12 +111,14 @@ __device__ __forceinline__ float dot_row(const float* a, const float* b) {
 }
 
 // K2, FMA path. NC = head_dim in chunks of 32; T = q/k/v/dO/dq type.
-template <typename T, int NC>
+// kDmask: also store fp32 dS to dmask (b, h, sq, sk), lane j's column.
+template <typename T, int NC, bool kDmask>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const float* __restrict__ mask, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int sq, int sk, int h, int d, long long msb,
+    T* __restrict__ dq, float* __restrict__ dmask, int sq, int sk, int h,
+    int d, long long msb,
     long long msh, long long msq, int is_causal, float scale,
     ptt::Dropout drop) {
   constexpr int DP = NC * 32;
@@ -124,6 +139,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const float* mb =
       mask ? mask + (long long)bb * msb + (long long)hh * msh : nullptr;
   const long long lrow = ((long long)bb * h + hh) * sq;  // lse / delta row
+  float* dmb = kDmask ? dmask + lrow * sk : nullptr;
 
   load_tile_f32<T, DP, kBR>(q_s, DP, q + (long long)bb * sq * rs + head, q0,
                             sq, d, rs);
@@ -167,7 +183,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       const bool keep =
           !drop.seed || ptt::dropout_keep(rkey[r], col, drop.threshold);
       dpv = keep ? dpv * drop.inv_keep : 0.f;
-      dsw[r * kBC + lane] = p * (dpv - delta_r[r]);
+      const float ds = p * (dpv - delta_r[r]);
+      dsw[r * kBC + lane] = ds;
+      if (kDmask && row < sq && col < sk) dmb[(long long)row * sk + col] = ds;
     }
     __syncwarp();
 
@@ -333,6 +351,7 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *mask, *lse, *delta;
   void *dq, *dk, *dv;
+  float* dmask;  // K2's d(mask) buffer, or nullptr
   int b, sq, sk, h, d;
   long long msb, msh, msq;
   int is_causal;
@@ -344,7 +363,8 @@ template <typename T, int NC>
 int launch_fma(const Args& a, bool want_dq, cudaStream_t st) {
   if (want_dq) {
     const size_t smem = dq_smem_floats<NC>() * sizeof(float);
-    auto kern = flash_bwd_dq_kernel<T, NC>;
+    auto kern = a.dmask ? flash_bwd_dq_kernel<T, NC, true>
+                        : flash_bwd_dq_kernel<T, NC, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -352,8 +372,8 @@ int launch_fma(const Args& a, bool want_dq, cudaStream_t st) {
     kern<<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout),
-        a.lse, a.delta, static_cast<T*>(a.dq), a.sq, a.sk, a.h, a.d, a.msb,
-        a.msh, a.msq, a.is_causal, a.scale, a.drop);
+        a.lse, a.delta, static_cast<T*>(a.dq), a.dmask, a.sq, a.sk, a.h, a.d,
+        a.msb, a.msh, a.msq, a.is_causal, a.scale, a.drop);
   } else {
     const size_t smem = dkv_smem_floats<NC>() * sizeof(float);
     auto kern = flash_bwd_dkv_kernel<T, NC>;
@@ -485,14 +505,18 @@ __device__ __forceinline__ void store_rows(
 }
 
 // K2, bf16 tensor-core path: one block per (batch, head, 64-query tile).
-template <int D>
+// kDmask: the fp32 dS of each warp's 16 x 64 tile goes back into the warp's
+// S slab (each lane overwrites the S values it has just read), and the warp
+// then writes the tile to dmask row by row, 32 consecutive floats a store.
+template <int D, bool kDmask>
 __global__ void __launch_bounds__(kWThreads) flash_bwd_dq_wmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ mask,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int sq, int sk,
-    int h, long long msb, long long msh, long long msq, int is_causal,
-    float scale, ptt::Dropout drop) {
+    const float* __restrict__ delta, bf16* __restrict__ dq,
+    float* __restrict__ dmask, int sq, int sk, int h, long long msb,
+    long long msh, long long msq, int is_causal, float scale,
+    ptt::Dropout drop) {
   using L = BwdSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   auto* q_s = reinterpret_cast<bf16*>(smem);
@@ -552,9 +576,24 @@ __global__ void __launch_bounds__(kWThreads) flash_bwd_dq_wmma_kernel(
       const bool keep =
           !drop.seed || ptt::dropout_keep(rkey, col, drop.threshold);
       dpv = keep ? dpv * drop.inv_keep : 0.f;
-      ds_w[r * L::PP + cc] = __float2bfloat16(p * (dpv - delta_r));
+      const float ds = p * (dpv - delta_r);
+      ds_w[r * L::PP + cc] = __float2bfloat16(ds);
+      if (kDmask) s_w[r * L::SP + cc] = ds;
     }
     __syncwarp();
+
+    if (kDmask) {
+      const int wrow0 = q0 + warp * kWRows;
+      float* dmb = dmask + (lrow + wrow0) * sk;
+      for (int i = 0; i < kWRows && wrow0 + i < sq; ++i) {
+#pragma unroll
+        for (int t = 0; t < kWT / 32; ++t) {
+          const int c = t * 32 + lane;
+          if (k0 + c < sk)
+            dmb[(long long)i * sk + k0 + c] = s_w[i * L::SP + c];
+        }
+      }
+    }
 
     accumulate_16xD<D>(acc, ds_w, k_s);  // dQ_w += dS K
   }
@@ -661,7 +700,8 @@ int launch_wmma(const Args& a, bool want_dq, cudaStream_t st) {
   const size_t smem = BwdSmem<D>::bytes;
   using cbf = const bf16*;
   if (want_dq) {
-    auto kern = flash_bwd_dq_wmma_kernel<D>;
+    auto kern = a.dmask ? flash_bwd_dq_wmma_kernel<D, true>
+                        : flash_bwd_dq_wmma_kernel<D, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -669,8 +709,8 @@ int launch_wmma(const Args& a, bool want_dq, cudaStream_t st) {
     kern<<<grid, kWThreads, smem, st>>>(
         static_cast<cbf>(a.q), static_cast<cbf>(a.k), static_cast<cbf>(a.v),
         a.mask, static_cast<cbf>(a.dout), a.lse, a.delta,
-        static_cast<bf16*>(a.dq), a.sq, a.sk, a.h, a.msb, a.msh, a.msq,
-        a.is_causal, a.scale, a.drop);
+        static_cast<bf16*>(a.dq), a.dmask, a.sq, a.sk, a.h, a.msb, a.msh,
+        a.msq, a.is_causal, a.scale, a.drop);
   } else {
     auto kern = flash_bwd_dkv_wmma_kernel<D>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -703,12 +743,15 @@ int dispatch(const Args& a, int dtype, bool want_dq, void* stream) {
 // all of `dtype` (0 fp32, 1 bf16), d <= 256; mask: nullptr or fp32 with
 // element strides msb/msh/msq (0 = broadcast dim) and unit stride over
 // keys; lse, delta: (b, h, sq) fp32; seed: nullptr (no dropout) or a device
-// int32, threshold = floor(p * 2^32), inv_keep = 1 / (1 - p).
+// int32, threshold = floor(p * 2^32), inv_keep = 1 / (1 - p); dmask (K2
+// only): nullptr, or a contiguous (b, h, sq, sk) fp32 buffer for d(mask),
+// zeroed by the caller under is_causal.
 // Each returns cudaGetLastError() after its launch.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* mask, const void* dout,
                                 const void* lse, const void* delta, void* dq,
-                                int b, int sq, int sk, int h, int d,
+                                void* dmask, int b, int sq, int sk, int h,
+                                int d,
                                 long long msb, long long msh, long long msq,
                                 int is_causal, float scale, const void* seed,
                                 unsigned threshold, float inv_keep, int dtype,
@@ -717,7 +760,8 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                static_cast<const float*>(mask),
                static_cast<const float*>(lse),
                static_cast<const float*>(delta),
-               dq, nullptr, nullptr, b, sq, sk, h, d, msb, msh, msq,
+               dq, nullptr, nullptr, static_cast<float*>(dmask),
+               b, sq, sk, h, d, msb, msh, msq,
                is_causal, scale,
                ptt::Dropout{static_cast<const int*>(seed), threshold,
                             seed ? inv_keep : 1.f}};
@@ -736,7 +780,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                static_cast<const float*>(mask),
                static_cast<const float*>(lse),
                static_cast<const float*>(delta),
-               nullptr, dk, dv, b, sq, sk, h, d, msb, msh, msq,
+               nullptr, dk, dv, nullptr, b, sq, sk, h, d, msb, msh, msq,
                is_causal, scale,
                ptt::Dropout{static_cast<const int*>(seed), threshold,
                             seed ? inv_keep : 1.f}};

@@ -5,8 +5,8 @@ ops.yaml ops they dispatch to).
 `rms_norm` and `layer_norm` reach the fused norm kernels (K4 forward, K5
 backward) and `scaled_dot_product_attention` the flash-attention kernels
 (K1 forward with dropout, K2 / K3 backward), as their JAX counterparts
-reach the Pallas kernels; `linear`, `matmul`, `embedding`, `gelu`, `silu`,
-`tanh` and `dropout` are PyTorch's own arithmetic, and the two
+reach the Pallas kernels; `linear`, `matmul`, `embedding`, `gelu`, `relu`,
+`silu`, `tanh` and `dropout` are PyTorch's own arithmetic, and the two
 cross-entropies live in `ops.cross_entropy`. The ops of the amp lists cast
 their inputs through `amp.cast_inputs` first, as the reference's dispatch
 does under `auto_cast`. `linear` takes PyTorch's (out, in) weight layout:
@@ -30,7 +30,7 @@ from ..ops.flash_attention import attention as _attention
 from ..ops.norm import layer_norm as _layer_norm
 from ..ops.norm import rms_norm as _rms_norm
 
-__all__ = ["linear", "matmul", "embedding", "silu", "gelu", "tanh",
+__all__ = ["linear", "matmul", "embedding", "silu", "gelu", "relu", "tanh",
            "dropout", "rms_norm", "layer_norm",
            "scaled_dot_product_attention", "cross_entropy",
            "fused_linear_cross_entropy"]
@@ -63,6 +63,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return _tF.gelu(x)
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
 def tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.tanh(x)
 
@@ -91,6 +95,8 @@ def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              epsilon: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis through K4 / K5 (fp32 under O1)."""
+    x, weight = amp.cast_inputs("rms_norm", x, weight)
     return _rms_norm(x, weight, epsilon)
 
 
@@ -117,11 +123,13 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                                  generator: Optional[torch.Generator] = None
                                  ) -> torch.Tensor:
     """Layout (batch, seqlen, num_heads, head_dim), paddle's. Differentiable
-    through K1 / K2 / K3; attention dropout (when `training`) runs inside
-    the kernels, keyed by one int32 seed drawn on the device from
-    `generator`, so the host never waits for it."""
-    query, key, value = amp.cast_inputs("scaled_dot_product_attention",
-                                        query, key, value)
+    through K1 / K2 / K3, a trainable float mask included (its gradient from
+    K2); under O1 the mask is cast with q, k and v, as the reference's
+    dispatch casts every float input of the op. Attention dropout (when
+    `training`) runs inside the kernels, keyed by one int32 seed drawn on
+    the device from `generator`, so the host never waits for it."""
+    query, key, value, attn_mask = amp.cast_inputs(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     seed = None
     if not training or dropout_p <= 0.0:
         dropout_p = 0.0

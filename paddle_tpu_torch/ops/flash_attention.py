@@ -12,7 +12,10 @@ additive float mask of shape (b|1, h|1, sq|1, sk); top-left causal
 masking; lse (b, h, sq) fp32; attention dropout (upscale_in_train, the
 softmax denominator undropped) whose keep mask is the counter-based hash
 of `ops.dropout_mask`, drawn from a one-element int32 `seed` tensor on the
-device. The ring offsets of the TPU kernel and d(mask) are not ported yet.
+device. A trainable mask (T5's relative position bias) gets its gradient
+from K2: d(mask) = dS in fp32, written by the kernel as a (b, h, sq, sk)
+buffer and summed here over the mask's size-1 dims, as `_flash_vjp` does
+(:643-657). The ring offsets of the TPU kernel are not ported yet.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors. See the headers of the .cu files for the
@@ -32,7 +35,7 @@ from .dropout_mask import keep_mask, threshold
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_backward", "flash_attention_backward_reference",
-           "attention_delta", "FlashAttention", "attention"]
+           "attention_delta", "reduce_dmask", "FlashAttention", "attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,6 +95,16 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+def reduce_dmask(full: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """d(mask) from the (b, h, sq, sk) fp32 dS: summed over the dims where
+    `mask` has size 1 (batch, heads, query), in the mask's dtype, as
+    `_flash_vjp` collapses the broadcast dims (:643-657)."""
+    dims = tuple(i for i in range(3) if mask.shape[i] == 1)
+    if dims:
+        full = full.sum(dim=dims, keepdim=True)
+    return full.to(mask.dtype)
+
+
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in fp32 (fp64 for fp64 inputs), (b, h, sq):
     the backward's row term, computed outside the kernels as `_flash_vjp`
@@ -105,15 +118,15 @@ def flash_attention_backward_reference(
         dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
         attn_mask: Optional[torch.Tensor] = None, is_causal: bool = False,
         dropout_p: float = 0.0, seed: Optional[torch.Tensor] = None,
-        need_dq: bool = True, need_dkv: bool = True
-        ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
-                   Optional[torch.Tensor]]:
+        need_dq: bool = True, need_dkv: bool = True, need_dmask: bool = False
+        ) -> Tuple[Optional[torch.Tensor], ...]:
     """Plain version of K2 and K3: (dq, dk, dv), each None when not asked
-    for. The arithmetic of `_recompute_p_ds` and the two TPU kernels: fp32
-    (fp64 for fp64 inputs) products of the input-type values, p = exp(s -
-    lse), dS = p * (dP - delta), and dS / P_dropped rounded to the input
-    type before their products, as the kernels feed them to the matrix
-    units."""
+    for, and d(mask) fourth with `need_dmask`. The arithmetic of
+    `_recompute_p_ds` and the two TPU kernels: fp32 (fp64 for fp64 inputs)
+    products of the input-type values, p = exp(s - lse), dS = p * (dP -
+    delta), and dS / P_dropped rounded to the input type before their
+    products, as the kernels feed them to the matrix units. d(mask) is the
+    unrounded dS, summed by `reduce_dmask`."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / math.sqrt(d)
@@ -132,7 +145,8 @@ def flash_attention_backward_reference(
         inv = 1.0 / (1.0 - dropout_p)
         p_drop = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
-    ds = (p * (dp - delta.to(acc)[..., None])).to(q.dtype).to(acc)
+    ds_full = p * (dp - delta.to(acc)[..., None])
+    ds = ds_full.to(q.dtype).to(acc)
     dq = dk = dv = None
     if need_dq:
         dq = ((ds @ kt) * scale).transpose(1, 2).to(q.dtype)
@@ -140,6 +154,8 @@ def flash_attention_backward_reference(
         dk = ((ds.transpose(-1, -2) @ qt) * scale).transpose(1, 2).to(k.dtype)
         dv = (p_drop.to(q.dtype).to(acc).transpose(-1, -2) @ dot
               ).transpose(1, 2).to(v.dtype)
+    if need_dmask:
+        return dq, dk, dv, reduce_dmask(ds_full, attn_mask)
     return dq, dk, dv
 
 
@@ -159,7 +175,7 @@ _VP, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_float)
 _FWD_ARGS = [_VP] * 6 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
                                                     _F32, _I32, _VP]
-_DQ_ARGS = [_VP] * 8 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
+_DQ_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
                                                    _F32, _I32, _VP]
 _DKV_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
                                                     _F32, _I32, _VP]
@@ -288,20 +304,30 @@ def _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
             drop_args)
 
 
-def _launch_dq(prep, is_causal):
+def _launch_dq(prep, is_causal, want_dmask=False):
+    """K2: dq, and with `want_dmask` the (b, h, sq, sk) fp32 dS buffer
+    (zeroed first under `is_causal`: the kernel skips the key tiles past
+    the diagonal), else None."""
     (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
                                                          inv) = prep
     b, sq, h, d = q.shape
+    sk = k.shape[1]
     dq = torch.empty_like(q)
+    full = None
+    if want_dmask:
+        alloc = torch.zeros if is_causal else torch.empty
+        full = alloc((b, h, sq, sk), dtype=torch.float32, device=q.device)
     lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dq", _DQ_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             b, sq, k.shape[1], h, d, msb, msh, msq, int(bool(is_causal)),
+             _ptr(full), b, sq, sk, h, d, msb, msh, msq, int(bool(is_causal)),
              1.0 / math.sqrt(d), _ptr(seed_t), thresh, inv, _DTYPES[q.dtype],
              _stream(q))
     _build.check(err, "flash_bwd_dq", lib)
     flash_attention_dq.launches += 1
-    return dq
+    if want_dmask:
+        flash_attention_dq.dmask_launches += 1
+    return dq, full
 
 
 def _launch_dkv(prep, is_causal):
@@ -326,18 +352,21 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        attn_mask: Optional[torch.Tensor] = None,
                        is_causal: bool = False, dropout_p: float = 0.0,
                        seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dQ. CUDA tensors launch K2 (counted in `flash_attention_dq.launches`);
-    CPU tensors run the dq part of `flash_attention_backward_reference`."""
+    """dQ. CUDA tensors launch K2 (counted in `flash_attention_dq.launches`;
+    the launches that also write d(mask), from `flash_attention_backward`,
+    in `flash_attention_dq.dmask_launches`); CPU tensors run the dq part
+    of `flash_attention_backward_reference`."""
     if not q.is_cuda:
         return flash_attention_backward_reference(
             q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
             need_dkv=False)[0]
     return _launch_dq(_bwd_prepare(q, k, v, dout, lse, delta, attn_mask,
                                    dropout_p, seed, "flash_attention_dq"),
-                      is_causal)
+                      is_causal)[0]
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.dmask_launches = 0
 
 
 def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -367,27 +396,32 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
                              attn_mask: Optional[torch.Tensor] = None,
                              is_causal: bool = False, dropout_p: float = 0.0,
-                             seed: Optional[torch.Tensor] = None
-                             ) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor]:
-    """(dq, dk, dv) from the forward's out and lse: delta outside the
-    kernels, then K2 and K3 on inputs checked and laid out once for CUDA
+                             seed: Optional[torch.Tensor] = None,
+                             need_dmask: bool = False
+                             ) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dq, dk, dv, d(mask) or None) from the forward's out and lse: delta
+    outside the kernels, then K2 (asked for d(mask) only with
+    `need_dmask`) and K3 on inputs checked and laid out once for CUDA
     tensors, the plain version (once) for CPU tensors."""
     delta = attention_delta(out, dout)
     if not q.is_cuda:
-        return flash_attention_backward_reference(
-            q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed)
+        grads = flash_attention_backward_reference(
+            q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
+            need_dmask=need_dmask)
+        return grads if need_dmask else (*grads, None)
     prep = _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p,
                         seed, "flash_attention_backward")
-    dq = _launch_dq(prep, is_causal)
+    dq, full = _launch_dq(prep, is_causal, need_dmask)
     dk, dv = _launch_dkv(prep, is_causal)
-    return dq, dk, dv
+    dmask = reduce_dmask(full, attn_mask) if need_dmask else None
+    return dq, dk, dv, dmask
 
 
 class FlashAttention(torch.autograd.Function):
     """K1 forward, K2 + K3 backward (the TPU's `_flash_vjp`). The forward
     saves q, k, v (as the kernels read them), the mask, the seed, out and
-    lse; the mask gets no gradient."""
+    lse. The mask gets its gradient from K2 when autograd asks for one
+    (a trainable mask), and K2 writes no d(mask) otherwise."""
 
     @staticmethod
     def forward(ctx, q, k, v, attn_mask, is_causal, dropout_p, seed):
@@ -406,10 +440,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, attn_mask, seed, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
+        dq, dk, dv, dmask = flash_attention_backward(
             q, k, v, out, lse, dout, attn_mask, ctx.is_causal, ctx.dropout_p,
-            seed)
-        return dq, dk, dv, None, None, None, None
+            seed, need_dmask=ctx.needs_input_grad[3])
+        return dq, dk, dv, dmask, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -417,13 +451,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               is_causal: bool = False, dropout_p: float = 0.0,
               seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Differentiable flash attention: `FlashAttention` when a gradient is
-    wanted, the forward kernel alone otherwise."""
-    if attn_mask is not None and attn_mask.requires_grad:
-        raise NotImplementedError(
-            "a trainable attention mask needs d(mask) from K2, which is not "
-            "ported yet (ROADMAP queue 2: K2's dmask, for T5)")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    wanted (of q, k, v or a trainable mask), the forward kernel alone
+    otherwise."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, attn_mask)):
         return FlashAttention.apply(q, k, v, attn_mask, is_causal, dropout_p,
                                     seed)
     return flash_attention(q, k, v, attn_mask, is_causal, False, dropout_p,

@@ -185,7 +185,7 @@ def test_parameter_names_match_the_reference():
     assert "ernie.layers.0.attention.qkv.weight" in params
 
 
-def test_auto_cast_gives_the_reference_types():
+def test_auto_cast_gives_the_reference_types(monkeypatch):
     x32 = torch.randn(2, 6, 16)
     w = torch.randn(8, 16)
     with amp.auto_cast(level="O1", dtype="bfloat16"):
@@ -194,9 +194,31 @@ def test_auto_cast_gives_the_reference_types():
         ln = F.layer_norm(x32.bfloat16(), 16, torch.ones(16),
                           torch.zeros(16))
         assert ln.dtype == torch.float32                 # black list
+        rms = F.rms_norm(x32.bfloat16(), torch.ones(16).bfloat16())
+        assert rms.dtype == torch.float32                # black list
+        assert F.relu(x32.bfloat16()).dtype == torch.bfloat16
         q = torch.randn(2, 6, 2, 8)
         assert F.scaled_dot_product_attention(q, q, q).dtype == \
             torch.bfloat16
+        # a float mask is cast with q, k and v (the reference's dispatch
+        # casts every float input of the op), and a trainable one takes
+        # its gradient back through that cast, in fp32
+        mask = torch.randn(1, 2, 6, 6, requires_grad=True)
+        types = []
+        real = F._attention
+
+        def spy(q_, k_, v_, m_, *rest):
+            types.append((q_.dtype, m_.dtype))
+            return real(q_, k_, v_, m_, *rest)
+
+        monkeypatch.setattr(F, "_attention", spy)
+        qg = q.clone().requires_grad_()
+        out = F.scaled_dot_product_attention(qg, q, q, attn_mask=mask)
+        monkeypatch.setattr(F, "_attention", real)
+        assert types == [(torch.bfloat16, torch.bfloat16)]
+        out.float().sum().backward()
+        assert mask.grad.dtype == torch.float32
+        assert float(mask.grad.abs().max()) > 0
         assert F.gelu(x32).dtype == torch.float32       # follows its input
         assert F.gelu(x32.bfloat16()).dtype == torch.bfloat16
         assert F.cross_entropy(torch.randn(3, 5).bfloat16(),

@@ -3,7 +3,9 @@ on the CPU, against the JAX package on the same numpy inputs.
 
 - K2 / K3 (flash backward, through `FlashAttention`): against `jax.vjp` of
   `_flash_attention_data(..., interpret=True)`, the Pallas kernels run in
-  interpret mode as tests/test_pallas_flash.py drives them.
+  interpret mode as tests/test_pallas_flash.py drives them; K2's d(mask)
+  for a trainable mask of every broadcast shape, causal and not, against
+  the same with `mask_needs_grad`.
 - K5 (norm backward, through `FusedNorm`): against `jax.vjp` of
   `_fused_norm_data(..., interpret=True)`.
 - `fused_linear_cross_entropy` and `cross_entropy`: against the reference
@@ -119,11 +121,77 @@ def test_backward_wrappers_split_the_plain_version():
             tflash.flash_attention_dkv.launches) == before
 
 
-def test_trainable_mask_raises_naming_the_roadmap_item():
-    q = torch.randn(1, 4, 1, 8, requires_grad=True)
-    mask = torch.zeros(1, 1, 1, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        tflash.attention(q, q, q, mask)
+# K2's d(mask) for a trainable mask: name -> (mask shape code, causal);
+# ragged sq 37 against sk 53. The last case holds the float64 plain
+# backward with dropout to autograd through materialized attention.
+DMASK_CASES = {
+    **{f"{shape}{' causal' if causal else ''}": (shape, causal)
+       for shape in ("1hqk", "b11k", "bhqk", "11qk")
+       for causal in (False, True)},
+    "1hqk dropout 0.2, float64": ("1hqk", False),
+}
+
+
+def _mask_shape(code, b, h, sq, sk):
+    return tuple({"b": b, "h": h, "q": sq, "k": sk, "1": 1}[c] for c in code)
+
+
+@pytest.mark.parametrize("case", list(DMASK_CASES))
+def test_trainable_mask_gradient(case):
+    """FlashAttention gives a trainable mask its gradient (the plain K2's
+    unrounded dS, summed over the mask's size-1 dims): against `jax.vjp`
+    of the interpret-mode Pallas kernels with `mask_needs_grad`, and with
+    dropout against autograd through materialized attention in float64.
+    `flash_attention_backward(need_dmask=True)` gives the same gradients."""
+    code, causal = DMASK_CASES[case]
+    dropout = "dropout" in case
+    b, sq, sk, h, d = (2, 24, 24, 2, 8) if dropout else (2, 37, 53, 3, 16)
+    dt = np.float64 if dropout else np.float32
+    r = np.random.RandomState(18)
+    q = r.standard_normal((b, sq, h, d)).astype(dt)
+    k = r.standard_normal((b, sk, h, d)).astype(dt)
+    v = r.standard_normal((b, sk, h, d)).astype(dt)
+    dout = r.standard_normal((b, sq, h, d)).astype(dt)
+    mask = (0.5 * r.standard_normal(_mask_shape(code, b, h, sq, sk))
+            ).astype(dt)
+    p, seed = (0.2, _seed(4321)) if dropout else (0.0, None)
+
+    qt, kt, vt, mt = (_t(x, True) for x in (q, k, v, mask))
+    out = tflash.attention(qt, kt, vt, mt, is_causal=causal, dropout_p=p,
+                           seed=seed)
+    out.backward(_t(dout))
+    assert mt.grad.shape == mask.shape and mt.grad.dtype == mt.dtype
+
+    if dropout:
+        qb, kb, vb, mb = (_t(x, True) for x in (q, k, v, mask))
+        logits = torch.einsum("bqhd,bkhd->bhqk", qb, kb) / math.sqrt(d) + mb
+        keep = tdm.keep_mask(seed, b, h, sq, sk, p)
+        probs = torch.where(keep, torch.softmax(logits, -1) / (1 - p), 0.0)
+        torch.einsum("bhqk,bkhd->bqhd", probs, vb).backward(_t(dout))
+        np.testing.assert_allclose(mt.grad.numpy(), mb.grad.numpy(),
+                                   rtol=1e-9, atol=1e-11)
+        for got, want in ((qt, qb), (kt, kb), (vt, vb)):
+            np.testing.assert_allclose(got.grad.numpy(), want.grad.numpy(),
+                                       rtol=1e-9, atol=1e-11)
+    else:
+        def f(q_, k_, v_, m_):
+            return pk._flash_attention_data(
+                q_, k_, v_, m_, is_causal=causal, has_mask=True,
+                mask_needs_grad=True, interpret=True)
+
+        _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, mask)))
+        ref = vjp(jnp.asarray(dout))
+        for name, got, want in zip(("dq", "dk", "dv", "dmask"),
+                                   (qt.grad, kt.grad, vt.grad, mt.grad), ref):
+            _close(got.numpy(), want, msg=name)
+
+    out2, lse = tflash.flash_attention(_t(q), _t(k), _t(v), _t(mask), causal,
+                                       True, p, seed)
+    grads = tflash.flash_attention_backward(
+        _t(q), _t(k), _t(v), out2, lse, _t(dout), _t(mask), causal, p, seed,
+        need_dmask=True)
+    for got, want in zip(grads, (qt.grad, kt.grad, vt.grad, mt.grad)):
+        assert torch.equal(got, want)
 
 
 # -------------------------------------------------------- K5 norm backward
