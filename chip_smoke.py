@@ -78,10 +78,34 @@ without the final result line:
 13. t5_step_check: a 2-layer T5 at full width, fp32, dropout 0, batch 2,
    512 / 114: loss and every gradient (both bias tables included) on the
    card against the CPU, as step_check;
-14. with --profile: torch.profiler windows of one prefill and two decode
+14. moe_kernels: K9 (the MoE row gather) against its plain version on the
+   card, bit-exact (tolerance 0): the dispatch (16384 fp32 rows of 768 into
+   8 x 4916 slots, GShard; 8 x 2560, Switch) and the combine (the slots'
+   bf16 rows back to 32768 / 16384 (token, choice) pairs) with the indices
+   of the real routing of the MoE phase's batch, and an odd 301 x 9 fp32
+   case with -1 indices; kernel, plain and library (index_select over a
+   zero-padded src) device times and the bound (rows written plus live
+   rows read, over 3.35 TB/s);
+15. train_moe: MoELayer at Switch-Base-8's widths (8 experts of
+   Linear(768, 3072), ReLU, Linear(3072, 768); 37.79 M parameters, random
+   from --seed), x (32, 512, 768) fp32 and an fp32 target from the seed,
+   mse_loss + 0.01 x aux_loss, bf16 O1, Adam lr 1e-4, one fixed batch, 3
+   warm-up (the last under sync debug mode "error") and 10 timed steps,
+   first with the GShard top-2 gate (capacity factor 1.2), then with a
+   Switch top-1 gate (capacity (1.25, 2.0)). K9 must launch exactly twice
+   a step; the loss must be finite and fall. Prints tokens/s/chip, step
+   ms, MFU (model FLOPs over 989 TFLOP/s; the executed count over all
+   slots beside it), peak memory and the dropped share of (token, choice)
+   pairs;
+16. moe_step_check: the layer at full width with GELU experts, fp32, 1024
+   tokens, at capacity factor 1.2 (nothing dropped) and 0.5 (about half
+   the pairs dropped): the routing indices on the card and on the CPU must
+   be identical, then the loss and every gradient (gate and experts) under
+   MOE_GRAD_RTOL, card (K9) against CPU (the plain version);
+17. with --profile: torch.profiler windows of one prefill and two decode
    blocks of the served slice, two ragged steps of the bf16 chunked
-   serve, one ERNIE train step and one T5 train step: device busy share,
-   top kernels and top host ops.
+   serve, one ERNIE, one T5 and one GShard MoE train step: device busy
+   share, top kernels and top host ops.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -158,6 +182,16 @@ TRAIN_LAUNCHES = {"K1": 12, "K2": 12, "K3": 12, "K4": 26, "K5": 26}
 # take the trainable bias; K4 / K5 for 2 norms per encoder layer, 3 per
 # decoder layer and the two final norms
 T5_LAUNCHES = {"K1": 36, "K2": 36, "K2m": 24, "K3": 36, "K4": 62, "K5": 62}
+# Switch-Base-8 (Fedus et al. 2021, "Switch Transformers", released as
+# google/switch-base-8): d_model 768 and 8 experts, each T5-base's FFN
+# (d_ff 3072, ReLU), trained at the T5 phase's encoder batch, 32 x 512
+MOE_D, MOE_FF, MOE_E, MOE_B, MOE_S = 768, 3072, 8, 32, 512
+# K9 launches per MoE train step: the dispatch and the combine gathers
+MOE_LAUNCHES = {"K9": 2}
+# the MoE step check's gradient limit, card against CPU at fp32 with GELU
+# experts (no ReLU mask flips): ERNIE's whole-step limit, the same fp32
+# products summed in another order
+MOE_GRAD_RTOL = GRAD_RTOL
 # the engine's greedy token must be the no-cache argmax wherever the top-2
 # margin of the no-cache logits exceeds this, by KV pool type: the paged and
 # no-cache bf16 paths round differently, and on an H100 positions whose
@@ -1422,6 +1456,264 @@ def phase_t5_step_check(seed, dev):
     return out
 
 
+def moe_gate(kind, dev):
+    """The gate of each MoE run: GShard top-2 as the layer's config dict
+    (capacity factor 1.2), Switch top-1 with capacity (1.25, 2.0)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import SwitchGate
+
+    if kind == "gshard":
+        return {"type": "gshard", "top_k": 2}
+    return SwitchGate(MOE_D, num_expert=MOE_E, capacity=(1.25, 2.0),
+                      device=dev)
+
+
+def moe_layer(kind, dev, seed, act=torch.nn.ReLU):
+    """MoELayer at Switch-Base-8's widths: MOE_E experts of Linear(768,
+    3072), `act`, Linear(3072, 768) with the port's Linear (cast by O1)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.nn import Linear
+
+    experts = [torch.nn.Sequential(Linear(MOE_D, MOE_FF, device=dev), act(),
+                                   Linear(MOE_FF, MOE_D, device=dev))
+               for _ in range(MOE_E)]
+    return MoELayer(MOE_D, experts, gate=moe_gate(kind, dev), device=dev,
+                    seed=seed)
+
+
+def moe_batch(seed, dev):
+    """(x, target), fp32 (MOE_B, MOE_S, MOE_D), drawn on the card from the
+    seed."""
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    shape = (MOE_B, MOE_S, MOE_D)
+    return (torch.randn(shape, generator=g, device=dev),
+            torch.randn(shape, generator=g, device=dev))
+
+
+def k9_cases(rows, dev, seed):
+    """K9 (the row gather) against its plain version on the card: a copy, so
+    bit-exact. The dispatch (x's 16384 fp32 rows into E x C slots) and the
+    combine (E x C bf16 expert rows back to T x k) with the indices of the
+    real routing of the train phase's first batch, for the GShard and the
+    Switch gate, and the odd case of tests/test_moe_fused.py (301 x 9 fp32,
+    413 indices in [-1, 301)), which takes the 4-byte path. The library
+    yardstick: torch.index_select over src with a zero row appended, -1
+    mapped to that row (the mapping and the append outside the timing)."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.ops import moe_dispatch as md
+
+    x, _ = moe_batch(seed, dev)
+    flat = x.reshape(-1, MOE_D)
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    cases = []
+    for kind in ("gshard", "switch"):
+        router = MoELayer(MOE_D, [torch.nn.Identity()] * MOE_E,
+                          gate=moe_gate(kind, dev), device=dev, seed=seed)
+        slot_token, tok_slot, cap = router.dispatch_indices(x)
+        out_rows = torch.randn(MOE_E * cap, MOE_D, generator=g, device=dev)
+        cases += [(f"dispatch {kind} ({flat.shape[0]}, {MOE_D}) -> "
+                   f"{MOE_E} x {cap}", flat, slot_token),
+                  (f"combine {kind} ({MOE_E * cap}, {MOE_D}) -> "
+                   f"{tok_slot.numel()}", out_rows.bfloat16(),
+                   tok_slot.reshape(-1))]
+    rng = np.random.RandomState(2)
+    cases.append(("odd (301, 9) -> 413",
+                  torch.from_numpy(rng.randn(301, 9).astype(np.float32)
+                                   ).to(dev),
+                  torch.from_numpy(rng.randint(-1, 301, 413).astype(
+                      np.int32)).to(dev)))
+    main = {}
+    for label, src, idx in cases:
+        out = md.gather_rows(src, idx)
+        ref = md.gather_rows_reference(src, idx)
+        n, d = src.shape
+        src_z = torch.cat([src, src.new_zeros(1, d)])
+        idx_z = torch.where(idx < 0, n, idx)
+        lib = torch.index_select(src_z, 0, idx_z)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        if not (torch.equal(out, ref) and torch.equal(lib, ref)):
+            raise AssertionError(f"K9 {label}: not bit-exact to the plain "
+                                 f"version (max abs error {err})")
+        ms = time_ms(lambda: md.gather_rows(src, idx))
+        plain_ms = time_ms(lambda: md.gather_rows_reference(src, idx))
+        lib_ms = time_ms(lambda: torch.index_select(src_z, 0, idx_z))
+        live = int((idx >= 0).sum())
+        es = src.element_size()
+        # each output row written, each live row read once, the indices
+        b9 = bound(idx.numel() * d * es + live * d * es + nbytes(idx), 0,
+                   src.dtype)
+        r = _row(src.dtype, label, err, 0.0, ms, plain_ms, lib_ms, *b9,
+                 empty_share=1.0 - live / idx.numel(),
+                 library_note="torch.index_select over src with a zero row "
+                              "appended, -1 mapped to it")
+        _log_row("K9", r)
+        log(f"[K9] {label}: bit-exact; {1 - live / idx.numel():.4f} of the "
+            f"indices empty")
+        rows.append(("K9", r))
+        if label.startswith("dispatch gshard"):
+            main["K9"] = r
+        elif label.startswith("combine gshard"):
+            main["K9 combine"] = r
+    return main
+
+
+def moe_flops(layer, tokens, capacity):
+    """(model FLOPs, executed FLOPs) of one MoE train step: 6 x tokens x k x
+    (2 d d_ff) + 6 x tokens x d x E (the gate) for the model; the experts
+    run over all E x C slots, so 6 x E x C x (2 d d_ff) + the gate's are
+    executed."""
+    k = layer.gate.topk
+    gate = 6 * tokens * MOE_D * MOE_E
+    expert = 2 * MOE_D * MOE_FF
+    return (6 * tokens * k * expert + gate,
+            6 * MOE_E * capacity * expert + gate)
+
+
+def phase_train_moe(kind, seed, dev, profile=False, out_dir=None):
+    """The MoE layer's train step at Switch-Base-8's widths through K9."""
+    from paddle_tpu_torch.ops import moe_dispatch as md
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.training import make_moe_train_step
+
+    warmup, steps = 3, 10
+    tag = f"train_moe_{kind}"
+    held = torch.cuda.memory_allocated()    # left by earlier phases
+    layer = moe_layer(kind, dev, seed)
+    opt = Adam(learning_rate=1e-4, parameters=layer.parameters())
+    step = make_moe_train_step(layer, opt)
+    n_params = sum(p.numel() for p in layer.parameters())
+    x, target = moe_batch(seed, dev)
+    tokens = MOE_B * MOE_S
+    log(f"[{tag}] MoELayer at Switch-Base-8 widths ({MOE_E} experts of "
+        f"Linear({MOE_D}, {MOE_FF}), ReLU, Linear({MOE_FF}, {MOE_D}); "
+        f"{type(layer.gate).__name__} top-{layer.gate.topk}, capacity "
+        f"factor {layer.capacity_factor}; {n_params / 1e6:.2f} M params), "
+        f"x ({MOE_B}, {MOE_S}, {MOE_D}) fp32, mse_loss + 0.01 aux, bf16 O1, "
+        f"Adam 1e-4")
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        torch.cuda.set_sync_debug_mode("error" if i == warmup - 1 else 0)
+        try:
+            losses.append(step(x, target))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log(f"[{tag}] a warm-up step ran under torch.cuda.set_sync_debug_mode"
+        "('error'): no host sync in the step")
+    _, tok_slot, cap = layer.dispatch_indices(x)
+    dropped = float((tok_slot < 0).float().mean())
+    counters = {"K9": (md.gather_rows, "launches")}
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(x, target))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    peak = torch.cuda.max_memory_allocated()
+    loss_vals = [float(v) for v in losses]
+    tps = tokens * steps / wall
+    flops, flops_exec = moe_flops(layer, tokens, cap)
+    mfu = flops * steps / wall / PEAK_FLOPS[torch.bfloat16]
+    log(f"[{tag}] warm-up {warmup} steps {warm_s:.2f} s; {steps} timed "
+        f"steps {wall:.3f} s: {tps:.1f} tokens/s/chip, step "
+        f"{wall / steps * 1e3:.2f} ms, MFU {mfu:.4f} ({flops / 1e12:.3f} "
+        f"TFLOP a step by the model, {flops_exec / 1e12:.3f} executed over "
+        f"{MOE_E} x {cap} slots; over 989 TFLOP/s), peak memory "
+        f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the "
+        f"phase); dropped (token, choice) pairs {dropped:.4f}")
+    log(f"[{tag}] loss by step: " + ", ".join(f"{v:.5f}" for v in loss_vals))
+    log(f"[{tag}] launches in the {steps} timed steps: {launches}")
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"non-finite MoE loss: {loss_vals}")
+    if not loss_vals[-1] < loss_vals[0]:
+        raise AssertionError(f"MoE loss did not fall: {loss_vals}")
+    wrong = {k: n for k, n in launches.items()
+             if n != MOE_LAUNCHES[k] * steps}
+    if wrong:
+        raise AssertionError(f"MoE launches {wrong} (over {steps} steps) != "
+                             f"expected per step {MOE_LAUNCHES}")
+    prof = None
+    if profile:
+        prof = profile_window(f"{tag}_step", lambda: step(x, target),
+                              out_dir)
+    return dict(gate=type(layer.gate).__name__, top_k=layer.gate.topk,
+                capacity=cap, launches=launches, tokens_per_s=tps,
+                step_ms=wall / steps * 1e3, mfu=mfu, flops_per_step=flops,
+                executed_flops_per_step=flops_exec, n_params=n_params,
+                peak_bytes=peak, held_bytes=held, dropped_share=dropped,
+                losses=loss_vals, wall_s=wall, warmup_s=warm_s,
+                profile=prof)
+
+
+def phase_moe_step_check(seed, dev):
+    """The MoE layer at full width (GShard top-2, GELU experts, as
+    tests/test_moe_fused.py builds them), fp32, 1024 tokens: the routing,
+    then the loss and every gradient, on the card (through K9) against the
+    CPU (the plain version), from the same weights. Twice: at the gate's
+    capacity factor 1.2, where these random tokens drop nothing, and at 0.5,
+    where about half the (token, choice) pairs are dropped, so the capacity
+    mask, the renormalized gates and the combine's empty slots are held
+    too."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import moe_dispatch as md
+
+    card = moe_layer("gshard", dev, seed, act=torch.nn.GELU)
+    cpu = moe_layer("gshard", "cpu", seed, act=torch.nn.GELU)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    rng = np.random.RandomState(seed + 5)
+    x = torch.from_numpy(rng.randn(2, 512, MOE_D).astype(np.float32))
+    target = torch.from_numpy(rng.randn(2, 512, MOE_D).astype(np.float32))
+    out = {}
+    for cf in (card.capacity_factor, 0.5):
+        card.capacity_factor = cpu.capacity_factor = cf
+        routes = {}
+        for name, m in (("card", card), ("cpu", cpu)):
+            d = m.gate.gate_weight.device
+            routes[name] = [t.cpu() for t in m.dispatch_indices(x.to(d))[:2]]
+        differ = [int((a != b).sum()) for a, b in zip(routes["card"],
+                                                      routes["cpu"])]
+        dropped = float((routes["cpu"][1] < 0).float().mean())
+        tag = f"capacity factor {cf}"
+        log(f"[moe_step_check] {tag}: routing card vs cpu: slot_token "
+            f"differs in {differ[0]} of {routes['cpu'][0].numel()}, tok_slot "
+            f"in {differ[1]} of {routes['cpu'][1].numel()}; dropped pairs "
+            f"{dropped:.4f}")
+        if any(differ):
+            raise AssertionError(f"moe_step_check {tag}: the card routes "
+                                 f"differently from the CPU ({differ})")
+        losses = {}
+        before = md.gather_rows.launches
+        for name, m in (("card", card), ("cpu", cpu)):
+            m.zero_grad(set_to_none=True)
+            m.train()
+            d = m.gate.gate_weight.device
+            loss = F.mse_loss(m(x.to(d)), target.to(d)) + 0.01 * m.aux_loss
+            loss.backward()
+            losses[name] = float(loss.detach())
+        ran = md.gather_rows.launches - before
+        if ran != MOE_LAUNCHES["K9"]:
+            raise AssertionError(f"the card's MoE step launched K9 {ran} "
+                                 f"times")
+        worst, worst_name = check_grads(grad_errors(card, cpu), losses,
+                                        f"moe_step_check {tag}",
+                                        MOE_GRAD_RTOL)
+        dl = abs(losses["card"] - losses["cpu"])
+        log(f"[moe_step_check] {tag}, GShard top-2, GELU experts, full "
+            f"width fp32, 1024 tokens: loss card {losses['card']!r} cpu "
+            f"{losses['cpu']!r} (|diff| {dl:.3g}, tol {LOSS_RTOL} x |loss|); "
+            f"every gradient within {MOE_GRAD_RTOL} x max|cpu grad|, worst "
+            f"{worst:.3g} ({worst_name}); K9 launched {ran}")
+        out[str(cf)] = dict(loss_card=losses["card"],
+                            loss_cpu=losses["cpu"], routing_differs=differ,
+                            dropped_share=dropped, worst_grad_rel=worst,
+                            worst_grad=worst_name, launches={"K9": ran})
+    return out
+
+
 def serve(engine, prompts, late, max_new):
     """Add all but the `late` last prompts, step twice, add the rest, run.
     Returns the request ids and the wall seconds."""
@@ -1764,6 +2056,9 @@ KERNELS = {
     "K7": dict(name="ragged_paged_attention", route="cuda",
                source="paddle_tpu_torch/csrc/ragged_paged.cu",
                replaces="paddle_tpu/serving/attention.py:659"),
+    "K9": dict(name="gather_rows", route="cuda",
+               source="paddle_tpu_torch/csrc/gather_rows.cu",
+               replaces="paddle_tpu/ops/pallas_kernels.py:1173"),
 }
 
 
@@ -1771,7 +2066,8 @@ def summarize(main_rows, launches_by_path):
     """The kernels' JSON summary: each kernel's main-path row (the ERNIE
     training path's shapes for K1-K5, T5's encoder for K2 with d(mask) (its
     ms is the kernel plus the batch sum), the serving path's for K6, K6q
-    and K7) and its launches, summed over the paths that run it. K7's
+    and K7, the GShard MoE dispatch for K9, with its combine beside it) and
+    its launches, summed over the paths that run it. K7's
     launches count both its forms (fp32 / bf16 pools, and int8 / fp8 pools:
     K7q in the paths' counts)."""
     out = []
@@ -1794,6 +2090,11 @@ def summarize(main_rows, launches_by_path):
         if k == "K1":
             entry["dropout_p"] = r.get("dropout_p", 0.0)
             entry["lse_max_abs_err"] = r.get("lse_err")
+        if k == "K9":
+            c = main_rows["K9 combine"]
+            entry["combine"] = {x: c[x] for x in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "dtype", "case")}
         if k == "K7":
             q = main_rows["K7q"]
             entry["quantized"] = dict(
@@ -1816,8 +2117,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile one prefill and two decode blocks of the "
                          "served slice, two ragged steps of the chunked "
-                         "serve, one ERNIE and one T5 train step with "
-                         "torch.profiler")
+                         "serve, one ERNIE, one T5 and one MoE train "
+                         "step with torch.profiler")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1836,6 +2137,7 @@ def main(argv=None):
     result["edge_cases"] = flash_edge_cases(dev)
     main_rows.update(k45_train_cases(rows, dev))
     main_rows.update(t5_kernel_cases(rows, dev))
+    main_rows.update(k9_cases(rows, dev, args.seed))
     result["cases"] = [dict(kernel=k, **r) for k, r in rows]
 
     def release():
@@ -1873,6 +2175,14 @@ def main(argv=None):
     launches["train_t5"] = result["train_t5"]["launches"]
     release()
     result["t5_step_check"] = phase_t5_step_check(args.seed, dev)
+    for kind in ("gshard", "switch"):
+        release()
+        r = phase_train_moe(kind, args.seed, dev,
+                            args.profile and kind == "gshard", args.out)
+        result[f"train_moe_{kind}"] = r
+        launches[f"train_moe_{kind}"] = r["launches"]
+    release()
+    result["moe_step_check"] = phase_moe_step_check(args.seed, dev)
     result["seconds"] = time.perf_counter() - t_start
     result["summary"] = summarize(main_rows, launches)
     if args.out:

@@ -30,7 +30,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "check",
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
-SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "ragged_paged")
+SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "ragged_paged",
+           "gather_rows")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

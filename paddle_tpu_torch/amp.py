@@ -10,8 +10,8 @@ the `amp:` fields of paddle_tpu/ops/ops.yaml (never read at run time):
            (:2197), fused_linear_cross_entropy (:2126)
     black: layer_norm (:2062), rms_norm (:2068), cross_entropy (:2120)
 
-`gelu`, `relu`, `dropout`, `embedding`, `tanh` and additions are in
-neither list and follow their inputs. The port's functional layer
+`gelu`, `relu`, `dropout`, `embedding`, `tanh`, `mse_loss` (:2138) and
+additions are in neither list and follow their inputs. The port's functional layer
 (`nn.functional`) asks `cast_inputs(op, ...)` before each listed op, so
 under O1 the residual stream and every norm stay fp32 while the products
 and attention run in bf16; gradients flow back through the casts into the

@@ -6,12 +6,12 @@ ops.yaml ops they dispatch to).
 backward) and `scaled_dot_product_attention` the flash-attention kernels
 (K1 forward with dropout, K2 / K3 backward), as their JAX counterparts
 reach the Pallas kernels; `linear`, `matmul`, `embedding`, `gelu`, `relu`,
-`silu`, `tanh` and `dropout` are PyTorch's own arithmetic, and the two
-cross-entropies live in `ops.cross_entropy`. The ops of the amp lists cast
-their inputs through `amp.cast_inputs` first, as the reference's dispatch
-does under `auto_cast`. `linear` takes PyTorch's (out, in) weight layout:
-`weights.load_reference_state` transposes paddle's (in, out) weights when
-they cross.
+`silu`, `tanh`, `dropout` and `mse_loss` (:536) are PyTorch's own
+arithmetic, and the two cross-entropies live in `ops.cross_entropy`. The
+ops of the amp lists cast their inputs through `amp.cast_inputs` first, as
+the reference's dispatch does under `auto_cast`. `linear` takes PyTorch's
+(out, in) weight layout: `weights.load_reference_state` transposes
+paddle's (in, out) weights when they cross.
 
 Randomness is explicit: `dropout` and attention dropout draw from the
 `torch.Generator` they are given (on the tensors' device), never from
@@ -33,7 +33,7 @@ from ..ops.norm import rms_norm as _rms_norm
 __all__ = ["linear", "matmul", "embedding", "silu", "gelu", "relu", "tanh",
            "dropout", "rms_norm", "layer_norm",
            "scaled_dot_product_attention", "cross_entropy",
-           "fused_linear_cross_entropy"]
+           "fused_linear_cross_entropy", "mse_loss"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -146,6 +146,21 @@ def cross_entropy(logits: torch.Tensor, label: torch.Tensor,
                   reduction: str = "mean") -> torch.Tensor:
     (logits,) = amp.cast_inputs("cross_entropy", logits)
     return _ce.cross_entropy(logits, label, ignore_index, reduction)
+
+
+def mse_loss(input: torch.Tensor, label: torch.Tensor,
+              reduction: str = "mean") -> torch.Tensor:
+    """mean / sum / none of (input - label)^2 (nn_ops.mse_loss): on neither
+    amp list, so it computes in its inputs' type."""
+    loss = torch.square(input - label)
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "mean":
+        return loss.mean()
+    raise ValueError(f"reduction must be mean, sum or none, got "
+                     f"{reduction!r}")
 
 
 def fused_linear_cross_entropy(x: torch.Tensor, weight: torch.Tensor,

@@ -9,8 +9,12 @@ opt)` returns `step(input_ids, labels, generator) -> loss` for an
 encoder-decoder (T5): `model.shift_right(labels)` as the decoder inputs,
 the forward and `model.loss` under the same O1 bf16, then the same
 backward and update. Hidden and attention dropout draw from `generator`
-(on the model's device). The steps make no host sync: the loss comes back
-as a device tensor, and reading it is the caller's choice.
+(on the model's device). `make_moe_train_step(layer, opt)` returns
+`step(x, target) -> loss` for an `MoELayer`: `mse_loss(layer(x), target)
++ 0.01 * layer.aux_loss` under the same O1 bf16 (0.01 is the Switch
+Transformer's load-balancing coefficient alpha), the composition the
+reference's MoE tests make by hand, then the same backward and update. The steps make no host sync: the loss comes back as
+a device tensor, and reading it is the caller's choice.
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ from typing import Callable
 import torch
 
 from . import amp
+from .nn import functional as F
 
-__all__ = ["make_train_step", "make_seq2seq_train_step"]
+__all__ = ["make_train_step", "make_seq2seq_train_step",
+           "make_moe_train_step"]
 
 
 def make_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer
@@ -51,6 +57,21 @@ def make_seq2seq_train_step(model: torch.nn.Module,
         with amp.auto_cast(level="O1", dtype="bfloat16"):
             logits = model(input_ids, decoder_input_ids, generator=generator)
             loss = model.loss(logits, labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return step
+
+
+def make_moe_train_step(layer: torch.nn.Module, opt: torch.optim.Optimizer
+                        ) -> Callable[[torch.Tensor, torch.Tensor],
+                                      torch.Tensor]:
+    def step(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        layer.train()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.mse_loss(layer(x), target) + 0.01 * layer.aux_loss
         loss.backward()
         opt.step()
         opt.zero_grad(set_to_none=True)
