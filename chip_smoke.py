@@ -77,7 +77,8 @@ without the final result line:
    (T5_FLOPS below) and peak memory;
 13. t5_step_check: a 2-layer T5 at full width, fp32, dropout 0, batch 2,
    512 / 114: loss and every gradient (both bias tables included) on the
-   card against the CPU, as step_check;
+   card against the CPU, as step_check, with gated-GELU and with ReLU FFNs
+   (the card's ReLU passes replay the CPU pass's ReLU masks);
 14. moe_kernels: K9 (the MoE row gather) against its plain version on the
    card, bit-exact (tolerance 0): the dispatch (16384 fp32 rows of 768 into
    8 x 4916 slots, GShard; 8 x 2560, Switch) and the combine (the slots'
@@ -102,7 +103,41 @@ without the final result line:
    the pairs dropped): the routing indices on the card and on the CPU must
    be identical, then the loss and every gradient (gate and experts) under
    MOE_GRAD_RTOL, card (K9) against CPU (the plain version);
-17. with --profile: torch.profiler windows of one prefill and two decode
+17. ring_kernels (run with the other kernel phases): K1r, K2r and K3r, the
+   ring form of the flash kernels, at one ring step of LLaMA-7B's
+   attention widths, (1, 4096, 32, 128) a rank, in bf16 (timed) and fp32,
+   against their plain versions under TOL_REL: the diagonal step (which
+   must equal the single-call causal K1 / K2 / K3 bit for bit), a past
+   block (all visible), a future block (out exactly 0, lse all -inf, dQ =
+   dK = dV = 0), an unaligned offset (4096 + 37) and a ragged 1000-row
+   shard; kernel, plain and library times (sdpa is_causal on the
+   diagonal, plain sdpa on the past block; yardsticks only) and the bound
+   from the live (query, key) pairs;
+18. ring: first the single-call K1 / K2 / K3 over the whole global
+   sequence of 16384 (32 heads of 128, bf16, causal) against their plain
+   versions a head at a time, each rank's part of the sequence under
+   SP_SINGLE_TOL; then `ring_flash_attention` forward and backward at
+   that shape (and at 2048 in fp32), over 4 ranks of `distributed.spawn`
+   (NCCL when the machine has a card per rank, else gloo with the ranks
+   sharing the card and CUDA tensors staged through pinned host memory):
+   each rank's output and dQ / dK / dV shard under SP_TOL (max error over
+   the shard's max, L2 error over the shard's L2) of one call over the
+   whole sequence on the same card (the single-call kernels in bf16, the
+   plain versions in fp32); exactly
+   4 K1r a forward and 4 K2r and 4 K3r a backward a rank; the transport
+   and its staged bytes, each rank's kernel time by CUDA events (one rank
+   at a time) and its wall (a speed figure only with a card a rank);
+19. ulysses: the same through `ulysses_attention` (K1, K2, K3 once a rank
+   on a quarter of the heads over the whole sequence);
+20. moe_ep: the MoE layer at Switch-Base-8's widths expert-parallel over
+   the same 4 ranks (2 experts a rank, 4096 tokens a rank, GShard top-2):
+   at capacity factor MOE_EP_CF nothing may drop, and the rows, the aux
+   loss and every gradient are held under MOE_EP_RTOL against the
+   single-rank layer run over every rank's tokens on the card (GELU
+   experts, fp32); then 3 + 10 O1 train steps at factor 1.2 (ReLU
+   experts), finite, K9 exactly twice a step a rank: step ms, the
+   transport and the dropped share;
+21. with --profile: torch.profiler windows of one prefill and two decode
    blocks of the served slice, two ragged steps of the bf16 chunked
    serve, one ERNIE, one T5 and one GShard MoE train step: device busy
    share, top kernels and top host ops.
@@ -159,6 +194,13 @@ TOL_REL = {
     # times the largest reading on an H100 (1.07e-6 x max|ref| fp32, 8.9e-7
     # bf16; PERF.md, section 6)
     "K2m": {torch.float32: 1e-5, torch.bfloat16: 1e-5},
+    # the ring forms at one ring step of (1, 4096, 32, 128): bf16 at two
+    # output ulps' worth of the largest value (a one-ulp rounding flip is
+    # up to 2^-7 of it: K3r's dV read one ulp, 0.00098 at a max of 0.1865,
+    # 5.2e-3 x max, on an H100; PERF.md, section 6)
+    "K1r": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+    "K2r": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
+    "K3r": {torch.float32: 1e-4, torch.bfloat16: 1e-2},
 }
 # K1's lse (fp32) max abs error: about ten times the largest read on an
 # H100 (9.54e-7, two fp32 ulps of lse ~ 7; PERF.md, PR 2)
@@ -169,10 +211,10 @@ TOL_LSE = 1e-5
 # largest gradient error read on an H100 (1.51e-6, PERF.md, PR 2)
 LOSS_RTOL = 2e-5
 GRAD_RTOL = 2e-5
-# the T5 step check's gradient limit (gated-GELU FFN): T5 at init is worse
-# conditioned than ERNIE, and the plain versions run on the card already
-# read 2.51e-5 against the CPU (the kernels 2.28e-5; PERF.md, section 6):
-# about four times that reading
+# the T5 step check's gradient limit (both FFNs; ReLU with the CPU's masks):
+# T5 at init is worse conditioned than ERNIE, and the plain versions run on
+# the card already read 2.51e-5 against the CPU with gated-GELU (the kernels
+# 2.28e-5; PERF.md, section 6): about four times that reading
 T5_GRAD_RTOL = 1e-4
 # the training step's launches per step: K1-K3 once per layer, K4 / K5
 # for the embedding norm, two norms per layer and the MLM norm
@@ -236,7 +278,7 @@ def bound(nbytes, flops, dtype):
 
 
 def max_err(a, b):
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def check(name, err, dtype):
@@ -1350,6 +1392,42 @@ def worst_rel(errs):
     return rel[name], name
 
 
+class shared_relu_masks:
+    """Context in which the port's `F.relu` shares its masks between passes
+    over one model: `record()` before a pass keeps each call's mask (x > 0)
+    in call order; `replay()` before a later pass makes the i-th call
+    return x * mask_i, whose gradient is mask_i, as ReLU's is. A ReLU model's
+    card and CPU passes then take the same branches, and an fp32 rounding
+    difference upstream can no longer flip a mask and move a gradient by a
+    whole token's share."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.nn import functional as F
+
+        self._F, self._relu = F, F.relu
+        self.masks, self._i, self._mode = [], 0, None
+        F.relu = self._call
+        return self
+
+    def record(self):
+        self.masks, self._mode = [], "record"
+
+    def replay(self):
+        self._i, self._mode = 0, "replay"
+
+    def _call(self, x):
+        if self._mode == "record":
+            self.masks.append((x > 0).detach().cpu())
+            return self._relu(x)
+        m = self.masks[self._i]
+        self._i += 1
+        return x * m.to(device=x.device, dtype=x.dtype)
+
+    def __exit__(self, *exc):
+        self._F.relu = self._relu
+        return False
+
+
 class plain_versions:
     """Context in which the port's functional layer runs attention and
     RMSNorm through their plain PyTorch versions (autograd through them)
@@ -1379,12 +1457,13 @@ def phase_t5_step_check(seed, dev):
     dropout 0, batch 2, 512 source / 114 target tokens: loss and every
     gradient on the card, through the kernels (d(mask) included) and again
     through the plain versions on the card, against the CPU (plain
-    versions). Gated-GELU: the loss under LOSS_RTOL, every kernel-path
-    gradient under T5_GRAD_RTOL. ReLU (T5-base's own FFN): the loss under
-    LOSS_RTOL; its gradients are printed, not held, since an fp32 rounding
-    difference anywhere upstream flips the ReLU mask of activations near
-    zero and moves a gradient by a whole token's share (the plain versions
-    on the card move as far as the kernels)."""
+    versions): the loss under LOSS_RTOL, every kernel-path gradient under
+    T5_GRAD_RTOL, for the gated-GELU FFN and for ReLU (T5-base's own). The
+    ReLU passes on the card replay the CPU pass's ReLU masks
+    (`shared_relu_masks`): without that, an fp32 rounding difference
+    anywhere upstream flips the mask of activations near zero and moves a
+    gradient by a whole token's share (~2e-2, the plain versions on the
+    card as far off as the kernels; PERF.md, section 6)."""
     from paddle_tpu_torch.models import T5Config, T5ForConditionalGeneration
 
     rng = np.random.RandomState(seed + 4)
@@ -1412,33 +1491,35 @@ def phase_t5_step_check(seed, dev):
             loss.backward()
             return float(loss.detach())
 
-        loss_cpu = run(cpu)
-        before = read_counters(counters)
-        loss_card = run(card)
-        ran = {k: n - before[k] for k, n in read_counters(counters).items()}
-        if any(n <= 0 for n in ran.values()):
-            raise AssertionError(f"the card's T5 step skipped a kernel: "
-                                 f"{ran}")
-        kernels = grad_errors(card, cpu)
-        with plain_versions():
-            loss_plain = run(card)
-        plain = grad_errors(card, cpu)
+        with shared_relu_masks() as relu:
+            relu.record()
+            loss_cpu = run(cpu)
+            relu.replay()
+            before = read_counters(counters)
+            loss_card = run(card)
+            ran = {k: n - before[k]
+                   for k, n in read_counters(counters).items()}
+            if any(n <= 0 for n in ran.values()):
+                raise AssertionError(f"the card's T5 step skipped a kernel: "
+                                     f"{ran}")
+            kernels = grad_errors(card, cpu)
+            relu.replay()
+            with plain_versions():
+                loss_plain = run(card)
+            plain = grad_errors(card, cpu)
+            if (ff == "relu") != bool(relu.masks):
+                raise AssertionError(f"t5_step_check {ff}: "
+                                     f"{len(relu.masks)} ReLU masks shared")
         losses = {"card": loss_card, "cpu": loss_cpu}
-        if ff == "gated-gelu":
-            worst = check_grads(kernels, losses, "t5_step_check",
-                                T5_GRAD_RTOL)
-        else:
-            dl = abs(loss_card - loss_cpu)
-            if not dl <= LOSS_RTOL * abs(loss_cpu):
-                raise AssertionError(f"t5_step_check relu: loss card "
-                                     f"{loss_card} vs cpu {loss_cpu}")
-            worst = worst_rel(kernels)
+        worst = check_grads(kernels, losses, f"t5_step_check {ff}",
+                            T5_GRAD_RTOL)
         worst_plain = worst_rel(plain)
         bias = {n.split(".")[1] + "." + n.split(".")[2]:
                 kernels[n][0] / kernels[n][1] for n in kernels
                 if "relative_attention_bias" in n}
-        held = (f"every gradient within {T5_GRAD_RTOL} x max|cpu grad|"
-                if ff == "gated-gelu" else "gradients not held")
+        held = f"every gradient within {T5_GRAD_RTOL} x max|cpu grad|"
+        if ff == "relu":
+            held += f" ({len(relu.masks)} ReLU masks from the CPU pass)"
         log(f"[t5_step_check] {ff}, 2 + 2 layers full width fp32, 512 / "
             f"114: loss card {loss_card!r} cpu {loss_cpu!r} (plain on the "
             f"card {loss_plain!r}); {held}: kernels worst {worst[0]:.3g} "
@@ -1711,6 +1792,614 @@ def phase_moe_step_check(seed, dev):
                             loss_cpu=losses["cpu"], routing_differs=differ,
                             dropped_share=dropped, worst_grad_rel=worst,
                             worst_grad=worst_name, launches={"K9": ran})
+    return out
+
+
+# ------------------------------------------------- the multi-rank slice
+
+# One rank's shard of ring attention at LLaMA-7B's attention widths (32
+# heads of 128) over a global sequence of RING_GLOBAL split over
+# RING_RANKS ranks: (batch, s_local, heads, head_dim), bf16, causal
+RING_RANKS = 4
+RING_GLOBAL = 16384
+RING_ATTN = (1, RING_GLOBAL // RING_RANKS, 32, 128)
+# the ring step kinds at that shard: name -> (q_off, k_off); the diagonal
+# is a rank's own step, the past block a step whose keys all lie before
+# its queries, the future block one whose keys all lie after them (a
+# causal ring launches it all the same), the unaligned one a shift that
+# no tile boundary matches
+RING_STEPS = {"diagonal": (4096, 4096), "past": (8192, 4096),
+              "future": (0, 4096), "unaligned": (4096 + 37, 4096)}
+# a ragged shard (1000 rows, no multiple of the kernels' 64-row tiles)
+RING_RAGGED = (1000, (1000 + 13, 1000))
+# the second ring run: a global sequence short enough for the plain
+# versions to hold the whole attention, in fp32
+RING_SMALL = 2048
+# the ring / Ulysses runs: (global sequence, dtype); the bf16 one is timed
+SP_RUNS = ((RING_GLOBAL, torch.bfloat16), (RING_SMALL, torch.float32))
+# Every sequence-parallel check reads each rank's part of the sequence on
+# its own (`shard_errors`): the max abs error over that part's max|ref|,
+# and the L2 error over its L2 norm, each under a limit of its own. The max
+# alone is loose where a part holds a few large values among many small
+# ones (the first query rows see one key or a few, so their outputs are
+# v's own values; the first keys' dK / dV gather every query); the L2
+# error reads a dropped or misplaced ring step as a change of order one.
+# The single-call K1 / K2 / K3 over the whole RING_GLOBAL in bf16, against
+# their plain versions one head at a time (K1's on the values cast to fp32,
+# as check_k1): (max, L2) limits. The max may reach one output ulp, up to
+# 2^-7 of a value (the largest reading, dV 5.08e-3); the L2 limits are
+# about twice the largest readings (out 2.31e-3, dQ / dK / dV 4.29e-4 on an
+# H100; PERF.md, section 6)
+SP_SINGLE_TOL = {"out": (1e-2, 5e-3), "dq": (1e-2, 1e-3),
+                 "dk": (1e-2, 1e-3), "dv": (1e-2, 1e-3)}
+# ring / Ulysses against one call over the whole sequence, (max, L2): bf16
+# against the single-call kernels (the ring rounds each step's partial
+# output and dK / dV to bf16 before its fp32 merge and sums, the single
+# call rounds once; the largest readings: max 7.75e-3, one ulp of a value
+# near the part's max, L2 3.20e-3); fp32 against the plain versions
+# (summation order only; the largest readings: max 3.95e-6, L2 1.30e-6 on
+# an H100; PERF.md, section 6). A ring step left out of the merge or of dK
+# reads L2 0.19-0.60 (a CPU rehearsal at a global 256).
+SP_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (2e-5, 5e-6)}
+# expert parallelism: a capacity factor at which the ranks' 4096 tokens
+# drop no (token, choice) pair, and the limit of EP against the
+# single-rank layer on the card (fp32, the same products over other row
+# batches: summation order only), relative to max|single-rank value|
+MOE_EP_CF = 2.0
+MOE_EP_RTOL = 2e-5
+
+
+def live_pairs(sq, sk, q_off, k_off):
+    """The (query, key) pairs a causal step at offsets (q_off, k_off)
+    computes: row r sees clamp(r + q_off - k_off + 1, 0, sk) keys."""
+    vis = torch.arange(sq, dtype=torch.int64) + (q_off - k_off + 1)
+    return int(vis.clamp(0, sk).sum())
+
+
+def _ring_lse_check(got, ref, tag):
+    """lse against its plain version: -inf exactly where the plain one is
+    (rows that see no key), within TOL_LSE elsewhere."""
+    inf_ref, inf_got = torch.isneginf(ref), torch.isneginf(got)
+    if not torch.equal(inf_ref, inf_got):
+        raise AssertionError(f"{tag}: lse is -inf at other rows than its "
+                             "plain version's")
+    fin = ~inf_ref
+    err = max_err(got[fin], ref[fin]) if bool(fin.any()) else 0.0
+    if not err <= TOL_LSE:
+        raise AssertionError(f"{tag}: lse max abs error {err} > {TOL_LSE}")
+    return err
+
+
+def ring_kernel_case(rows, dev, dtype, label, shape, offs, timed):
+    """K1r, K2r and K3r at one ring step (q / k / v shards of `shape`, the
+    global offsets `offs`) against their plain versions on the same values,
+    K1r's on the values cast to fp32 as check_k1. Returns {kernel: row}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = shape
+    g = torch.Generator(device=dev).manual_seed(41)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
+                     .to(dtype) for _ in range(4))
+    ring = dict(is_causal=True, offsets=offs)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True,
+                                  keep_neg_inf_lse=True, **ring)
+    ref, ref_lse = fa.flash_attention_reference(
+        q.float(), k.float(), v.float(), None, True, True, offsets=offs,
+        keep_neg_inf_lse=True)
+    e1, t1 = check_rel("K1r", out, ref, dtype)
+    e_lse = _ring_lse_check(lse, ref_lse, f"K1r {label}")
+    lse0 = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    delta = fa.attention_delta(out, dout)
+    args = (q, k, v, dout, lse0, delta)
+    dq = fa.flash_attention_dq(*args, **ring)
+    dk, dv = fa.flash_attention_dkv(*args, **ring)
+    rdq, rdk, rdv = fa.flash_attention_backward_reference(
+        *args, None, True, offsets=offs)
+    torch.cuda.synchronize()
+    e2, t2 = check_rel("K2r", dq, rdq, dtype)
+    ek, tk = check_rel("K3r", dk, rdk, dtype)
+    ev, tv = check_rel("K3r", dv, rdv, dtype)
+    e3, t3 = (ek, tk) if ek * tv >= ev * tk else (ev, tv)
+    live = live_pairs(s, s, *offs)
+    if live == 0:
+        # a block wholly in the future: nothing attends
+        zero = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+        bad = {n: max_err(t, torch.zeros_like(t)) for n, t in zero.items()
+               if bool(t.any())}
+        if bad or not bool(torch.isneginf(lse).all()):
+            raise AssertionError(f"ring step {label}: nonzero {bad} or a "
+                                 "finite lse where no key is visible")
+    if label == "diagonal":
+        # the diagonal of a ring is one call's causal attention, bit for bit
+        o1, l1 = fa.flash_attention(q, k, v, is_causal=True, return_lse=True)
+        same = {"out": max_err(out, o1), "lse": max_err(lse, l1),
+                "dq": max_err(dq, fa.flash_attention_dq(
+                    q, k, v, dout, lse0, delta, is_causal=True)),
+                "dk/dv": max(max_err(a, b_) for a, b_ in zip(
+                    (dk, dv), fa.flash_attention_dkv(
+                        q, k, v, dout, lse0, delta, is_causal=True)))}
+        if any(e != 0 for e in same.values()):
+            raise AssertionError(f"ring diagonal differs from the single "
+                                 f"call: {same}")
+        log(f"[ring_kernels] {str(dtype)[6:]} diagonal == the single-call "
+            f"causal K1 / K2 / K3, bit for bit: {same}")
+    ms = plain = lib = None
+    times = {}
+    if timed:
+        iters = 20 if dtype == torch.bfloat16 else 5
+        times = {
+            "K1r": time_ms(lambda: fa.flash_attention(
+                q, k, v, return_lse=True, keep_neg_inf_lse=True, **ring),
+                iters, 2),
+            "K2r": time_ms(lambda: fa.flash_attention_dq(*args, **ring),
+                           iters, 2),
+            "K3r": time_ms(lambda: fa.flash_attention_dkv(*args, **ring),
+                           iters, 2)}
+        plain = {"K1r": time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, None, True, True, offsets=offs,
+            keep_neg_inf_lse=True), 3, 1)}
+        plain["K2r"] = plain["K3r"] = time_ms(
+            lambda: fa.flash_attention_backward_reference(
+                *args, None, True, offsets=offs), 3, 1)
+        lib = {"K1r": None, "K2r": None, "K3r": None}
+        if label in ("diagonal", "past"):
+            # the yardstick: sdpa over the same shards, causal on the
+            # diagonal (the same function there), unmasked for the past
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            causal = label == "diagonal"
+            F_ = torch.nn.functional
+            lib["K1r"] = time_ms(lambda: F_.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), iters, 2)
+            lo = F_.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
+            dot = dout.transpose(1, 2)
+            lib["K2r"] = lib["K3r"] = time_ms(lambda: torch.autograd.grad(
+                lo, (qt, kt, vt), dot, retain_graph=True), iters, 2)
+            del qt, kt, vt, lo
+    rows_lse = nbytes(lse)
+    io = {"K1r": (nbytes(q, k, v), nbytes(out) + rows_lse, 4),
+          "K2r": (nbytes(q, k, v, dout, lse, delta), nbytes(dq), 6),
+          "K3r": (nbytes(q, k, v, dout, lse, delta), nbytes(dk, dv), 8)}
+    errs = {"K1r": (e1, t1), "K2r": (e2, t2), "K3r": (e3, t3)}
+    out_rows = {}
+    for kern, (bin_, bout, mul) in io.items():
+        # a wholly future step needs none of its inputs: its outputs only
+        bms, by = bound((bin_ if live else 0) + bout, mul * b * h * d * live,
+                        dtype)
+        r = _row(dtype, f"{label} offsets {offs} ({b}, {s}, {h}, {d})",
+                 errs[kern][0], errs[kern][1], times.get(kern),
+                 None if plain is None else plain[kern],
+                 None if lib is None else lib[kern], bms, by,
+                 live_pairs=live, lse_err=e_lse if kern == "K1r" else None)
+        if timed:
+            _log_row(kern, r)
+        else:
+            log(f"[{kern}] {str(dtype)[6:]} {r['case']}: max_abs_err "
+                f"{r['max_abs_err']:.3g} (tol {r['tol']:.3g})")
+        rows.append((kern, r))
+        out_rows[kern] = r
+    return out_rows
+
+
+def phase_ring_kernels(rows, dev):
+    """K1r, K2r, K3r at one ring step of RING_ATTN in bf16 (timed) and fp32,
+    at every step kind of RING_STEPS, and on the ragged shard. Returns the
+    summary's rows (bf16: the diagonal as "K1r" ..., every step kind as
+    "K1r steps" ...)."""
+    main = {f"{k} steps": {} for k in ("K1r", "K2r", "K3r")}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, offs in RING_STEPS.items():
+            r = ring_kernel_case(rows, dev, dtype, label, RING_ATTN, offs,
+                                 timed=True)
+            if dtype == torch.bfloat16:
+                for k, row in r.items():
+                    main[f"{k} steps"][label] = row
+                    if label == "diagonal":
+                        main[k] = row
+            gc.collect()
+            torch.cuda.empty_cache()
+        s, offs = RING_RAGGED
+        ring_kernel_case(rows, dev, dtype, "ragged", (1, s) + RING_ATTN[2:],
+                         offs, timed=False)
+    return main
+
+
+def _ring_counters():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {"K1r": (fa.flash_attention, "ring_launches"),
+            "K2r": (fa.flash_attention_dq, "ring_launches"),
+            "K3r": (fa.flash_attention_dkv, "ring_launches"),
+            "K1": (fa.flash_attention, "launches"),
+            "K2": (fa.flash_attention_dq, "launches"),
+            "K3": (fa.flash_attention_dkv, "launches")}
+
+
+def _sp_kernel_ms(q, k, v, dout, lse, delta, me, n, mode):
+    """This rank's kernel time of one forward and backward, by CUDA events
+    while the other ranks wait at a barrier: the ring's n steps of K1r, K2r
+    and K3r, or Ulysses' K1, K2 and K3 on its heads."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    if mode == "ring":
+        sl = q.shape[1] // n
+        mine = slice(me * sl, (me + 1) * sl)
+        qs, ds = q[:, mine].contiguous(), dout[:, mine].contiguous()
+        ls, dl = lse[..., mine].contiguous(), delta[..., mine].contiguous()
+        fwd, bwd = [], []
+        for step in range(n):
+            src = (me - step) % n
+            theirs = slice(src * sl, (src + 1) * sl)
+            ks, vs = k[:, theirs].contiguous(), v[:, theirs].contiguous()
+            kw = dict(is_causal=True, offsets=(me * sl, src * sl))
+            fwd.append(time_ms(lambda: fa.flash_attention(
+                qs, ks, vs, return_lse=True, keep_neg_inf_lse=True, **kw),
+                10, 2))
+            bwd.append(time_ms(lambda: fa.flash_attention_dq(
+                qs, ks, vs, ds, ls, dl, **kw), 10, 2)
+                + time_ms(lambda: fa.flash_attention_dkv(
+                    qs, ks, vs, ds, ls, dl, **kw), 10, 2))
+        return dict(forward_ms=sum(fwd), backward_ms=sum(bwd),
+                    forward_by_step=fwd, backward_by_step=bwd)
+    hl = q.shape[2] // n
+    heads = slice(me * hl, (me + 1) * hl)
+    qh, kh, vh, dh = (x[:, :, heads].contiguous() for x in (q, k, v, dout))
+    lh, dlh = lse[:, heads].contiguous(), delta[:, heads].contiguous()
+    fwd = time_ms(lambda: fa.flash_attention(qh, kh, vh, is_causal=True,
+                                             return_lse=True), 10, 2)
+    bwd = (time_ms(lambda: fa.flash_attention_dq(
+        qh, kh, vh, dh, lh, dlh, is_causal=True), 10, 2)
+        + time_ms(lambda: fa.flash_attention_dkv(
+            qh, kh, vh, dh, lh, dlh, is_causal=True), 10, 2))
+    return dict(forward_ms=fwd, backward_ms=bwd)
+
+
+def sp_inputs(dev, seq, dtype, seed):
+    """q, k, v and dout of the ring / Ulysses runs, (1, seq) at RING_ATTN's
+    heads, drawn on the card from the seed: the same values in the parent
+    and in every rank."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    return tuple(torch.randn(1, seq, *RING_ATTN[2:], generator=gen,
+                             device=dev).to(dtype) for _ in range(4))
+
+
+def single_call(q, k, v, dout):
+    """One causal call over the whole sequence through the single-call K1 /
+    K2 / K3: ({out, dq, dk, dv}, lse, delta)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_attention(q, k, v, is_causal=True, return_lse=True)
+    delta = fa.attention_delta(out, dout)
+    res = dict(out=out, dq=fa.flash_attention_dq(q, k, v, dout, lse, delta,
+                                                 is_causal=True))
+    res["dk"], res["dv"] = fa.flash_attention_dkv(q, k, v, dout, lse, delta,
+                                                  is_causal=True)
+    return res, lse, delta
+
+
+def shard_stats(got, ref, n):
+    """(max |got - ref|, max |ref|, sum (got - ref)^2, sum ref^2) over each
+    of n equal parts of the sequence axis (1) of (b, s, h, d) tensors:
+    (4, n) fp64."""
+    def parts(x):
+        return (x.detach().double().unflatten(1, (n, -1)).transpose(0, 1)
+                .reshape(n, -1))
+
+    r = parts(ref)
+    e = parts(got) - r
+    return torch.stack((e.abs().amax(1), r.abs().amax(1),
+                        e.square().sum(1), r.square().sum(1)))
+
+
+def shard_errors(stats):
+    """[(max error / max|ref|, L2 error / L2 of ref)], one a part of
+    `shard_stats`."""
+    me, mr, se, sr = stats.tolist()
+    return [(a / b, (c / d) ** 0.5) for a, b, c, d in zip(me, mr, se, sr)]
+
+
+def within(errs, tol):
+    """Whether every (max, L2) pair of `errs` lies under `tol` (NaN
+    does not)."""
+    return all(m <= tol[0] and l2 <= tol[1] for m, l2 in errs)
+
+
+def phase_sp_single_call(seed, dev):
+    """The bf16 ring and Ulysses runs are held against the single-call K1 /
+    K2 / K3 over the whole RING_GLOBAL; hold those first against their
+    plain versions on the same values, one head at a time (1 GiB of fp32
+    logits a head), each rank's part of the sequence on its own under
+    SP_SINGLE_TOL. Returns {name: [(max, L2) a rank]}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    n = RING_RANKS
+    q, k, v, dout = sp_inputs(dev, RING_GLOBAL, torch.bfloat16, seed)
+    got, lse, delta = single_call(q, k, v, dout)
+    stats = {}
+    for h in range(q.shape[2]):
+        hs = slice(h, h + 1)
+        qh, kh, vh, dh = (x[:, :, hs] for x in (q, k, v, dout))
+        ref = {"out": fa.flash_attention_reference(
+            qh.float(), kh.float(), vh.float(), None, True)}
+        ref["dq"], ref["dk"], ref["dv"] = (
+            fa.flash_attention_backward_reference(
+                qh, kh, vh, dh, lse[:, hs], delta[:, hs], None, True))
+        for name, r in ref.items():
+            st = shard_stats(got[name][:, :, hs], r, n)
+            if name in stats:
+                old = stats[name]
+                st = torch.cat((torch.maximum(old[:2], st[:2]),
+                                old[2:] + st[2:]))
+            stats[name] = st
+        del ref
+    errs = {name: shard_errors(st) for name, st in stats.items()}
+    log(f"[sp_single_call] single-call K1 / K2 / K3 over {RING_GLOBAL}, "
+        f"{RING_ATTN[2]} heads of {RING_ATTN[3]}, bf16, causal, against the "
+        f"plain versions a head at a time; (max error / max|ref|, L2 error "
+        f"/ L2 of ref) on each of {n} ranks' parts: " + "; ".join(
+            f"{name} " + ", ".join(f"({m:.3g}, {l2:.3g})" for m, l2 in e)
+            + f" (limit {SP_SINGLE_TOL[name]})" for name, e in errs.items()))
+    bad = {name: e for name, e in errs.items()
+           if not within(e, SP_SINGLE_TOL[name])}
+    if bad:
+        raise AssertionError(f"single-call kernels over {RING_GLOBAL} "
+                             f"beyond SP_SINGLE_TOL: {bad}")
+    return errs
+
+
+def _sp_rank(g, dev, seq, dtype, seed):
+    """One rank of the ring and Ulysses runs: both at causal attention over
+    a global sequence `seq` split over the group, forward and backward,
+    this rank's output and dQ / dK / dV shard held under SP_TOL against one
+    call over the whole sequence on the same card (the single-call kernels
+    in bf16, the plain versions in fp32), the launches of the run counted;
+    the bf16 run's kernels timed one rank at a time."""
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        ring_attention as ra)
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    n, me = g.nranks, g.rank
+    sl = seq // n
+    mine = slice(me * sl, (me + 1) * sl)
+    q, k, v, dout = sp_inputs(dev, seq, dtype, seed)
+    if dtype == torch.bfloat16:
+        ref, lse, delta = single_call(q, k, v, dout)
+    else:
+        ref_out, lse = fa.flash_attention_reference(q, k, v, None, True,
+                                                    True)
+        delta = fa.attention_delta(ref_out, dout)
+        ref = dict(out=ref_out)
+        ref["dq"], ref["dk"], ref["dv"] = (
+            fa.flash_attention_backward_reference(q, k, v, dout, lse, delta,
+                                                  None, True))
+    tol = SP_TOL[dtype]
+    counters = _ring_counters()
+    out = {}
+    for mode, fn in (("ring", ra.ring_flash_attention),
+                     ("ulysses", ra.ulysses_attention)):
+        qs, ks, vs = (x[:, mine].transpose(1, 2).detach().clone()
+                      .requires_grad_() for x in (q, k, v))
+        staged0 = g.staged_bytes
+        ptd.barrier(g)
+        zero_counters(counters)
+        t0 = time.perf_counter()
+        o = fn(qs, ks, vs, group=g, causal=True)
+        o.backward(dout[:, mine].transpose(1, 2))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters(counters)
+        got = dict(out=o.detach().transpose(1, 2), dq=qs.grad.transpose(1, 2),
+                   dk=ks.grad.transpose(1, 2), dv=vs.grad.transpose(1, 2))
+        errs = {n_: shard_errors(shard_stats(t, ref[n_][:, mine], 1))[0]
+                for n_, t in got.items()}
+        bad = {n_: e for n_, e in errs.items() if not within([e], tol)}
+        if bad:
+            raise AssertionError(f"{mode} rank {me} {str(dtype)[6:]} seq "
+                                 f"{seq}: (max error / max|ref|, L2 error / "
+                                 f"L2 of ref) of the rank's part beyond "
+                                 f"{tol}: {bad}")
+        want = ({"K1r": n, "K2r": n, "K3r": n, "K1": 0, "K2": 0, "K3": 0}
+                if mode == "ring" else
+                {"K1r": 0, "K2r": 0, "K3r": 0, "K1": 1, "K2": 1, "K3": 1})
+        if launches != want:
+            raise AssertionError(f"{mode} rank {me}: launches {launches}, "
+                                 f"expected {want}")
+        out[mode] = dict(errors=errs, tol=tol, launches=launches,
+                         wall_s=wall, staged_bytes=g.staged_bytes - staged0)
+        del qs, ks, vs, o, got
+    if dtype == torch.bfloat16:
+        for r in range(n):
+            ptd.barrier(g)
+            if r == me:
+                for mode in out:
+                    out[mode]["kernel_ms"] = _sp_kernel_ms(
+                        q, k, v, dout, lse, delta, me, n, mode)
+        ptd.barrier(g)
+    return out
+
+
+def _moe_ep_rank(g, dev, seed):
+    """One rank of the expert-parallel MoE runs: at MOE_EP_CF, where
+    nothing drops, the forward rows, aux loss and every gradient against
+    the single-rank layer run over every rank's tokens on the same card
+    (GELU experts, fp32); then 3 + 10 O1 train steps at the gate's own
+    capacity factor (ReLU experts, Switch's FFN)."""
+    import copy
+
+    from paddle_tpu_torch.ops import moe_dispatch as md
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.training import make_moe_train_step
+
+    warmup, steps = 3, 10
+    n, me = g.nranks, g.rank
+    x, target = moe_batch(seed, dev)
+    flat = x.reshape(-1, MOE_D)
+    per = flat.shape[0] // n
+    rows = [slice(r * per, (r + 1) * per) for r in range(n)]
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    ct = torch.randn(flat.shape, generator=gen, device=dev)
+
+    layer = moe_layer("gshard", dev, seed, act=torch.nn.GELU)
+    layer.capacity_factor = MOE_EP_CF
+    ref = copy.deepcopy(layer)
+    _, tok_slot, cap = layer.dispatch_indices(flat[rows[me]])
+    dropped = float((tok_slot < 0).float().mean())
+    if dropped != 0:
+        raise AssertionError(f"moe_ep rank {me}: {dropped} of the pairs "
+                             f"dropped at capacity factor {MOE_EP_CF}")
+    staged0 = g.staged_bytes
+    y = layer.expert_parallel_forward(x, g)
+    ((y * ct[rows[me]]).sum() + layer.aux_loss).backward()
+    staged = g.staged_bytes - staged0
+    ys, auxs = zip(*(ref._routed_forward(flat[r], ref.gate.gate_weight,
+                                         ref._run_experts) for r in rows))
+    ref_aux = torch.stack(auxs).mean()
+    (sum((yr * ct[r]).sum() for yr, r in zip(ys, rows)) + ref_aux).backward()
+    aux, ref_aux = float(layer.aux_loss.detach()), float(ref_aux.detach())
+    errs = {"y": (max_err(y, ys[me]), float(ys[me].detach().abs().max())),
+            "aux": (abs(aux - ref_aux), abs(ref_aux))}
+    ref_params = dict(ref.named_parameters())
+    local = MOE_E // n
+    own = {"gate.gate_weight"} | {
+        name for name, _ in layer.named_parameters()
+        if name.startswith("experts.")
+        and me * local <= int(name.split(".")[1]) < (me + 1) * local}
+    with_grad = {name for name, p in layer.named_parameters()
+                 if p.grad is not None}
+    if with_grad != own:
+        raise AssertionError(f"moe_ep rank {me}: gradients on "
+                             f"{sorted(with_grad ^ own)} differ from the "
+                             "rank's own parameters")
+    for name in sorted(own):
+        p, pr = dict(layer.named_parameters())[name], ref_params[name]
+        errs[name] = (max_err(p.grad, pr.grad), float(pr.grad.abs().max()))
+    bad = {k_: e for k_, e in errs.items()
+           if not e[0] <= MOE_EP_RTOL * e[1]}
+    if bad:
+        raise AssertionError(f"moe_ep rank {me}: beyond {MOE_EP_RTOL} x "
+                             f"max|single-rank| (error, max): {bad}")
+    worst = max(errs, key=lambda k_: errs[k_][0] / max(errs[k_][1], 1e-30))
+    check = dict(capacity=cap, capacity_factor=MOE_EP_CF, dropped_share=0.0,
+                 staged_bytes=staged,
+                 worst=(worst, errs[worst][0] / max(errs[worst][1], 1e-30)))
+    del layer, ref, ys, auxs, y
+
+    layer = moe_layer("gshard", dev, seed)
+    params = [layer.gate.gate_weight] + [
+        p for e in layer.experts[me * local:(me + 1) * local]
+        for p in e.parameters()]
+    step = make_moe_train_step(layer, Adam(learning_rate=1e-4,
+                                           parameters=params), group=g)
+    losses = [step(x, target) for _ in range(warmup)]
+    counters = {"K9": (md.gather_rows, "launches")}
+    zero_counters(counters)
+    staged0 = g.staged_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(x, target) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters)
+    loss_vals = [float(v) for v in losses]
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"moe_ep rank {me}: non-finite loss "
+                             f"{loss_vals}")
+    if launches["K9"] != MOE_LAUNCHES["K9"] * steps:
+        raise AssertionError(f"moe_ep rank {me}: K9 launched "
+                             f"{launches['K9']} times in {steps} steps")
+    _, tok_slot, cap_train = layer.dispatch_indices(flat[rows[me]])
+    return dict(check=check, train=dict(
+        capacity_factor=layer.capacity_factor, capacity=cap_train,
+        dropped_share=float((tok_slot < 0).float().mean()),
+        step_ms=wall / steps * 1e3, losses=loss_vals, launches=launches,
+        staged_bytes_per_step=(g.staged_bytes - staged0) / steps))
+
+
+def world_rank(seed):
+    """The body of each rank of the multi-rank phases (run by
+    `distributed.spawn`): the ring and Ulysses runs of SP_RUNS, then the
+    expert-parallel MoE runs. Returns this rank's results."""
+    from paddle_tpu_torch import distributed as ptd
+
+    g = ptd.get_group()
+    dev = g.device
+    out = {"backend": g.backend, "device": str(dev), "sp": {}}
+    for seq, dtype in SP_RUNS:
+        out["sp"][f"{seq} {str(dtype)[6:]}"] = _sp_rank(g, dev, seq, dtype,
+                                                        seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["moe_ep"] = _moe_ep_rank(g, dev, seed)
+    return out
+
+
+def phase_multi_rank(seed, dev):
+    """The ring, ulysses and moe_ep phases: first the single-call kernels
+    the bf16 runs are held against, checked here against their plain
+    versions; then one world of RING_RANKS processes
+    (`distributed.spawn`; every kernel was built by phase_build, so no rank
+    runs nvcc). On a machine with fewer cards than ranks the ranks share
+    them over gloo, time-sliced: their wall times are no speed figure,
+    their kernel times by CUDA events (taken one rank at a time) are. Any
+    rank's failure raises here."""
+    from paddle_tpu_torch import distributed as ptd
+
+    out = {"single_call": phase_sp_single_call(seed, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_ranks = RING_RANKS
+    ranks = ptd.spawn(world_rank, (seed,), nprocs=n_ranks, timeout=900)
+    wall = time.perf_counter() - t0
+    backend = ranks[0]["backend"]
+    # wall times are a speed figure only with a card a rank
+    shared = ("(ranks share the card)"
+              if len({r["device"] for r in ranks}) < n_ranks
+              else "(a card a rank)")
+    log(f"[multi_rank] {n_ranks} ranks on {[r['device'] for r in ranks]} "
+        f"over {backend} in {wall:.1f} s (spawn, kernels and checks)")
+    out.update(backend=backend, wall_s=wall, ranks=n_ranks)
+    for key in ranks[0]["sp"]:
+        for mode in ("ring", "ulysses"):
+            per = [r["sp"][key][mode] for r in ranks]
+            errs = "; ".join(f"{n_} " + ", ".join(
+                f"({p['errors'][n_][0]:.3g}, {p['errors'][n_][1]:.3g})"
+                for p in per) for n_ in per[0]["errors"])
+            log(f"[{mode}] global {key}, {RING_ATTN[2]} heads of "
+                f"{RING_ATTN[3]}, causal, over {n_ranks} ranks: (max error "
+                f"/ max|ref|, L2 error / L2 of ref) on ranks 0-{n_ranks - 1}"
+                f": {errs} (limit {per[0]['tol']}); launches a rank "
+                f"{per[0]['launches']}; transport {backend}, staged "
+                f"{per[0]['staged_bytes'] / 2**20:.1f} MiB a rank; wall a "
+                f"rank {[round(p['wall_s'] * 1e3, 1) for p in per]} ms "
+                f"{shared}")
+            if "kernel_ms" in per[0]:
+                log(f"[{mode}] kernel ms a rank (CUDA events, one rank at a "
+                    "time): " + "; ".join(
+                        f"rank {i} fwd {p['kernel_ms']['forward_ms']:.3f} "
+                        f"bwd {p['kernel_ms']['backward_ms']:.3f}"
+                        for i, p in enumerate(per)))
+            out[f"{mode} {key}"] = dict(per_rank=per)
+    per = [r["moe_ep"] for r in ranks]
+    c = per[0]["check"]
+    tokens = MOE_B * MOE_S
+    log(f"[moe_ep] Switch-Base-8 widths, GShard top-2, {MOE_E} experts over "
+        f"{n_ranks} ranks ({MOE_E // n_ranks} a rank), {tokens} tokens "
+        f"({tokens // n_ranks} a rank): at capacity factor "
+        f"{c['capacity_factor']} (C = {c['capacity']}) nothing dropped; "
+        f"rows, aux and every gradient within {MOE_EP_RTOL} x max|single-"
+        f"rank| on every rank, worst {[p['check']['worst'] for p in per]}")
+    t = [p["train"] for p in per]
+    log(f"[moe_ep] O1 train steps at capacity factor "
+        f"{t[0]['capacity_factor']} (C = {t[0]['capacity']}): step ms a "
+        f"rank {[round(x['step_ms'], 2) for x in t]} {shared}; "
+        f"dropped share {[round(x['dropped_share'], 5) for x in t]}; "
+        f"transport {backend}, staged {t[0]['staged_bytes_per_step'] / 2**20:.1f}"
+        f" MiB a step a rank; K9 launches {t[0]['launches']}; loss rank 0 "
+        + ", ".join(f"{v:.5f}" for v in t[0]["losses"]))
+    out["moe_ep"] = per
     return out
 
 
@@ -2059,6 +2748,15 @@ KERNELS = {
     "K9": dict(name="gather_rows", route="cuda",
                source="paddle_tpu_torch/csrc/gather_rows.cu",
                replaces="paddle_tpu/ops/pallas_kernels.py:1173"),
+    "K1r": dict(name="flash_attention_forward_ring_step", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_fwd.cu",
+                replaces="paddle_tpu/ops/pallas_kernels.py:164"),
+    "K2r": dict(name="flash_attention_backward_dq_ring_step", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_bwd.cu",
+                replaces="paddle_tpu/ops/pallas_kernels.py:357"),
+    "K3r": dict(name="flash_attention_backward_dkv_ring_step", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_bwd.cu",
+                replaces="paddle_tpu/ops/pallas_kernels.py:474"),
 }
 
 
@@ -2066,8 +2764,9 @@ def summarize(main_rows, launches_by_path):
     """The kernels' JSON summary: each kernel's main-path row (the ERNIE
     training path's shapes for K1-K5, T5's encoder for K2 with d(mask) (its
     ms is the kernel plus the batch sum), the serving path's for K6, K6q
-    and K7, the GShard MoE dispatch for K9, with its combine beside it) and
-    its launches, summed over the paths that run it. K7's
+    and K7, the GShard MoE dispatch for K9, with its combine beside it, a
+    ring step on the diagonal at RING_ATTN for K1r-K3r, every step kind
+    beside it) and its launches, summed over the paths that run it. K7's
     launches count both its forms (fp32 / bf16 pools, and int8 / fp8 pools:
     K7q in the paths' counts)."""
     out = []
@@ -2090,6 +2789,11 @@ def summarize(main_rows, launches_by_path):
         if k == "K1":
             entry["dropout_p"] = r.get("dropout_p", 0.0)
             entry["lse_max_abs_err"] = r.get("lse_err")
+        if k in ("K1r", "K2r", "K3r"):
+            entry["steps"] = {label: {x: s[x] for x in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "live_pairs")}
+                for label, s in main_rows[f"{k} steps"].items()}
         if k == "K9":
             c = main_rows["K9 combine"]
             entry["combine"] = {x: c[x] for x in (
@@ -2138,6 +2842,7 @@ def main(argv=None):
     main_rows.update(k45_train_cases(rows, dev))
     main_rows.update(t5_kernel_cases(rows, dev))
     main_rows.update(k9_cases(rows, dev, args.seed))
+    main_rows.update(phase_ring_kernels(rows, dev))
     result["cases"] = [dict(kernel=k, **r) for k, r in rows]
 
     def release():
@@ -2183,6 +2888,17 @@ def main(argv=None):
         launches[f"train_moe_{kind}"] = r["launches"]
     release()
     result["moe_step_check"] = phase_moe_step_check(args.seed, dev)
+    release()
+    result["multi_rank"] = r = phase_multi_rank(args.seed, dev)
+    for key in (f"{seq} {str(dtype)[6:]}" for seq, dtype in SP_RUNS):
+        for mode, kernels in (("ring", ("K1r", "K2r", "K3r")),
+                              ("ulysses", ("K1", "K2", "K3"))):
+            launches[f"{mode} {key}"] = {
+                k: sum(p["launches"][k]
+                       for p in r[f"{mode} {key}"]["per_rank"])
+                for k in kernels}
+    launches["moe_ep"] = {"K9": sum(p["train"]["launches"]["K9"]
+                                    for p in r["moe_ep"])}
     result["seconds"] = time.perf_counter() - t_start
     result["summary"] = summarize(main_rows, launches)
     if args.out:

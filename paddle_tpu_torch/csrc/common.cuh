@@ -117,6 +117,30 @@ struct Dropout {
   float inv_keep;
 };
 
+// Causal masking at global sequence positions, as the TPU kernels take it
+// from `offs` (pallas_kernels.py:263-280): query row `row` (local index)
+// sees key column `col` iff row + q_off >= col + k_off. Offsets (0, 0) are
+// one call's top-left causal mask; a ring step passes the global positions
+// of its query shard and of the key shard it holds (ops/ring_flash.py).
+// The offsets are host ints: the rank is known on the host, so nothing is
+// read from the device for them.
+struct Causal {
+  int on;
+  int q_off;
+  int k_off;
+  __device__ __forceinline__ bool masked(int row, int col) const {
+    return on && col + k_off > row + q_off;
+  }
+  // exclusive end of the key columns that query rows below row_end see
+  __device__ __forceinline__ int k_end(int row_end, int sk) const {
+    return on ? min(max(row_end + q_off - k_off, 0), sk) : sk;
+  }
+  // the first query row that sees key column col
+  __device__ __forceinline__ int q_begin(int col) const {
+    return on ? max(col + k_off - q_off, 0) : 0;
+  }
+};
+
 }  // namespace ptt
 
 extern "C" const char* ptt_error_string(int err) {

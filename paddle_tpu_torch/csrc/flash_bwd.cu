@@ -29,6 +29,15 @@
 // Layout is the public (batch, seq, heads, head_dim) one for q, k, v, dO and
 // the outputs; lse and delta are (batch, heads, seq) fp32.
 //
+// Ring form (K2r, K3r: the `offs=` parameter of both TPU kernels, :346-347,
+// :422-424 and :540-542): causal masking at global positions (ptt::Causal,
+// row + q_off >= col + k_off) from the global lse and delta of the whole
+// ring. K2 ends its key loop at the last key its tile can see; K3 starts
+// its query loop at the first query that sees its first key, floored to
+// the tile, so a key tile that no query sees runs no query tile and writes
+// dK = dV = 0. Offsets and d(mask) do not combine (the TPU kernel asserts
+// so, :450); the wrapper refuses the pair.
+//
 // Design. A loop inside the block replaces the TPU grid's sequential axis:
 // K2 runs one block per (batch, head, 64-query tile) over key tiles, K3 one
 // block per (batch, head, 64-key tile) over query tiles; causal tiles that
@@ -53,7 +62,9 @@
 // and by the per-lane elementwise work (PERF.md has their times). With
 // d(mask), K2 also writes b*h*sq*sk fp32: 402.7 MB at T5-base's encoder
 // shape (b 32, h 12, 512 x 512), 0.120 ms at 3.35 TB/s, which then binds
-// it by bytes.
+// it by bytes. A ring step of (1, 4096, 32, 128) bf16 is bound by
+// operations too: K2r 0.209 ms and K3r 0.278 ms at the bf16 peak on the
+// diagonal's live pairs, twice that on a block wholly in the past.
 
 #include <math.h>
 #include <mma.h>
@@ -118,9 +129,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* __restrict__ mask, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, float* __restrict__ dmask, int sq, int sk, int h,
-    int d, long long msb,
-    long long msh, long long msq, int is_causal, float scale,
-    ptt::Dropout drop) {
+    int d, long long msb, long long msh, long long msq, ptt::Causal causal,
+    float scale, ptt::Dropout drop) {
   constexpr int DP = NC * 32;
   constexpr int KP = DP + 4;
   extern __shared__ float4 smem4[];
@@ -161,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
   float* dsw = ds_s + warp * kRows * kBC;
-  const int k_end = is_causal ? min(sk, q0 + kBR) : sk;
+  const int k_end = causal.k_end(q0 + kBR, sk);
 
   for (int k0 = 0; k0 < k_end; k0 += kBC) {
     __syncthreads();  // the previous tile is consumed (and q, dO stored)
@@ -177,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       const float* dorow = do_s + (warp * kRows + r) * DP;
       float x = dot_row<DP>(qrow, k_s + lane * KP) * scale;
       float dpv = dot_row<DP>(dorow, v_s + lane * KP);
-      const bool live = row < sq && col < sk && !(is_causal && col > row);
+      const bool live = row < sq && col < sk && !causal.masked(row, col);
       if (live && mb) x += mb[(long long)row * msq + col];
       const float p = live ? expf(x - lse_r[r]) : 0.f;
       const bool keep =
@@ -230,8 +240,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const float* __restrict__ mask, const T* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int h, int d,
-    long long msb, long long msh, long long msq, int is_causal, float scale,
-    ptt::Dropout drop) {
+    long long msb, long long msh, long long msq, ptt::Causal causal,
+    float scale, ptt::Dropout drop) {
   constexpr int DP = NC * 32;
   constexpr int KP = DP + 4;
   extern __shared__ float4 smem4[];
@@ -270,8 +280,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     for (int c = 0; c < NC; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
   float* pdw = pd_s + warp * kRows * kBC;
   float* dsw = ds_s + warp * kRows * kBC;
-  // causal: query rows below the block's first key see none of its keys
-  const int q_begin = is_causal ? (k0 / kBC) * kBC : 0;
+  // causal: query rows before the first one that sees the block's first
+  // key see none of its keys
+  const int q_begin = causal.q_begin(k0) / kBC * kBC;
 
   for (int q0 = q_begin; q0 < sq; q0 += kBC) {
     __syncthreads();  // the previous tile is consumed (and k, v stored)
@@ -292,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       float x =
           dot_row<DP>(k_s + (warp * kRows + r) * DP, q_s + lane * KP) * scale;
       float dpv = dot_row<DP>(v_s + (warp * kRows + r) * DP, do_s + lane * KP);
-      const bool live = row < sq && key < sk && !(is_causal && key > row);
+      const bool live = row < sq && key < sk && !causal.masked(row, key);
       if (live && mb) x += mb[(long long)row * msq + key];
       const float p = live ? expf(x - lse_s[lane]) : 0.f;
       const bool keep =
@@ -354,7 +365,7 @@ struct Args {
   float* dmask;  // K2's d(mask) buffer, or nullptr
   int b, sq, sk, h, d;
   long long msb, msh, msq;
-  int is_causal;
+  ptt::Causal causal;
   float scale;
   ptt::Dropout drop;
 };
@@ -373,7 +384,7 @@ int launch_fma(const Args& a, bool want_dq, cudaStream_t st) {
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout),
         a.lse, a.delta, static_cast<T*>(a.dq), a.dmask, a.sq, a.sk, a.h, a.d,
-        a.msb, a.msh, a.msq, a.is_causal, a.scale, a.drop);
+        a.msb, a.msh, a.msq, a.causal, a.scale, a.drop);
   } else {
     const size_t smem = dkv_smem_floats<NC>() * sizeof(float);
     auto kern = flash_bwd_dkv_kernel<T, NC>;
@@ -385,7 +396,7 @@ int launch_fma(const Args& a, bool want_dq, cudaStream_t st) {
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.mask, static_cast<const T*>(a.dout),
         a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sq,
-        a.sk, a.h, a.d, a.msb, a.msh, a.msq, a.is_causal, a.scale, a.drop);
+        a.sk, a.h, a.d, a.msb, a.msh, a.msq, a.causal, a.scale, a.drop);
   }
   return (int)cudaGetLastError();
 }
@@ -515,7 +526,7 @@ __global__ void __launch_bounds__(kWThreads) flash_bwd_dq_wmma_kernel(
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dq,
     float* __restrict__ dmask, int sq, int sk, int h, long long msb,
-    long long msh, long long msq, int is_causal, float scale,
+    long long msh, long long msq, ptt::Causal causal, float scale,
     ptt::Dropout drop) {
   using L = BwdSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -553,7 +564,7 @@ __global__ void __launch_bounds__(kWThreads) flash_bwd_dq_wmma_kernel(
   wm::fragment<wm::accumulator, 16, 16, 16, float> acc[D / 16];
 #pragma unroll
   for (int dj = 0; dj < D / 16; ++dj) wm::fill_fragment(acc[dj], 0.f);
-  const int k_end = is_causal ? min(sk, q0 + kWT) : sk;
+  const int k_end = causal.k_end(q0 + kWT, sk);
 
   for (int k0 = 0; k0 < k_end; k0 += kWT) {
     __syncthreads();  // previous K/V tiles consumed (q, dO stored on entry)
@@ -568,7 +579,7 @@ __global__ void __launch_bounds__(kWThreads) flash_bwd_dq_wmma_kernel(
 #pragma unroll 8
     for (int c = 0; c < 32; ++c) {
       const int cc = half * 32 + c, col = k0 + cc;
-      const bool live = row < sq && col < sk && !(is_causal && col > row);
+      const bool live = row < sq && col < sk && !causal.masked(row, col);
       float x = s_w[r * L::SP + cc] * scale;
       if (live && mb) x += mb[(long long)row * msq + col];
       const float p = live ? expf(x - lse_r) : 0.f;
@@ -611,7 +622,7 @@ __global__ void __launch_bounds__(kWThreads) flash_bwd_dkv_wmma_kernel(
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int sq, int sk, int h, long long msb,
-    long long msh, long long msq, int is_causal, float scale,
+    long long msh, long long msq, ptt::Causal causal, float scale,
     ptt::Dropout drop) {
   using L = BwdSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -652,8 +663,9 @@ __global__ void __launch_bounds__(kWThreads) flash_bwd_dkv_wmma_kernel(
     wm::fill_fragment(acc_k[dj], 0.f);
     wm::fill_fragment(acc_v[dj], 0.f);
   }
-  // causal: query rows below the block's first key see none of its keys
-  const int q_begin = is_causal ? k0 : 0;
+  // causal: query rows before the first one that sees the block's first
+  // key see none of its keys
+  const int q_begin = causal.q_begin(k0) / kWT * kWT;
 
   for (int q0 = q_begin; q0 < sq; q0 += kWT) {
     __syncthreads();  // previous q/dO tiles consumed (k, v stored on entry)
@@ -674,7 +686,7 @@ __global__ void __launch_bounds__(kWThreads) flash_bwd_dkv_wmma_kernel(
 #pragma unroll 8
     for (int c = 0; c < 32; ++c) {
       const int qi = half * 32 + c, row = q0 + qi;
-      const bool live = row < sq && key < sk && !(is_causal && key > row);
+      const bool live = row < sq && key < sk && !causal.masked(row, key);
       float x = s_w[r * L::SP + qi] * scale;
       if (live && mb) x += mb[(long long)row * msq + key];
       const float p = live ? expf(x - lse_s[qi]) : 0.f;
@@ -710,7 +722,7 @@ int launch_wmma(const Args& a, bool want_dq, cudaStream_t st) {
         static_cast<cbf>(a.q), static_cast<cbf>(a.k), static_cast<cbf>(a.v),
         a.mask, static_cast<cbf>(a.dout), a.lse, a.delta,
         static_cast<bf16*>(a.dq), a.dmask, a.sq, a.sk, a.h, a.msb, a.msh,
-        a.msq, a.is_causal, a.scale, a.drop);
+        a.msq, a.causal, a.scale, a.drop);
   } else {
     auto kern = flash_bwd_dkv_wmma_kernel<D>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -721,7 +733,7 @@ int launch_wmma(const Args& a, bool want_dq, cudaStream_t st) {
         static_cast<cbf>(a.q), static_cast<cbf>(a.k), static_cast<cbf>(a.v),
         a.mask, static_cast<cbf>(a.dout), a.lse, a.delta,
         static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sq, a.sk, a.h,
-        a.msb, a.msh, a.msq, a.is_causal, a.scale, a.drop);
+        a.msb, a.msh, a.msq, a.causal, a.scale, a.drop);
   }
   return (int)cudaGetLastError();
 }
@@ -745,15 +757,17 @@ int dispatch(const Args& a, int dtype, bool want_dq, void* stream) {
 // keys; lse, delta: (b, h, sq) fp32; seed: nullptr (no dropout) or a device
 // int32, threshold = floor(p * 2^32), inv_keep = 1 / (1 - p); dmask (K2
 // only): nullptr, or a contiguous (b, h, sq, sk) fp32 buffer for d(mask),
-// zeroed by the caller under is_causal.
+// zeroed by the caller under is_causal; q_off / k_off: the global positions
+// of the first query row and key column for causal masking (0, 0 for one
+// call).
 // Each returns cudaGetLastError() after its launch.
 extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* mask, const void* dout,
                                 const void* lse, const void* delta, void* dq,
                                 void* dmask, int b, int sq, int sk, int h,
-                                int d,
-                                long long msb, long long msh, long long msq,
-                                int is_causal, float scale, const void* seed,
+                                int d, long long msb, long long msh,
+                                long long msq, int is_causal, int q_off,
+                                int k_off, float scale, const void* seed,
                                 unsigned threshold, float inv_keep, int dtype,
                                 void* stream) {
   const Args a{q, k, v, dout,
@@ -762,7 +776,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                static_cast<const float*>(delta),
                dq, nullptr, nullptr, static_cast<float*>(dmask),
                b, sq, sk, h, d, msb, msh, msq,
-               is_causal, scale,
+               ptt::Causal{is_causal, q_off, k_off}, scale,
                ptt::Dropout{static_cast<const int*>(seed), threshold,
                             seed ? inv_keep : 1.f}};
   return dispatch(a, dtype, true, stream);
@@ -773,7 +787,8 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* lse, const void* delta, void* dk,
                                  void* dv, int b, int sq, int sk, int h, int d,
                                  long long msb, long long msh, long long msq,
-                                 int is_causal, float scale, const void* seed,
+                                 int is_causal, int q_off, int k_off,
+                                 float scale, const void* seed,
                                  unsigned threshold, float inv_keep, int dtype,
                                  void* stream) {
   const Args a{q, k, v, dout,
@@ -781,7 +796,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                static_cast<const float*>(lse),
                static_cast<const float*>(delta),
                nullptr, dk, dv, nullptr, b, sq, sk, h, d, msb, msh, msq,
-               is_causal, scale,
+               ptt::Causal{is_causal, q_off, k_off}, scale,
                ptt::Dropout{static_cast<const int*>(seed), threshold,
                             seed ? inv_keep : 1.f}};
   return dispatch(a, dtype, false, stream);

@@ -15,7 +15,14 @@
 // no transpose, no padding of S to the TPU's 512 blocks or of head_dim to
 // 128 lanes. lse is (batch, heads, seq) fp32 (the TPU's (8, S) sublane
 // broadcast is gone). Fully masked rows give out = 0 and lse = 0, as the
-// TPU kernel without keep_neg_inf_lse.
+// TPU kernel without keep_neg_inf_lse, or lse = -inf with it.
+//
+// Ring form (K1r, the `offs=` / `keep_neg_inf_lse=` parameters of the TPU
+// kernel, :226-227 and :263-281): causal masking at global positions
+// (ptt::Causal: row + q_off >= col + k_off), the key tiles wholly in the
+// future of a query tile skipped, and lse = -inf for a row that sees no key
+// so that the ring's merge weighs it at zero. A query tile whose every key
+// lies in the future runs no key tile and still writes out = 0 and its lse.
 //
 // Design. One thread block per (batch, head, 64-query tile); a loop over
 // key tiles inside the block replaces the TPU grid's sequential k axis,
@@ -36,7 +43,11 @@
 // one layer's call moves ~18 MB at S=512 (q/k/v/o and the mask, ~5 us at
 // 3.35 TB/s) and does ~2 GFLOP causal (~2 us at the bf16 peak): both
 // bounds are microseconds, and the kernels sit far above them (PERF.md),
-// limited by shared-memory traffic and per-lane softmax work.
+// limited by shared-memory traffic and per-lane softmax work. A ring step
+// of (1, 4096, 32, 128) bf16 is bound by operations: 137 GFLOP for the
+// live pairs of the diagonal (0.139 ms at the bf16 peak), twice that for a
+// block wholly in the past; a block wholly in the future only writes its
+// 32 MiB of zeros and -inf (0.010 ms).
 
 #include <math.h>
 #include <mma.h>
@@ -65,8 +76,8 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, const float* __restrict__ mask,
                      T* __restrict__ out, float* __restrict__ lse, int sq,
                      int sk, int h, int d, long long msb, long long msh,
-                     long long msq, int is_causal, float scale,
-                     ptt::Dropout drop) {
+                     long long msq, ptt::Causal causal, int keep_neg_inf,
+                     float scale, ptt::Dropout drop) {
   constexpr int DP = NC * 32;
   constexpr int KP = DP + 4;
   extern __shared__ float4 smem4[];
@@ -111,8 +122,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
     rkey[r] = ptt::dropout_row_key(hkey, row0 + r);
-  // top-left causal: query row r sees key columns <= r
-  const int k_end = is_causal ? min(sk, q0 + kBlockQ) : sk;
+  // causal: the tile's rows see no key column at or past k_end
+  const int k_end = causal.k_end(q0 + kBlockQ, sk);
 
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile is consumed (and Q is stored)
@@ -148,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kRows; ++r) {
       const int row = row0 + r;
       float x = s[r] * scale;
-      const bool live = row < sq && col < sk && !(is_causal && col > row);
+      const bool live = row < sq && col < sk && !causal.masked(row, col);
       if (live && mb) x += mb[(long long)row * msq + col];
       x = live ? x : -INFINITY;
       // online softmax, all in fp32; the -inf guards mirror the TPU kernel
@@ -200,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (lse != nullptr && lane == 0) {
       float v_lse = m[r] + logf(lf);
-      if (v_lse == -INFINITY) v_lse = 0.f;
+      if (v_lse == -INFINITY && !keep_neg_inf) v_lse = 0.f;
       lse[((long long)bb * h + hh) * sq + row] = v_lse;
     }
   }
@@ -209,8 +220,9 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, const float* mask,
            void* out, float* lse, int b, int sq, int sk, int h, int d,
-           long long msb, long long msh, long long msq, int is_causal,
-           float scale, ptt::Dropout drop, cudaStream_t stream) {
+           long long msb, long long msh, long long msq, ptt::Causal causal,
+           int keep_neg_inf, float scale, ptt::Dropout drop,
+           cudaStream_t stream) {
   const size_t smem = smem_floats<NC>() * sizeof(float);
   auto kern = flash_fwd_kernel<T, NC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -220,26 +232,27 @@ int launch(const void* q, const void* k, const void* v, const float* mask,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, sq, sk, h, d,
-      msb, msh, msq, is_causal, scale, drop);
+      msb, msh, msq, causal, keep_neg_inf, scale, drop);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const float* mask,
                void* out, float* lse, int b, int sq, int sk, int h, int d,
-               long long msb, long long msh, long long msq, int is_causal,
-               float scale, ptt::Dropout drop, cudaStream_t st) {
+               long long msb, long long msh, long long msq,
+               ptt::Causal causal, int keep_neg_inf, float scale,
+               ptt::Dropout drop, cudaStream_t st) {
   if (d <= 32)
     return launch<T, 1>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh,
-                        msq, is_causal, scale, drop, st);
+                        msq, causal, keep_neg_inf, scale, drop, st);
   if (d <= 64)
     return launch<T, 2>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh,
-                        msq, is_causal, scale, drop, st);
+                        msq, causal, keep_neg_inf, scale, drop, st);
   if (d <= 128)
     return launch<T, 4>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh,
-                        msq, is_causal, scale, drop, st);
+                        msq, causal, keep_neg_inf, scale, drop, st);
   return launch<T, 8>(q, k, v, mask, out, lse, b, sq, sk, h, d, msb, msh, msq,
-                      is_causal, scale, drop, st);
+                      causal, keep_neg_inf, scale, drop, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -292,7 +305,8 @@ __global__ void __launch_bounds__(kWWarps * 32)
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse, int sq, int sk, int h,
                           long long msb, long long msh, long long msq,
-                          int is_causal, float scale, ptt::Dropout drop) {
+                          ptt::Causal causal, int keep_neg_inf, float scale,
+                          ptt::Dropout drop) {
   using L = WmmaSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
@@ -323,7 +337,7 @@ __global__ void __launch_bounds__(kWWarps * 32)
                       ptt::dropout_head_key((unsigned)*drop.seed, bb, hh), row)
                 : 0u;
   float m = -INFINITY, l = 0.f;
-  const int k_end = is_causal ? min(sk, q0 + kWQ) : sk;
+  const int k_end = causal.k_end(q0 + kWQ, sk);
 
   for (int k0 = 0; k0 < k_end; k0 += kWK) {
     __syncthreads();  // previous K/V tiles consumed (Q stored on entry)
@@ -359,7 +373,7 @@ __global__ void __launch_bounds__(kWWarps * 32)
     for (int c = 0; c < 32; ++c) {
       const int col = k0 + half * 32 + c;
       float val = s_w[r * L::SP + half * 32 + c] * scale;
-      const bool live = row < sq && col < sk && !(is_causal && col > row);
+      const bool live = row < sq && col < sk && !causal.masked(row, col);
       if (live && mb) val += mb[(long long)row * msq + col];
       x[c] = live ? val : -INFINITY;
       mx = fmaxf(mx, x[c]);
@@ -414,7 +428,7 @@ __global__ void __launch_bounds__(kWWarps * 32)
       orow[c] = __float2bfloat16(o_w[r * L::OP + c] / lf);
     if (lse != nullptr && half == 0) {
       float v_lse = m + logf(lf);
-      if (v_lse == -INFINITY) v_lse = 0.f;
+      if (v_lse == -INFINITY && !keep_neg_inf) v_lse = 0.f;
       lse[((long long)bb * h + hh) * sq + row] = v_lse;
     }
   }
@@ -424,8 +438,8 @@ template <int D>
 int launch_wmma(const void* q, const void* k, const void* v,
                 const float* mask, void* out, float* lse, int b, int sq,
                 int sk, int h, long long msb, long long msh, long long msq,
-                int is_causal, float scale, ptt::Dropout drop,
-                cudaStream_t stream) {
+                ptt::Causal causal, int keep_neg_inf, float scale,
+                ptt::Dropout drop, cudaStream_t stream) {
   const size_t smem = WmmaSmem<D>::bytes;
   auto kern = flash_fwd_wmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -437,7 +451,7 @@ int launch_wmma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask,
       static_cast<__nv_bfloat16*>(out), lse, sq, sk, h, msb, msh, msq,
-      is_causal, scale, drop);
+      causal, keep_neg_inf, scale, drop);
   return (int)cudaGetLastError();
 }
 
@@ -447,32 +461,38 @@ int launch_wmma(const void* q, const void* k, const void* v,
 // mask: nullptr or fp32 with element strides msb/msh/msq (0 = broadcast
 // dim) and unit stride over keys; lse: nullptr or (b, h, sq) fp32;
 // seed: nullptr (no dropout) or a device int32, with threshold =
-// floor(p * 2^32) and inv_keep = 1 / (1 - p).
+// floor(p * 2^32) and inv_keep = 1 / (1 - p); q_off / k_off: the global
+// positions of the first query row and key column for causal masking (0, 0
+// for one call); keep_neg_inf: a row that sees no key reports lse = -inf,
+// not 0.
 // Returns cudaGetLastError() after the launch.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* mask, void* out, void* lse, int b,
                              int sq, int sk, int h, int d, long long msb,
                              long long msh, long long msq, int is_causal,
+                             int q_off, int k_off, int keep_neg_inf,
                              float scale, const void* seed,
                              unsigned threshold, float inv_keep, int dtype,
                              void* stream) {
   if (d < 1 || d > 256) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  const ptt::Causal causal{is_causal, q_off, k_off};
   const ptt::Dropout drop{static_cast<const int*>(seed), threshold,
                           seed ? inv_keep : 1.f};
   auto m = static_cast<const float*>(mask);
   auto l = static_cast<float*>(lse);
   if (dtype == ptt::kBF16 && d == 128)
     return launch_wmma<128>(q, k, v, m, out, l, b, sq, sk, h, msb, msh, msq,
-                            is_causal, scale, drop, st);
+                            causal, keep_neg_inf, scale, drop, st);
   if (dtype == ptt::kBF16 && d == 64)
     return launch_wmma<64>(q, k, v, m, out, l, b, sq, sk, h, msb, msh, msq,
-                           is_causal, scale, drop, st);
+                           causal, keep_neg_inf, scale, drop, st);
   if (dtype == ptt::kBF16)
     return dispatch_d<__nv_bfloat16>(q, k, v, m, out, l, b, sq, sk, h, d, msb,
-                                     msh, msq, is_causal, scale, drop, st);
+                                     msh, msq, causal, keep_neg_inf, scale,
+                                     drop, st);
   if (dtype == ptt::kF32)
     return dispatch_d<float>(q, k, v, m, out, l, b, sq, sk, h, d, msb, msh,
-                             msq, is_causal, scale, drop, st);
+                             msq, causal, keep_neg_inf, scale, drop, st);
   return (int)cudaErrorInvalidValue;
 }

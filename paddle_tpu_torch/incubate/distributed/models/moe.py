@@ -19,8 +19,13 @@ TPU: K9 on the card, its plain version on the CPU. (The reference's one-hot
 einsum branch computes the same function; the tests hold this one against
 both.) The routing is fp32 whatever the amp state, as the reference's raw
 `@` inside `apply_callable` is: the gate product is a plain `@`, not the
-amp-casting `nn.functional.matmul`. The expert-parallel all-to-all
-(`expert_parallel_forward`) belongs to the multi-rank slice and raises.
+amp-casting `nn.functional.matmul`.
+
+`expert_parallel_forward(x, group)` is the reference's expert parallelism
+(:208-287) over the ranks of a `distributed.Group`: each rank routes its
+share of the tokens, an all-to-all sends every expert's queue to the rank
+that owns the expert, each rank runs its E / W experts, and a second
+all-to-all brings the outputs back for the combine.
 """
 from __future__ import annotations
 
@@ -31,14 +36,12 @@ import torch
 from torch import nn
 
 from ....device import resolve_device
+from ....distributed.communication import (_resolve, all_to_all, pmean,
+                                           replicated)
+from ....distributed.group import Group
 from ....ops.moe_dispatch import gather_rows, moe_dispatch_indices
 
 __all__ = ["MoELayer", "NaiveGate", "SwitchGate", "GShardGate", "BaseGate"]
-
-_MULTI_RANK = ("MoELayer.expert_parallel_forward (the all-to-all over "
-               "ranks) is not ported yet: ROADMAP, the multi-rank slice "
-               "(K1's ring offsets, K8's users and the MoE all-to-all over "
-               "torch.distributed)")
 
 
 class BaseGate(nn.Module):
@@ -228,5 +231,46 @@ class MoELayer(nn.Module):
         out = y.reshape(b, s, -1)
         return out.squeeze(0) if squeeze else out
 
-    def expert_parallel_forward(self, x, mesh=None, ep_axis: str = "ep"):
-        raise NotImplementedError(_MULTI_RANK)
+    def expert_parallel_forward(self, x: torch.Tensor,
+                                group: Optional[Group] = None
+                                ) -> torch.Tensor:
+        """The expert-parallel forward over the ranks of `group` (the
+        default group when None), W of them, as the reference's over a mesh
+        axis. `x` is the whole batch, [batch, seq, d_model] or [tokens,
+        d_model], the same on every rank; its T tokens split over the ranks
+        in order, T / W each. Rank r routes its share (the capacity follows
+        from T / W, as in the reference's shard), sends expert e's queue to
+        rank e // (E / W) (an all-to-all, [E, C, d] -> [E / W, W * C, d]),
+        runs its own E / W experts, `experts[r * E / W:(r + 1) * E / W]`,
+        and takes their outputs back by the inverse all-to-all for the
+        combine. Returns this rank's output rows, [T / W, d'], those of
+        tokens r * T / W onward; `aux_loss` is the mean of the ranks' (the
+        reference's `pmean`). The gate weight is replicated, so its gradient
+        is summed over the ranks; an expert's gradient arises only on the
+        rank that owns it. Raises when E or T do not divide over the
+        ranks. With enough capacity (nothing dropped) the rows equal the
+        single-rank forward's, up to the order of sums."""
+        g = _resolve(group)
+        W, E = g.nranks, self.num_experts
+        if E % W:
+            raise ValueError(f"num_experts {E} not divisible by the ep size "
+                             f"{W}")
+        flat = x.reshape(-1, x.shape[-1])
+        tokens = flat.shape[0]
+        if tokens % W:
+            raise ValueError(f"{tokens} tokens not divisible by the ep size "
+                             f"{W}")
+        per, local = tokens // W, E // W
+        mine = flat[g.rank * per:(g.rank + 1) * per]
+        own = self.experts[g.rank * local:(g.rank + 1) * local]
+
+        def expert_run(expert_in):                  # [E, C, d] queues
+            ein = all_to_all(expert_in, 0, 1, g)    # [E/W, W*C, d]
+            out = torch.stack([expert(ein[e]) for e, expert in
+                               enumerate(own)])
+            return all_to_all(out, 1, 0, g)         # [E, C, d']
+
+        y, aux = self._routed_forward(
+            mine, replicated(self.gate.gate_weight, g), expert_run)
+        self.aux_loss = pmean(aux, g)
+        return y

@@ -8,11 +8,14 @@ chunks of `chunk_size`: the forward keeps each row's log-sum-exp and gold
 logit, the backward recomputes each chunk's logits and forms dlogits =
 (softmax - onehot) * g chunk by chunk, so only one (chunk, vocab) block is
 ever resident (flash attention's trick applied to the LM head). There is
-no TPU kernel here: its products are `torch.matmul` in the input type (bf16
-under O1 autocast, as the reference's MXU products), with fp32 log-sum-exp
-and softmax. The final chunk is simply shorter, so no padded row exists
-(the reference pads and gives padded rows lse = +inf, :522-528, to keep
-them at exactly zero).
+no TPU kernel here. Its products take the input type's values (bf16 under
+O1) and, as the reference's (`preferred_element_type=jnp.float32`,
+:493-494 and :546-553), sum them in fp32 and keep the fp32 result: the
+logits, and each chunk's weight gradient, which is added into an fp32 sum
+and rounded to the weight's type once, at the end. dx is rounded to x's
+type once, as there. Log-sum-exp and softmax are fp32. The final chunk is
+simply shorter, so no padded row exists (the reference pads and gives
+padded rows lse = +inf, :522-528, to keep them at exactly zero).
 """
 from __future__ import annotations
 
@@ -40,9 +43,19 @@ def cross_entropy(logits: torch.Tensor, label: torch.Tensor,
     return loss.sum() / valid.sum().clamp_min(1).float()
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in fp32 and returned in fp32 (fp64 stays fp64): on the
+    card the `out_dtype` product of the bf16 operands, on the CPU the fp32
+    product of their values."""
+    if a.dtype in (torch.float32, torch.float64):
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def _logits(x_c, w, bias_f, transpose_y):
-    out = x_c @ (w.t() if transpose_y else w)
-    return out.float() + bias_f
+    return _mm_f32(x_c, w.t() if transpose_y else w) + bias_f
 
 
 class _FusedLinearCE(torch.autograd.Function):
@@ -92,9 +105,9 @@ class _FusedLinearCE(torch.autograd.Function):
             coeff_l = coeff.to(x2.dtype)      # the products in x's type
             dx[s:s + chunk] = coeff_l @ (w if transpose_y else w.t())
             if transpose_y:
-                dw += (coeff_l.t() @ x_c).float()
+                dw += _mm_f32(coeff_l.t(), x_c)
             else:
-                dw += (x_c.t() @ coeff_l).float()
+                dw += _mm_f32(x_c.t(), coeff_l)
             db += coeff.sum(dim=0)
         return (dx, dw.to(w.dtype), db.to(b.dtype), None, None, None, None)
 

@@ -15,7 +15,17 @@ of `ops.dropout_mask`, drawn from a one-element int32 `seed` tensor on the
 device. A trainable mask (T5's relative position bias) gets its gradient
 from K2: d(mask) = dS in fp32, written by the kernel as a (b, h, sq, sk)
 buffer and summed here over the mask's size-1 dims, as `_flash_vjp` does
-(:643-657). The ring offsets of the TPU kernel are not ported yet.
+(:643-657).
+
+The ring form of the three kernels (K1r, K2r, K3r: the TPU kernels' `offs=`
+and `keep_neg_inf_lse=` parameters, which only K8's `_ring_vjp` passes) is
+`offsets=(q_off, k_off)`: causal masking at global positions, query row r
+seeing key column c iff r + q_off >= c + k_off, so that one ring step
+attends its query shard to the key shard of another rank
+(`ops.ring_flash`). With `keep_neg_inf_lse` a row that sees no key reports
+lse = -inf instead of 0, so the ring's merge weighs it at zero. Launches
+with offsets are counted apart (`ring_launches`) from the single-call ones
+(`launches`). `scale` replaces the default 1 / sqrt(head_dim).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version only for CPU tensors. See the headers of the .cu files for the
@@ -44,8 +54,15 @@ def _keep(seed, b, h, sq, sk, dropout_p, device):
     return keep_mask(seed.to(device), b, h, sq, sk, dropout_p)
 
 
-def _causal_keep(sq, sk, device):
-    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril()
+def _causal_keep(sq, sk, device, offsets=None):
+    """(sq, sk) bool: row + q_off >= col + k_off."""
+    q_off, k_off = offsets or (0, 0)
+    rows = torch.arange(sq, device=device)[:, None] + q_off
+    return rows >= torch.arange(sk, device=device)[None, :] + k_off
+
+
+def _scale(scale, d):
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
 
 def _acc_dtype(x):
@@ -59,24 +76,28 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               is_causal: bool = False,
                               return_lse: bool = False,
                               dropout_p: float = 0.0,
-                              seed: Optional[torch.Tensor] = None
+                              seed: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None,
+                              offsets: Optional[Tuple[int, int]] = None,
+                              keep_neg_inf_lse: bool = False
                               ) -> Union[torch.Tensor,
                                          Tuple[torch.Tensor, torch.Tensor]]:
     """Plain version: the materialized-softmax attention of the reference
     op (paddle_tpu/ops/nn_ops.py scaled_dot_product_attention): fp32
     (fp64 for fp64 inputs) logits and softmax, probabilities cast back to
-    the input type. Rows whose every column is -inf give 0 and lse 0, as
-    the kernel. With dropout the probabilities are where(keep, p / (1 - r),
-    0) and lse is the undropped one."""
+    the input type. Rows whose every column is -inf give 0 and lse 0 (-inf
+    with `keep_neg_inf_lse`), as the kernel. With dropout the probabilities
+    are where(keep, p / (1 - r), 0) and lse is the undropped one. Causal
+    masking is at the global positions `offsets` (K1r's plain version)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # (b, h, s, d)
     acc = _acc_dtype(q)
-    logits = (qt @ kt.transpose(-1, -2)).to(acc) * (1.0 / math.sqrt(d))
+    logits = (qt @ kt.transpose(-1, -2)).to(acc) * _scale(scale, d)
     if attn_mask is not None:
         logits = logits + attn_mask.to(acc)
     if is_causal:
-        logits = logits.masked_fill(~_causal_keep(sq, sk, q.device),
+        logits = logits.masked_fill(~_causal_keep(sq, sk, q.device, offsets),
                                     float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isinf(m) & (m < 0), torch.zeros_like(m), m)
@@ -90,8 +111,9 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     if not return_lse:
         return out
     lse = (m + torch.log(l_sum.clamp_min(1e-30)))[..., 0]
-    lse = torch.where(torch.isinf(lse) & (lse < 0), torch.zeros_like(lse),
-                      lse)
+    if not keep_neg_inf_lse:
+        lse = torch.where(torch.isinf(lse) & (lse < 0), torch.zeros_like(lse),
+                          lse)
     return out, lse
 
 
@@ -118,7 +140,9 @@ def flash_attention_backward_reference(
         dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
         attn_mask: Optional[torch.Tensor] = None, is_causal: bool = False,
         dropout_p: float = 0.0, seed: Optional[torch.Tensor] = None,
-        need_dq: bool = True, need_dkv: bool = True, need_dmask: bool = False
+        need_dq: bool = True, need_dkv: bool = True, need_dmask: bool = False,
+        scale: Optional[float] = None,
+        offsets: Optional[Tuple[int, int]] = None
         ) -> Tuple[Optional[torch.Tensor], ...]:
     """Plain version of K2 and K3: (dq, dk, dv), each None when not asked
     for, and d(mask) fourth with `need_dmask`. The arithmetic of
@@ -126,17 +150,19 @@ def flash_attention_backward_reference(
     products of the input-type values, p = exp(s - lse), dS = p * (dP -
     delta), and dS / P_dropped rounded to the input type before their
     products, as the kernels feed them to the matrix units. d(mask) is the
-    unrounded dS, summed by `reduce_dmask`."""
+    unrounded dS, summed by `reduce_dmask`. Causal masking is at the global
+    positions `offsets` (K2r's and K3r's plain version)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale(scale, d)
     acc = _acc_dtype(q)
     qt, kt, vt, dot = (x.transpose(1, 2).to(acc) for x in (q, k, v, dout))
     s = (qt @ kt.transpose(-1, -2)) * scale
     if attn_mask is not None:
         s = s + attn_mask.to(acc)
     if is_causal:
-        s = s.masked_fill(~_causal_keep(sq, sk, q.device), float("-inf"))
+        s = s.masked_fill(~_causal_keep(sq, sk, q.device, offsets),
+                          float("-inf"))
     p = torch.exp(s - lse.to(acc)[..., None])
     dp = dot @ vt.transpose(-1, -2)
     p_drop = p
@@ -173,12 +199,11 @@ def _fn(lib_name, sym, argtypes):
 _VP, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_longlong, ctypes.c_uint,
                                ctypes.c_float)
-_FWD_ARGS = [_VP] * 6 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
-                                                    _F32, _I32, _VP]
-_DQ_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
-                                                   _F32, _I32, _VP]
-_DKV_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32, _F32, _VP, _U32,
-                                                    _F32, _I32, _VP]
+_FWD_ARGS = [_VP] * 6 + [_I32] * 5 + [_I64] * 3 + [_I32] * 4 + [
+    _F32, _VP, _U32, _F32, _I32, _VP]
+_DQ_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32] * 3 + [
+    _F32, _VP, _U32, _F32, _I32, _VP]
+_DKV_ARGS = _DQ_ARGS
 
 
 def _ptr(x):
@@ -247,26 +272,45 @@ def _stream(q):
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _offset_args(offsets):
+    """(q_off, k_off) as host ints; (0, 0) for one call."""
+    if offsets is None:
+        return 0, 0
+    q_off, k_off = (int(o) for o in offsets)
+    if abs(q_off) >= 2 ** 30 or abs(k_off) >= 2 ** 30:
+        raise ValueError(f"offsets {offsets} overflow the kernels' int32 "
+                         "positions")
+    return q_off, k_off
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attn_mask: Optional[torch.Tensor] = None,
                     is_causal: bool = False, return_lse: bool = False,
                     dropout_p: float = 0.0,
-                    seed: Optional[torch.Tensor] = None
+                    seed: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None,
+                    offsets: Optional[Tuple[int, int]] = None,
+                    keep_neg_inf_lse: bool = False
                     ) -> Union[torch.Tensor,
                                Tuple[torch.Tensor, torch.Tensor]]:
-    """softmax(q k^T / sqrt(d) + mask) v over (b, s, h, d) tensors, with
-    attention dropout `dropout_p` keyed by `seed` (a one-element int32
-    tensor on q's device). CUDA tensors launch K1 (counted in
-    `flash_attention.launches`); CPU tensors run
+    """softmax(q k^T * scale + mask) v over (b, s, h, d) tensors, scale
+    1 / sqrt(d) by default, with attention dropout `dropout_p` keyed by
+    `seed` (a one-element int32 tensor on q's device). With `offsets`
+    (q_off, k_off), causal masking is at those global positions (the ring
+    form K1r); `keep_neg_inf_lse` reports lse = -inf for rows that see no
+    key. CUDA tensors launch K1 (counted in `flash_attention.launches`, or
+    in `flash_attention.ring_launches` with offsets); CPU tensors run
     `flash_attention_reference`."""
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, attn_mask, is_causal,
-                                         return_lse, dropout_p, seed)
+                                         return_lse, dropout_p, seed, scale,
+                                         offsets, keep_neg_inf_lse)
     _check_qkv(q, k, v, "flash_attention")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     mask, msb, msh, msq = _mask_args(attn_mask, q, sk)
     seed_t, thresh, inv = _dropout_args(dropout_p, seed, q)
+    q_off, k_off = _offset_args(offsets)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -274,14 +318,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib, fn = _fn("flash_fwd", "ptt_flash_fwd", _FWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
              out.data_ptr(), _ptr(lse), b, sq, sk, h, d, msb, msh, msq,
-             int(bool(is_causal)), 1.0 / math.sqrt(d), _ptr(seed_t), thresh,
-             inv, _DTYPES[q.dtype], _stream(q))
+             int(bool(is_causal)), q_off, k_off, int(bool(keep_neg_inf_lse)),
+             _scale(scale, d), _ptr(seed_t), thresh, inv, _DTYPES[q.dtype],
+             _stream(q))
     _build.check(err, "flash_fwd", lib)
-    flash_attention.launches += 1
+    if offsets is None:
+        flash_attention.launches += 1
+    else:
+        flash_attention.ring_launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.ring_launches = 0
 
 
 def _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
@@ -304,7 +353,7 @@ def _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
             drop_args)
 
 
-def _launch_dq(prep, is_causal, want_dmask=False):
+def _launch_dq(prep, is_causal, want_dmask=False, scale=None, offsets=None):
     """K2: dq, and with `want_dmask` the (b, h, sq, sk) fp32 dS buffer
     (zeroed first under `is_causal`: the kernel skips the key tiles past
     the diagonal), else None."""
@@ -312,6 +361,10 @@ def _launch_dq(prep, is_causal, want_dmask=False):
                                                          inv) = prep
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    if want_dmask and offsets is not None:
+        raise ValueError("flash_attention_dq: ring offsets and d(mask) do "
+                         "not combine (as the TPU kernel asserts)")
+    q_off, k_off = _offset_args(offsets)
     dq = torch.empty_like(q)
     full = None
     if want_dmask:
@@ -321,28 +374,35 @@ def _launch_dq(prep, is_causal, want_dmask=False):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
              _ptr(full), b, sq, sk, h, d, msb, msh, msq, int(bool(is_causal)),
-             1.0 / math.sqrt(d), _ptr(seed_t), thresh, inv, _DTYPES[q.dtype],
-             _stream(q))
+             q_off, k_off, _scale(scale, d), _ptr(seed_t), thresh, inv,
+             _DTYPES[q.dtype], _stream(q))
     _build.check(err, "flash_bwd_dq", lib)
-    flash_attention_dq.launches += 1
+    if offsets is None:
+        flash_attention_dq.launches += 1
+    else:
+        flash_attention_dq.ring_launches += 1
     if want_dmask:
         flash_attention_dq.dmask_launches += 1
     return dq, full
 
 
-def _launch_dkv(prep, is_causal):
+def _launch_dkv(prep, is_causal, scale=None, offsets=None):
     (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
                                                          inv) = prep
     b, sq, h, d = q.shape
+    q_off, k_off = _offset_args(offsets)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dkv", _DKV_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), b, sq, k.shape[1], h, d, msb, msh, msq,
-             int(bool(is_causal)), 1.0 / math.sqrt(d), _ptr(seed_t), thresh,
-             inv, _DTYPES[q.dtype], _stream(q))
+             int(bool(is_causal)), q_off, k_off, _scale(scale, d),
+             _ptr(seed_t), thresh, inv, _DTYPES[q.dtype], _stream(q))
     _build.check(err, "flash_bwd_dkv", lib)
-    flash_attention_dkv.launches += 1
+    if offsets is None:
+        flash_attention_dkv.launches += 1
+    else:
+        flash_attention_dkv.ring_launches += 1
     return dk, dv
 
 
@@ -351,21 +411,26 @@ def flash_attention_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        delta: torch.Tensor,
                        attn_mask: Optional[torch.Tensor] = None,
                        is_causal: bool = False, dropout_p: float = 0.0,
-                       seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dQ. CUDA tensors launch K2 (counted in `flash_attention_dq.launches`;
-    the launches that also write d(mask), from `flash_attention_backward`,
-    in `flash_attention_dq.dmask_launches`); CPU tensors run the dq part
-    of `flash_attention_backward_reference`."""
+                       seed: Optional[torch.Tensor] = None,
+                       scale: Optional[float] = None,
+                       offsets: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
+    """dQ. CUDA tensors launch K2 (counted in `flash_attention_dq.launches`,
+    or with `offsets`, the ring form K2r, in `.ring_launches`; the launches
+    that also write d(mask), from `flash_attention_backward`, in
+    `.dmask_launches`); CPU tensors run the dq part of
+    `flash_attention_backward_reference`."""
     if not q.is_cuda:
         return flash_attention_backward_reference(
             q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
-            need_dkv=False)[0]
+            need_dkv=False, scale=scale, offsets=offsets)[0]
     return _launch_dq(_bwd_prepare(q, k, v, dout, lse, delta, attn_mask,
                                    dropout_p, seed, "flash_attention_dq"),
-                      is_causal)[0]
+                      is_causal, scale=scale, offsets=offsets)[0]
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.ring_launches = 0
 flash_attention_dq.dmask_launches = 0
 
 
@@ -374,21 +439,25 @@ def flash_attention_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         delta: torch.Tensor,
                         attn_mask: Optional[torch.Tensor] = None,
                         is_causal: bool = False, dropout_p: float = 0.0,
-                        seed: Optional[torch.Tensor] = None
+                        seed: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None,
+                        offsets: Optional[Tuple[int, int]] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV). CUDA tensors launch K3 (counted in
-    `flash_attention_dkv.launches`); CPU tensors run the dk / dv part of
+    `flash_attention_dkv.launches`, or with `offsets`, the ring form K3r,
+    in `.ring_launches`); CPU tensors run the dk / dv part of
     `flash_attention_backward_reference`."""
     if not q.is_cuda:
         return flash_attention_backward_reference(
             q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
-            need_dq=False)[1:]
+            need_dq=False, scale=scale, offsets=offsets)[1:3]
     return _launch_dkv(_bwd_prepare(q, k, v, dout, lse, delta, attn_mask,
                                     dropout_p, seed, "flash_attention_dkv"),
-                       is_causal)
+                       is_causal, scale=scale, offsets=offsets)
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.ring_launches = 0
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
@@ -397,7 +466,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              attn_mask: Optional[torch.Tensor] = None,
                              is_causal: bool = False, dropout_p: float = 0.0,
                              seed: Optional[torch.Tensor] = None,
-                             need_dmask: bool = False
+                             need_dmask: bool = False,
+                             scale: Optional[float] = None
                              ) -> Tuple[Optional[torch.Tensor], ...]:
     """(dq, dk, dv, d(mask) or None) from the forward's out and lse: delta
     outside the kernels, then K2 (asked for d(mask) only with
@@ -407,12 +477,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if not q.is_cuda:
         grads = flash_attention_backward_reference(
             q, k, v, dout, lse, delta, attn_mask, is_causal, dropout_p, seed,
-            need_dmask=need_dmask)
+            need_dmask=need_dmask, scale=scale)
         return grads if need_dmask else (*grads, None)
     prep = _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p,
                         seed, "flash_attention_backward")
-    dq, full = _launch_dq(prep, is_causal, need_dmask)
-    dk, dv = _launch_dkv(prep, is_causal)
+    dq, full = _launch_dq(prep, is_causal, need_dmask, scale)
+    dk, dv = _launch_dkv(prep, is_causal, scale)
     dmask = reduce_dmask(full, attn_mask) if need_dmask else None
     return dq, dk, dv, dmask
 
@@ -424,17 +494,19 @@ class FlashAttention(torch.autograd.Function):
     (a trainable mask), and K2 writes no d(mask) otherwise."""
 
     @staticmethod
-    def forward(ctx, q, k, v, attn_mask, is_causal, dropout_p, seed):
+    def forward(ctx, q, k, v, attn_mask, is_causal, dropout_p, seed,
+                scale=None):
         if q.is_cuda:
             # the kernels read contiguous, aligned q / k / v (the fused QKV
             # projection gives strided views): lay them out once here and
             # save those, so the backward copies none of them again
             q, k, v = _aligned(q), _aligned(k), _aligned(v)
         out, lse = flash_attention(q, k, v, attn_mask, is_causal, True,
-                                   dropout_p, seed)
+                                   dropout_p, seed, scale)
         ctx.save_for_backward(q, k, v, attn_mask, seed, out, lse)
         ctx.is_causal = is_causal
         ctx.dropout_p = dropout_p
+        ctx.scale = scale
         return out
 
     @staticmethod
@@ -442,20 +514,21 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, attn_mask, seed, out, lse = ctx.saved_tensors
         dq, dk, dv, dmask = flash_attention_backward(
             q, k, v, out, lse, dout, attn_mask, ctx.is_causal, ctx.dropout_p,
-            seed, need_dmask=ctx.needs_input_grad[3])
-        return dq, dk, dv, dmask, None, None, None
+            seed, need_dmask=ctx.needs_input_grad[3], scale=ctx.scale)
+        return dq, dk, dv, dmask, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               attn_mask: Optional[torch.Tensor] = None,
               is_causal: bool = False, dropout_p: float = 0.0,
-              seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+              seed: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
     """Differentiable flash attention: `FlashAttention` when a gradient is
     wanted (of q, k, v or a trainable mask), the forward kernel alone
     otherwise."""
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (q, k, v, attn_mask)):
         return FlashAttention.apply(q, k, v, attn_mask, is_causal, dropout_p,
-                                    seed)
+                                    seed, scale)
     return flash_attention(q, k, v, attn_mask, is_causal, False, dropout_p,
-                           seed)
+                           seed, scale)

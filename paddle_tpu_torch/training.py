@@ -13,8 +13,11 @@ backward and update. Hidden and attention dropout draw from `generator`
 `step(x, target) -> loss` for an `MoELayer`: `mse_loss(layer(x), target)
 + 0.01 * layer.aux_loss` under the same O1 bf16 (0.01 is the Switch
 Transformer's load-balancing coefficient alpha), the composition the
-reference's MoE tests make by hand, then the same backward and update. The steps make no host sync: the loss comes back as
-a device tensor, and reading it is the caller's choice.
+reference's MoE tests make by hand, then the same backward and update;
+with `group`, the layer runs expert-parallel over its ranks
+(`MoELayer.expert_parallel_forward`), each rank on its share of the
+tokens of x and of target. The steps make no host sync: the loss comes
+back as a device tensor, and reading it is the caller's choice.
 """
 from __future__ import annotations
 
@@ -65,13 +68,20 @@ def make_seq2seq_train_step(model: torch.nn.Module,
     return step
 
 
-def make_moe_train_step(layer: torch.nn.Module, opt: torch.optim.Optimizer
-                        ) -> Callable[[torch.Tensor, torch.Tensor],
-                                      torch.Tensor]:
+def make_moe_train_step(layer: torch.nn.Module, opt: torch.optim.Optimizer,
+                        group=None) -> Callable[[torch.Tensor, torch.Tensor],
+                                                torch.Tensor]:
     def step(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         layer.train()
         with amp.auto_cast(level="O1", dtype="bfloat16"):
-            loss = F.mse_loss(layer(x), target) + 0.01 * layer.aux_loss
+            if group is None:
+                y = layer(x)
+            else:
+                y = layer.expert_parallel_forward(x, group)
+                rows = target.reshape(-1, target.shape[-1])
+                per = rows.shape[0] // group.nranks
+                target = rows[group.rank * per:(group.rank + 1) * per]
+            loss = F.mse_loss(y, target) + 0.01 * layer.aux_loss
         loss.backward()
         opt.step()
         opt.zero_grad(set_to_none=True)

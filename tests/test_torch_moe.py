@@ -25,7 +25,15 @@ Pallas gather runs in interpret mode (`interpret=True`, and
   against the reference under O1: the loss within 2e-2 relative and every
   gradient's cosine above 0.99.
 - The port alone: parameter names, the default device, the launch counter
-  on CPU tensors, the expert-parallel refusal, `mse_loss`.
+  on CPU tensors, `mse_loss`.
+- Expert parallelism: `expert_parallel_forward` over 4 gloo processes
+  (`distributed.spawn`, one world for the module) against the port's
+  single-rank layer run over each rank's tokens in turn and against the
+  reference's `expert_parallel_forward` over 4 fake devices, at a capacity
+  that drops nothing: the rows, the aux loss and every gradient (the
+  gate's summed over the ranks, each expert's on its owner only) within
+  the `_routed_forward` tolerances; the raise when the experts or the
+  tokens do not divide over the ranks.
 """
 import functools
 
@@ -44,7 +52,9 @@ from paddle_tpu.incubate.distributed.models.moe import MoELayer as JMoELayer
 from paddle_tpu.jit.functional import bind_state, extract_state
 from paddle_tpu.ops import pallas_kernels as pk
 
+import _torch_ranks as ranks
 from paddle_tpu_torch import amp
+from paddle_tpu_torch import distributed as ptd
 from paddle_tpu_torch.incubate.distributed.models import moe
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn import functional as F
@@ -453,12 +463,6 @@ def test_default_device_is_the_card_and_raises_without_one():
         moe.GShardGate(D, num_expert=E)
 
 
-def test_expert_parallel_forward_raises_naming_the_roadmap_item():
-    layer = _port_layer("gshard", _ref_layer("gshard"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-rank"):
-        layer.expert_parallel_forward(torch.zeros(2, 4, D), mesh=None)
-
-
 @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
 def test_mse_loss_matches_reference(reduction):
     a, b = _step_data()
@@ -467,3 +471,139 @@ def test_mse_loss_matches_reference(reduction):
     got = F.mse_loss(torch.from_numpy(a), torch.from_numpy(b),
                      reduction=reduction)
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
+
+
+# ------------------------------------------------ expert parallelism (EP)
+
+EP_E, EP_W = 8, 4           # experts (2 a rank), ranks
+EP_CF = 4.0                 # a capacity at which nothing drops
+
+
+def _ep_ref_layer():
+    paddle.seed(23)
+    experts = [jnn.Sequential(jnn.Linear(D, H), jnn.GELU(), jnn.Linear(H, D))
+               for _ in range(EP_E)]
+    layer = JMoELayer(d_model=D, experts=experts,
+                      gate=dict(GATES["gshard"]))
+    layer.capacity_factor = EP_CF
+    return layer
+
+
+def _ep_data():
+    """x and the cotangent of y: (2, 32, D), 64 tokens, 16 a rank."""
+    rng = np.random.RandomState(21)
+    return (rng.randn(2, 32, D).astype(np.float32),
+            rng.randn(2, 32, D).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ep():
+    """(weights, y [T, D], aux, dx, parameter gradients) of the reference's
+    expert_parallel_forward over 4 fake devices, loss = sum(y * ct) +
+    aux_loss."""
+    from jax.sharding import Mesh
+
+    layer = _ep_ref_layer()
+    state = {n: np.asarray(v) for n, v in extract_state(layer)[0].items()}
+    x, ct = _ep_data()
+    mesh = Mesh(np.asarray(jax.devices()[:EP_W]), ("ep",))
+    xt = paddle.to_tensor(x)
+    xt.stop_gradient = False
+    y = layer.expert_parallel_forward(xt, mesh, ep_axis="ep")
+    ((y * paddle.to_tensor(ct)).sum() + layer.aux_loss).backward()
+    grads = {n: np.asarray(p.grad.numpy())
+             for n, p in layer.named_parameters() if p.grad is not None}
+    return (state, y.numpy().reshape(-1, D), float(layer.aux_loss.numpy()),
+            xt.grad.numpy(), grads)
+
+
+def _ep_port_layer(state):
+    experts = [torch.nn.Sequential(Linear(D, H), torch.nn.GELU(),
+                                   Linear(H, D)) for _ in range(EP_E)]
+    layer = moe.MoELayer(D, experts, gate=dict(GATES["gshard"]),
+                         device="cpu")
+    load_reference_state(layer, state)
+    layer.capacity_factor = EP_CF
+    return layer
+
+
+@functools.lru_cache(maxsize=None)
+def _single_rank():
+    """The port's single-rank layer on each rank's tokens in turn, loss =
+    sum over ranks of sum(y_r * ct_r) + the mean of their aux losses (EP's
+    objective): (y [T, D], aux, dx, gradients in the reference's layout)."""
+    layer = _ep_port_layer(_jax_ep()[0])
+    x, ct = _ep_data()
+    xt = torch.from_numpy(x.reshape(-1, D)).requires_grad_()
+    per = xt.shape[0] // EP_W
+    ys, auxs = zip(*(layer._routed_forward(xt[r * per:(r + 1) * per],
+                                           layer.gate.gate_weight,
+                                           layer._run_experts)
+                     for r in range(EP_W)))
+    y, aux = torch.cat(ys), torch.stack(auxs).mean()
+    ((y * torch.from_numpy(ct.reshape(-1, D))).sum() + aux).backward()
+    return (y.detach().numpy(), float(aux), xt.grad.numpy().reshape(x.shape),
+            _port_grads(layer))
+
+
+@pytest.fixture(scope="module")
+def ep_world():
+    """Each rank's result of `expert_parallel_forward` over 4 gloo ranks
+    (one world for the module's EP cases)."""
+    x, ct = _ep_data()
+    return ptd.spawn(ranks.expert_parallel,
+                     (_jax_ep()[0], x, ct, EP_E, D, H, GATES["gshard"],
+                      EP_CF), nprocs=EP_W, device="cpu", timeout=180)
+
+
+def test_expert_parallel_drops_nothing_at_this_capacity(ep_world):
+    assert [r["dropped"] for r in ep_world] == [0.0] * EP_W
+
+
+@pytest.mark.parametrize("against", ["single rank", "reference EP"])
+def test_expert_parallel_forward_and_aux_loss(ep_world, against):
+    """The ranks' rows in rank order are the whole batch's y; aux_loss is
+    the mean of the ranks' (the reference's pmean), the same on each."""
+    y = np.concatenate([r["y"] for r in ep_world])
+    ref_y, ref_aux = (_single_rank()[:2] if against == "single rank"
+                      else _jax_ep()[1:3])
+    np.testing.assert_allclose(y, ref_y, rtol=1e-5, atol=1e-5)
+    for r in ep_world:
+        np.testing.assert_allclose(r["aux"], ref_aux, rtol=1e-6)
+
+
+@pytest.mark.parametrize("against", ["single rank", "reference EP"])
+def test_expert_parallel_gradients(ep_world, against):
+    """The gate's gradient, summed over the ranks, on every rank; each
+    expert's only on the rank that owns it (experts 2r and 2r + 1 on rank
+    r); x's rows on the rank that routed them."""
+    ref_dx, ref_grads = (_single_rank()[2:] if against == "single rank"
+                         else _jax_ep()[3:])
+    lin = _linear_names(_ep_port_layer(_jax_ep()[0]))
+    np.testing.assert_allclose(sum(r["dx"] for r in ep_world), ref_dx,
+                               rtol=1e-4, atol=1e-5)
+    owner = {}
+    for rank, r in enumerate(ep_world):
+        local = {int(n.split(".")[1]) for n in r["grads"]
+                 if n.startswith("experts.")}
+        assert local == {EP_E // EP_W * rank + i for i in range(2)}
+        for n, g in r["grads"].items():
+            g = g.T if n in lin else g
+            np.testing.assert_allclose(g, ref_grads[n], rtol=1e-4,
+                                       atol=1e-5, err_msg=f"rank {rank} {n}")
+            owner.setdefault(n, []).append(rank)
+    assert owner["gate.gate_weight"] == list(range(EP_W))
+    assert set(owner) == set(ref_grads)
+    assert all(len(v) == 1 for n, v in owner.items() if n != "gate.gate_weight")
+
+
+def test_expert_parallel_raises_when_experts_or_tokens_do_not_divide():
+    four = ptd.Group(0, range(EP_W))
+    layer = _port_layer("gshard", _ref_layer("gshard"))   # 4 experts
+    with pytest.raises(ValueError, match="num_experts 4 not divisible by "
+                                         "the ep size 3"):
+        layer.expert_parallel_forward(torch.zeros(2, 6, D),
+                                      ptd.Group(0, range(3)))
+    with pytest.raises(ValueError, match="10 tokens not divisible by the ep "
+                                         "size 4"):
+        layer.expert_parallel_forward(torch.zeros(10, D), four)

@@ -286,6 +286,44 @@ def test_fused_linear_cross_entropy_matches_reference(transpose_y):
     _close(tce.cross_entropy(logits, _t(lbl)).item(), float(ref_loss))
 
 
+@pytest.mark.parametrize("transpose_y", [True, False])
+def test_fused_head_under_o1_sums_its_products_in_fp32(transpose_y):
+    """bf16 x and w, as O1 gives them the head: the logits and each chunk's
+    dW are fp32 sums of the bf16 products, dW added over the 8 chunks in
+    fp32 and rounded to bf16 once, as the reference's (nn_ops.py:493-494,
+    546-553). dW and dx within 2e-4 relative L2 of the reference's; bf16
+    products rounded per chunk read ~2.7e-3 for dW and ~4.9e-4 for dx."""
+    import jax.numpy as jnp
+
+    r = np.random.RandomState(17)
+    n, hdim, vocab, chunk = 1024, 64, 1024, 128
+    x = r.standard_normal((n, hdim)).astype(np.float32)
+    wshape = (vocab, hdim) if transpose_y else (hdim, vocab)
+    w = (r.standard_normal(wshape) * 0.05).astype(np.float32)
+    b = np.zeros(vocab, np.float32)
+    lbl = r.randint(0, vocab, n).astype(np.int64)
+
+    def f(x_, w_):
+        return nn_ops.fused_linear_cross_entropy(
+            x_, w_, jnp.asarray(b), jnp.asarray(lbl),
+            transpose_y=transpose_y, chunk_size=chunk)
+
+    ref_loss, (ref_dx, ref_dw) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16))
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    wt = torch.from_numpy(w).bfloat16().requires_grad_()
+    loss = tce.fused_linear_cross_entropy(
+        xt, wt, torch.from_numpy(b), _t(lbl), transpose_y=transpose_y,
+        chunk_size=chunk)
+    loss.backward()
+    assert wt.grad.dtype == xt.grad.dtype == torch.bfloat16
+    _close(loss.item(), float(ref_loss), rtol=1e-5, msg="loss")
+    for name, got, ref in (("dw", wt.grad, ref_dw), ("dx", xt.grad, ref_dx)):
+        ref = np.asarray(ref.astype(jnp.float32))
+        rel = np.linalg.norm(got.float().numpy() - ref) / np.linalg.norm(ref)
+        assert rel < 2e-4, (name, rel)
+
+
 def test_cross_entropy_matches_reference():
     r = np.random.RandomState(16)
     logits = r.standard_normal((3, 5, 11)).astype(np.float32)
