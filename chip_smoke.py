@@ -9,6 +9,8 @@ without the final result line:
 
 1. device: `nvidia-smi` name and power limit, torch's device name;
 2. build: every CUDA kernel of the port with nvcc (sm_90a), in parallel;
+   the Hopper flash kernels' registers and spill bytes from ptxas (a spill
+   fails the phase) and their dynamic shared memory;
 3. kernels: each hand-written kernel of the serving path (K1, K4, K6)
    against its plain PyTorch version on the card at the serving shapes, in
    bf16 and fp32, max abs error beside the tolerance; kernel, plain-version
@@ -28,7 +30,11 @@ without the final result line:
    shapes (b 32, S 512, 12 heads of 64; 16384 rows of 768): K1 with
    attention dropout 0.1, K2 + K3 through `FlashAttention.backward` with
    and without a (32, 1, 1, 512) padding mask, K4 and K5 in LayerNorm mode,
-   in the O1 type (fp32) and bf16, and in RMS mode (T5's) in fp32;
+   in the O1 type (fp32) and bf16, and in RMS mode (T5's) in fp32; then
+   the flash edge cases: K1 / K2 / K3 against their plain versions at
+   sizes around the kernels' tiles (1 to 200 rows, T5's 114 x 512), every
+   mask shape (also with 456-byte rows at sk = 114), causal at ring
+   offsets, dropout, and rows that see no key, at head_dim 64 and 128;
 6. serve: LLaMA-7B at full width (random bf16 weights from --seed, drawn
    on the card) served by ServingEngine (page_size 16, 8 rows,
    max_seq_len 1024, decode_horizon 8, bf16 pools): 8 greedy requests,
@@ -345,6 +351,72 @@ def phase_device():
     return line
 
 
+def ptxas_report(text):
+    """{kernel entry: {"registers", "spill_stores", "spill_loads",
+    "stack"}} from one source's `-Xptxas -v` output."""
+    import re
+
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+# the Hopper flash kernels (wgmma, TMA): their ptxas lines are printed and
+# none may spill
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+
+
+def sm90_report():
+    """Registers and spills of each Hopper flash kernel (ptxas) beside its
+    dynamic shared memory (the layouts' sizes, read from the libraries);
+    raises if one spills."""
+    import ctypes
+
+    from paddle_tpu_torch import _build
+
+    smem = {}
+    for lib_name, sym in (("flash_fwd", "ptt_flash_fwd_sm90_smem"),
+                          ("flash_bwd", "ptt_flash_bwd_dkv_sm90_smem")):
+        fn = getattr(_build.load(lib_name), sym)
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        smem[lib_name] = {(d, m): fn(d, m) for d in (64, 128) for m in (0, 1)}
+    report = {}
+    for lib_name, text in _build.BUILD_LOGS.items():
+        for entry, r in ptxas_report(text).items():
+            if not any(k in entry for k in SM90_KERNELS):
+                continue
+            report[entry] = r
+            log(f"[build] {lib_name} {entry}: {r.get('registers')} registers, "
+                f"stack {r.get('stack')} B, spill stores "
+                f"{r.get('spill_stores')} B, spill loads "
+                f"{r.get('spill_loads')} B")
+            if r.get("spill_stores") or r.get("spill_loads"):
+                raise AssertionError(f"{entry} spills: {r}")
+    if not report:
+        raise AssertionError("no Hopper flash kernel in the ptxas output")
+    for lib_name, sizes in smem.items():
+        log(f"[build] {lib_name} Hopper kernel dynamic shared memory (bytes, "
+            "head_dim / with a staged mask tile): "
+            + ", ".join(f"d {d} mask {m}: {b}" for (d, m), b in sizes.items()))
+    return {"ptxas": report, "smem": {lib: {f"d{d} mask{m}": b
+                                            for (d, m), b in sizes.items()}
+                                      for lib, sizes in smem.items()}}
+
+
 def phase_build(out_dir):
     from paddle_tpu_torch import _build
 
@@ -356,6 +428,7 @@ def phase_build(out_dir):
         if out_dir:
             with open(os.path.join(out_dir, f"ptxas_{name}.log"), "w") as f:
                 f.write(text)
+    sm90_report()
     return secs
 
 
@@ -855,12 +928,92 @@ def k23_cases(rows, dev):
     return main
 
 
+# the Hopper kernels' edge cases (bf16, head_dim 64 and 128): sizes around
+# their 64 / 128-row tiles, T5's cross shape (114 queries over 512 keys)
+EDGE_SIZES = (1, 63, 65, 127, 129, 200, (114, 512))
+# mask shapes by pattern; sk = 114 has a 456-byte row, no 16-byte multiple
+EDGE_MASKS = (None, "b11k", "1hqk", "bhqk", "11qk")
+# causal forms: none, one call (0, 0), a ring step 37 keys behind, and one
+# wholly in the future (q_off - k_off = -sk), the last two with
+# keep_neg_inf_lse as the ring calls them
+EDGE_CAUSAL = (None, (0, 0), "unaligned", "future")
+# dQ and dK with a single key, where they are zero up to rounding: a
+# hundred times the ~1e-7 of fp32 rounding of dP - delta on unit inputs
+ONE_KEY_ATOL = 1e-5
+
+
+def _edge_mask(kind, b, h, sq, sk, g, dev):
+    if kind is None:
+        return None
+    shape = {"b11k": (b, 1, 1, sk), "1hqk": (1, h, sq, sk),
+             "bhqk": (b, h, sq, sk), "11qk": (1, 1, sq, sk)}[kind]
+    return torch.where(torch.rand(*shape, generator=g, device=dev) < 0.2,
+                       -1e4, 0.5 * torch.randn(*shape, generator=g,
+                                               device=dev))
+
+
+def flash_edge_case(dev, g, seed, dtype, shape, mask, causal, offsets,
+                    neg_inf, p, label):
+    """K1, K2 and K3 at one case against their plain versions (K1's on the
+    values cast to fp32, as check_k1), under TOL_REL (the ring forms' limits
+    K1r / K2r / K3r where the case has ring offsets) and TOL_LSE; lse must
+    be -inf exactly where the plain version's is. Returns {kernel: (error,
+    tolerance)}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    n1, n2, n3 = ("K1r", "K2r", "K3r") if offsets else ("K1", "K2", "K3")
+
+    b, sq, sk, h, d = shape
+    q, dout = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    kw = dict(scale=None, offsets=offsets)
+    out, lse = fa.flash_attention(q, k, v, mask, causal, True, p, seed,
+                                  keep_neg_inf_lse=neg_inf, **kw)
+    ref, ref_lse = fa.flash_attention_reference(
+        q.float(), k.float(), v.float(), mask, causal, True, p, seed,
+        keep_neg_inf_lse=neg_inf, **kw)
+    lse0 = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    delta = fa.attention_delta(out, dout)
+    args = (q, k, v, dout, lse0, delta, mask, causal, p, seed)
+    dq = fa.flash_attention_dq(*args, **kw)
+    dk, dv = fa.flash_attention_dkv(*args, **kw)
+    rdq, rdk, rdv = fa.flash_attention_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if sk == 1:
+        # one key: the softmax is 1 and dS = p (dP - delta) cancels exactly,
+        # so dQ and dK are the fp32 rounding of dP - delta on both sides
+        # (~1e-7 on unit inputs), which no bound relative to their own max
+        # can hold: each is held to ONE_KEY_ATOL instead
+        e2 = (max_err(dq, rdq), ONE_KEY_ATOL)
+        ek = (max_err(dk, rdk), ONE_KEY_ATOL)
+        for name, (e, t) in (("K2 dq", e2), ("K3 dk", ek)):
+            if not e <= t:
+                raise AssertionError(f"{label}: {name} max abs error {e} > "
+                                     f"{t} with one key")
+    else:
+        e2, ek = check_rel(n2, dq, rdq, dtype), check_rel(n3, dk, rdk, dtype)
+    errs = {"K1": check_rel(n1, out, ref, dtype),
+            "K1 lse": (_ring_lse_check(lse, ref_lse, f"K1 {label}"), TOL_LSE),
+            "K2": e2,
+            "K3": max(ek, check_rel(n3, dv, rdv, dtype),
+                      key=lambda et: et[0] / max(et[1], 1e-30))}
+    return errs
+
+
 def flash_edge_cases(dev):
     """Correctness only: K1 (dropout) and K2 / K3 against their plain
     versions on the branches the training shapes do not reach: causal
     tile skipping, ragged S, a full (1, h, S, S) mask, the bf16 tensor-core
     path at head_dim 128 and the FMA path at a head_dim that is not a
-    multiple of 32."""
+    multiple of 32. Then the Hopper kernels (bf16, head_dim 64 and 128) at
+    every size of EDGE_SIZES under every mask shape of EDGE_MASKS, each
+    case with a causal form of EDGE_CAUSAL (in turn) and dropout 0.1 on
+    every other one; the four mask shapes at sk = 114 with every causal
+    form; and rows that see no key (a -inf mask row, a -inf batch, a
+    future step), whose out must be 0 and lse 0, or -inf under
+    keep_neg_inf_lse."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -898,6 +1051,53 @@ def flash_edge_cases(dev):
             + ", ".join(f"{kk} {e:.3g} (tol {t:.3g})"
                         for kk, (e, t) in errs.items()))
         worst[label] = errs
+
+    cases = []
+    for d in (64, 128):
+        n = 0
+        for size in EDGE_SIZES:
+            sq, sk = size if isinstance(size, tuple) else (size, size)
+            for mk in EDGE_MASKS:
+                cases.append((d, sq, sk, mk, EDGE_CAUSAL[n % 4], n % 2, None))
+                n += 1
+        for mk in EDGE_MASKS[1:]:
+            for c in EDGE_CAUSAL:
+                cases.append((d, 114, 114, mk, c, 1, None))
+        for dead in ("1hqk row", "b11k batch"):
+            for neg_inf in (False, True):
+                cases.append((d, 65, 65, dead, None, 0, neg_inf))
+    bad = []
+    for d, sq, sk, mk, c, drop, dead_inf in cases:
+        b, h = 2, 2
+        if mk in ("1hqk row", "b11k batch"):
+            kind = mk.split()[0]
+            mask = _edge_mask(kind, b, h, sq, sk, g, dev)
+            if kind == "1hqk":
+                mask[:, :, 3] = float("-inf")   # query row 3 sees no key
+            else:
+                mask[1] = float("-inf")         # batch 1 sees no key
+            neg_inf = dead_inf
+        else:
+            mask = _edge_mask(mk, b, h, sq, sk, g, dev)
+            neg_inf = c in ("unaligned", "future")
+        offsets = {None: None, (0, 0): None, "unaligned": (37, 0),
+                   "future": (0, sk)}[c]
+        causal = c is not None
+        p = TRAIN_DROPOUT if drop else 0.0
+        label = (f"bf16 ({b}, {sq}, {sk}, {h}, {d}) mask {mk}"
+                 f"{'' if c is None else f' causal {c}'}"
+                 f"{' keep_neg_inf' if neg_inf else ''}, dropout {p}")
+        errs = flash_edge_case(dev, g, seed, torch.bfloat16,
+                               (b, sq, sk, h, d), mask, causal, offsets,
+                               neg_inf, p, label)
+        worst[label] = errs
+        ratio = max(e / t if t > 0 else (0.0 if e == 0 else float("inf"))
+                    for e, t in errs.values())
+        bad.append((ratio, label))
+    ratio, label = max(bad)
+    log(f"[edge] Hopper kernels: {len(cases)} bf16 cases (head_dim 64 and "
+        f"128) within their limits; the closest, at {ratio:.3f} of its "
+        f"limit: {label}")
     return worst
 
 

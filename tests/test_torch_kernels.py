@@ -100,22 +100,35 @@ def _qkv(r, b, sq, sk, h, d):
             r.standard_normal((b, sk, h, d)).astype(np.float32))
 
 
+# mask pattern, then "sq x sk" where it is not 37 x 45: the Hopper kernel's
+# tile edges (64 / 128 rows, 64 / 128 keys), sk = 114 (a 456-byte mask row,
+# no multiple of 16 bytes) and a query row that sees no key ("dead row")
+MASK_CASES = ["b11k", "1hqk", "bhqk", "11qk", "b11k 1x114", "1hqk 63x114",
+              "bhqk 114x114", "11qk 129x114", "1hqk 65x65 dead row",
+              "b11k 200x200"]
+
+
 class TestFlashForward:
-    @pytest.mark.parametrize("mask_shape", ["b11k", "1hqk"])
+    @pytest.mark.parametrize("mask_shape", MASK_CASES)
     def test_masked_matches_pallas(self, mask_shape):
         r = np.random.RandomState(3)
-        b, sq, sk, h, d = 2, 37, 45, 3, 32
+        pattern, *size = mask_shape.split(" ", 2)
+        sq, sk = (int(n) for n in size[0].split("x")) if size else (37, 45)
+        b, h, d = 2, 3, 32
         q, k, v = _qkv(r, b, sq, sk, h, d)
-        shape = (b, 1, 1, sk) if mask_shape == "b11k" else (1, h, sq, sk)
+        shape = {"b11k": (b, 1, 1, sk), "1hqk": (1, h, sq, sk),
+                 "bhqk": (b, h, sq, sk), "11qk": (1, 1, sq, sk)}[pattern]
         mask = np.where(r.random_sample(shape) < 0.2, -1e9,
                         r.standard_normal(shape)).astype(np.float32)
+        if mask_shape.endswith("dead row"):
+            mask[:, :, 3] = -np.inf   # query row 3 sees no key: out 0
         ref = pk._flash_attention_data(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
             jnp.asarray(mask), has_mask=True, interpret=True)
         got = tflash.flash_attention(_t(q), _t(k), _t(v), _t(mask))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
-    @pytest.mark.parametrize("s", [29, 64])
+    @pytest.mark.parametrize("s", [29, 64, 1, 63, 65, 127, 129, 200])
     def test_causal_matches_pallas(self, s):
         r = np.random.RandomState(4)
         q, k, v = _qkv(r, 1, s, s, 2, 64)

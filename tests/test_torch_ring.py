@@ -68,7 +68,19 @@ def _close(got, ref, dtype, kind, msg=""):
 # the TPU kernels, 37 leaves a ragged block
 STEPS = {"diagonal": (64, (64, 64)), "past": (64, (128, 64)),
          "future": (64, (0, 64)), "unaligned": (64, (64 + 13, 64)),
-         "ragged": (37, (2 * 37 + 5, 37))}
+         "ragged": (37, (2 * 37 + 5, 37)),
+         # the Hopper kernels' tile edges (64 / 128 rows and keys), with
+         # the ring's offsets: aligned, unaligned by 37, past and future
+         "one row": (1, (1, 1)), "63 diagonal": (63, (63, 63)),
+         "65 unaligned": (65, (65 + 37, 65)), "127 past": (127, (254, 127)),
+         "129 future": (129, (0, 129)),
+         "200 unaligned": (200, (200 + 37, 200))}
+
+
+def _future(step):
+    """Whether every key of the step lies after every query."""
+    s, (q_off, k_off) = STEPS[step]
+    return q_off + s - 1 < k_off
 B, H, D = 1, 2, 16
 
 
@@ -144,7 +156,7 @@ def test_k1r_plain_version_matches_the_tpu_kernel(step, dtype):
     np.testing.assert_array_equal(np.isneginf(lse.numpy()),
                                   np.isneginf(ref_lse))
     _close(lse, ref_lse, dtype, "out", "lse")
-    if step == "future":
+    if _future(step):
         assert not out.any() and bool(torch.isneginf(lse).all())
     else:
         assert bool(torch.isfinite(lse).all())
@@ -164,7 +176,7 @@ def test_k2r_k3r_plain_versions_match_the_tpu_kernels(step, dtype):
                            ("dv", dv, rdv)):
         assert got.dtype == tdt
         _close(got, ref, dtype, "grad", name)
-    if step == "future":
+    if _future(step):
         assert not (dq.any() or dk.any() or dv.any())
 
 

@@ -67,6 +67,17 @@ FLASH_CASES = {
     "full mask (b,h,s,s)": (1, 32, 32, 2, 16, "bhqk", False),
     "causal": (1, 64, 64, 2, 64, None, True),
     "ragged S": (1, 37, 53, 3, 16, "b11k", False),
+    # the Hopper kernels' tile edges (64 / 128 rows and keys), sk = 114 (a
+    # 456-byte mask row), T5's cross shape, every mask pattern
+    "one row": (1, 1, 1, 2, 16, None, False),
+    "63 causal": (1, 63, 63, 2, 64, None, True),
+    "65 padding mask": (2, 65, 65, 2, 32, "b11k", False),
+    "127 full mask": (1, 127, 127, 2, 16, "bhqk", False),
+    "129 causal padding mask": (1, 129, 129, 2, 16, "b11k", True),
+    "200 causal": (1, 200, 200, 2, 16, None, True),
+    "114 bias (1,h,q,k)": (2, 114, 114, 2, 16, "1hqk", False),
+    "114 causal mask (1,1,q,k)": (2, 114, 114, 2, 16, "11qk", True),
+    "cross 114 x 512": (1, 114, 512, 2, 16, None, False),
 }
 
 
@@ -80,7 +91,8 @@ def test_flash_backward_matches_pallas_vjp(case):
     dout = r.standard_normal((b, sq, h, d)).astype(np.float32)
     mask = None
     if mshape is not None:
-        shape = (b, 1, 1, sk) if mshape == "b11k" else (b, h, sq, sk)
+        shape = {"b11k": (b, 1, 1, sk), "bhqk": (b, h, sq, sk),
+                 "1hqk": (1, h, sq, sk), "11qk": (1, 1, sq, sk)}[mshape]
         mask = np.where(r.random_sample(shape) < 0.25, -1e4,
                         0.5 * r.standard_normal(shape)).astype(np.float32)
 
