@@ -9,8 +9,9 @@ without the final result line:
 
 1. device: `nvidia-smi` name and power limit, torch's device name;
 2. build: every CUDA kernel of the port with nvcc (sm_90a), in parallel;
-   the Hopper flash kernels' registers and spill bytes from ptxas (a spill
-   fails the phase) and their dynamic shared memory;
+   the Hopper flash kernels' (K1, K2, K3) registers and spill bytes from
+   ptxas (a spill, or a kernel missing from the report, fails the phase)
+   and their dynamic shared memory;
 3. kernels: each hand-written kernel of the serving path (K1, K4, K6)
    against its plain PyTorch version on the card at the serving shapes, in
    bf16 and fp32, max abs error beside the tolerance; kernel, plain-version
@@ -35,6 +36,10 @@ without the final result line:
    sizes around the kernels' tiles (1 to 200 rows, T5's 114 x 512), every
    mask shape (also with 456-byte rows at sk = 114), causal at ring
    offsets, dropout, and rows that see no key, at head_dim 64 and 128;
+   and K2's d(mask) against the plain backward's (TOL_REL["K2m"]) for
+   (1, h, q, k), (1, 1, q, k) and (b, h, q, k) masks at batch 1, 3 and 5
+   and sizes 63, 129, 114 and 114 x 512, causal and not, dropout 0.1 and
+   not, at the host's batch groups and at 2 (ragged) groups;
 6. serve: LLaMA-7B at full width (random bf16 weights from --seed, drawn
    on the card) served by ServingEngine (page_size 16, 8 rows,
    max_seq_len 1024, decode_horizon 8, bf16 pools): 8 greedy requests,
@@ -70,7 +75,8 @@ without the final result line:
    decoder self-attention (114 x 114, causal plus bias) and the
    cross-attention (114 x 512, no mask). Prints each gradient's max abs
    error beside its limit, K2's time with and without d(mask), the time of
-   the batch sum, the bound of the d(mask) buffer's bytes, and PyTorch's
+   the sum of d(mask)'s batch-group partials, their groups and bytes (a
+   second launch must give dQ and the partials bit for bit), and PyTorch's
    sdpa backward with a float mask that requires grad as a yardstick;
 12. train_t5: the T5-base pretraining step at full width
    (T5Config.t5_base, 222.9 M parameters, random weights from --seed):
@@ -117,8 +123,9 @@ without the final result line:
    block (all visible), a future block (out exactly 0, lse all -inf, dQ =
    dK = dV = 0), an unaligned offset (4096 + 37) and a ragged 1000-row
    shard; kernel, plain and library times (sdpa is_causal on the
-   diagonal, plain sdpa on the past block; yardsticks only) and the bound
-   from the live (query, key) pairs;
+   diagonal, plain sdpa on the past block, sdpa with the step's causal
+   pattern as a boolean mask on the future and unaligned steps; yardsticks
+   only) and the bound from the live (query, key) pairs;
 18. ring: first the single-call K1 / K2 / K3 over the whole global
    sequence of 16384 (32 heads of 128, bf16, causal) against their plain
    versions a head at a time, each rank's part of the sequence under
@@ -377,7 +384,8 @@ def ptxas_report(text):
 
 # the Hopper flash kernels (wgmma, TMA): their ptxas lines are printed and
 # none may spill
-SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                "flash_bwd_dkv_sm90_kernel")
 
 
 def sm90_report():
@@ -389,11 +397,13 @@ def sm90_report():
     from paddle_tpu_torch import _build
 
     smem = {}
-    for lib_name, sym in (("flash_fwd", "ptt_flash_fwd_sm90_smem"),
-                          ("flash_bwd", "ptt_flash_bwd_dkv_sm90_smem")):
+    for kernel, lib_name, sym in (
+            ("K1", "flash_fwd", "ptt_flash_fwd_sm90_smem"),
+            ("K2", "flash_bwd", "ptt_flash_bwd_dq_sm90_smem"),
+            ("K3", "flash_bwd", "ptt_flash_bwd_dkv_sm90_smem")):
         fn = getattr(_build.load(lib_name), sym)
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-        smem[lib_name] = {(d, m): fn(d, m) for d in (64, 128) for m in (0, 1)}
+        smem[kernel] = {(d, m): fn(d, m) for d in (64, 128) for m in (0, 1)}
     report = {}
     for lib_name, text in _build.BUILD_LOGS.items():
         for entry, r in ptxas_report(text).items():
@@ -406,15 +416,16 @@ def sm90_report():
                 f"{r.get('spill_loads')} B")
             if r.get("spill_stores") or r.get("spill_loads"):
                 raise AssertionError(f"{entry} spills: {r}")
-    if not report:
-        raise AssertionError("no Hopper flash kernel in the ptxas output")
-    for lib_name, sizes in smem.items():
-        log(f"[build] {lib_name} Hopper kernel dynamic shared memory (bytes, "
+    missing = [k for k in SM90_KERNELS if not any(k in e for e in report)]
+    if missing:
+        raise AssertionError(f"{missing} missing from the ptxas output")
+    for kernel, sizes in smem.items():
+        log(f"[build] {kernel} Hopper kernel dynamic shared memory (bytes, "
             "head_dim / with a staged mask tile): "
             + ", ".join(f"d {d} mask {m}: {b}" for (d, m), b in sizes.items()))
-    return {"ptxas": report, "smem": {lib: {f"d{d} mask{m}": b
-                                            for (d, m), b in sizes.items()}
-                                      for lib, sizes in smem.items()}}
+    return {"ptxas": report, "smem": {k: {f"d{d} mask{m}": b
+                                          for (d, m), b in sizes.items()}
+                                      for k, sizes in smem.items()}}
 
 
 def phase_build(out_dir):
@@ -942,6 +953,15 @@ EDGE_CAUSAL = (None, (0, 0), "unaligned", "future")
 ONE_KEY_ATOL = 1e-5
 
 
+# K2's d(mask) edge cases (bf16, 2 heads of 64): masks with batch 1, whose
+# d(mask) K2 sums over batch groups, and one with its own batch dim; batches
+# whose groups come out ragged; sizes around the 64-key and 128-row tiles,
+# T5's decoder length (456-byte mask rows) and its cross shape
+DMASK_EDGE_MASKS = ("1hqk", "11qk", "bhqk")
+DMASK_EDGE_BATCHES = (1, 3, 5)
+DMASK_EDGE_SIZES = (63, 129, 114, (114, 512))
+
+
 def _edge_mask(kind, b, h, sq, sk, g, dev):
     if kind is None:
         return None
@@ -1098,6 +1118,68 @@ def flash_edge_cases(dev):
     log(f"[edge] Hopper kernels: {len(cases)} bf16 cases (head_dim 64 and "
         f"128) within their limits; the closest, at {ratio:.3f} of its "
         f"limit: {label}")
+    worst.update(dmask_edge_cases(dev, g, seed))
+    return worst
+
+
+def dmask_edge_cases(dev, g, seed):
+    """K2 with d(mask) against the plain backward with need_dmask, at every
+    mask of DMASK_EDGE_MASKS, batch of DMASK_EDGE_BATCHES and size of
+    DMASK_EDGE_SIZES, causal and not, with dropout 0.1 and without: dQ under
+    TOL_REL["K2"], d(mask) under TOL_REL["K2m"], at the host's batch groups
+    and, for a batch-1 mask at batch 3 and 5, at 2 (ragged) groups too.
+    Returns {label: {kernel: (error, tolerance)}}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    h, d, dtype = 2, 64, torch.bfloat16
+    worst, bad = {}, []
+    for mk in DMASK_EDGE_MASKS:
+        for b in DMASK_EDGE_BATCHES:
+            for size in DMASK_EDGE_SIZES:
+                sq, sk = size if isinstance(size, tuple) else (size, size)
+                for causal in (False, True):
+                    for p in (0.0, TRAIN_DROPOUT):
+                        q, dout = (torch.randn(b, sq, h, d, generator=g,
+                                               device=dev).to(dtype)
+                                   for _ in range(2))
+                        k, v = (torch.randn(b, sk, h, d, generator=g,
+                                            device=dev).to(dtype)
+                                for _ in range(2))
+                        mask = _edge_mask(mk, b, h, sq, sk, g, dev)
+                        out, lse = fa.flash_attention(q, k, v, mask, causal,
+                                                      True, p, seed)
+                        delta = fa.attention_delta(out, dout)
+                        prep = fa._bwd_prepare(q, k, v, dout, lse, delta,
+                                               mask, p, seed,
+                                               "dmask_edge_cases")
+                        host = fa.dmask_groups(b, h, sq, mask.shape,
+                                               fa._sms(dev))
+                        ragged = {2} if mask.shape[0] == 1 and b > 2 else set()
+                        for groups in sorted({host} | ragged):
+                            dq, part = fa._launch_dq(prep, causal, groups)
+                            dmask = fa.reduce_dmask(part, mask)
+                            rdq, _, _, rdm = \
+                                fa.flash_attention_backward_reference(
+                                    q, k, v, dout, lse, delta, mask, causal,
+                                    p, seed, need_dkv=False, need_dmask=True,
+                                    groups=groups)
+                            torch.cuda.synchronize()
+                            label = (f"bf16 ({b}, {sq}, {sk}, {h}, {d}) "
+                                     f"d(mask) of a {tuple(mask.shape)} mask"
+                                     f"{' causal' if causal else ''}, "
+                                     f"dropout {p}, {groups} groups")
+                            try:
+                                errs = {"K2": check_rel("K2", dq, rdq, dtype),
+                                        "K2m": check_rel("K2m", dmask, rdm,
+                                                         dtype)}
+                            except AssertionError as e:
+                                raise AssertionError(f"{label}: {e}") from None
+                            worst[label] = errs
+                            bad.append((max(e / t for e, t in errs.values()),
+                                        label))
+    ratio, label = max(bad)
+    log(f"[edge] K2 with d(mask): {len(bad)} bf16 cases within their limits; "
+        f"the closest, at {ratio:.3f} of its limit: {label}")
     return worst
 
 
@@ -1413,24 +1495,32 @@ def t5_kernel_cases(rows, dev):
                 _log_row(name, r)
                 rows.append((name, r))
             if trainable:
-                full = fa._launch_dq(prep, causal, True)[1]
-                ms2m = time_ms(lambda: fa._launch_dq(prep, causal, True))
-                sum_ms = time_ms(lambda: fa.reduce_dmask(full, bias))
-                buf_ms = nbytes(full) / HBM_BYTES_PER_S * 1e3
+                groups = fa.dmask_groups(b, h, sq, bias.shape, fa._sms(dev))
+                dq1, part = fa._launch_dq(prep, causal, groups)
+                ms2m = time_ms(lambda: fa._launch_dq(prep, causal, groups))
+                sum_ms = time_ms(lambda: fa.reduce_dmask(part, bias))
+                # no atomics: a second launch gives the same bits
+                dq2, part2 = fa._launch_dq(prep, causal, groups)
+                if not (torch.equal(dq1, dq2) and torch.equal(part, part2)):
+                    raise AssertionError(f"K2m {label}: two launches differ")
+                buf_ms = nbytes(part) / HBM_BYTES_PER_S * 1e3
                 bm = bound(io_in + nbytes(q, bias), 6 * b * h * d * pairs,
                            dtype)
                 rm = _row(dtype, case, *errs["K2m"], ms2m + sum_ms, plain_ms,
                           lib_ms, *bm, kernel_ms=ms2m, ms_without_dmask=ms2,
-                          batch_sum_ms=sum_ms, buffer_bytes=nbytes(full),
+                          batch_sum_ms=sum_ms, groups=groups,
+                          buffer_bytes=nbytes(part),
+                          whole_ds_bytes=b * h * sq * sk * 4,
                           buffer_bound_ms=buf_ms, library_note=note)
                 _log_row("K2m", rm)
                 log(f"[K2m] {rm['dtype']} {label}: K2 with d(mask) "
                     f"{ms2m:.4f} ms, without {ms2:.4f} ms; batch sum "
-                    f"{sum_ms:.4f} ms; the {nbytes(full) / 1e6:.1f} MB "
-                    f"buffer written alone takes {buf_ms:.4f} ms at 3.35 "
-                    f"TB/s")
+                    f"{sum_ms:.4f} ms; {groups} batch groups, partials "
+                    f"{nbytes(part)} B (the whole dS: {b * h * sq * sk * 4} "
+                    f"B), written alone in {buf_ms:.4f} ms at 3.35 TB/s; "
+                    "dQ and the partials bit-identical over two launches")
                 rows.append(("K2m", rm))
-                del full
+                del dq1, dq2, part, part2
             if dtype == torch.bfloat16 and label == "encoder self":
                 main = {"K2m": rm}
             del qg, kg, vg, out, lib_out, qt, kt, vt, ref, prep
@@ -2141,22 +2231,22 @@ def ring_kernel_case(rows, dev, dtype, label, shape, offs, timed):
         plain["K2r"] = plain["K3r"] = time_ms(
             lambda: fa.flash_attention_backward_reference(
                 *args, None, True, offsets=offs), 3, 1)
-        lib = {"K1r": None, "K2r": None, "K3r": None}
-        if label in ("diagonal", "past"):
-            # the yardstick: sdpa over the same shards, causal on the
-            # diagonal (the same function there), unmasked for the past
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            causal = label == "diagonal"
-            F_ = torch.nn.functional
-            lib["K1r"] = time_ms(lambda: F_.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal), iters, 2)
-            lo = F_.scaled_dot_product_attention(qt, kt, vt,
-                                                 is_causal=causal)
-            dot = dout.transpose(1, 2)
-            lib["K2r"] = lib["K3r"] = time_ms(lambda: torch.autograd.grad(
-                lo, (qt, kt, vt), dot, retain_graph=True), iters, 2)
-            del qt, kt, vt, lo
+        # the yardstick: sdpa over the same shards, causal on the diagonal
+        # (the same function there), unmasked for the past block, and at
+        # the other offsets with the step's causal pattern as a boolean
+        # mask (a future step's rows see no key: sdpa computes them all the
+        # same and gives no zeros there, so only its time counts)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        kw_lib = {"diagonal": dict(is_causal=True), "past": {}}.get(
+            label, dict(attn_mask=fa._causal_keep(s, s, dev, offs)))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = {"K1r": time_ms(lambda: sdpa(qt, kt, vt, **kw_lib), iters, 2)}
+        lo = sdpa(qt, kt, vt, **kw_lib)
+        dot = dout.transpose(1, 2)
+        lib["K2r"] = lib["K3r"] = time_ms(lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), dot, retain_graph=True), iters, 2)
+        del qt, kt, vt, lo
     rows_lse = nbytes(lse)
     io = {"K1r": (nbytes(q, k, v), nbytes(out) + rows_lse, 4),
           "K2r": (nbytes(q, k, v, dout, lse, delta), nbytes(dq), 6),
@@ -2984,8 +3074,8 @@ def summarize(main_rows, launches_by_path):
                      case=r["case"])
         if k == "K2m":
             entry.update({x: r[x] for x in (
-                "kernel_ms", "ms_without_dmask", "batch_sum_ms",
-                "buffer_bytes", "buffer_bound_ms")})
+                "kernel_ms", "ms_without_dmask", "batch_sum_ms", "groups",
+                "buffer_bytes", "whole_ds_bytes", "buffer_bound_ms")})
         if k == "K1":
             entry["dropout_p"] = r.get("dropout_p", 0.0)
             entry["lse_max_abs_err"] = r.get("lse_err")

@@ -13,8 +13,10 @@ masking; lse (b, h, sq) fp32; attention dropout (upscale_in_train, the
 softmax denominator undropped) whose keep mask is the counter-based hash
 of `ops.dropout_mask`, drawn from a one-element int32 `seed` tensor on the
 device. A trainable mask (T5's relative position bias) gets its gradient
-from K2: d(mask) = dS in fp32, written by the kernel as a (b, h, sq, sk)
-buffer and summed here over the mask's size-1 dims, as `_flash_vjp` does
+from K2: d(mask) = dS in fp32, which the kernel sums over batch groups into
+(groups, h, sq, sk) partials (`dmask_groups` picks the groups; a mask with
+its own batch dim takes one entry a group) and `reduce_dmask` sums here over
+the groups and the mask's other size-1 dims, as `_flash_vjp` does
 (:643-657).
 
 The ring form of the three kernels (K1r, K2r, K3r: the TPU kernels' `offs=`
@@ -45,7 +47,8 @@ from .dropout_mask import keep_mask, threshold
 __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_backward", "flash_attention_backward_reference",
-           "attention_delta", "reduce_dmask", "FlashAttention", "attention"]
+           "attention_delta", "dmask_groups", "dmask_partials",
+           "reduce_dmask", "FlashAttention", "attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -117,14 +120,57 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-def reduce_dmask(full: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """d(mask) from the (b, h, sq, sk) fp32 dS: summed over the dims where
-    `mask` has size 1 (batch, heads, query), in the mask's dtype, as
-    `_flash_vjp` collapses the broadcast dims (:643-657)."""
+# K2's query rows a block (csrc/flash_bwd.cu kDqRows), the H100's SMs, and
+# the most d(mask) groups: partials of at most 8 x h x sq x sk fp32
+_DQ_ROWS, _SMS, _MAX_DMASK_GROUPS = 128, 132, 8
+
+
+def dmask_groups(b: int, h: int, sq: int, mask_shape,
+                 sms: int = _SMS) -> int:
+    """The number of batch groups whose d(mask) partials K2 writes: b for a
+    mask with its own batch dim (each entry is its own group); else at most
+    8, the count whose grid (ceil(sq / 128) x h blocks a group, one block an
+    SM) finishes soonest, reckoned as waves of blocks times the batch
+    entries a block walks, the fewest groups among equals. Every group
+    holds ceil(b / groups) entries but the last, which holds the rest."""
+    if mask_shape[0] != 1:
+        return b
+    blocks = -(-sq // _DQ_ROWS) * h
+
+    def cost(groups):
+        return (-(-blocks * groups // sms) * -(-b // groups), groups)
+
+    # group counts with no empty group: ceil(b / n) for n entries a group
+    return min((-(-b // n) for n in range(-(-b // _MAX_DMASK_GROUPS), b + 1)),
+               key=cost)
+
+
+def dmask_partials(full: torch.Tensor, groups: int) -> torch.Tensor:
+    """The plain version of K2's grouped d(mask): the (b, h, sq, sk) dS
+    summed over consecutive batch groups of ceil(b / groups) entries, in
+    batch order, into (groups, h, sq, sk)."""
+    n = -(-full.shape[0] // groups)
+    if n == 1:
+        return full
+    return torch.stack([full[i:i + n].sum(0)
+                        for i in range(0, full.shape[0], n)])
+
+
+def reduce_dmask(partials: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """d(mask) from K2's (groups, h, sq, sk) fp32 partials (groups = b: the
+    whole dS): summed over the dims where `mask` has size 1 (batch, heads,
+    query), in the mask's dtype, as `_flash_vjp` collapses the broadcast
+    dims (:643-657)."""
     dims = tuple(i for i in range(3) if mask.shape[i] == 1)
     if dims:
-        full = full.sum(dim=dims, keepdim=True)
-    return full.to(mask.dtype)
+        partials = partials.sum(dim=dims, keepdim=True)
+    return partials.to(mask.dtype)
+
+
+def _check_groups(groups, b, mask_shape):
+    if not 1 <= groups <= b or (mask_shape[0] != 1 and groups != b):
+        raise ValueError(f"d(mask) of a {tuple(mask_shape)} mask at batch {b} "
+                         f"cannot sum over {groups} batch groups")
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -142,7 +188,8 @@ def flash_attention_backward_reference(
         dropout_p: float = 0.0, seed: Optional[torch.Tensor] = None,
         need_dq: bool = True, need_dkv: bool = True, need_dmask: bool = False,
         scale: Optional[float] = None,
-        offsets: Optional[Tuple[int, int]] = None
+        offsets: Optional[Tuple[int, int]] = None,
+        groups: Optional[int] = None
         ) -> Tuple[Optional[torch.Tensor], ...]:
     """Plain version of K2 and K3: (dq, dk, dv), each None when not asked
     for, and d(mask) fourth with `need_dmask`. The arithmetic of
@@ -150,8 +197,10 @@ def flash_attention_backward_reference(
     products of the input-type values, p = exp(s - lse), dS = p * (dP -
     delta), and dS / P_dropped rounded to the input type before their
     products, as the kernels feed them to the matrix units. d(mask) is the
-    unrounded dS, summed by `reduce_dmask`. Causal masking is at the global
-    positions `offsets` (K2r's and K3r's plain version)."""
+    unrounded dS, summed as K2 sums it: over `groups` batch groups
+    (`dmask_groups` by default) by `dmask_partials`, then by
+    `reduce_dmask`. Causal masking is at the global positions `offsets`
+    (K2r's and K3r's plain version)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = _scale(scale, d)
@@ -181,7 +230,11 @@ def flash_attention_backward_reference(
         dv = (p_drop.to(q.dtype).to(acc).transpose(-1, -2) @ dot
               ).transpose(1, 2).to(v.dtype)
     if need_dmask:
-        return dq, dk, dv, reduce_dmask(ds_full, attn_mask)
+        if groups is None:
+            groups = dmask_groups(b, h, sq, attn_mask.shape)
+        _check_groups(groups, b, attn_mask.shape)
+        return dq, dk, dv, reduce_dmask(dmask_partials(ds_full, groups),
+                                        attn_mask)
     return dq, dk, dv
 
 
@@ -201,9 +254,10 @@ _VP, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_float)
 _FWD_ARGS = [_VP] * 6 + [_I32] * 5 + [_I64] * 3 + [_I32] * 4 + [
     _F32, _VP, _U32, _F32, _I32, _VP]
-_DQ_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32] * 3 + [
+_DQ_ARGS = [_VP] * 9 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [
     _F32, _VP, _U32, _F32, _I32, _VP]
-_DKV_ARGS = _DQ_ARGS
+_DKV_ARGS = [_VP] * 9 + [_I32] * 5 + [_I64] * 3 + [_I32] * 3 + [
+    _F32, _VP, _U32, _F32, _I32, _VP]
 
 
 def _ptr(x):
@@ -353,37 +407,46 @@ def _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p, seed,
             drop_args)
 
 
-def _launch_dq(prep, is_causal, want_dmask=False, scale=None, offsets=None):
-    """K2: dq, and with `want_dmask` the (b, h, sq, sk) fp32 dS buffer
-    (zeroed first under `is_causal`: the kernel skips the key tiles past
-    the diagonal), else None."""
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_dq(prep, is_causal, groups=0, scale=None, offsets=None):
+    """K2: (dq, partials). With `groups` > 0 K2 also writes d(mask) as
+    (groups, h, sq, sk) fp32 partial sums over batch groups of
+    ceil(b / groups) entries (every element written, so the buffer is not
+    zeroed), for `reduce_dmask`; else partials is None."""
     (q, k, v, dout), lse, delta, (mask, msb, msh, msq), (seed_t, thresh,
                                                          inv) = prep
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if want_dmask and offsets is not None:
-        raise ValueError("flash_attention_dq: ring offsets and d(mask) do "
-                         "not combine (as the TPU kernel asserts)")
+    partials, n_per = None, 1
+    if groups:
+        if offsets is not None:
+            raise ValueError("flash_attention_dq: ring offsets and d(mask) "
+                             "do not combine (as the TPU kernel asserts)")
+        if mask is None:
+            raise ValueError("flash_attention_dq: d(mask) needs a mask")
+        _check_groups(groups, b, (1 if msb == 0 else b,))
+        n_per = -(-b // groups)
+        partials = torch.empty((-(-b // n_per), h, sq, sk),
+                               dtype=torch.float32, device=q.device)
     q_off, k_off = _offset_args(offsets)
     dq = torch.empty_like(q)
-    full = None
-    if want_dmask:
-        alloc = torch.zeros if is_causal else torch.empty
-        full = alloc((b, h, sq, sk), dtype=torch.float32, device=q.device)
     lib, fn = _fn("flash_bwd", "ptt_flash_bwd_dq", _DQ_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             _ptr(full), b, sq, sk, h, d, msb, msh, msq, int(bool(is_causal)),
-             q_off, k_off, _scale(scale, d), _ptr(seed_t), thresh, inv,
-             _DTYPES[q.dtype], _stream(q))
+             _ptr(partials), b, n_per, sq, sk, h, d, msb, msh, msq,
+             int(bool(is_causal)), q_off, k_off, _scale(scale, d),
+             _ptr(seed_t), thresh, inv, _DTYPES[q.dtype], _stream(q))
     _build.check(err, "flash_bwd_dq", lib)
     if offsets is None:
         flash_attention_dq.launches += 1
     else:
         flash_attention_dq.ring_launches += 1
-    if want_dmask:
+    if groups:
         flash_attention_dq.dmask_launches += 1
-    return dq, full
+    return dq, partials
 
 
 def _launch_dkv(prep, is_causal, scale=None, offsets=None):
@@ -481,9 +544,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         return grads if need_dmask else (*grads, None)
     prep = _bwd_prepare(q, k, v, dout, lse, delta, attn_mask, dropout_p,
                         seed, "flash_attention_backward")
-    dq, full = _launch_dq(prep, is_causal, need_dmask, scale)
+    b, sq, h, _ = q.shape
+    groups = (dmask_groups(b, h, sq, attn_mask.shape, _sms(q.device))
+              if need_dmask else 0)
+    dq, partials = _launch_dq(prep, is_causal, groups, scale)
     dk, dv = _launch_dkv(prep, is_causal, scale)
-    dmask = reduce_dmask(full, attn_mask) if need_dmask else None
+    dmask = reduce_dmask(partials, attn_mask) if need_dmask else None
     return dq, dk, dv, dmask
 
 

@@ -5,7 +5,9 @@ on the CPU, against the JAX package on the same numpy inputs.
   `_flash_attention_data(..., interpret=True)`, the Pallas kernels run in
   interpret mode as tests/test_pallas_flash.py drives them; K2's d(mask)
   for a trainable mask of every broadcast shape, causal and not, against
-  the same with `mask_needs_grad`.
+  the same with `mask_needs_grad`; d(mask) summed over batch groups (as the
+  kernel writes its partials) against the whole-batch sum and the same
+  reference, and `dmask_groups` at T5's shapes.
 - K5 (norm backward, through `FusedNorm`): against `jax.vjp` of
   `_fused_norm_data(..., interpret=True)`.
 - `fused_linear_cross_entropy` and `cross_entropy`: against the reference
@@ -204,6 +206,106 @@ def test_trainable_mask_gradient(case):
         need_dmask=True)
     for got, want in zip(grads, (qt.grad, kt.grad, vt.grad, mt.grad)):
         assert torch.equal(got, want)
+
+
+# K2's batch-grouped d(mask): every mask pattern of DMASK_CASES (dropout
+# off) at batch 1, 3 and 5. A mask with batch 1 is summed over 2 groups
+# (ragged at 3 and 5: entries {0, 1} {2}, {0, 1, 2} {3, 4}); one with its own
+# batch dim keeps a group an entry.
+GROUPED_CASES = [(case, b) for case in DMASK_CASES if "dropout" not in case
+                 for b in (1, 3, 5)]
+
+
+@pytest.mark.parametrize("case,b", GROUPED_CASES,
+                         ids=[f"{c} b{b}" for c, b in GROUPED_CASES])
+def test_grouped_dmask_matches_full_and_pallas(case, b):
+    """The plain K2's d(mask) summed over batch groups (as the kernel
+    writes its partials) against the same summed over the whole batch at
+    once, and against `jax.vjp` of the interpret-mode Pallas kernels with
+    `mask_needs_grad`; dQ alongside."""
+    code, causal = DMASK_CASES[case]
+    sq, sk, h, d = 24, 40, 2, 8
+    r = np.random.RandomState(19)
+    q, dout = (r.standard_normal((b, sq, h, d)).astype(np.float32)
+               for _ in range(2))
+    k, v = (r.standard_normal((b, sk, h, d)).astype(np.float32)
+            for _ in range(2))
+    mask = (0.5 * r.standard_normal(_mask_shape(code, b, h, sq, sk))
+            ).astype(np.float32)
+    groups = 2 if mask.shape[0] == 1 and b > 1 else b
+
+    out, lse = tflash.flash_attention(_t(q), _t(k), _t(v), _t(mask), causal,
+                                      True)
+    delta = tflash.attention_delta(out, _t(dout))
+    args = (_t(q), _t(k), _t(v), _t(dout), lse, delta, _t(mask), causal)
+    dq, _, _, grouped = tflash.flash_attention_backward_reference(
+        *args, need_dkv=False, need_dmask=True, groups=groups)
+    _, _, _, whole = tflash.flash_attention_backward_reference(
+        *args, need_dq=False, need_dkv=False, need_dmask=True, groups=b)
+    assert grouped.shape == mask.shape
+    _close(grouped.numpy(), whole.numpy(), rtol=1e-6, atol=1e-7,
+           msg="grouped vs whole-batch sum")
+
+    def f(q_, k_, v_, m_):
+        return pk._flash_attention_data(
+            q_, k_, v_, m_, is_causal=causal, has_mask=True,
+            mask_needs_grad=True, interpret=True)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, mask)))
+    ref = vjp(jnp.asarray(dout))
+    _close(dq.numpy(), ref[0], msg="dq")
+    _close(grouped.numpy(), ref[3], msg="dmask")
+
+
+def test_dmask_partials_sum_consecutive_entries_in_order():
+    """Groups of ceil(b / groups) consecutive entries, the last ragged."""
+    full = torch.from_numpy(np.random.RandomState(20).standard_normal(
+        (5, 2, 3, 4)).astype(np.float32))
+    parts = tflash.dmask_partials(full, 2)
+    assert torch.equal(parts[0], full[0] + full[1] + full[2])
+    assert torch.equal(parts[1], full[3] + full[4])
+    assert tflash.dmask_partials(full, 5) is full
+    assert tflash.dmask_partials(full, 4).shape[0] == 3   # no empty group
+
+
+# T5-base's attention shapes with the trainable (1, 12, q, k) bias, batch 32
+T5_DMASK_SHAPES = {"encoder": (32, 12, 512, 512), "decoder": (32, 12, 114, 114)}
+
+
+@pytest.mark.parametrize("name", list(T5_DMASK_SHAPES))
+def test_dmask_groups_at_t5_shapes(name):
+    """At most 8 groups, so the partials stay within 8 x h x sq x sk fp32
+    (at the encoder 100.7 MB instead of the whole 402.7 MB dS). The
+    encoder's grid (48 blocks a group) fills the 132 SMs; the decoder's (12
+    blocks a group) cannot with 8 groups or fewer and takes all 8."""
+    b, h, sq, sk = T5_DMASK_SHAPES[name]
+    groups = tflash.dmask_groups(b, h, sq, (1, h, sq, sk))
+    blocks = -(-sq // 128) * h * groups
+    assert 1 <= groups <= 8
+    assert groups * h * sq * sk * 4 <= 8 * h * sq * sk * 4
+    assert b % groups == 0                      # no ragged group at b 32
+    if name == "encoder":
+        assert blocks >= 132
+        assert groups * h * sq * sk * 4 <= 100.7e6
+    else:
+        assert groups == 8 and blocks == 96
+
+
+@pytest.mark.parametrize("code", ["bhqk", "b11k"])
+def test_dmask_groups_of_a_mask_with_its_own_batch_dim(code):
+    b, h, sq, sk = 32, 12, 512, 512
+    shape = _mask_shape(code, b, h, sq, sk)
+    assert tflash.dmask_groups(b, h, sq, shape) == b
+    r = np.random.RandomState(21)
+    q, k, v, dout = (_t(r.standard_normal((2, 8, 2, 4)).astype(np.float32))
+                     for _ in range(4))
+    mask = _t(r.standard_normal(_mask_shape(code, 2, 2, 8, 8))
+              .astype(np.float32))
+    out, lse = tflash.flash_attention(q, k, v, mask, return_lse=True)
+    with pytest.raises(ValueError, match="batch groups"):
+        tflash.flash_attention_backward_reference(
+            q, k, v, dout, lse, tflash.attention_delta(out, dout), mask,
+            need_dmask=True, groups=1)
 
 
 # -------------------------------------------------------- K5 norm backward
