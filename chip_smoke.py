@@ -9,7 +9,8 @@ without the final result line:
 
 1. device: `nvidia-smi` name and power limit, torch's device name;
 2. build: every CUDA kernel of the port with nvcc (sm_90a), in parallel;
-   the Hopper flash kernels' (K1, K2, K3) registers and spill bytes from
+   the Hopper kernels' (K1, K2, K3, and the paged kernels K6 / K6q and
+   K7 / K7q in each of their 24 forms) registers and spill bytes from
    ptxas (a spill, or a kernel missing from the report, fails the phase)
    and their dynamic shared memory;
 3. kernels: each hand-written kernel of the serving path (K1, K4, K6)
@@ -25,8 +26,21 @@ without the final result line:
    step of the chunked serve (8 decode tokens at 0..1023 plus one
    256-token chunk at 512, padded to T = 328) over bf16, fp32, int8 and fp8
    pools, with a GQA rep-4 case and parked tokens, which must come out
-   zero. The library yardstick is sdpa over the gathered, dequantized
-   pages;
+   zero, and over bf16 with the chunk parked and with the decode tokens
+   parked (the call's two halves), and with only the chunk's last 17
+   tokens (at 1007..1023) live, alone and beside the 8 decode tokens; the
+   bytes of split partials each K7 call writes, counted (the partials'
+   scratch is filled with a NaN pattern no kernel writes); two launches of
+   K6q and of K7 must give the same bits. The library yardstick is sdpa
+   over the gathered, dequantized pages. Then the paged edge cases: 72
+   runs of K6 / K6q / K7 / K7q against their
+   plain versions under TOL (bf16, int8, fp8 pools; head_dim 64 / 128; rep
+   1, 2, 4, 8; page sizes 16, 8, 5; positions 0, 15, 16, 17, the last slot,
+   a K6 row parked at the capacity; chunks of 1, 15, 16, 17, 65 tokens at
+   offset 0 and mid-page, chunk-only and decode-only steps, a 17-token
+   run at the last slots, alone (it must write split partials: its keys
+   are split) and beside a decode token; K7 tokens parked or naming no row
+   must come out exactly zero);
 5. train_kernels: the same for the training path's kernels at ERNIE-base
    shapes (b 32, S 512, 12 heads of 64; 16384 rows of 768): K1 with
    attention dropout 0.1, K2 + K3 through `FlashAttention.backward` with
@@ -382,16 +396,22 @@ def ptxas_report(text):
     return out
 
 
-# the Hopper flash kernels (wgmma, TMA): their ptxas lines are printed and
-# none may spill
+# the Hopper kernels: the flash kernels (wgmma, TMA), the paged decode
+# walk (K6, K6q) and the ragged kernel (K7, K7q: the walk and the wgmma
+# tiles); their ptxas lines are printed and none may spill
 SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
-                "flash_bwd_dkv_sm90_kernel")
+                "flash_bwd_dkv_sm90_kernel", "paged_decode_walk_kernel",
+                "ragged_paged_kernel")
+# the paged kernels' instantiations: (pool type code, head_dim, rep)
+PAGED_FORMS = [(kv, hd, rep) for kv in (1, 2, 3) for hd in (64, 128)
+               for rep in (1, 2, 4, 8)]
 
 
 def sm90_report():
-    """Registers and spills of each Hopper flash kernel (ptxas) beside its
+    """Registers and spills of each Hopper kernel (ptxas) beside its
     dynamic shared memory (the layouts' sizes, read from the libraries);
-    raises if one spills."""
+    raises if one spills or if an instantiation of the paged kernels is
+    missing."""
     import ctypes
 
     from paddle_tpu_torch import _build
@@ -404,6 +424,26 @@ def sm90_report():
         fn = getattr(_build.load(lib_name), sym)
         fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
         smem[kernel] = {(d, m): fn(d, m) for d in (64, 128) for m in (0, 1)}
+    # the Python side's copies of the paged kernels' constants (readable
+    # without the libraries) must be the kernels' own
+    from paddle_tpu_torch.serving import attention as att
+
+    rag = _build.load("ragged_paged")
+    rag.ptt_ragged_paged_tile_rows.argtypes = [ctypes.c_int] * 2
+    consts = {"RAGGED_TILE_ROWS": (rag.ptt_ragged_paged_tile_rows(1, 1),
+                                   att.RAGGED_TILE_ROWS),
+              "RAGGED_FMA_TILE_ROWS": (rag.ptt_ragged_paged_tile_rows(0, 0),
+                                       att.RAGGED_FMA_TILE_ROWS)}
+    wrong = {k: v for k, v in consts.items() if v[0] != v[1]}
+    if wrong:
+        raise AssertionError(f"kernel constants (C, Python) differ: {wrong}")
+    paged_smem = {}
+    for kernel, lib_name, sym in (
+            ("K6", "paged_decode", "ptt_paged_decode_walk_smem"),
+            ("K7", "ragged_paged", "ptt_ragged_paged_smem")):
+        fn = getattr(_build.load(lib_name), sym)
+        fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+        paged_smem[kernel] = {f: fn(*f) for f in PAGED_FORMS}
     report = {}
     for lib_name, text in _build.BUILD_LOGS.items():
         for entry, r in ptxas_report(text).items():
@@ -417,15 +457,28 @@ def sm90_report():
             if r.get("spill_stores") or r.get("spill_loads"):
                 raise AssertionError(f"{entry} spills: {r}")
     missing = [k for k in SM90_KERNELS if not any(k in e for e in report)]
+    for k in ("paged_decode_walk_kernel", "ragged_paged_kernel"):
+        n = sum(k in e for e in report)
+        if n != len(PAGED_FORMS):
+            missing.append(f"{k}: {n} of {len(PAGED_FORMS)} instantiations")
     if missing:
         raise AssertionError(f"{missing} missing from the ptxas output")
     for kernel, sizes in smem.items():
         log(f"[build] {kernel} Hopper kernel dynamic shared memory (bytes, "
             "head_dim / with a staged mask tile): "
             + ", ".join(f"d {d} mask {m}: {b}" for (d, m), b in sizes.items()))
-    return {"ptxas": report, "smem": {k: {f"d{d} mask{m}": b
-                                          for (d, m), b in sizes.items()}
-                                      for k, sizes in smem.items()}}
+    names = {1: "bf16", 2: "int8", 3: "fp8"}
+    for kernel, sizes in paged_smem.items():
+        log(f"[build] {kernel} Hopper kernel dynamic shared memory (bytes, "
+            "pool / head_dim / rep): " + ", ".join(
+                f"{names[kv]} d {hd} rep {rep}: {b}"
+                for (kv, hd, rep), b in sizes.items()))
+    out = {k: {f"d{d} mask{m}": b for (d, m), b in sizes.items()}
+           for k, sizes in smem.items()}
+    out.update({k: {f"{names[kv]} d{hd} rep{rep}": b
+                    for (kv, hd, rep), b in sizes.items()}
+                for k, sizes in paged_smem.items()})
+    return {"ptxas": report, "smem": out}
 
 
 def phase_build(out_dir):
@@ -694,8 +747,11 @@ def k6q_cases(rows, dev):
         cache = PagedLayerCache(kp, vp, table, k_scale=ks, v_scale=vs)
         rep = heads // kvh
         got = att.paged_decode_attention(q, cache, pos, rep)
+        again = att.paged_decode_attention(q, cache, pos, rep)
         ref = att._paged_decode_reference(q, cache, pos, rep)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K6q {kv} rep {rep}: two launches differ")
         err = max_err(got, ref)
         tol = check("K6q", err, dtype)
         ms = time_ms(lambda: att.paged_decode_attention(q, cache, pos, rep))
@@ -709,7 +765,7 @@ def k6q_cases(rows, dev):
         bms, by = bound(io, 4 * heads * hd * toks, dtype)
         label = f"{kv} pools, rep {rep}, b=8, positions 0..1023"
         row = _row(dtype, label, err, tol, ms, plain_ms, lib_ms, bms, by,
-                   kv_dtype=kv)
+                   kv_dtype=kv, bitwise_repeat=True)
         _log_row("K6q", row)
         rows.append(("K6q", row))
         if kv == "int8" and rep == 1:
@@ -724,12 +780,31 @@ def k6q_cases(rows, dev):
 FLAT_T = 328
 
 
+def _parked(idx):
+    def edit(pos_np, cap):
+        pos_np[list(idx)] = cap
+    return edit
+
+
+def _short_run(decode):
+    """Only the chunk's last 17 tokens live, at 1007..1023 (the tail of
+    a prompt chunked at ~1000), with or without the 8 decode tokens."""
+    def edit(pos_np, cap):
+        pos_np[(8 if decode else 0):247] = cap
+        pos_np[247:264] = np.arange(cap - 17, cap)
+    return edit
+
+
 def k7_cases(rows, dev):
     """K7, ragged paged attention, on the flat step above at LLaMA-7B
     width (32 heads of 128, page 16, 64 pages a row; rows 0..7 decode, row
     8 the chunk): bf16 and fp32 pools, then int8 and fp8 pools with bf16
     queries; bf16 and int8 also at GQA rep 4 with 6 more parked tokens
-    among the real ones. Parked tokens must come out exactly zero."""
+    among the real ones; bf16 also with the chunk parked, with the decode
+    tokens parked, and with only the chunk's last 17 tokens live, alone
+    and beside the decode tokens. Parked tokens must come out exactly
+    zero. Each row records the bytes of split partials the call wrote,
+    counted by `partial_bytes_written`."""
     from paddle_tpu_torch.serving import attention as att
     from paddle_tpu_torch.serving.kv_cache import PagedLayerCache
 
@@ -741,11 +816,24 @@ def k7_cases(rows, dev):
     main = {}
     for kv in ("bf16", "fp32") + QUANT_KV:
         dtype = torch.float32 if kv == "fp32" else torch.bfloat16
-        cases = [("rep 1", 32, 32, ())]
+        cases = [("rep 1", 32, 32, _parked(()))]
         if kv in ("bf16", "int8"):
             cases.append(("gqa rep 4, 6 parked", 32, 8,
-                          (2, 5, 108, 109, 110, 111)))
-        for label, heads, kvh, parked in cases:
+                          _parked((2, 5, 108, 109, 110, 111))))
+        if kv == "bf16":
+            # the call's two halves: the decode tokens alone (the chunk
+            # parked) and the chunk alone (the decode tokens parked); and
+            # a short run at a deep position, alone (too few tiles to fill
+            # the card: its keys are split) and beside the decode tokens
+            cases += [("rep 1, chunk parked", 32, 32,
+                       _parked(range(8, 264))),
+                      ("rep 1, decode tokens parked", 32, 32,
+                       _parked(range(8))),
+                      ("rep 1, 17-token run at 1007 alone", 32, 32,
+                       _short_run(False)),
+                      ("rep 1, 17-token run at 1007 + decode tokens", 32,
+                       32, _short_run(True))]
+        for label, heads, kvh, edit in cases:
             kp, vp, ks, vs = _pools(kvh, num_pages, ps, hd, kv, g, dev)
             table = torch.from_numpy(
                 rng.permutation(np.arange(1, num_pages))[:nrows * maxp]
@@ -756,7 +844,7 @@ def k7_cases(rows, dev):
             rid_np[:8] = np.arange(8)
             pos_np[8:264] = np.arange(512, 768)
             rid_np[8:264] = 8
-            pos_np[list(parked)] = cap
+            edit(pos_np, cap)
             pos = torch.from_numpy(pos_np).to(dev)[None]
             rid = torch.from_numpy(rid_np).to(dev)
             q = torch.randn(1, FLAT_T, heads, hd, generator=g,
@@ -765,8 +853,11 @@ def k7_cases(rows, dev):
                                     v_scale=vs, routing={})
             rep = heads // kvh
             got = att.ragged_paged_attention(q, cache, pos, rep)
+            again = att.ragged_paged_attention(q, cache, pos, rep)
             ref = att._ragged_attention_reference(q, cache, pos, rep)
             torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K7 {kv} {label}: two launches differ")
             err = max_err(got, ref)
             name = "K7q" if kv in QUANT_KV else "K7"
             tol = check(name, err, dtype)
@@ -796,13 +887,235 @@ def k7_cases(rows, dev):
             case = (f"{kv} pools, {label}: 8 decode tokens + a 256-token "
                     f"chunk at 512, T={FLAT_T}")
             row = _row(dtype, case, err, tol, ms, plain_ms, lib_ms, bms, by,
-                       kv_dtype=kv)
+                       kv_dtype=kv, bitwise_repeat=True,
+                       partial_bytes=partial_bytes_written(
+                           lambda: att.ragged_paged_attention(q, cache, pos,
+                                                              rep)))
             _log_row(name, row)
+            log(f"[{name}]   split partials written (counted): "
+                f"{row['partial_bytes'] / 1e6:.3f} MB")
             rows.append((name, row))
             if label == "rep 1" and kv in ("bf16", "int8"):
                 main[name] = row
+            if label.startswith("rep 1, ") and kv == "bf16":
+                main[f"K7 {label[7:]}"] = row
             del kp, vp, ks, vs
     return main
+
+
+# paged edge cases: page sizes, the positions every run holds (besides the
+# last slot and the capacity), chunk lengths
+PAGED_EDGE_PS = (16, 8, 5)
+PAGED_EDGE_POS = (0, 15, 16, 17)
+PAGED_EDGE_CHUNKS = (1, 15, 16, 17, 65)
+PAGED_EDGE_CAP = 300          # positions a table row holds, about
+
+
+def _edge_pools(g, rng, kv, kvh, rows, ps, hd, dev):
+    """(cache arguments, capacity) of a small pool: `rows` table rows of
+    max_pages pages each, every page distinct, from the generator."""
+    maxp = -(-PAGED_EDGE_CAP // ps)
+    num_pages = rows * maxp + 1
+    kp, vp, ks, vs = _pools(kvh, num_pages, ps, hd, kv, g, dev)
+    table = torch.from_numpy(rng.permutation(np.arange(1, num_pages))[
+        :rows * maxp].reshape(rows, maxp).astype(np.int32)).to(dev)
+    return (kp, vp, table, ks, vs), maxp * ps
+
+
+def paged_edge_case(dev, g, rng, kernel, kv, hd, rep, ps, layout=None):
+    """One run of K6 / K6q (`kernel` "K6") or K7 / K7q ("K7") against the
+    plain version under TOL. K6: rows at positions 0, 15, 16, 17, the last
+    slot and the capacity (a parked row attends every page). K7: `layout`
+    is a list of (kind, n, start) segments of the flat step: ("decode", 0,
+    pos) one token of its own row, ("chunk", n, start) n tokens of one row
+    at start.., ("parked", n, 0) n tokens at the capacity or past it,
+    ("norow", 1, pos) a token naming no table row; parked and row-less
+    tokens must come out exactly zero. Returns (max error, its tol, bytes
+    of split partials the call wrote)."""
+    from paddle_tpu_torch.serving import attention as att
+    from paddle_tpu_torch.serving.kv_cache import PagedLayerCache
+
+    dtype = torch.bfloat16
+    heads = 32 if hd == 64 else 16
+    kvh = heads // rep
+    quant = kv in QUANT_KV
+    if kernel == "K6":
+        b = len(PAGED_EDGE_POS) + 2
+        (kp, vp, table, ks, vs), cap = _edge_pools(g, rng, kv, kvh, b, ps,
+                                                   hd, dev)
+        pos_np = np.array(PAGED_EDGE_POS + (cap - 1, cap), np.int32)
+        pos = torch.from_numpy(pos_np).to(dev)
+        q = torch.randn(b, 1, heads, hd, generator=g, device=dev).to(dtype)
+        cache = PagedLayerCache(kp, vp, table, k_scale=ks, v_scale=vs)
+        got = []
+        written = partial_bytes_written(lambda: got.append(
+            att.paged_decode_attention(q, cache, pos, rep)))
+        ref = att._paged_decode_reference(q, cache, pos, rep)
+        name = "K6q" if quant else "K6"
+        torch.cuda.synchronize()
+        err = max_err(got[0], ref)
+        return err, check(name, err, dtype), written
+    rows = sum(k in ("decode", "chunk") for k, _, _ in layout) + 1
+    (kp, vp, table, ks, vs), cap = _edge_pools(g, rng, kv, kvh, rows, ps, hd,
+                                               dev)
+    pos_l, rid_l, row = [], [], 0
+    for kind, n, start in layout:
+        if kind == "decode":
+            pos_l.append(min(start, cap - 1))
+            rid_l.append(row)
+            row += 1
+        elif kind == "chunk":
+            start = min(start, cap - n)
+            pos_l += list(range(start, start + n))
+            rid_l += [row] * n
+            row += 1
+        elif kind == "parked":
+            pos_l += [cap + (i % 3) for i in range(n)]
+            rid_l += [int(rng.randint(0, rows)) for _ in range(n)]
+        else:
+            pos_l.append(start)
+            rid_l.append(-1 if rng.randint(2) else rows)
+    t = len(pos_l)
+    pos_np = np.array(pos_l, np.int32)
+    rid_np = np.array(rid_l, np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)[None]
+    rid = torch.from_numpy(rid_np).to(dev)
+    q = torch.randn(1, t, heads, hd, generator=g, device=dev).to(dtype)
+    cache = PagedLayerCache(kp, vp, table, rid, k_scale=ks, v_scale=vs,
+                            routing={})
+    out = []
+    written = partial_bytes_written(lambda: out.append(
+        att.ragged_paged_attention(q, cache, pos, rep)))
+    got = out[0]
+    name = "K7q" if quant else "K7"
+    dead = (pos_np >= cap) | (rid_np < 0) | (rid_np >= rows)
+    # the plain version indexes the table by row id: give the row-less
+    # tokens row 0 there (their outputs are held to zeros, not to it)
+    ref_rows = torch.from_numpy(np.where(dead, 0, rid_np)).to(dev)
+    ref = att._ragged_attention_reference(
+        q, PagedLayerCache(kp, vp, table, ref_rows, k_scale=ks, v_scale=vs),
+        pos, rep)
+    torch.cuda.synchronize()
+    if dead.any():
+        z = float(got[0, torch.from_numpy(dead).to(dev)].abs().max())
+        if z != 0.0:
+            raise AssertionError(f"{name} edge case: parked or row-less "
+                                 f"tokens gave {z}, not zeros")
+    live = torch.from_numpy(~dead).to(dev)
+    err = max_err(got[0, live], ref[0, live])
+    return err, check(name, err, dtype), written
+
+
+def paged_edge_cases(dev):
+    """K6, K6q, K7 and K7q against their plain versions under the unchanged
+    TOL over bf16, int8 and fp8 pools, head_dim 64 and 128 (32 and 16 query
+    heads), rep 1, 2, 4 and 8, page sizes 16, 8 and 5, capacities of about
+    300 positions (three decode splits): K6 rows at positions 0, 15, 16,
+    17, the last slot and parked at the capacity; K7 flat steps mixing
+    decode tokens at those positions, a chunk of 1, 15, 16, 17 or 65 tokens
+    at offset 0 or mid-page, tokens parked at or past the capacity and
+    tokens naming no row (exact zeros), and per pool type and head_dim a
+    chunk-only and a decode-only step; then, from a generator of their
+    own, per pool type and head_dim a 17-token run at the last slots
+    alone, whose keys must be split (it writes split partials: its step
+    has too few tiles to fill the card), and beside a decode token.
+    Returns the runs' records."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    rng = np.random.RandomState(21)
+    g_deep = torch.Generator(device=dev).manual_seed(22)
+    rng_deep = np.random.RandomState(22)
+    out = []
+    reps = (1, 2, 4, 8)
+    i = i_deep = 0
+    for kv in ("bf16",) + QUANT_KV:
+        for hd in (64, 128):
+            for ps in PAGED_EDGE_PS:
+                rep = reps[i % 4]
+                i += 1
+                err, tol, _ = paged_edge_case(dev, g, rng, "K6", kv, hd, rep,
+                                              ps)
+                out.append(dict(kernel="K6", kv=kv, hd=hd, rep=rep, ps=ps,
+                                max_abs_err=err, tol=tol))
+            for j, n in enumerate(PAGED_EDGE_CHUNKS):
+                rep = reps[i % 4]
+                ps = PAGED_EDGE_PS[i % 3]
+                i += 1
+                start = 0 if j % 2 == 0 else 3 * ps + 2
+                layout = ([("decode", 0, p) for p in PAGED_EDGE_POS]
+                          + [("parked", 1, 0), ("norow", 1, 7),
+                             ("chunk", n, start), ("decode", 0, 10 ** 6),
+                             ("parked", 5, 0)])
+                err, tol, _ = paged_edge_case(dev, g, rng, "K7", kv, hd, rep,
+                                              ps, layout)
+                out.append(dict(kernel="K7", kv=kv, hd=hd, rep=rep, ps=ps,
+                                chunk=n, start=start, max_abs_err=err,
+                                tol=tol))
+            for tag, layout in (
+                    ("chunk only", [("chunk", 65, 0), ("parked", 3, 0)]),
+                    ("decode only", [("decode", 0, p)
+                                     for p in PAGED_EDGE_POS + (10 ** 6,)])):
+                rep = reps[i % 4]
+                ps = PAGED_EDGE_PS[i % 3]
+                i += 1
+                err, tol, _ = paged_edge_case(dev, g, rng, "K7", kv, hd, rep,
+                                              ps, layout)
+                out.append(dict(kernel="K7", kv=kv, hd=hd, rep=rep, ps=ps,
+                                layout=tag, max_abs_err=err, tol=tol))
+    for kv in ("bf16",) + QUANT_KV:
+        for hd in (64, 128):
+            for tag, layout in (
+                    ("deep run alone", [("chunk", 17, 10 ** 6),
+                                        ("parked", 3, 0)]),
+                    ("deep run + decode", [("decode", 0, 200),
+                                           ("chunk", 17, 10 ** 6),
+                                           ("parked", 3, 0)])):
+                rep = reps[i_deep % 4]
+                ps = PAGED_EDGE_PS[i_deep % 3]
+                i_deep += 1
+                err, tol, written = paged_edge_case(
+                    dev, g_deep, rng_deep, "K7", kv, hd, rep, ps, layout)
+                if tag == "deep run alone" and written == 0:
+                    raise AssertionError(
+                        f"K7 {kv} head_dim {hd} rep {rep}: a 17-token run "
+                        "alone at the last slots wrote no split partials")
+                out.append(dict(kernel="K7", kv=kv, hd=hd, rep=rep, ps=ps,
+                                layout=tag, max_abs_err=err, tol=tol,
+                                partial_bytes=written))
+    worst = max(out, key=lambda r: r["max_abs_err"] / r["tol"])
+    log(f"[paged_edge] {len(out)} runs (K6 / K6q {sum(r['kernel'] == 'K6' for r in out)}, "
+        f"K7 / K7q {sum(r['kernel'] == 'K7' for r in out)}) within TOL; "
+        f"worst {worst['max_abs_err']:.3g} of {worst['tol']} ({worst})")
+    return out
+
+
+# a NaN bit pattern no kernel writes (`partial_bytes_written`)
+_UNWRITTEN = 0x7FA5A5A5
+
+
+def partial_bytes_written(call):
+    """Bytes of key-split partials that one call of a paged wrapper writes,
+    counted: the wrapper's partials scratch (`attention._partials`) is
+    filled with a NaN pattern no kernel writes, and the fp32 elements that
+    no longer hold it after the call are counted."""
+    from paddle_tpu_torch.serving import attention as att
+
+    made, plain = [], att._partials
+
+    def marked(*args):
+        bufs = plain(*args)
+        for b in bufs:
+            b.view(torch.int32).fill_(_UNWRITTEN)
+        made.extend(bufs)
+        return bufs
+
+    att._partials = marked
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        att._partials = plain
+    return 4 * sum(int((b.view(torch.int32) != _UNWRITTEN).sum())
+                   for b in made)
 
 
 def _row(dtype, label, err, tol, ms, plain_ms, lib_ms, bms, by, **extra):
@@ -3090,6 +3403,13 @@ def summarize(main_rows, launches_by_path):
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "dtype", "case")}
         if k == "K7":
+            entry["partial_bytes"] = r["partial_bytes"]
+            entry["halves"] = {h: {x: main_rows[f"K7 {h}"][x] for x in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "partial_bytes")}
+                for h in ("chunk parked", "decode tokens parked",
+                          "17-token run at 1007 alone",
+                          "17-token run at 1007 + decode tokens")}
             q = main_rows["K7q"]
             entry["quantized"] = dict(
                 launches=sum(c.get("K7q", 0)
@@ -3126,6 +3446,7 @@ def main(argv=None):
     main_rows["K6"] = k6_cases(rows, dev)
     main_rows["K6q"] = k6q_cases(rows, dev)
     main_rows.update(k7_cases(rows, dev))
+    result["paged_edge_cases"] = paged_edge_cases(dev)
     main_rows["K1"] = k1_train_cases(rows, dev)
     main_rows.update(k23_cases(rows, dev))
     result["edge_cases"] = flash_edge_cases(dev)

@@ -1,13 +1,13 @@
-// One-token paged decode attention for Hopper (sm_90a), plain CUDA C++.
+// One-token paged decode attention for Hopper (sm_90a), plain CUDA C++:
+// K6, and its dequantizing form K6q.
 //
 // Replaces the TPU kernel `_paged_decode_pallas` (paddle_tpu/serving/
 // attention.py:530, pallas_call at :578, body `_paged_decode_kernel` :460):
 // for every batch row, its single query token attends over the K/V pages
 // its page-table row names, up to and including its own position `pos`.
-// Pools are fp32 or bf16 (K6) or, as K6q, the dequantizing variant of the
-// TPU kernel (body :473-516): int8 or fp8 e4m3 pools with fp32 scale slabs
-// of shape (kvh, P, ps, 1), each K/V element times its slot's scale as it
-// is loaded, the scale read through the same page-table entry as the data.
+// Pools are bf16 or fp32 (K6) or, as K6q (the TPU body's dequantizing form,
+// :473-516), int8 or fp8 e4m3 with fp32 scale slabs of shape (kvh, P, ps,
+// 1), each scale read through the same page-table entry as its data.
 //
 // Semantics kept from the TPU kernel at the edges:
 //   - key columns past `pos` are masked; pages wholly past `pos` are not
@@ -16,34 +16,36 @@
 //   - a row parked at pos = max_pages * page_size (batch padding, finished
 //     rows) attends every page of its table, as on the TPU.
 // What is gone: the TPU's padding of the query group to 8 rows and of
-// head_dim to 128 lanes, and the scalar prefetch of the page table (each
-// block reads its own table row).
+// head_dim to 128 lanes, and the scalar prefetch of the page table.
 //
-// What bounds it on an H100: bytes. At b=8 rows of 512 tokens, 32 kv
-// heads, hd=128, bf16, one layer's call must read 2 * 8*512*32*128*2 B =
-// 67 MB of K/V (~20 us at 3.35 TB/s) and does ~1 flop per byte read, far
-// below the ~295 flop/byte where the matrix units would take over. An
-// int8/fp8 pool halves those bytes and adds 8 bytes of scales per token
-// and kv head.
+// What bounds it on an H100: bytes. At b = 8 rows with positions spread
+// over 0..1023, 32 kv heads of 128, one call must read 4097 positions of K
+// and V: 67.1 MB in bf16 (20 us at 3.35 TB/s), 33.6 MB plus 1 MB of scales
+// in int8 / fp8; about 1 flop a byte, far below the ~295 where the tensor
+// cores would matter.
 //
-// Design (split-KV, "flash-decoding"): the TPU walks one row's pages on a
-// sequential grid axis; here every (kv head, row, split of kSplitTokens
-// tokens) is its own block, so a batch of 8 rows fills the card. Within a
-// block each of 4 warps takes every 4th token: each lane loads its
-// head_dim/32 contiguous elements of the token's K and V with one vector
-// load (a warp reads the token's whole 256 B row), the q.k dot is a warp
-// shuffle sum, and the warp keeps an online softmax (fp32 max, sum and
-// output slice) per query head in registers. The rep = heads/kvh query
-// heads of a kv head share every K/V load (GQA). The block folds its warps
-// together in shared memory and writes one unnormalized partial (max, sum,
-// output) per query head and split; a second small kernel merges the
-// splits of each (row, head) and divides by the clamped sum.
+// Design (split-KV, one launch). Every (kv head, row, split of 128 keys) is
+// a block; splits wholly past the row's position exit at once. A block is
+// the decode walk of paged_common.cuh (`decode_split`): the split's table
+// entries first, then all its K and V rows in flight through cp.async,
+// scores from shared memory four lanes a key with the rep query heads of
+// the kv head together (GQA shares every K/V byte), a softmax over the
+// split, P V with a thread per 8 columns, and the last split of a (row, kv
+// head) to arrive merges the row's partials in split order. The walk takes
+// bf16 queries over bf16, int8 and fp8 pools at head_dim 64 and 128; each
+// (pool type, head_dim, rep) is its own instantiation.
+//
+// The fp32 forms (fp32 q or fp32 pools) and head_dim 32 / 256 keep the FMA
+// kernel of the first port: each of 4 warps takes every 4th token of a
+// split, a lane per head_dim / 32 elements, the q . k dot a warp shuffle
+// sum, an online softmax in registers, and a second kernel merges the
+// splits.
 
 #include <math.h>
 
 #include <type_traits>
 
-#include "common.cuh"
+#include "paged_common.cuh"
 
 namespace {
 
@@ -228,6 +230,49 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part_ml,
       ptt::from_f32<TQ>(sum_a / fmaxf(sum_l, 1e-30f));
 }
 
+// grid (kvh, b, n_splits): the decode walk of one (kv head, row, split);
+// bf16 q and output, TKV pools (bf16, int8, fp8)
+template <typename TKV, int HD, int REP>
+__global__ void __launch_bounds__(ptt::paged::kThreads)
+    paged_decode_walk_kernel(const __nv_bfloat16* __restrict__ q,
+                             const TKV* __restrict__ k_pool,
+                             const TKV* __restrict__ v_pool,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
+                             const int* __restrict__ page_table,
+                             const int* __restrict__ pos_arr,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ part_ml,
+                             float* __restrict__ part_acc, int* counters,
+                             int heads, int kvh, int num_pages, int ps,
+                             int max_pages, float scale) {
+  namespace pg = ptt::paged;
+  extern __shared__ __align__(16) unsigned char smem[];
+  PTT_STAMP_BEGIN();
+  const int g = blockIdx.x, bb = blockIdx.y, sp = blockIdx.z;
+  const int n_splits = gridDim.z;
+  // columns 0..pos attend; a parked row (pos = max_pages*ps) sees all
+  const int n_tok = min(pos_arr[bb] + 1, max_pages * ps);
+  const long long hq = (long long)bb * heads + g * REP;  // first q head
+  if (n_tok <= 0) {
+    if (sp == 0) pg::zero_heads<HD, REP>(out + hq * HD);
+    return;
+  }
+  if (sp * pg::kSplit >= n_tok) return;
+  const pg::WalkItem it{q + hq * HD,
+                        out + hq * HD,
+                        page_table + (long long)bb * max_pages,
+                        n_tok,
+                        sp,
+                        part_ml + hq * n_splits * 2,
+                        part_acc + hq * n_splits * HD,
+                        n_splits,
+                        counters + bb * kvh + g};
+  pg::decode_split<TKV, HD, REP>(smem, it, k_pool, v_pool, k_scale, v_scale,
+                                 (long long)g * num_pages, ps, scale);
+  PTT_STAMP_END();
+}
+
 // the pointer and size arguments every launch passes along
 struct Args {
   const void *q, *kp, *vp;
@@ -235,10 +280,49 @@ struct Args {
   const int *pt, *pos;
   void* out;
   float *ml, *acc;
+  int* counters;
   int b, heads, kvh, num_pages, ps, max_pages, n_splits;
   float scale;
   cudaStream_t st;
 };
+
+template <typename TKV, int HD, int REP>
+int launch_walk(const Args& a) {
+  auto kern = paged_decode_walk_kernel<TKV, HD, REP>;
+  const int smem = ptt::paged::WalkSmem<TKV, HD, REP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.kvh, a.b, a.n_splits);
+  kern<<<grid, ptt::paged::kThreads, smem, a.st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const TKV*>(a.kp),
+      static_cast<const TKV*>(a.vp), a.ks, a.vs, a.pt, a.pos,
+      static_cast<__nv_bfloat16*>(a.out), a.ml, a.acc, a.counters, a.heads,
+      a.kvh, a.num_pages, a.ps, a.max_pages, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename TKV, int HD>
+int walk_rep(int rep, const Args& a) {
+  if (rep == 1) return launch_walk<TKV, HD, 1>(a);
+  if (rep == 2) return launch_walk<TKV, HD, 2>(a);
+  if (rep == 4) return launch_walk<TKV, HD, 4>(a);
+  if (rep == 8) return launch_walk<TKV, HD, 8>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename TKV>
+int walk_hd(int hd, int rep, const Args& a) {
+  if (hd == 64) return walk_rep<TKV, 64>(rep, a);
+  if (hd == 128) return walk_rep<TKV, 128>(rep, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bf16 q over bf16 / int8 / fp8 pools at head_dim 64 / 128: the walk
+bool takes_walk(int q_dtype, int kv_dtype, int hd) {
+  return q_dtype == ptt::kBF16 && kv_dtype != ptt::kF32 &&
+         (hd == 64 || hd == 128);
+}
 
 template <typename TQ, typename TKV, int VEC, int REP>
 int launch(const Args& a) {
@@ -263,15 +347,23 @@ int dispatch_rep(int rep, const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+// bf16 q over bf16 / int8 / fp8 pools at head_dim 64 / 128 is the walk's:
+// the FMA kernel is not instantiated for those forms
 template <typename TQ, typename TKV>
 int dispatch_hd(int hd, int rep, const Args& a) {
+  constexpr bool kWalkForm = std::is_same<TQ, __nv_bfloat16>::value &&
+                             !std::is_same<TKV, float>::value;
   if (hd == 32) return dispatch_rep<TQ, TKV, 1>(rep, a);
-  if (hd == 64) return dispatch_rep<TQ, TKV, 2>(rep, a);
-  if (hd == 128) return dispatch_rep<TQ, TKV, 4>(rep, a);
+  if constexpr (!kWalkForm) {
+    if (hd == 64) return dispatch_rep<TQ, TKV, 2>(rep, a);
+    if (hd == 128) return dispatch_rep<TQ, TKV, 4>(rep, a);
+  }
   if (hd == 256) return dispatch_rep<TQ, TKV, 8>(rep, a);
   return (int)cudaErrorInvalidValue;
 }
 
+// the FMA kernel: fp32 q or fp32 pools at any head_dim, and bf16 q over
+// bf16 / int8 / fp8 pools at head_dim 32 / 256
 template <typename TQ>
 int dispatch_kv(int kv_dtype, int hd, int rep, const Args& a) {
   if (kv_dtype == ptt::kF32) return dispatch_hd<TQ, float>(hd, rep, a);
@@ -286,27 +378,58 @@ int dispatch_kv(int kv_dtype, int hd, int rep, const Args& a) {
 
 }  // namespace
 
-// Number of token splits the wrapper must size the scratch for.
-extern "C" int ptt_paged_decode_splits(int max_pages, int ps) {
-  return (max_pages * ps + kSplitTokens - 1) / kSplitTokens;
+// Dynamic shared memory (bytes) of the walk's instantiation for kv_dtype
+// (1 bf16, 2 int8, 3 fp8), head_dim and rep; 0 for a form it does not take.
+extern "C" int ptt_paged_decode_walk_smem(int kv_dtype, int hd, int rep) {
+  namespace pg = ptt::paged;
+  if (kv_dtype < ptt::kBF16 || kv_dtype > ptt::kFP8) return 0;
+  if (hd != 64 && hd != 128) return 0;
+  const bool wide = kv_dtype == ptt::kBF16;
+  auto pick = [&](auto tag) -> int {
+    using T = decltype(tag);
+    if (hd == 64) {
+      if (rep == 1) return pg::WalkSmem<T, 64, 1>::kBytes;
+      if (rep == 2) return pg::WalkSmem<T, 64, 2>::kBytes;
+      if (rep == 4) return pg::WalkSmem<T, 64, 4>::kBytes;
+      if (rep == 8) return pg::WalkSmem<T, 64, 8>::kBytes;
+    } else {
+      if (rep == 1) return pg::WalkSmem<T, 128, 1>::kBytes;
+      if (rep == 2) return pg::WalkSmem<T, 128, 2>::kBytes;
+      if (rep == 4) return pg::WalkSmem<T, 128, 4>::kBytes;
+      if (rep == 8) return pg::WalkSmem<T, 128, 8>::kBytes;
+    }
+    return 0;
+  };
+  // int8 and fp8 rows are the same size
+  return wide ? pick(__nv_bfloat16()) : pick(int8_t());
+}
+
+// Number of token splits the wrapper must size the scratch for: kSplit
+// keys a split for the walk, kSplitTokens for the FMA kernel.
+extern "C" int ptt_paged_decode_splits(int max_pages, int ps, int hd,
+                                       int q_dtype, int kv_dtype) {
+  const int split = takes_walk(q_dtype, kv_dtype, hd) ? ptt::paged::kSplit
+                                                      : kSplitTokens;
+  return (max_pages * ps + split - 1) / split;
 }
 
 // q/out: contiguous (b, 1, heads, hd) of q_dtype (0 fp32, 1 bf16);
 // k_pool/v_pool: contiguous (kvh, num_pages, ps, hd) of kv_dtype (0 fp32,
-// 1 bf16, 2 int8, 3 fp8 e4m3); k_scale/v_scale: contiguous fp32 (kvh,
-// num_pages, ps, 1) for int8/fp8 pools, else null; page_table:
-// (b, max_pages) int32; pos: (b,) int32; part_ml / part_acc: fp32 scratch
-// of b*heads*n_splits*2 and b*heads*n_splits*hd elements, n_splits from
-// ptt_paged_decode_splits. hd in {32, 64, 128, 256}, heads/kvh in
-// {1, 2, 4, 8}. Returns cudaGetLastError() after the launches.
+// 1 bf16, 2 int8, 3 fp8 e4m3), 16-byte aligned; k_scale/v_scale:
+// contiguous fp32 (kvh, num_pages, ps, 1) for int8/fp8 pools, else null;
+// page_table: (b, max_pages) int32; pos: (b,) int32; part_ml / part_acc:
+// fp32 scratch of b*heads*n_splits*2 and b*heads*n_splits*hd elements,
+// n_splits from ptt_paged_decode_splits; counters: b*kvh int32, all zero
+// (the walk leaves them zero). hd in {32, 64, 128, 256}, heads/kvh in
+// {1, 2, 4, 8}. Returns cudaGetLastError() after the launch(es).
 extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
                                 const void* v_pool, const void* k_scale,
                                 const void* v_scale, const void* page_table,
                                 const void* pos, void* out, void* part_ml,
-                                void* part_acc, int b, int heads, int kvh,
-                                int hd, int num_pages, int ps, int max_pages,
-                                float scale, int q_dtype, int kv_dtype,
-                                void* stream) {
+                                void* part_acc, void* counters, int b,
+                                int heads, int kvh, int hd, int num_pages,
+                                int ps, int max_pages, float scale,
+                                int q_dtype, int kv_dtype, void* stream) {
   if (kvh < 1 || heads % kvh != 0 || ps < 1 || max_pages < 1)
     return (int)cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool,
@@ -315,10 +438,20 @@ extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
                static_cast<const int*>(page_table),
                static_cast<const int*>(pos), out,
                static_cast<float*>(part_ml), static_cast<float*>(part_acc),
+               static_cast<int*>(counters),
                b, heads, kvh, num_pages, ps, max_pages,
-               ptt_paged_decode_splits(max_pages, ps), scale,
+               ptt_paged_decode_splits(max_pages, ps, hd, q_dtype, kv_dtype),
+               scale,
                static_cast<cudaStream_t>(stream)};
   const int rep = heads / kvh;
+  if (takes_walk(q_dtype, kv_dtype, hd)) {
+    if (a.counters == nullptr) return (int)cudaErrorInvalidValue;
+    if (kv_dtype == ptt::kBF16) return walk_hd<__nv_bfloat16>(hd, rep, a);
+    if (a.ks == nullptr || a.vs == nullptr) return (int)cudaErrorInvalidValue;
+    if (kv_dtype == ptt::kI8) return walk_hd<int8_t>(hd, rep, a);
+    if (kv_dtype == ptt::kFP8) return walk_hd<__nv_fp8_e4m3>(hd, rep, a);
+    return (int)cudaErrorInvalidValue;
+  }
   if (q_dtype == ptt::kF32) return dispatch_kv<float>(kv_dtype, hd, rep, a);
   if (q_dtype == ptt::kBF16)
     return dispatch_kv<__nv_bfloat16>(kv_dtype, hd, rep, a);

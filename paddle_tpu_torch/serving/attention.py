@@ -50,6 +50,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
            torch.float8_e4m3fn: 3}
 _QUANT = (torch.int8, torch.float8_e4m3fn)
 
+# Most query vectors (tokens x rep) a query tile of the ragged kernel holds
+# (`kTileRows` in csrc/ragged_paged.cu): bf16 q over bf16 / int8 / fp8 pools
+# walk a tile as one warpgroup on wgmma, whose products take 64 rows
+RAGGED_TILE_ROWS = 64
+# the same for the fp32 forms' FMA kernel (`kNQ` there)
+RAGGED_FMA_TILE_ROWS = 16
+
 
 def advance_positions(positions: torch.Tensor, live: torch.Tensor,
                       max_pages: int, page_size: int) -> torch.Tensor:
@@ -292,11 +299,39 @@ def _paged_lib():
     fn = lib.ptt_paged_decode
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [i32] * 7 + [ctypes.c_float, i32, i32, vp]
+        fn.argtypes = [vp] * 11 + [i32] * 7 + [ctypes.c_float, i32, i32, vp]
         fn.restype = ctypes.c_int
-        lib.ptt_paged_decode_splits.argtypes = [i32, i32]
+        lib.ptt_paged_decode_splits.argtypes = [i32] * 5
         lib.ptt_paged_decode_splits.restype = i32
     return lib, fn
+
+
+def _partials(n: int, heads: int, splits: int, hd: int, device):
+    """Scratch of the kernels' key-split partials, fp32: (max, sum) and
+    the unnormalized output of each (token, head, split)."""
+    return (torch.empty((n, heads, splits, 2), dtype=torch.float32,
+                        device=device),
+            torch.empty((n, heads, splits, hd), dtype=torch.float32,
+                        device=device))
+
+
+# (device, stream) -> int32 arrival counters of the kernels' in-launch
+# merge of their key splits
+_COUNTERS = {}
+
+
+def _arrival_counters(device, n: int) -> torch.Tensor:
+    """At least `n` zeroed int32 arrival counters on `device`, one buffer
+    per device and stream: it is zeroed once, when it is made (or grown),
+    and every launch leaves the counters it used at zero again, so a call
+    costs no memset launch."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 0 if buf is None else 2 * buf.numel())
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _check_pools(what: str, cache: PagedLayerCache, hd: int, heads: int,
@@ -334,6 +369,9 @@ def _check_pools(what: str, cache: PagedLayerCache, hd: int, heads: int,
         raise ValueError(f"{what} needs every operand on the card")
     if not (kp.is_contiguous() and vp.is_contiguous()):
         raise ValueError(f"{what} needs contiguous pools")
+    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError(f"{what} needs 16-byte aligned pools (they are "
+                         "read in 16-byte pieces)")
     if cache.quantized:
         return cache.k_scale.data_ptr(), cache.v_scale.data_ptr()
     return 0, 0
@@ -345,7 +383,14 @@ def paged_decode_attention(q, cache: PagedLayerCache, pos, rep: int):
     one). Returns (b, 1, heads, hd). CUDA tensors launch the kernel: K6
     over fp32 / bf16 pools (counted in `paged_decode_attention.launches`),
     K6q over int8 / fp8 pools with their scale slabs (counted in
-    `.quant_launches`); CPU tensors run `_paged_decode_reference`."""
+    `.quant_launches`), one count a call; CPU tensors run
+    `_paged_decode_reference`.
+
+    bf16 q over bf16, int8 or fp8 pools at head_dim 64 / 128 takes the
+    decode walk (csrc/paged_common.cuh): one launch, splits of 128 keys
+    merged in the launch by the last split to arrive (arrival counters
+    from `_arrival_counters`). fp32 q or pools, and head_dim 32 / 256, take
+    the FMA kernel and its merge kernel."""
     if not q.is_cuda:
         return _paged_decode_reference(q, cache, pos, rep)
     kp, vp, page_table = cache.k_pool, cache.v_pool, cache.page_table
@@ -365,17 +410,15 @@ def paged_decode_attention(q, cache: PagedLayerCache, pos, rep: int):
     out = torch.empty_like(qc)
     lib, fn = _paged_lib()
     max_pages = page_table.shape[1]
-    # per-split partials (max, sum, unnormalized output) the merge reads
-    splits = lib.ptt_paged_decode_splits(max_pages, ps)
-    part_ml = torch.empty((b, heads, splits, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b, heads, splits, hd), dtype=torch.float32,
-                           device=q.device)
+    splits = lib.ptt_paged_decode_splits(max_pages, ps, hd, _DTYPES[q.dtype],
+                                         _DTYPES[kp.dtype])
+    part_ml, part_acc = _partials(b, heads, splits, hd, q.device)
+    counters = _arrival_counters(q.device, b * kvh)
     err = fn(qc.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks_ptr, vs_ptr,
              pt.data_ptr(), pos32.data_ptr(), out.data_ptr(),
-             part_ml.data_ptr(), part_acc.data_ptr(), b, heads, kvh, hd,
-             num_pages, ps, max_pages, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-             _DTYPES[kp.dtype],
+             part_ml.data_ptr(), part_acc.data_ptr(), counters.data_ptr(), b,
+             heads, kvh, hd, num_pages, ps, max_pages, 1.0 / math.sqrt(hd),
+             _DTYPES[q.dtype], _DTYPES[kp.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode", lib)
     if cache.quantized:
@@ -394,34 +437,51 @@ def _ragged_lib():
     fn = lib.ptt_ragged_paged
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([vp] * 13 + [i32] * 9
+        fn.argtypes = ([vp] * 14 + [i32] * 9
                        + [ctypes.c_float, i32, i32, vp])
         fn.restype = ctypes.c_int
-        lib.ptt_ragged_paged_splits.argtypes = [i32, i32]
+        lib.ptt_ragged_paged_splits.argtypes = [i32] * 4
         lib.ptt_ragged_paged_splits.restype = i32
-        lib.ptt_ragged_paged_tile.argtypes = [i32]
-        lib.ptt_ragged_paged_tile.restype = i32
     return lib, fn
 
 
-def _ragged_plan(row_ids: torch.Tensor, tq: int):
-    """Query tiles of a flat step, on the device and without a host sync:
-    runs of consecutive tokens with the same row id, cut into pieces of
-    at most `tq` tokens. Returns (starts (T + 2,) int32, whose first
-    `count` entries are the tile starts in order and entry `count` is T;
-    count (1,) int32)."""
+def _ragged_tile_rows(q_dtype, kv_dtype) -> int:
+    """Most query vectors of a query tile for these types (the kernel's
+    `ptt_ragged_paged_tile_rows`, readable without loading it)."""
+    if q_dtype == torch.bfloat16 and kv_dtype != torch.float32:
+        return RAGGED_TILE_ROWS
+    return RAGGED_FMA_TILE_ROWS
+
+
+def _ragged_plan(row_ids: torch.Tensor, pos: torch.Tensor, tq: int,
+                 cap: int, rows: int):
+    """Query tiles of a flat step, on the device and without a host sync.
+    A run is a stretch of consecutive tokens with the same row id that are
+    all live or all parked (position outside [0, cap), or a row id outside
+    [0, rows)); a run of n tokens is cut into ceil(n / tq) tiles of nearly
+    equal length, so for tq >= 4 a tile of one token is exactly a token
+    alone in its run. Returns (starts (T + 2,) int32, whose first `count`
+    entries are the tile starts in order and entry `count` is T; (2,)
+    int32: count, then the number of live tiles)."""
     t = row_ids.shape[0]
     dev = row_ids.device
     idx = torch.arange(t, device=dev)
+    parked = (pos < 0) | (pos >= cap) | (row_ids < 0) | (row_ids >= rows)
     brk = torch.ones(t, dtype=torch.bool, device=dev)
-    brk[1:] = row_ids[1:] != row_ids[:-1]
+    brk[1:] = (row_ids[1:] != row_ids[:-1]) | (parked[1:] != parked[:-1])
+    run = torch.cumsum(brk, 0) - 1
     run_start = torch.cummax(torch.where(brk, idx, 0), 0).values
-    first = (idx - run_start) % tq == 0
+    run_len = torch.zeros(t, dtype=torch.int64, device=dev).scatter_add_(
+        0, run, torch.ones_like(run))[run]
+    pieces = (run_len + tq - 1) // tq
+    piece = (idx - run_start) * pieces // run_len
+    first = brk.clone()
+    first[1:] |= piece[1:] != piece[:-1]
     slot = torch.where(first, torch.cumsum(first, 0) - 1, t + 1)
     starts = torch.full((t + 2,), t, dtype=torch.int32, device=dev)
     starts.scatter_(0, slot, idx.to(torch.int32))
-    count = first.sum(dtype=torch.int32).reshape(1)
-    return starts, count
+    count = torch.stack((first.sum(), (first & ~parked).sum()))
+    return starts, count.to(torch.int32)
 
 
 def ragged_paged_attention(q, cache: PagedLayerCache, pos, rep: int):
@@ -434,7 +494,17 @@ def ragged_paged_attention(q, cache: PagedLayerCache, pos, rep: int):
 
     CUDA tensors launch K7 (plain pools counted in
     `ragged_paged_attention.launches`, int8 / fp8 pools in
-    `.quant_launches`); CPU tensors run `_ragged_attention_reference`."""
+    `.quant_launches`), one count a call; CPU tensors run
+    `_ragged_attention_reference`.
+
+    bf16 q over bf16, int8 or fp8 pools takes the Hopper kernel in one
+    launch: a query tile of one token (a decode token) is the decode walk
+    over splits of 128 keys, merged in the launch; a longer tile (at most
+    RAGGED_TILE_ROWS query vectors of one row's consecutive tokens) runs
+    on wgmma over all its keys and writes no partials, unless the live
+    tiles give fewer (tile, kv head) pairs than half the card's SMs: then
+    it too is split over 128 keys and merged in the launch. fp32 q or pools
+    take the FMA kernel and its merge kernel."""
     if not q.is_cuda:
         return _ragged_attention_reference(q, cache, pos, rep)
     kp, vp, page_table = cache.k_pool, cache.v_pool, cache.page_table
@@ -453,33 +523,35 @@ def ragged_paged_attention(q, cache: PagedLayerCache, pos, rep: int):
     if not (row_ids.is_cuda and pos.is_cuda):
         raise ValueError("ragged attention needs every operand on the card")
     lib, fn = _ragged_lib()
-    tq = lib.ptt_ragged_paged_tile(rep)
+    max_pages = page_table.shape[1]
+    rows = page_table.shape[0]
+    cap = max_pages * ps
+    tq = _ragged_tile_rows(q.dtype, kp.dtype) // rep
     shared = cache.routing
     key = ("ragged_plan", tq)
-    if shared is not None and shared.get(key, (None,))[0] is row_ids:
-        rows32, starts, count = shared[key][1:]
+    hit = shared.get(key) if shared is not None else None
+    if hit is not None and hit[0] is row_ids and hit[1] is pos:
+        rows32, pos32, starts, count = hit[2:]
     else:
         rows32 = row_ids.to(torch.int32).contiguous()
-        starts, count = _ragged_plan(rows32, tq)
+        pos32 = pos.reshape(t).to(torch.int32).contiguous()
+        starts, count = _ragged_plan(rows32, pos32, tq, cap, rows)
         if shared is not None:
-            shared[key] = (row_ids, rows32, starts, count)
+            shared[key] = (row_ids, pos, rows32, pos32, starts, count)
     qc = q.contiguous()
     pt = page_table.to(torch.int32).contiguous()
-    pos32 = pos.reshape(t).to(torch.int32).contiguous()
     out = torch.empty_like(qc)
-    max_pages = page_table.shape[1]
-    splits = lib.ptt_ragged_paged_splits(max_pages, ps)
-    part_ml = torch.empty((t, heads, splits, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((t, heads, splits, hd), dtype=torch.float32,
-                           device=q.device)
-    grid_tiles = min(t, -(-t // tq) + page_table.shape[0] + 1)
+    qd, kd = _DTYPES[q.dtype], _DTYPES[kp.dtype]
+    splits = lib.ptt_ragged_paged_splits(max_pages, ps, qd, kd)
+    part_ml, part_acc = _partials(t, heads, splits, hd, q.device)
+    counters = _arrival_counters(q.device, t * kvh)
+    grid_tiles = min(t, -(-t // tq) + rows + 1)
     err = fn(qc.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks_ptr, vs_ptr,
              pt.data_ptr(), pos32.data_ptr(), rows32.data_ptr(),
              starts.data_ptr(), count.data_ptr(), part_ml.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), t, heads, kvh, hd,
-             num_pages, ps, max_pages, page_table.shape[0], grid_tiles,
-             1.0 / math.sqrt(hd), _DTYPES[q.dtype], _DTYPES[kp.dtype],
+             part_acc.data_ptr(), counters.data_ptr(), out.data_ptr(), t,
+             heads, kvh, hd, num_pages, ps, max_pages, rows, grid_tiles,
+             1.0 / math.sqrt(hd), qd, kd,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ragged_paged", lib)
     if cache.quantized:

@@ -165,7 +165,8 @@ class TestRaggedKernelPlain:
         """The device-side plan cuts runs of one row into tiles of at most
         `tq` tokens; entry `count` of the starts is T."""
         rows = torch.tensor([0, 1, 2, 2, 2, 2, 2, 0, 0, 0], dtype=torch.int32)
-        starts, count = tatt._ragged_plan(rows, 2)
+        pos = torch.zeros_like(rows)
+        starts, count = tatt._ragged_plan(rows, pos, 2, 16, 3)
         n = int(count[0])
         assert starts[:n + 1].tolist() == [0, 1, 2, 4, 6, 7, 9, 10]
 
