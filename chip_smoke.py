@@ -15,11 +15,16 @@ without the final result line:
    and their dynamic shared memory;
 3. kernels: each hand-written kernel of the serving path (K1, K4, K6)
    against its plain PyTorch version on the card at the serving shapes, in
-   bf16 and fp32, max abs error beside the tolerance; kernel, plain-version
-   and library (yardstick only) device times by CUDA events over calls
-   queued behind a spin (and the kernel's time when issued call by call
-   from Python), and the bound: the larger of bytes over 3.35 TB/s and
-   operations over the peak rate of the input type;
+   bf16 and fp32, max abs error beside the tolerance; K1 also at a
+   speculative verify window's shape, (8, 5, 32, 128) queries against (8,
+   1024, 32, 128) gathered pages with the paged prefill's float mask, held
+   row by row under TOL_REL, and the time of that window's whole paged
+   attention (gather + K1); kernel,
+   plain-version and library (yardstick only) device times by CUDA events
+   over calls queued behind a spin (and the kernel's time when issued call
+   by call from Python), and the bound: the larger of bytes over 3.35 TB/s and
+   operations over the peak rate of the input type (for K1, the key rows
+   and pairs its mask leaves visible);
 4. kernels_serve_chunked: the same for the chunked serving path's kernels:
    K6q (K6 over int8 / fp8 pools with scale slabs) at the decode shape
    (b 8, positions 0..1023), and K7 (ragged paged attention) on the flat
@@ -71,7 +76,28 @@ without the final result line:
    bytes and peak memory;
 8. serve_chained: chunked prefill without the ragged step (bf16, 3
    requests): K1 must launch, through the paged chunk prefill;
-9. train: the ERNIE-1.0 pretrain step at full width (ErnieConfig.ernie_base,
+9. serve_prefix_spec: the prefix cache and speculative decoding on the
+   same model and engine. Eight greedy requests share a 512-token system
+   prefix (32 pages) and have their own 32-128-token suffixes, 32 new
+   tokens each, two late: served with the prefix cache off, on, on with
+   chunked prefill and the ragged step, and on over int8 pools. Eight
+   requests repeat a seeded 40-token passage after a shared 256-token
+   preamble: served with SpecConfig(lookahead=4) n-gram drafts off and
+   on, then with method "combined", the prefix cache, chunked prefill and
+   the ragged step, off and on, on engines whose prefix cache first takes
+   the spec-off run's streams as prompts (so the tree holds a served
+   continuation of each prompt). The first run of each knob set after a
+   warm-up engine of those knobs; prints tokens/s, mean and late-arrival TTFT, pool pages at peak,
+   prompt tokens served from the cache, drafted and accepted tokens and
+   tokens per target step, and its launches; each run is held by the
+   margin check, each path's kernels must launch (K1, K4, K6, K6q, K7 over
+   the phase), and the streams identical to their cache-off or spec-off
+   run are counted (not required); then the same speculation at fp32
+   (LLaMA-7B's widths cut to 2 layers, fp32 weights and pools): spec off,
+   then "combined" with the prefix cache (its tree holding the spec-off
+   streams) unchunked and chunked with the ragged step, margin-checked at
+   1e-3, the streams identical to spec-off counted;
+10. train: the ERNIE-1.0 pretrain step at full width (ErnieConfig.ernie_base,
    random weights from --seed, batch 32, seq 512, fused MLM loss, bf16 O1
    autocast, hidden and attention dropout 0.1, Adam lr 1e-4, one fixed
    batch): 3 warm-up and 10 timed steps. Launch counters are zeroed before
@@ -79,11 +105,11 @@ without the final result line:
    26 and 26 times a step. The loss must be finite at every step and lower
    at the last than at the first. Prints tokens/s/chip, step ms, MFU (the
    FLOPs per token of bench.py over 989 TFLOP/s) and peak memory;
-10. step_check: a 2-layer ERNIE at full width, fp32, dropout 0, batch 2,
+11. step_check: a 2-layer ERNIE at full width, fp32, dropout 0, batch 2,
    seq 512: loss and every parameter gradient on the card (through the
    kernels) against the same model on the CPU (the plain versions), from
    the same weights;
-11. t5_train_kernels: K1, K2 (with d(mask) for a trainable (1, 12, q, k)
+12. t5_train_kernels: K1, K2 (with d(mask) for a trainable (1, 12, q, k)
    bias) and K3 at T5-base's three attention shapes, batch 32 in bf16 and
    4 in fp32: the encoder (512 x 512, bidirectional bias, dropout 0.1), the
    decoder self-attention (114 x 114, causal plus bias) and the
@@ -92,7 +118,7 @@ without the final result line:
    the sum of d(mask)'s batch-group partials, their groups and bytes (a
    second launch must give dQ and the partials bit for bit), and PyTorch's
    sdpa backward with a float mask that requires grad as a yardstick;
-12. train_t5: the T5-base pretraining step at full width
+13. train_t5: the T5-base pretraining step at full width
    (T5Config.t5_base, 222.9 M parameters, random weights from --seed):
    batch 32 x 512 source and 114 target tokens, -100 on a few target
    positions, bf16 O1, dropout 0.1, Adam lr 1e-4, one fixed batch, 3
@@ -101,11 +127,11 @@ without the final result line:
    step, 24 of the K2 launches with d(mask); the loss must be finite and
    fall. Prints tokens/s/chip over source + target tokens, step ms, MFU
    (T5_FLOPS below) and peak memory;
-13. t5_step_check: a 2-layer T5 at full width, fp32, dropout 0, batch 2,
+14. t5_step_check: a 2-layer T5 at full width, fp32, dropout 0, batch 2,
    512 / 114: loss and every gradient (both bias tables included) on the
    card against the CPU, as step_check, with gated-GELU and with ReLU FFNs
    (the card's ReLU passes replay the CPU pass's ReLU masks);
-14. moe_kernels: K9 (the MoE row gather) against its plain version on the
+15. moe_kernels: K9 (the MoE row gather) against its plain version on the
    card, bit-exact (tolerance 0): the dispatch (16384 fp32 rows of 768 into
    8 x 4916 slots, GShard; 8 x 2560, Switch) and the combine (the slots'
    bf16 rows back to 32768 / 16384 (token, choice) pairs) with the indices
@@ -113,7 +139,7 @@ without the final result line:
    case with -1 indices; kernel, plain and library (index_select over a
    zero-padded src) device times and the bound (rows written plus live
    rows read, over 3.35 TB/s);
-15. train_moe: MoELayer at Switch-Base-8's widths (8 experts of
+16. train_moe: MoELayer at Switch-Base-8's widths (8 experts of
    Linear(768, 3072), ReLU, Linear(3072, 768); 37.79 M parameters, random
    from --seed), x (32, 512, 768) fp32 and an fp32 target from the seed,
    mse_loss + 0.01 x aux_loss, bf16 O1, Adam lr 1e-4, one fixed batch, 3
@@ -124,12 +150,12 @@ without the final result line:
    ms, MFU (model FLOPs over 989 TFLOP/s; the executed count over all
    slots beside it), peak memory and the dropped share of (token, choice)
    pairs;
-16. moe_step_check: the layer at full width with GELU experts, fp32, 1024
+17. moe_step_check: the layer at full width with GELU experts, fp32, 1024
    tokens, at capacity factor 1.2 (nothing dropped) and 0.5 (about half
    the pairs dropped): the routing indices on the card and on the CPU must
    be identical, then the loss and every gradient (gate and experts) under
    MOE_GRAD_RTOL, card (K9) against CPU (the plain version);
-17. ring_kernels (run with the other kernel phases): K1r, K2r and K3r, the
+18. ring_kernels (run with the other kernel phases): K1r, K2r and K3r, the
    ring form of the flash kernels, at one ring step of LLaMA-7B's
    attention widths, (1, 4096, 32, 128) a rank, in bf16 (timed) and fp32,
    against their plain versions under TOL_REL: the diagonal step (which
@@ -140,7 +166,7 @@ without the final result line:
    diagonal, plain sdpa on the past block, sdpa with the step's causal
    pattern as a boolean mask on the future and unaligned steps; yardsticks
    only) and the bound from the live (query, key) pairs;
-18. ring: first the single-call K1 / K2 / K3 over the whole global
+19. ring: first the single-call K1 / K2 / K3 over the whole global
    sequence of 16384 (32 heads of 128, bf16, causal) against their plain
    versions a head at a time, each rank's part of the sequence under
    SP_SINGLE_TOL; then `ring_flash_attention` forward and backward at
@@ -154,9 +180,9 @@ without the final result line:
    4 K1r a forward and 4 K2r and 4 K3r a backward a rank; the transport
    and its staged bytes, each rank's kernel time by CUDA events (one rank
    at a time) and its wall (a speed figure only with a card a rank);
-19. ulysses: the same through `ulysses_attention` (K1, K2, K3 once a rank
+20. ulysses: the same through `ulysses_attention` (K1, K2, K3 once a rank
    on a quarter of the heads over the whole sequence);
-20. moe_ep: the MoE layer at Switch-Base-8's widths expert-parallel over
+21. moe_ep: the MoE layer at Switch-Base-8's widths expert-parallel over
    the same 4 ranks (2 experts a rank, 4096 tokens a rank, GShard top-2):
    at capacity factor MOE_EP_CF nothing may drop, and the rows, the aux
    loss and every gradient are held under MOE_EP_RTOL against the
@@ -164,10 +190,11 @@ without the final result line:
    experts, fp32); then 3 + 10 O1 train steps at factor 1.2 (ReLU
    experts), finite, K9 exactly twice a step a rank: step ms, the
    transport and the dropped share;
-21. with --profile: torch.profiler windows of one prefill and two decode
+22. with --profile: torch.profiler windows of one prefill and two decode
    blocks of the served slice, two ragged steps of the bf16 chunked
-   serve, one ERNIE, one T5 and one GShard MoE train step: device busy
-   share, top kernels and top host ops.
+   serve, two speculative blocks (n-gram, lookahead 4) of the prefix /
+   speculation serve, one ERNIE, one T5 and one GShard MoE train step:
+   device busy share, top kernels and top host ops.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -261,6 +288,11 @@ MOE_LAUNCHES = {"K9": 2}
 # experts (no ReLU mask flips): ERNIE's whole-step limit, the same fp32
 # products summed in another order
 MOE_GRAD_RTOL = GRAD_RTOL
+# the prefix / speculation serve: a PREFIX_TOKENS system prefix (32 pages of
+# 16) shared by 8 requests, and SpecConfig(lookahead=SPEC_LOOKAHEAD), whose
+# verify windows are K1 calls of (8, 1 + SPEC_LOOKAHEAD) query tokens
+PREFIX_TOKENS = 512
+SPEC_LOOKAHEAD = 4
 # the engine's greedy token must be the no-cache argmax wherever the top-2
 # margin of the no-cache logits exceeds this, by KV pool type: the paged and
 # no-cache bf16 paths round differently, and on an H100 positions whose
@@ -269,7 +301,11 @@ MOE_GRAD_RTOL = GRAD_RTOL
 # on an H100 had differing positions up to 0.1328 (int8) and 0.2891 (fp8)
 # (PERF.md, PR 3); random weights give few margins above ~0.4, so the
 # quantized limits keep a smaller guard band
-MARGIN_TOL = {"bf16": 0.15, "int8": 0.2, "fp8": 0.35}
+MARGIN_TOL = {"bf16": 0.15, "int8": 0.2, "fp8": 0.35,
+              # fp32 pools and weights (the speculation check at fp32):
+              # the paged and no-cache fp32 paths differ by summation
+              # order, ~1e-5 in the logits; 1e-3 leaves 100x
+              "fp32": 1e-3}
 
 
 def log(*parts):
@@ -496,14 +532,66 @@ def phase_build(out_dir):
     return secs
 
 
+def visible(q, k, kw):
+    """(b, sq, sk) bool: the (query, key) pairs a K1 call's mask and
+    is_causal leave visible (a mask entry at -1e9 hides its pair)."""
+    b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    seen = torch.ones(b, sq, sk, dtype=torch.bool, device=q.device)
+    mask = kw.get("attn_mask")
+    if mask is not None:
+        seen &= (mask > -1e8)[:, 0]
+    if kw.get("is_causal"):
+        seen &= torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+    return seen
+
+
+def verify_window_inputs(g, dev, dtype):
+    """A speculative verify window as `serving.attention.
+    _prefill_attention_paged` hands it to K1: 8 rows of 1 + SPEC_LOOKAHEAD
+    query tokens against each row's whole gathered page table (64 pages of
+    16, LLaMA-7B's 32 heads of 128) under the paged prefill's float mask
+    (column j visible to lane i of row r iff j <= pos[r] + i, else -1e9),
+    rows at positions spread over the table. Returns (q, k, v, mask, pos,
+    paged cache over pools holding the same shape)."""
+    from paddle_tpu_torch.serving.kv_cache import PagedLayerCache
+
+    b, lanes, h, d, ps, maxp = 8, 1 + SPEC_LOOKAHEAD, 32, 128, 16, 64
+    length = ps * maxp
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    q = rnd(b, lanes, h, d)
+    k, v = rnd(b, length, h, d), rnd(b, length, h, d)
+    start = torch.from_numpy(np.linspace(0, length - lanes, b).astype(
+        np.int64)).to(dev)
+    pos = start[:, None] + torch.arange(lanes, device=dev)[None, :]
+    allowed = torch.arange(length, device=dev)[None, None, :] \
+        <= pos[:, :, None]
+    mask = torch.where(allowed, 0.0, -1e9).to(torch.float32)[:, None]
+    num_pages = b * maxp + 1
+    table = torch.randperm(num_pages - 1, generator=g, device=dev)[
+        :b * maxp].reshape(b, maxp).to(torch.int32) + 1
+    cache = PagedLayerCache(rnd(h, num_pages, ps, d),
+                            rnd(h, num_pages, ps, d), table)
+    return q, k, v, mask, pos, cache
+
+
 def k1_cases(rows, dev):
-    """Flash-attention forward at the prefill shape (1, 512, 32, 128)."""
+    """Flash-attention forward at the prefill shape (1, 512, 32, 128), and
+    in bf16 at a speculative verify window's (verify_window_inputs), which
+    is held row by row under TOL_REL against the plain version on the
+    values cast to fp32, as check_k1 does: its long rows' outputs are
+    small, so an absolute limit would not see a lost key tile there. The
+    window also times the whole paged attention (the table gather + K1).
+    Returns {"K1 verify": the window's row}."""
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import attention as att
 
     g = torch.Generator(device=dev).manual_seed(1)
     b, s, h, d = 1, 512, 32, 128
     causal = torch.full((s, s), -1e9, device=dev).triu(1)[None, None]
-    main = None
+    out, window = {}, None
     for dtype in (torch.bfloat16, torch.float32):
         def rnd(*shape):
             return torch.randn(*shape, generator=g, device=dev).to(dtype)
@@ -520,12 +608,28 @@ def k1_cases(rows, dev):
              (q, kv8[0].repeat_interleave(4, 2),
               kv8[1].repeat_interleave(4, 2)), {"is_causal": True}),
         ]
+        if dtype == torch.bfloat16:
+            wq, wk, wv, wmask, wpos, wcache = verify_window_inputs(g, dev,
+                                                                   dtype)
+            window = (f"verify window {tuple(wq.shape)} x "
+                      f"{tuple(wk.shape)}, float mask")
+            cases.append((window, (wq, wk, wv), {"attn_mask": wmask}))
         for label, (q_, k_, v_), kw in cases:
             got = fa.flash_attention(q_, k_, v_, **kw)
-            ref = fa.flash_attention_reference(q_, k_, v_, **kw)
             torch.cuda.synchronize()
-            err = max_err(got, ref)
-            tol = check("K1", err, dtype)
+            extra = {}
+            if label == window:
+                ref = fa.flash_attention_reference(q_.float(), k_.float(),
+                                                   v_.float(), **kw)
+                per_row = [check_rel("K1", got[r], ref[r], dtype)
+                           for r in range(got.shape[0])]
+                err = max(e for e, _ in per_row)
+                tol = min(t for _, t in per_row)
+                extra["row_tols"] = [t for _, t in per_row]
+            else:
+                err = max_err(got, fa.flash_attention_reference(q_, k_, v_,
+                                                                **kw))
+                tol = check("K1", err, dtype)
             ms = time_ms(lambda: fa.flash_attention(q_, k_, v_, **kw))
             issued_ms = time_ms(lambda: fa.flash_attention(q_, k_, v_, **kw),
                                 queued=False)
@@ -541,22 +645,37 @@ def k1_cases(rows, dev):
                                                         else mask.to(dtype)),
                                  is_causal=(mask is None
                                             and kw.get("is_causal", False))))
-            pairs = s * (s + 1) // 2 if (kw or mask is not None) else s * s
-            flops = 4 * b * h * d * pairs
-            io = nbytes(q_, k_, v_, got) + (nbytes(mask) if mask is not None
-                                            else 0)
+            # the work the visible pairs need: each query, each key row
+            # some query of its batch entry sees, the mask and the output
+            seen = visible(q_, k_, kw)
+            flops = 4 * h * d * int(seen.sum())
+            kv_rows = int(seen.any(1).sum())
+            io = nbytes(q_, got) + 2 * kv_rows * h * d * k_.element_size() \
+                + (nbytes(mask) if mask is not None else 0)
             bms, by = bound(io, flops, dtype)
+            tol_text = (f"{tol}" if label != window else
+                        f"{TOL_REL['K1'][dtype]} x max|ref| of each row, "
+                        f"smallest {tol:.3g}")
             log(f"[K1] {str(dtype)[6:]} {label}: max_abs_err {err:.3g} "
-                f"(tol {tol}) kernel {ms:.4f} ms (issued from Python "
+                f"(tol {tol_text}) kernel {ms:.4f} ms (issued from Python "
                 f"{issued_ms:.4f}) plain {plain_ms:.4f} ms library "
-                f"{lib_ms:.4f} ms bound {bms:.4f} ms ({by})")
+                f"{lib_ms:.4f} ms bound {bms:.4f} ms ({by}, {io} bytes)")
             row = dict(dtype=str(dtype)[6:], case=label, max_abs_err=err,
                        tol=tol, ms=ms, issued_ms=issued_ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                       library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                       bytes=io, visible_pairs=int(seen.sum()), **extra)
+            if label == window:
+                row["window_attend_ms"] = time_ms(
+                    lambda: att._prefill_attention_paged(wq, wcache, wpos,
+                                                         1))
+                log(f"[K1] verify window: the whole paged attention (table "
+                    f"gather + K1) {row['window_attend_ms']:.4f} ms")
+                out["K1 verify"] = row
             rows.append(("K1", row))
-            if dtype == torch.bfloat16 and label.endswith("+ is_causal"):
-                main = row
-    return main
+        if window is not None:
+            del wq, wk, wv, wcache
+            window = None
+    return out
 
 
 def k4_cases(rows, dev):
@@ -3101,13 +3220,19 @@ def rescore(model, engine, prompts, rids, tol, dev, tag):
     return checked, mismatched, worst
 
 
-def phase_slice(model, seed, dev, profile=False, out_dir=None):
+def serve_engine(model, dev, **kw):
+    """The serve cells' engine (page_size 16, 8 rows, max_seq_len 1024,
+    decode horizon 8) with the run's own knobs."""
     from paddle_tpu_torch.serving import ServingEngine
 
+    return ServingEngine(model, page_size=16, max_batch_size=8,
+                         max_seq_len=1024, decode_horizon=8, device=dev,
+                         **kw)
+
+
+def phase_slice(model, seed, dev, profile=False, out_dir=None):
     cfg = model.llama.config
-    engine = ServingEngine(model, page_size=16, max_batch_size=8,
-                           max_seq_len=1024, decode_horizon=8,
-                           kv_dtype="bf16", device=dev)
+    engine = serve_engine(model, dev, kv_dtype="bf16")
     rng = np.random.RandomState(seed)
     # warm-up (Triton specializations, cuBLAS handles): not measured
     serve(engine, [rng.randint(0, cfg.vocab_size, (n,)) for n in (40, 200)],
@@ -3115,9 +3240,7 @@ def phase_slice(model, seed, dev, profile=False, out_dir=None):
     lens = rng.randint(32, 513, 8)
     prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
     counters = serve_counters()
-    engine = ServingEngine(model, page_size=16, max_batch_size=8,
-                           max_seq_len=1024, decode_horizon=8,
-                           kv_dtype="bf16", device=dev)
+    engine = serve_engine(model, dev, kv_dtype="bf16")
     torch.cuda.reset_peak_memory_stats()
     zero_counters(counters)
     rids, wall = serve(engine, prompts, 2, 32)
@@ -3161,12 +3284,9 @@ def phase_slice(model, seed, dev, profile=False, out_dir=None):
 
 
 def chunked_engine(model, dev, kv, ragged=True):
-    from paddle_tpu_torch.serving import ServingEngine
-
-    return ServingEngine(model, page_size=16, max_batch_size=8,
-                         max_seq_len=1024, decode_horizon=8,
-                         enable_chunked_prefill=True, prefill_chunk_tokens=256,
-                         enable_ragged_step=ragged, kv_dtype=kv, device=dev)
+    return serve_engine(model, dev, enable_chunked_prefill=True,
+                        prefill_chunk_tokens=256, enable_ragged_step=ragged,
+                        kv_dtype=kv)
 
 
 def phase_serve_chunked(model, seed, dev, kv, n_requests=8, ragged=True,
@@ -3256,6 +3376,254 @@ def phase_serve_chunked(model, seed, dev, kv, n_requests=8, ragged=True,
                 margin_worst=worst, prompt_lens=lens.tolist(), profile=prof)
 
 
+def prefix_spec_prompts(seed, vocab):
+    """(prefix prompts, spec prompts). Prefix: a seeded PREFIX_TOKENS
+    system prefix shared by 8 requests, each with its own 32-128-token
+    suffix. Spec: a seeded 256-token shared preamble, then a request's own
+    40-token passage three times and the start of a fourth (the repeated
+    text n-gram drafting feeds on)."""
+    rng = np.random.RandomState(seed + 2)
+    shared = rng.randint(0, vocab, (PREFIX_TOKENS,)).tolist()
+    prefix = [shared + rng.randint(0, vocab, (int(n),)).tolist()
+              for n in rng.randint(32, 129, 8)]
+    preamble = rng.randint(0, vocab, (256,)).tolist()
+    spec = []
+    for _ in range(8):
+        passage = rng.randint(0, vocab, (40,)).tolist()
+        spec.append(preamble + passage * 3 + passage[:5])
+    return prefix, spec
+
+
+def served_run(model, dev, tag, prompts, kw, counters, warmed, tree=()):
+    """One measured run of the prefix / speculation serve: the first run of
+    a knob set (`warmed` holds those seen) starts with an unmeasured
+    warm-up engine of those knobs (two short requests); then a fresh
+    engine serves `prompts` greedily, 32 new tokens each, the last two
+    arriving after two steps. With `tree`, the fresh engine first serves
+    those prompts for one token each, unmeasured, so that they sit in its
+    prefix cache. Launch counters are zeroed just before the served run
+    and read just after; the readings count the served run's requests
+    only. Holds every request finished and the margin check; returns the
+    run's readings and streams."""
+    knobs = repr(sorted(kw.items()))
+    if knobs not in warmed:
+        warmed.add(knobs)
+        warm = serve_engine(model, dev, **kw)
+        serve(warm, [p[:48] for p in prompts[:2]], 1, 9)
+        del warm
+        gc.collect()
+    engine = serve_engine(model, dev, **kw)
+    if tree:
+        serve(engine, tree, 0, 1)
+    pc0 = (engine.prefix_cache.stats() if engine.prefix_cache is not None
+           else None)
+    prefill0 = engine.stats()["prefill_time_s"], \
+        engine.stats()["prefill_steps"]
+    pages = engine.cache.allocator
+    pages.reset_peak()
+    zero_counters(counters)
+    rids, wall = serve(engine, prompts, 2, 32)
+    launches = read_counters(counters)
+    stats = engine.stats()
+    reqs = [engine.requests[r] for r in rids]
+    tokens = sum(len(r.generated) for r in reqs)
+    finished = sum(r.status == "finished" for r in reqs)
+    if finished != len(prompts) or tokens != 32 * len(prompts):
+        raise AssertionError(f"{tag}: served run incomplete: {finished} "
+                             f"finished, {tokens} tokens")
+    kv = kw.get("kv_dtype", "bf16")
+    checked, mismatched, worst = rescore(model, engine, prompts, rids,
+                                         MARGIN_TOL[kv], dev, tag)
+    ttfts = [stats["requests"][r]["ttft_s"] for r in rids]
+    # the host wall of a whole-prompt (or whole-suffix) prefill dispatch
+    # and sync; a chunked engine's chunks ride its flat steps instead
+    prefills = stats["prefill_steps"] - prefill0[1]
+    prefill_ms = (None if kw.get("enable_chunked_prefill") else
+                  (stats["prefill_time_s"] - prefill0[0]) / prefills * 1e3)
+    out = dict(tag=tag, launches=launches, wall_s=wall,
+               tokens_per_s=tokens / wall, peak_pages=pages.peak_used,
+               pool_pages=engine.cache.num_pages - 1,
+               mean_ttft_s=float(np.mean(ttfts)),
+               late_ttft_s=[float(t) for t in ttfts[-2:]],
+               prefill_wall_ms=prefill_ms,
+               margin_checked=checked, margin_mismatched=mismatched,
+               margin_worst=worst,
+               streams=[engine.output(r) for r in rids])
+    line = (f"[{tag}] {tokens} tokens in {wall:.3f} s = "
+            f"{tokens / wall:.1f} tokens/s; mean TTFT "
+            f"{np.mean(ttfts) * 1e3:.1f} ms, the late arrivals' "
+            f"{ttfts[-2] * 1e3:.1f} / {ttfts[-1] * 1e3:.1f} ms; "
+            + ("" if prefill_ms is None else
+               f"host wall a prefill {prefill_ms:.1f} ms over {prefills}; ")
+            + f"pool pages at peak {pages.peak_used} of "
+            f"{out['pool_pages']}")
+    if pc0 is not None:
+        pc = engine.prefix_cache.stats()
+        hit = pc["hit_tokens"] - pc0["hit_tokens"]
+        miss = pc["miss_tokens"] - pc0["miss_tokens"]
+        out["prefix_hit_tokens"], out["prefix_miss_tokens"] = hit, miss
+        line += f"; prompt tokens from the cache {hit} of {hit + miss}"
+    if engine.spec_config is not None:
+        sp = {k: sum(getattr(r, f"spec_{k}") for r in reqs)
+              for k in ("drafted", "accepted", "target_steps", "emitted")}
+        sp["tokens_per_target_step"] = sp["emitted"] / sp["target_steps"]
+        out["spec"] = sp
+        line += (f"; drafted {sp['drafted']}, accepted {sp['accepted']}, "
+                 f"{sp['tokens_per_target_step']:.3f} tokens per target "
+                 f"step over {sp['target_steps']} row passes")
+    log(line)
+    log(f"[{tag}] launches: {launches}")
+    del engine
+    gc.collect()
+    return out
+
+
+def phase_serve_prefix_spec(model, seed, dev, profile=False, out_dir=None):
+    """The prefix cache and speculative decoding served at LLaMA-7B width.
+    Prefix part: the shared-prefix requests with the cache off, on, on with
+    chunked prefill (chunks of 256) and the ragged step, and on over int8
+    pools. Spec part: the repeated-passage requests with SpecConfig(
+    lookahead=SPEC_LOOKAHEAD) n-gram drafts off and on, then method
+    "combined" with the prefix cache, chunked prefill and the ragged step,
+    off and on, on engines whose tree first takes the spec-off run's
+    streams (prompt + 32 tokens) as prompts. Each run is held by the
+    margin check; the phase counts the streams identical to the run they
+    pair with, and fails unless each kernel of the path (K1, K4, K6, K6q,
+    K7) launched."""
+    from paddle_tpu_torch.serving import SpecConfig
+
+    prefix, spec_prompts = prefix_spec_prompts(seed, model.llama.config
+                                               .vocab_size)
+    counters = serve_counters()
+    chunked = dict(enable_chunked_prefill=True, prefill_chunk_tokens=256)
+    ngram = SpecConfig(lookahead=SPEC_LOOKAHEAD)
+    combined = SpecConfig(lookahead=SPEC_LOOKAHEAD, method="combined")
+    runs = [
+        # (tag, prompts, engine knobs, kernels that must launch)
+        ("prefix_off", prefix, dict(kv_dtype="bf16"), "K1 K4 K6"),
+        ("prefix_on", prefix, dict(kv_dtype="bf16",
+                                   enable_prefix_caching=True), "K1 K4 K6"),
+        ("prefix_on_ragged", prefix, dict(kv_dtype="bf16",
+                                          enable_prefix_caching=True,
+                                          **chunked), "K4 K6 K7"),
+        ("prefix_on_int8", prefix, dict(kv_dtype="int8",
+                                        enable_prefix_caching=True),
+         "K1 K4 K6q"),
+        ("spec_off", spec_prompts, dict(kv_dtype="bf16"), "K1 K4 K6"),
+        ("spec_on", spec_prompts, dict(kv_dtype="bf16", spec_config=ngram),
+         "K1 K4"),
+        ("combined_off", spec_prompts, dict(kv_dtype="bf16",
+                                            enable_prefix_caching=True,
+                                            **chunked), "K4 K6 K7"),
+        ("combined_on", spec_prompts, dict(kv_dtype="bf16",
+                                           enable_prefix_caching=True,
+                                           spec_config=combined, **chunked),
+         "K1 K4 K7"),
+    ]
+    out, total = {}, dict.fromkeys(("K1", "K4", "K6", "K6q", "K7", "K7q"),
+                                   0)
+    warmed = set()
+    for tag, prompts, kw, need in runs:
+        # the combined runs' engines first serve the spec-off run's whole
+        # streams as prompts: their tree then holds a served continuation
+        # of every prompt, what the radix drafts are for
+        tree = out["spec_off"]["streams"] if tag.startswith("combined") \
+            else ()
+        r = served_run(model, dev, f"serve_{tag}", prompts, kw, counters,
+                       warmed, tree)
+        missing = [k for k in need.split() if r["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"serve_{tag}: kernels never launched: "
+                                 f"{missing}")
+        for k in total:
+            total[k] += r["launches"][k]
+        out[tag] = r
+    hits = out["prefix_on"]["prefix_hit_tokens"]
+    if hits < (len(prefix) - 1) * PREFIX_TOKENS:
+        raise AssertionError(f"serve_prefix_on: {hits} prompt tokens from "
+                             "the cache, expected the shared prefix of "
+                             "every request after the first")
+    for on, off in (("prefix_on", "prefix_off"),
+                    ("prefix_on_ragged", "prefix_off"),
+                    ("spec_on", "spec_off"),
+                    ("combined_on", "combined_off")):
+        same = sum(a == b for a, b in zip(out[on]["streams"],
+                                          out[off]["streams"]))
+        out[on]["identical_to"] = {off: same}
+        log(f"[serve_prefix_spec] {on}: {same} of {len(prefix)} streams "
+            f"identical to {off}")
+    for r in out.values():
+        del r["streams"]
+    missing = [k for k, n in total.items() if n <= 0 and k != "K7q"]
+    if missing:
+        raise AssertionError(f"serve_prefix_spec: kernels never launched: "
+                             f"{missing}")
+    log(f"[serve_prefix_spec] launches over the 8 runs: {total}")
+    out["launches"] = total
+    if profile:
+        # two steps of a speculative engine holding all eight requests,
+        # once every one decodes: each step drains the last block and
+        # dispatches the next
+        engine = serve_engine(model, dev, kv_dtype="bf16", spec_config=ngram)
+        for p in spec_prompts:
+            engine.add_request(p, max_new_tokens=32)
+        for _ in range(len(spec_prompts) + 1):
+            engine.step()
+        out["profile"] = profile_window(
+            "spec_2_blocks", lambda: (engine.step(), engine.step()), out_dir)
+    return out
+
+
+def phase_spec_fp32(seed, dev):
+    """Speculation on the card without bf16's near-ties: LLaMA-7B's widths
+    cut to 2 layers, fp32 weights from the seed and fp32 pools. The
+    repeated-passage requests are served with speculation off, then with
+    method "combined" and the prefix cache, unchunked and chunked with the
+    ragged step, on engines whose tree first takes the spec-off streams as
+    prompts (so the radix drafts propose the spec-off continuation). Each
+    run is held by the margin check at MARGIN_TOL["fp32"]; prints the
+    streams identical to spec-off (counted, not required) and the drafts
+    accepted."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import SpecConfig
+
+    cfg = dataclasses.replace(LlamaConfig.llama7b(), num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             seed=seed)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    _, prompts = prefix_spec_prompts(seed, cfg.vocab_size)
+    counters = serve_counters()
+    combined = dict(kv_dtype="fp32", enable_prefix_caching=True,
+                    spec_config=SpecConfig(lookahead=SPEC_LOOKAHEAD,
+                                           method="combined"))
+    warmed = set()
+    out = {"off": served_run(model, dev, "spec_fp32_off", prompts,
+                             dict(kv_dtype="fp32"), counters, warmed)}
+    tree = out["off"]["streams"]
+    for tag, kw, need in (
+            ("on", combined, "K1 K4"),
+            ("on_ragged", dict(combined, enable_chunked_prefill=True,
+                               prefill_chunk_tokens=256), "K1 K4 K7")):
+        r = served_run(model, dev, f"spec_fp32_{tag}", prompts, kw,
+                       counters, warmed, tree)
+        missing = [k for k in need.split() if r["launches"][k] <= 0]
+        if missing:
+            raise AssertionError(f"spec_fp32_{tag}: kernels never "
+                                 f"launched: {missing}")
+        same = sum(a == b for a, b in zip(r["streams"], tree))
+        r["identical_to_off"] = same
+        log(f"[spec_fp32] {tag}: {same} of {len(prompts)} streams "
+            "identical to spec-off")
+        out[tag] = r
+    for r in out.values():
+        del r["streams"]
+    del model
+    return out
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -3303,11 +3671,7 @@ def profile_window(label, fn, out_dir):
 def phase_profile(model, prompts, dev, out_dir):
     """Profile one prefill (the longest prompt) and two decode blocks of
     eight rows, on a fresh engine holding all eight requests."""
-    from paddle_tpu_torch.serving import ServingEngine
-
-    engine = ServingEngine(model, page_size=16, max_batch_size=8,
-                           max_seq_len=1024, decode_horizon=8,
-                           kv_dtype="bf16", device=dev)
+    engine = serve_engine(model, dev, kv_dtype="bf16")
     order = sorted(prompts, key=len)
     for p in order:
         engine.add_request(p, max_new_tokens=32)
@@ -3392,6 +3756,10 @@ def summarize(main_rows, launches_by_path):
         if k == "K1":
             entry["dropout_p"] = r.get("dropout_p", 0.0)
             entry["lse_max_abs_err"] = r.get("lse_err")
+            v = main_rows["K1 verify"]
+            entry["verify_window"] = {x: v[x] for x in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "window_attend_ms", "dtype", "case")}
         if k in ("K1r", "K2r", "K3r"):
             entry["steps"] = {label: {x: s[x] for x in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3431,8 +3799,8 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile one prefill and two decode blocks of the "
                          "served slice, two ragged steps of the chunked "
-                         "serve, one ERNIE, one T5 and one MoE train "
-                         "step with torch.profiler")
+                         "serve, two speculative blocks, one ERNIE, one T5 "
+                         "and one MoE train step with torch.profiler")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3441,8 +3809,10 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
     result = {"nvidia_smi": smi, "build_s": phase_build(args.out)}
     rows, main_rows, launches = [], {}, {}
-    k1_cases(rows, dev)         # the summary's K1 / K4 rows are the
-    k4_cases(rows, dev)         # training path's (k1 / k45_train_cases)
+    # the summary's K1 / K4 rows are the training path's (k1 /
+    # k45_train_cases); K1's verify window rides beside its row
+    main_rows.update(k1_cases(rows, dev))
+    k4_cases(rows, dev)
     main_rows["K6"] = k6_cases(rows, dev)
     main_rows["K6q"] = k6q_cases(rows, dev)
     main_rows.update(k7_cases(rows, dev))
@@ -3479,8 +3849,19 @@ def main(argv=None):
                             ragged=False)
     result["serve_chained"] = r
     launches["serve_chained"] = r["launches"]
+    release()
+    t0 = time.perf_counter()
+    r = phase_serve_prefix_spec(model, args.seed, dev, args.profile,
+                                args.out)
+    result["serve_prefix_spec"] = r
+    launches["serve_prefix_spec"] = r["launches"]
     del model
     release()
+    result["spec_fp32"] = phase_spec_fp32(args.seed, dev)
+    release()
+    r["phases_s"] = time.perf_counter() - t0
+    log(f"[serve_prefix_spec] this phase and spec_fp32 took "
+        f"{r['phases_s']:.1f} s")
     result["train"] = phase_train(args.seed, dev, args.profile, args.out)
     launches["train"] = result["train"]["launches"]
     release()

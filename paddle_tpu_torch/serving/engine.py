@@ -26,23 +26,36 @@ the `forward(input_ids, caches=..., start_pos=...)` cache protocol
   the decode rows; without it, the decode block runs and each chunk is
   its own prefill call at its offset ("mixed" steps);
 - quantized KV pools (`kv_dtype="int8"` / `"fp8"`): K/V quantized once at
-  page-write time with per-slot fp32 scales (serving.quant).
+  page-write time with per-slot fp32 scales (serving.quant);
+- prefix caching (`enable_prefix_caching=True`, serving.prefix_cache):
+  admission reuses the longest cached full-page prefix of a prompt, and
+  the prefill runs only the suffix, at the cached offset, attending over
+  the shared pages through the page table; every prefilled prompt's full
+  pages enter the radix tree;
+- speculative decoding (`spec_config=SpecConfig(...)`, serving.spec,
+  imported only then): drafts proposed on the host from the request's own
+  stream (n-gram) or the prefix cache's tree, verified in (b, 1 + L)
+  windows on the device with rejection sampling. A speculative block
+  drains before the next step is scheduled, so its worst-case page charge
+  is reverted to what was accepted before the next block is charged.
 
 PyTorch runs eagerly, so there are no compiled executables to bound; the
 KV pools are CUDA tensors written in place (`serving.attention`).
 
-Sampling. Greedy (temperature 0) is exact argmax. Otherwise a request's
-n-th sampled token uses Gumbel noise that is a counter-based function of
-(request seed, n, vocab index) computed on the device, so a stream depends
-neither on the decode horizon nor on the batch it rode in, survives
-preemption, and is the same chunked or unchunked: an intermediate chunk
-draws nothing and a final chunk samples at the request's next draw index.
-The JAX engine's threefry bits are not reproduced.
+Sampling (`serving.sampling`). Greedy (temperature 0) is exact argmax.
+Otherwise a request's n-th sampled token uses Gumbel noise that is a
+counter-based function of (request seed, n, vocab index) computed on the
+device, so a stream depends neither on the decode horizon nor on the
+batch it rode in, survives preemption, and is the same chunked or
+unchunked: an intermediate chunk draws nothing and a final chunk samples
+at the request's next draw index.
+Under speculation the draw index still advances by exactly the tokens
+emitted. The JAX engine's threefry bits are not reproduced.
 
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item rather than ignored: prefix caching, speculative decoding, tensor
-parallelism, the request journal, fault injection, deadlines, SLO classes,
-the flight recorder and post-mortem dumps.
+item rather than ignored: tensor parallelism, the request journal, fault
+injection, deadlines, SLO classes, the flight recorder and post-mortem
+dumps.
 """
 from __future__ import annotations
 
@@ -54,21 +67,17 @@ import torch
 
 from ..device import resolve_device, same_device
 from ..observability import Histogram, MetricsRegistry
-from ..ops.dropout_mask import M32 as _M32
-from ..ops.dropout_mask import fmix32 as _fmix32
-from ..ops.dropout_mask import mul32 as _mul32
 from .attention import advance_positions
 from .kv_cache import (KV_DTYPES, PagedKVCache, host_to_device,
                        overflow_position, pages_for)
+from .prefix_cache import PrefixCache
 from .ragged import build_ragged_inputs, token_buckets
 from .resilience import TERMINAL_STATUSES
+from .sampling import PAD_TOKEN, sample_batch
 from .scheduler import Request, SamplingParams, Scheduler
 
 __all__ = ["ServingEngine", "ServingObs", "PAD_TOKEN"]
 
-# emitted by dead rows inside a decode block (finished / padding); the
-# host drain trims each row at its first PAD
-PAD_TOKEN = -1
 
 
 def _default_buckets(max_seq_len: int) -> Tuple[int, ...]:
@@ -80,47 +89,6 @@ def _default_buckets(max_seq_len: int) -> Tuple[int, ...]:
         b *= 2
     buckets.append(max_seq_len)
     return tuple(buckets)
-
-
-def _uniforms(seeds: torch.Tensor, draws: torch.Tensor,
-              vocab: int) -> torch.Tensor:
-    """(b, vocab) fp32 uniforms in (0, 1): a counter-based function of
-    (seed, draw index, vocab index), identical on every device."""
-    row = _fmix32(_fmix32((seeds & _M32) ^ 0x9E3779B9) ^ (draws & _M32))
-    idx = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
-    x = _fmix32((row[:, None] + _mul32(idx, 0x9E3779B9)[None, :]) & _M32)
-    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-
-
-def _sample_batch(logits: torch.Tensor, knobs: dict,
-                  draws: torch.Tensor) -> torch.Tensor:
-    """Per-row sampling, mirroring the reference `_sample_batch`: greedy
-    where temperature == 0, else temperature -> top-k -> top-p ->
-    categorical, the last by Gumbel-max over `_uniforms`."""
-    logits = logits.float()
-    greedy = logits.argmax(dim=-1)
-    if knobs["greedy_only"]:
-        return greedy
-    temps, top_ks, top_ps = knobs["temps"], knobs["top_ks"], knobs["top_ps"]
-    vocab = logits.shape[-1]
-    t_safe = torch.where(temps > 0.0, temps, torch.ones_like(temps))
-    scaled = logits / t_safe[:, None]
-    # top-k as a rank threshold (top_k <= 0 keeps all V)
-    k_eff = torch.where(top_ks > 0, top_ks.clamp(max=vocab),
-                        torch.full_like(top_ks, vocab))
-    sorted_desc = scaled.sort(dim=-1, descending=True).values
-    kth = sorted_desc.gather(-1, (k_eff - 1)[:, None])
-    masked = scaled.masked_fill(scaled < kth, float("-inf"))
-    # top-p over the top-k-masked distribution
-    sorted_m = masked.sort(dim=-1, descending=True).values
-    cum = sorted_m.softmax(dim=-1).cumsum(dim=-1)
-    cutoff_idx = (cum < top_ps[:, None]).sum(dim=-1, keepdim=True).clamp(
-        max=vocab - 1)
-    cutoff = sorted_m.gather(-1, cutoff_idx)
-    masked = masked.masked_fill(masked < cutoff, float("-inf"))
-    gumbel = -torch.log(-torch.log(_uniforms(knobs["seeds"], draws, vocab)))
-    sampled = (masked + gumbel).argmax(dim=-1)
-    return torch.where(temps == 0.0, greedy, sampled)
 
 
 def _start_host_copy(t: torch.Tensor):
@@ -199,6 +167,13 @@ class ServingObs:
                             "allocatable KV pages right now")
         self.kv_util = g("serving_kv_page_utilization",
                          "fraction of allocatable KV pages in use")
+        # speculative decoding handles, bound by bind_spec() only when the
+        # engine runs with spec_config
+        self.spec_drafted = None
+        self.spec_accepted = None
+        self.spec_wasted = None
+        self.spec_target_steps = None
+        self.spec_tokens_per_step = None
 
     def bind_kv_pool(self, kv_dtype: str, pool_bytes: int,
                      fp32_pool_bytes: int,
@@ -220,6 +195,35 @@ class ServingObs:
                     "construction-time probe on gaussian K/V"
                     ).set(rms_error)
 
+    def bind_spec(self) -> None:
+        """Speculative-decoding counters: drafted / accepted / wasted
+        draft tokens, the target-model passes their accept rate divides
+        into, and the tokens-per-target-step histogram (1.0 is plain
+        decoding), one sample per request per drained block."""
+        c = self.registry.counter
+        self.spec_drafted = c("serving_spec_drafted_tokens_total",
+                              "draft tokens submitted to verification")
+        self.spec_accepted = c("serving_spec_accepted_tokens_total",
+                               "draft tokens accepted by rejection sampling")
+        self.spec_wasted = c("serving_spec_wasted_tokens_total",
+                             "draft tokens rejected (verified, not emitted)")
+        self.spec_target_steps = c(
+            "serving_spec_target_steps_total",
+            "target-model verify passes over speculative rows")
+        self.spec_tokens_per_step = self.registry.histogram(
+            "serving_spec_tokens_per_target_step",
+            "tokens emitted per target-model pass, one sample per request "
+            "per drained speculative block")
+
+    def spec_drained(self, d_cnt: int, a_cnt: int, s_cnt: int,
+                     emitted: int) -> None:
+        self.spec_drafted.inc(d_cnt)
+        self.spec_accepted.inc(a_cnt)
+        self.spec_wasted.inc(d_cnt - a_cnt)
+        self.spec_target_steps.inc(s_cnt)
+        if s_cnt:
+            self.spec_tokens_per_step.observe(emitted / s_cnt)
+
     # --------------------------------------------------- scheduler hooks
     def preempted(self, req: Request) -> None:
         self.preemptions.inc()
@@ -238,8 +242,6 @@ class ServingObs:
 # engine knobs of the reference that the port does not run yet, with the
 # ROADMAP item that ports each
 _NOT_PORTED = {
-    "enable_prefix_caching": "queue 1, S2 (prefix cache)",
-    "spec_config": "queue 1, S4 (speculative decoding)",
     "tp_size": "queue 1, S5 (tensor-parallel serving)",
     "journal": "queue 1, S7 (journal and recovery)",
     "fault_injector": "queue 1, S8 (resilience: fault injection, "
@@ -288,8 +290,7 @@ class ServingEngine:
         from ..models.generation import _config_of
 
         for knob, value in (
-                ("enable_prefix_caching", enable_prefix_caching),
-                ("spec_config", spec_config), ("journal", journal),
+                ("journal", journal),
                 ("fault_injector", fault_injector),
                 ("slo_classes", slo_classes),
                 ("flight_recorder", flight_recorder),
@@ -318,6 +319,18 @@ class ServingEngine:
         self.decode_horizon = int(decode_horizon)
         if self.decode_horizon < 1:
             raise ValueError("decode_horizon must be >= 1")
+        # speculative decoding: the module is imported inside this branch
+        # only, so a spec-off engine runs no speculative code at all
+        if spec_config is not None:
+            from . import spec as _spec_module
+
+            self._spec = _spec_module
+            self.spec_config = spec_config.validate()
+        else:
+            self._spec = None
+            self.spec_config = None
+        self._spec_lookahead = (self.spec_config.lookahead
+                                if self.spec_config is not None else 0)
         # chunked prefill: page-aligned chunks co-scheduled with decode
         # under a per-step token budget. The chunk width must be a
         # positive multiple of page_size (chunk starts stay page-aligned)
@@ -332,9 +345,12 @@ class ServingEngine:
                     f"be a positive multiple of page_size ({page_size})")
             if max_num_batched_tokens is None:
                 # one full chunk always fits beside a full decode batch
+                # (decoders charge a block's worst case, horizon x
+                # (1 + lookahead) under speculation)
                 max_num_batched_tokens = (self.prefill_chunk_tokens
                                           + max_batch_size
-                                          * self.decode_horizon)
+                                          * self.decode_horizon
+                                          * (1 + self._spec_lookahead))
             self.max_num_batched_tokens = int(max_num_batched_tokens)
             if self.max_num_batched_tokens < self.prefill_chunk_tokens:
                 raise ValueError(
@@ -371,6 +387,14 @@ class ServingEngine:
                 rms = measure_roundtrip_error(c.quant_spec, c.head_dim)
             self._obs.bind_kv_pool(c.kv_dtype, c.pool_bytes,
                                    self._fp32_pool_bytes(), rms)
+            if self.spec_config is not None:
+                self._obs.bind_spec()
+        # automatic prefix caching: prefilled prompts leave their full
+        # pages in a radix tree, and a later prompt sharing a page-aligned
+        # prefix reuses them and prefills only its suffix
+        self.prefix_cache = (PrefixCache(self.cache.allocator, page_size,
+                                         metrics=self.metrics)
+                             if enable_prefix_caching else None)
         self.prefill_buckets = tuple(sorted(
             prefill_buckets or _default_buckets(self.max_seq_len)))
         if self.prefill_buckets[-1] < self.max_seq_len:
@@ -379,6 +403,7 @@ class ServingEngine:
                              "full current length)")
         self.scheduler = Scheduler(self.cache.allocator, page_size,
                                    max_batch_size, self.max_pages_per_seq,
+                                   prefix_cache=self.prefix_cache,
                                    decode_horizon=self.decode_horizon,
                                    drain_hook=self._drain_for_scheduler,
                                    obs=self._obs, max_waiting=max_waiting,
@@ -392,7 +417,8 @@ class ServingEngine:
                                        self.prefill_chunk_tokens),
                                    max_num_batched_tokens=(
                                        self.max_num_batched_tokens),
-                                   ragged_steps=self.enable_ragged_step)
+                                   ragged_steps=self.enable_ragged_step,
+                                   spec_lookahead=self._spec_lookahead)
         self.requests: Dict[int, Request] = {}
         # per-request sampling state: the seed, and how many tokens the
         # request has sampled so far (its next draw index)
@@ -491,6 +517,13 @@ class ServingEngine:
             # wanted decode steps: a wave boundary, or a stretch where
             # every running request is mid-prefill, resets the clock
             self._last_decode_dispatch_t = None
+        if self._pending is not None and "windows" in self._pending:
+            # a speculative record's drain reverts its worst-case page
+            # charge, so it runs BEFORE schedule() charges the next block:
+            # draining after would pop pages the next block's table needs
+            # and sink its K/V writes into the null page. It costs nothing:
+            # a speculative block never chains on device carries
+            self._spill.extend(self._drain_pending())
         t_sched = time.perf_counter()
         decision = self.scheduler.schedule()   # drain_hook may spill here
         if self._obs is not None:
@@ -500,7 +533,7 @@ class ServingEngine:
         if decision.kind == "prefill":
             return spilled + self._prefill(decision.prefill)
         if decision.kind == "decode":
-            return spilled + self._decode(decision.decode)
+            return spilled + self._decode_path(decision.decode)
         if decision.kind == "ragged":
             return spilled + self._ragged_step(decision)
         if decision.kind == "mixed":
@@ -514,7 +547,7 @@ class ServingEngine:
         same stream. Intermediate chunks sync nothing."""
         events: List[Tuple[int, int]] = []
         if decision.decode:
-            events.extend(self._decode(decision.decode))
+            events.extend(self._decode_path(decision.decode))
         elif self._pending is not None:
             events.extend(self._drain_pending())
         for task in decision.chunks:
@@ -602,11 +635,17 @@ class ServingEngine:
         raise ValueError(f"prompt length {n} exceeds largest bucket")
 
     def _prefill(self, req: Request) -> List[Tuple[int, int]]:
+        """Prefill a prompt, or on a prefix-cache hit only its uncached
+        suffix, bucketed on the suffix length, at the cached offset (a
+        host int: offset 0 attends over the step's own K/V, a cached
+        offset over the gathered page table); the first token is sampled
+        from the suffix's last logits."""
         t_in = time.perf_counter()
-        prompt = req.prompt
-        bucket = self._bucket_for(len(prompt))
+        n_cached = req.cached_tokens
+        suffix = req.prompt[n_cached:]
+        bucket = self._bucket_for(len(suffix))
         ids = np.zeros((1, bucket), np.int64)
-        ids[0, :len(prompt)] = prompt
+        ids[0, :len(suffix)] = suffix
         ids = host_to_device(ids, self.device)
         page_table = self.cache.page_table_array([req.pages],
                                                  self.max_pages_per_seq)
@@ -616,10 +655,14 @@ class ServingEngine:
         t0 = time.perf_counter()
         with torch.no_grad():
             logits, _ = self.model(ids, caches=self.cache.layer_views(
-                page_table), start_pos=0)
-            tok = _sample_batch(logits[:, len(prompt) - 1], knobs, draws)
+                page_table), start_pos=n_cached)
+            tok = sample_batch(logits[:, len(suffix) - 1], knobs, draws)
             token = int(tok[0])                # the prefill's host sync
-        req.num_computed_tokens = len(prompt)
+        req.num_computed_tokens = len(req.prompt)
+        if self.prefix_cache is not None:
+            # the prompt's full pages become reusable (the partial last
+            # page never enters the tree)
+            self.prefix_cache.insert(req.prompt, req.pages)
         now = time.perf_counter()
         o = self._obs
         prev_t = req.last_token_t              # set => this is a re-prefill
@@ -662,7 +705,7 @@ class ServingEngine:
             logits, _ = self.model(ids, caches=self.cache.layer_views(
                 page_table), start_pos=offset)
             if final:
-                tok = _sample_batch(logits[:, n - 1], knobs, draws)
+                tok = sample_batch(logits[:, n - 1], knobs, draws)
                 token = int(tok[0])            # the final chunk's host sync
         req.num_computed_tokens = start + n
         now = time.perf_counter()
@@ -675,6 +718,8 @@ class ServingEngine:
             o.step_phase["dispatch"].observe(now - t0)
         if not final:
             return []
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(req.prompt, req.pages)
         prev_t = req.last_token_t              # set => this is a re-prefill
         if o is not None:
             o.prefill_steps.inc()
@@ -695,7 +740,12 @@ class ServingEngine:
         0. Flat inputs come from host request state, so any pending block
         drains FIRST; the record this step leaves drains under the next
         step's device time, so a final chunk's token surfaces at the next
-        drain."""
+        drain.
+
+        Under speculation the decode iterations after iteration 0 are
+        horizon-1 verify windows over the decode rows
+        (spec.verify_windows), whose drafts start after iteration 0's
+        token."""
         events = self._drain_pending()
         t_in = time.perf_counter()      # assemble starts after the drain
         decode = [r for r in decision.decode if r.status == "running"]
@@ -704,11 +754,16 @@ class ServingEngine:
                   and t.start == t.req.num_computed_tokens]
         if not chunks:
             # every chunk went stale during the drain: plain decode
-            return events + (self._decode(decode) if decode else [])
+            return events + (self._decode_path(decode) if decode else [])
         max_pages = self.max_pages_per_seq
+        h, L = self.decode_horizon, self._spec_lookahead
+        spec_on = self.spec_config is not None
+        # a speculative decode row can emit 1 (iteration 0) + (h-1) x
+        # (1+L) tokens: the in-flight bound scales with it
         batch = build_ragged_inputs(
             decode, chunks, buckets=self.token_buckets,
-            max_batch=self.max_batch_size, horizon=self.decode_horizon,
+            max_batch=self.max_batch_size,
+            horizon=1 + (h - 1) * (1 + L),
             page_size=self.page_size, max_pages=max_pages,
             draws=self._draws)
         if batch is None:
@@ -724,26 +779,40 @@ class ServingEngine:
             for x in (batch.flat_pos, batch.row_ids, batch.positions,
                       batch.remaining, batch.draws))
         knobs = self._knobs(batch.reqs, self.max_batch_size)
+        if spec_on:
+            # drafts for the decode rows only: a final chunk emits its one
+            # iteration-0 token and parks
+            dbuf = host_to_device(self._spec.build_draft_buffer(
+                decode, self.max_batch_size, h * (1 + L), self.spec_config,
+                self.prefix_cache), dev)
         t0 = time.perf_counter()
         with torch.no_grad():
             logits, _ = self.model(
                 flat_ids, caches=self.cache.layer_views(page_tables,
                                                         row_ids),
                 start_pos=flat_pos)
-            nxt = _sample_batch(logits[0, last_idx], knobs, draws)
+            nxt = sample_batch(logits[0, last_idx], knobs, draws)
+            alive = remaining > 0
             emit, tokens, positions, draws, remaining = self._advance(
                 nxt, tokens, positions, draws, knobs, remaining, max_pages)
-            emitted = [emit]
-            if decode:
-                # chunk rows are parked now; a chunk-only step skips the
-                # iterations in which every row would be dead
-                views = self.cache.layer_views(page_tables)
-                for _ in range(self.decode_horizon - 1):
+            emitted = [emit[:, None]]
+            # chunk rows are parked now; a chunk-only step skips the
+            # iterations in which every row would be dead
+            views = self.cache.layer_views(page_tables) if decode else None
+            if spec_on:
+                # the tokens and the accept counters come back in ONE copy
+                emitted.extend(self._spec.verify_windows(
+                    self.model, views, dbuf, tokens, positions, draws,
+                    knobs, remaining, windows=h - 1 if decode else 0,
+                    lookahead=L, page_size=self.page_size, first=nxt,
+                    alive=alive))
+            elif decode:
+                for _ in range(h - 1):
                     emit, tokens, positions, draws, remaining = \
                         self._decode_iter(views, tokens, positions, draws,
                                           knobs, remaining, max_pages)
-                    emitted.append(emit)
-            emitted = torch.stack(emitted, dim=1)
+                    emitted.append(emit[:, None])
+            emitted = torch.cat(emitted, dim=1)
         host, event = _start_host_copy(emitted)
         for req, n in zip(batch.reqs, batch.incr):
             req.inflight += n
@@ -751,6 +820,10 @@ class ServingEngine:
         o = self._obs
         for task in chunks:
             task.req.num_computed_tokens = task.start + task.length
+            if task.is_final and self.prefix_cache is not None:
+                # the pages are complete once this dispatch lands; later
+                # dispatches queue behind it on the stream
+                self.prefix_cache.insert(task.req.prompt, task.req.pages)
             if o is not None:
                 o.prefill_chunks.inc()
                 if task.is_final:
@@ -774,6 +847,9 @@ class ServingEngine:
                 "reqs": list(batch.reqs), "incr": list(batch.incr),
                 "host": host, "event": event, "t0": t0,
             }
+            if spec_on:
+                self._pending["windows"] = (
+                    (1,) + (L + 1,) * (h - 1) if decode else (1,))
         # else: intermediate chunks only - nothing can emit, so no record
         # (and no host sync) is left behind
         return events
@@ -802,7 +878,7 @@ class ServingEngine:
         """One model step of every row with sampling and `_advance`."""
         logits, _ = self.model(tokens[:, None], caches=views,
                                start_pos=positions)
-        nxt = _sample_batch(logits[:, 0], knobs, draws)
+        nxt = sample_batch(logits[:, 0], knobs, draws)
         return self._advance(nxt, tokens, positions, draws, knobs,
                              remaining, max_pages)
 
@@ -830,6 +906,96 @@ class ServingEngine:
             b *= 2
         return min(b, self.max_batch_size)
 
+    def _decode_page_tables(self, reqs: Sequence[Request],
+                            b: int) -> torch.Tensor:
+        page_lists: List[Sequence[int]] = [()] * b
+        for i, req in enumerate(reqs):
+            page_lists[i] = req.pages
+        return self.cache.page_table_array(page_lists,
+                                           self.max_pages_per_seq)
+
+    def _decode_inputs(self, reqs: Sequence[Request], b: int):
+        """A fresh block's (tokens, positions, remaining, draws, knobs) on
+        the device for `b` rows, from (drained, accurate) host state; rows
+        past `reqs` are dead padding parked at the overflow slot."""
+        park = overflow_position(self.max_pages_per_seq, self.page_size)
+        tokens = np.zeros((b,), np.int64)
+        positions = np.full((b,), park, np.int32)
+        remaining = np.zeros((b,), np.int32)
+        draws = np.zeros((b,), np.int64)
+        for i, req in enumerate(reqs):
+            tokens[i] = (req.generated[-1] if req.generated
+                         else req.prompt[-1])
+            # the input token's K/V lands at its own position; the step
+            # predicts the token after it
+            positions[i] = req.num_tokens - 1
+            remaining[i] = req.max_new_tokens - len(req.generated)
+            draws[i] = self._draws[req.request_id]
+        dev = self.device
+        return tuple(host_to_device(x, dev) for x in (
+            tokens, positions, remaining, draws)) + (self._knobs(reqs, b),)
+
+    def _decode_path(self, reqs: Sequence[Request]
+                     ) -> List[Tuple[int, int]]:
+        """A decode batch goes to the speculative block when speculation
+        is on; the spec-off path is `_decode`, unchanged."""
+        if self.spec_config is not None:
+            return self._spec_decode(reqs)
+        return self._decode(reqs)
+
+    def _spec_decode(self, reqs: Sequence[Request]
+                     ) -> List[Tuple[int, int]]:
+        """A speculative decode block: `decode_horizon` verify windows of
+        (b, 1 + lookahead) tokens (spec.verify_windows). Its drafts come
+        from HOST request state, so the pending block drains FIRST and a
+        speculative block never chains on device carries; its own record
+        drains under the next step's work. A row can emit up to horizon
+        x (1 + lookahead) tokens: the scheduler charged pages for that,
+        and the drain reverts the charge to what was accepted."""
+        events = self._drain_pending()
+        t_in = time.perf_counter()
+        reqs = [r for r in reqs if r.status == "running"]
+        if not reqs:
+            return events
+        h, L = self.decode_horizon, self._spec_lookahead
+        cap = h * (1 + L)
+        b = self._decode_rows(len(reqs))
+        page_tables = self._decode_page_tables(reqs, b)
+        tokens, positions, remaining, draws, knobs = self._decode_inputs(
+            reqs, b)
+        # drafts ride in as one (b, cap) PAD-padded buffer; each window
+        # slides its row's cursor by the row's emitted count
+        dbuf = host_to_device(self._spec.build_draft_buffer(
+            reqs, b, cap, self.spec_config, self.prefix_cache), self.device)
+        incr = [max(min(cap, r.max_new_tokens - len(r.generated)
+                        - r.inflight), 0) for r in reqs]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = torch.cat(self._spec.verify_windows(
+                self.model, self.cache.layer_views(page_tables), dbuf,
+                tokens, positions, draws, knobs, remaining, windows=h,
+                lookahead=L, page_size=self.page_size), dim=1)
+        # the tokens and the accept counters come back in ONE copy
+        host, event = _start_host_copy(out)
+        for req, n in zip(reqs, incr):
+            req.inflight += n
+        o = self._obs
+        if o is not None:
+            o.step_phase["assemble"].observe(t0 - t_in)
+            o.step_phase["dispatch"].observe(time.perf_counter() - t0)
+            o.decode_steps.inc()
+            o.dispatches.inc()
+            if self._last_decode_dispatch_t is not None:
+                o.decode_stall.observe(
+                    max(t0 - self._last_decode_dispatch_t, 0.0))
+        self._last_decode_dispatch_t = t0
+        self._pending = {
+            "kind": "spec", "rids": tuple(r.request_id for r in reqs),
+            "reqs": list(reqs), "incr": incr, "host": host, "event": event,
+            "windows": (L + 1,) * h, "t0": t0,
+        }
+        return events
+
     def _decode(self, reqs: Sequence[Request]) -> List[Tuple[int, int]]:
         t_in = time.perf_counter()
         reqs = [r for r in reqs if r.status == "running"]
@@ -851,31 +1017,11 @@ class ServingEngine:
             rids = tuple(r.request_id for r in reqs)
             prev = None
         b = self._decode_rows(len(reqs))
-        page_lists: List[Sequence[int]] = [()] * b
-        for i, req in enumerate(reqs):
-            page_lists[i] = req.pages
-        page_tables = self.cache.page_table_array(page_lists,
-                                                  self.max_pages_per_seq)
+        page_tables = self._decode_page_tables(reqs, b)
         if prev is None:
             # fresh block: inputs from (drained, accurate) host state
-            park = overflow_position(self.max_pages_per_seq, self.page_size)
-            tokens = np.zeros((b,), np.int64)
-            positions = np.full((b,), park, np.int32)
-            remaining = np.zeros((b,), np.int32)
-            draws = np.zeros((b,), np.int64)
-            for i, req in enumerate(reqs):
-                tokens[i] = (req.generated[-1] if req.generated
-                             else req.prompt[-1])
-                # the input token's K/V lands at its own position; the step
-                # predicts the token after it
-                positions[i] = req.num_tokens - 1
-                remaining[i] = req.max_new_tokens - len(req.generated)
-                draws[i] = self._draws[req.request_id]
-            knobs = self._knobs(reqs, b)
-            dev = self.device
-            tokens, positions, remaining, draws = (
-                host_to_device(x, dev)
-                for x in (tokens, positions, remaining, draws))
+            tokens, positions, remaining, draws, knobs = \
+                self._decode_inputs(reqs, b)
         else:
             # chained block: the pending block's device carries, no sync
             tokens, positions = prev["tokens"], prev["positions"]
@@ -931,12 +1077,19 @@ class ServingEngine:
 
     def _drain_record(self, rec: dict) -> List[Tuple[int, int]]:
         """THE host sync of a decode block: wait for its token copy,
-        append per-request tokens trimmed at PAD, finish requests."""
+        append per-request tokens trimmed at PAD, finish requests. A
+        speculative record (`windows` set) carries PAD-terminated windows
+        and the rows' (drafted, accepted, target steps) counters in the
+        same copy; after it drains, each running row's worst-case page
+        charge is reverted."""
         o = self._obs
         t_in = time.perf_counter()
         if rec["event"] is not None:
             rec["event"].synchronize()
         toks = rec["host"].numpy()
+        windows = rec.get("windows")
+        if windows is not None:
+            toks, sstats = toks[:, :-3], toks[:, -3:]
         if o is not None:
             o.host_syncs.inc()
         now = time.perf_counter()
@@ -947,7 +1100,10 @@ class ServingEngine:
                 continue
             prev_t = req.last_token_t
             k0 = len(events)
-            for t in toks[i]:
+            row = toks[i]
+            if windows is not None:
+                row = self._spec.parse_emitted_row(row, windows)
+            for t in row:
                 t = int(t)
                 if t == PAD_TOKEN:
                     break
@@ -955,12 +1111,26 @@ class ServingEngine:
                 if req.status != "running":
                     break
             k = len(events) - k0
+            if windows is not None:
+                d_cnt, a_cnt, s_cnt = (int(v) for v in sstats[i])
+                req.spec_drafted += d_cnt
+                req.spec_accepted += a_cnt
+                req.spec_target_steps += s_cnt
+                req.spec_emitted += k
+                if o is not None:
+                    o.spec_drained(d_cnt, a_cnt, s_cnt, k)
             if o is not None and k and prev_t is not None:
                 # the block lands as a burst: spread its host-visible gap
                 # evenly over the k tokens it carried
                 per_tok = max(now - prev_t, 0.0) / k
                 for _ in range(k):
                     o.inter_token.observe(per_tok)
+        if windows is not None:
+            # roll the worst-case page charge back to what was accepted;
+            # the next block's charge tops it up again in schedule()
+            for req in rec["reqs"]:
+                if req.status == "running":
+                    self.scheduler.revert_spec_pages(req)
         # decode wall time without double-counting overlapped block spans
         start = max(rec["t0"], self._last_drain_t)
         if o is not None:
@@ -1012,6 +1182,28 @@ class ServingEngine:
                                 for r in self.requests.values())
         s["free_pages"] = self.cache.allocator.num_free
         empty = Histogram.empty_summary()
+        if self.prefix_cache is not None:
+            s["prefix_cache"] = self.prefix_cache.stats()
+        if self.spec_config is not None:
+            # from request state, so the shape is the same with metrics off
+            reqs = self.requests.values()
+            drafted = sum(r.spec_drafted for r in reqs)
+            accepted = sum(r.spec_accepted for r in reqs)
+            steps = sum(r.spec_target_steps for r in reqs)
+            emitted = sum(r.spec_emitted for r in reqs)
+            s["spec"] = {
+                "lookahead": self.spec_config.lookahead,
+                "method": self.spec_config.method,
+                "drafted_tokens": drafted,
+                "accepted_tokens": accepted,
+                "wasted_tokens": drafted - accepted,
+                "accept_rate": accepted / drafted if drafted else 0.0,
+                "target_steps": steps,
+                "tokens_per_target_step": (emitted / steps
+                                           if steps else 0.0),
+                "tokens_per_step": (o.spec_tokens_per_step.summary()
+                                    if o is not None else empty),
+            }
         s["latency"] = {
             "ttft": o.ttft.summary() if o is not None else empty,
             "inter_token": (o.inter_token.summary() if o is not None

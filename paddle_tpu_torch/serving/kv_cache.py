@@ -68,9 +68,11 @@ def host_to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 class BlockAllocator:
     """Refcounted free-list page allocator. Page ids are ints in
     [1, num_pages); page 0 is the reserved null page and is never handed
-    out. A freshly allocated page carries one reference and `free` drops
-    it (sharing pages, the prefix cache's `acquire`, is not ported
-    yet)."""
+    out. A freshly allocated page carries one reference; the prefix cache
+    `acquire`s more when the page enters its radix tree or another
+    sequence's page table, and `free` drops one, returning the page to the
+    free list when none is left. Without a prefix cache every page stays
+    at refcount 1."""
 
     def __init__(self, num_pages: int):
         if num_pages < 2:
@@ -79,8 +81,12 @@ class BlockAllocator:
         # LIFO keeps recently-freed (cache-warm) pages in rotation
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._refs: dict = {}
+        # the most pages in use at once since construction or the last
+        # reset_peak() (a pool-pressure reading; nothing schedules on it)
+        self.peak_used = 0
         self._m_alloc = None
         self._m_recycle = None
+        self._m_share = None
 
     def bind_metrics(self, registry) -> None:
         """Attach page-lifecycle counters from a MetricsRegistry (handles
@@ -90,6 +96,9 @@ class BlockAllocator:
         self._m_recycle = registry.counter(
             "serving_kv_page_recycles_total",
             "pages returned to the free list (last reference dropped)")
+        self._m_share = registry.counter(
+            "serving_kv_page_shares_total",
+            "extra references acquired on shared pages")
 
     @property
     def num_free(self) -> int:
@@ -105,6 +114,10 @@ class BlockAllocator:
     def num_used(self) -> int:
         return len(self._refs)
 
+    def reset_peak(self) -> None:
+        """Restart `peak_used` from the pages in use now."""
+        self.peak_used = len(self._refs)
+
     def ref_count(self, page: int) -> int:
         """Live references on `page` (0 = free)."""
         return self._refs.get(page, 0)
@@ -114,6 +127,7 @@ class BlockAllocator:
             return None
         page = self._free.pop()
         self._refs[page] = 1
+        self.peak_used = max(self.peak_used, len(self._refs))
         if self._m_alloc is not None:
             self._m_alloc.inc()
         return page
@@ -128,6 +142,17 @@ class BlockAllocator:
         if len(self._free) < n:
             return None
         return [self._alloc_unchecked() for _ in range(n)]
+
+    def acquire(self, page: int) -> None:
+        """Add one reference to an allocated page (prefix-cache sharing:
+        the page enters another page table or the radix tree)."""
+        if page == NULL_PAGE:
+            raise ValueError("page 0 is the reserved null page")
+        if page not in self._refs:
+            raise ValueError(f"acquire of free/unknown page {page}")
+        self._refs[page] += 1
+        if self._m_share is not None:
+            self._m_share.inc()
 
     def free(self, page: int) -> None:
         """Drop one reference; the page returns to the free list only when

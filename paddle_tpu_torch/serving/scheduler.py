@@ -1,6 +1,5 @@
 """Continuous-batching scheduler, Orca-style iteration-level scheduling
-(ported from paddle_tpu/serving/scheduler.py without speculative decoding
-or the prefix cache, which are still to be ported).
+(ported from paddle_tpu/serving/scheduler.py).
 
 Policy, as in the reference:
 
@@ -18,18 +17,28 @@ Policy, as in the reference:
   preempted: its pages return to the free list and it re-queues at the
   front with prompt + generated tokens, to be re-prefilled later.
   Eviction costs recompute, never correctness;
+- prefix caching (optional): admission first asks the PrefixCache for the
+  longest cached full-page prefix of the prompt and charges the pool only
+  for the UNCACHED suffix; pages are released through the refcounted
+  allocator, so shared pages outlive any one request, and on pool pressure
+  cached pages no sequence holds are evicted before anyone is preempted;
+- speculative decoding (`spec_lookahead=L`): a decode block can emit up
+  to `decode_horizon * (1 + L)` tokens a row, so every site that charged
+  a block's pages charges that worst case, and `revert_spec_pages` hands
+  the unaccepted tail back after the block drains;
 - chunked prefill (`prefill_chunk_tokens=C`, Sarathi-Serve style): the
   prefill-XOR-decode policy is replaced by MIXED steps under a per-step
   token budget (`max_num_batched_tokens`). A prompt runs in page-aligned
-  chunks of C tokens, tracked by the request's `num_computed_tokens`
-  cursor; every step schedules ALL running decoders first, then as many
-  chunks as the leftover budget allows, admitting several new requests a
-  step when they fit. Pages are charged chunk by chunk: admission
-  reserves only the first chunk, later chunks top the request up, and the
-  final chunk reserves through the first decode block exactly like
-  `_admission_pages`. With `ragged_steps` a step carrying chunk work is
-  one flat kind="ragged" decision (one flat forward), otherwise
-  kind="mixed" (decode block, then one call per chunk).
+  chunks of C tokens (after any cached prefix), tracked by the request's
+  `num_computed_tokens` cursor; every step schedules ALL running decoders
+  first, then as many chunks as the leftover budget allows, admitting
+  several new requests a step when they fit. Pages are charged chunk by
+  chunk: admission reserves only the first chunk, later chunks top the
+  request up, and the final chunk reserves through the first decode
+  block exactly like `_admission_pages`. With `ragged_steps` a step
+  carrying chunk work is one flat kind="ragged" decision (one flat
+  forward), otherwise kind="mixed" (decode block, then one call per
+  chunk).
 """
 from __future__ import annotations
 
@@ -77,11 +86,23 @@ class Request:
     # upper bound on tokens sampled by a dispatched-but-undrained decode
     # block (the engine's async overlap): page demand must cover them
     inflight: int = 0
-    # prompt tokens whose K/V is resident: every chunk dispatched so far
-    # (the engine advances it after a dispatch). A request with
+    # prompt tokens whose K/V came from the prefix cache (page-aligned);
+    # prefill starts at this offset. pages[:cached_tokens // page_size]
+    # are shared: the request holds a reference and never writes them
+    cached_tokens: int = 0
+    # prompt tokens whose K/V is resident: the cached prefix plus every
+    # chunk dispatched so far (the engine advances it after a dispatch). A
+    # request with
     # num_computed_tokens < len(prompt) is mid-prefill: it never joins the
     # decode batch, and its pages cover exactly its computed tokens
     num_computed_tokens: int = 0
+    # speculative decoding, filled by the engine's drain: draft tokens
+    # verified / accepted, target-model passes that scored this row, and
+    # tokens emitted by speculative blocks (all 0 with speculation off)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_target_steps: int = 0
+    spec_emitted: int = 0
 
     # metrics (perf_counter timestamps, filled by the engine)
     arrival_t: float = dataclasses.field(default_factory=time.perf_counter)
@@ -144,18 +165,26 @@ class ScheduleDecision:
 class Scheduler:
     def __init__(self, allocator: BlockAllocator, page_size: int,
                  max_batch_size: int, max_pages_per_seq: int,
-                 decode_horizon: int = 1, drain_hook=None, obs=None,
+                 prefix_cache=None, decode_horizon: int = 1,
+                 drain_hook=None, obs=None,
                  max_waiting: Optional[int] = None,
                  max_preemptions: Optional[int] = None,
                  max_prefill_tokens: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  max_num_batched_tokens: Optional[int] = None,
-                 ragged_steps: bool = False):
+                 ragged_steps: bool = False,
+                 spec_lookahead: int = 0):
         self.allocator = allocator
         self.page_size = page_size
         self.max_batch_size = max_batch_size
         self.max_pages_per_seq = max_pages_per_seq
+        self.prefix_cache = prefix_cache
         self.decode_horizon = max(int(decode_horizon), 1)
+        # a decode block emits up to block_tokens tokens a row: the worst
+        # case every page charge covers (decode_horizon with speculation
+        # off), reverted to what was accepted after each drain
+        self.spec_lookahead = max(int(spec_lookahead), 0)
+        self.block_tokens = self.decode_horizon * (1 + self.spec_lookahead)
         # bounded waiting queue: add() past this raises EngineOverloaded
         self.max_waiting = max_waiting
         # a victim preempted more than this many times is parked
@@ -168,7 +197,7 @@ class Scheduler:
         # multiple of page_size, validated by the engine) = mixed steps
         self.prefill_chunk_tokens = prefill_chunk_tokens
         # per-step token budget of mixed steps: each running decoder
-        # charges decode_horizon, each chunk the full chunk width
+        # charges block_tokens, each chunk the full chunk width
         self.max_num_batched_tokens = max_num_batched_tokens
         # steps with chunk work come back as ONE kind="ragged" decision
         self.ragged_steps = bool(ragged_steps)
@@ -196,7 +225,9 @@ class Scheduler:
         self.waiting.append(req)
 
     def finish(self, req: Request) -> None:
-        """Drop a completed request's page references."""
+        """Drop a completed request's page references; a shared page
+        returns to the pool once no other sequence (and no cached prefix)
+        holds it."""
         req.status = "finished"
         self.allocator.free_all(req.pages)
         req.pages = []
@@ -229,9 +260,10 @@ class Scheduler:
     # ------------------------------------------------------------- policy
     def _admission_pages(self, req: Request) -> int:
         # prompt + the first decode BLOCK: prefill writes the prompt, and
-        # the first block of `decode_horizon` steps writes K/V at positions
-        # prompt .. prompt + min(horizon, max_new-1) - 1
-        first_block = max(1, min(self.decode_horizon,
+        # the first block writes K/V at positions prompt .. prompt +
+        # min(block_tokens, max_new-1) - 1 (block_tokens is the horizon,
+        # times 1 + lookahead under speculation)
+        first_block = max(1, min(self.block_tokens,
                                  req.max_new_tokens - 1))
         return pages_for(len(req.prompt) + first_block, self.page_size)
 
@@ -243,31 +275,89 @@ class Scheduler:
         assumed = req.num_tokens + req.inflight
         rem = max(req.max_new_tokens - len(req.generated) - req.inflight,
                   0)
-        want = max(assumed - 1 + min(self.decode_horizon, rem),
+        want = max(assumed - 1 + min(self.block_tokens, rem),
                    req.num_tokens)
         return pages_for(want, self.page_size)
+
+    def revert_spec_pages(self, req: Request) -> int:
+        """Roll a speculative block's WORST-CASE page charge back to what
+        its drain accepted: host state (`num_tokens`) plus any undrained
+        in-flight bound is the truth, and tail pages past it return to the
+        pool. The popped tail is never a shared prefix page: those cover
+        at most cached_tokens <= len(prompt) <= num_tokens tokens, and the
+        kept count never drops below pages_for(num_tokens) nor the
+        chunked-prefill cursor's charge. Returns the pages released."""
+        keep = max(
+            pages_for(req.num_tokens + req.inflight, self.page_size),
+            pages_for(req.num_computed_tokens, self.page_size))
+        freed = 0
+        while len(req.pages) > keep:
+            self.allocator.free(req.pages.pop())
+            freed += 1
+        return freed
+
+    def _alloc_n(self, n: int) -> Optional[List[int]]:
+        """All-or-nothing alloc that evicts cached pages no sequence holds
+        before reporting exhaustion."""
+        pages = self.allocator.alloc_n(n)
+        if pages is None and self.prefix_cache is not None:
+            self.prefix_cache.evict(n - self.allocator.num_free)
+            pages = self.allocator.alloc_n(n)
+        return pages
+
+    def _alloc_one(self) -> Optional[int]:
+        page = self.allocator.alloc()
+        if page is None and self.prefix_cache is not None \
+                and self.prefix_cache.evict(1):
+            page = self.allocator.alloc()
+        return page
+
+    def _match(self, req: Request) -> List[int]:
+        """The cached full-page prefix of `req`'s prompt (one reference a
+        page, owned by the caller), or [] without a prefix cache."""
+        if self.prefix_cache is None:
+            return []
+        return self.prefix_cache.match(req.prompt)
+
+    def _admit(self, req: Request, cached: List[int],
+               pages: List[int]) -> Request:
+        self.waiting.pop(0)
+        req.pages = cached + pages
+        req.cached_tokens = len(cached) * self.page_size
+        # the engine advances the cursor past the prompt once the prefill
+        # (or each chunk) dispatch succeeds
+        req.num_computed_tokens = req.cached_tokens
+        if self.prefix_cache is not None:
+            self.prefix_cache.record(len(req.prompt), req.cached_tokens)
+        req.status = "running"
+        self.running.append(req)
+        return req
 
     def _try_admit(self) -> Optional[Request]:
         if not self.waiting or len(self.running) >= self.max_batch_size:
             return None
         req = self.waiting[0]
-        pages = self.allocator.alloc_n(self._admission_pages(req))
+        # the pool is charged only for the uncached suffix
+        cached = self._match(req)
+        pages = self._alloc_n(self._admission_pages(req) - len(cached))
         if pages is None:
-            return None
-        self.waiting.pop(0)
-        req.pages = pages
-        # the engine advances the cursor to len(prompt) once the prefill
-        # dispatch succeeds
-        req.num_computed_tokens = 0
-        req.status = "running"
-        self.running.append(req)
-        return req
+            # pool exhausted. Drop the match references FIRST (they pin
+            # exactly the pages whose eviction could let a request
+            # through), then retry once without the cache
+            self.allocator.free_all(cached)
+            if cached:
+                cached = []
+                pages = self._alloc_n(self._admission_pages(req))
+            if pages is None:
+                return None
+        return self._admit(req, cached, pages)
 
     def _preempt(self, victim: Request) -> None:
         """Evict a running request and requeue it at the FRONT of the
         waiting queue with its generated tokens folded into the prompt
-        (re-prefill resumes it exactly). Past `max_preemptions` it is
-        parked at the BACK instead."""
+        (re-prefill resumes it exactly). Shared prefix pages only lose
+        the victim's reference. Past `max_preemptions` it is parked at the
+        BACK instead."""
         folded = len(victim.prompt) + len(victim.generated)
         if self.max_prefill_tokens is not None \
                 and folded > self.max_prefill_tokens:
@@ -280,6 +370,7 @@ class Scheduler:
         self.running.remove(victim)
         self.allocator.free_all(victim.pages)
         victim.pages = []
+        victim.cached_tokens = 0
         victim.num_computed_tokens = 0   # re-prefill from scratch
         victim.inflight = 0     # drain_hook ran first: nothing undrained
         victim.prompt = victim.prompt + victim.generated
@@ -310,7 +401,7 @@ class Scheduler:
                 continue
             while req in self.running and \
                     self._block_pages(req) > len(req.pages):
-                page = self.allocator.alloc()
+                page = self._alloc_one()
                 if page is not None:
                     req.pages.append(page)
                     continue
@@ -374,7 +465,7 @@ class Scheduler:
             self._ensure_decode_pages()      # may drain and/or preempt
             decode = [r for r in self.running
                       if r.prefill_done][:self.max_batch_size]
-            budget -= self.decode_horizon * len(decode)
+            budget -= self.block_tokens * len(decode)
         chunks: List[ChunkTask] = []
         for req in list(self.running):
             if budget < chunk:
@@ -426,19 +517,25 @@ class Scheduler:
 
     def _admit_chunked(self) -> Optional[Request]:
         """Admission under chunking: charge the pool for the FIRST chunk
-        only, not the whole prompt."""
+        after the cached prefix only, not the whole prompt; on exhaustion
+        drop the match references and retry once without the cache, as
+        `_try_admit` does."""
         req = self.waiting[0]
+        cached = self._match(req)
+        start = len(cached) * self.page_size
         need = self._chunk_pages_needed(
-            req, min(self.prefill_chunk_tokens, len(req.prompt)))
-        pages = self.allocator.alloc_n(need)
+            req, min(start + self.prefill_chunk_tokens, len(req.prompt)))
+        pages = self._alloc_n(need - len(cached))
         if pages is None:
-            return None
-        self.waiting.pop(0)
-        req.pages = pages
-        req.num_computed_tokens = 0
-        req.status = "running"
-        self.running.append(req)
-        return req
+            self.allocator.free_all(cached)
+            if cached:
+                cached = []
+                need = self._chunk_pages_needed(
+                    req, min(self.prefill_chunk_tokens, len(req.prompt)))
+                pages = self._alloc_n(need)
+            if pages is None:
+                return None
+        return self._admit(req, cached, pages)
 
     def _next_chunk(self, req: Request) -> Optional[ChunkTask]:
         """The next chunk of a mid-prefill request with its pages
@@ -460,7 +557,7 @@ class Scheduler:
         it is alone and over the pool's whole capacity."""
         drained = False
         while need > len(req.pages) and req in self.running:
-            pages = self.allocator.alloc_n(need - len(req.pages))
+            pages = self._alloc_n(need - len(req.pages))
             if pages is not None:
                 req.pages.extend(pages)
                 return True
@@ -485,9 +582,11 @@ class Scheduler:
     def check_consistency(self) -> bool:
         """Scheduler + allocator invariant audit: queues disjoint with
         matching statuses, every running request's pages live (never the
-        null page), waiting requests holding none. Raises RuntimeError on
-        the first violation."""
+        null page), waiting requests holding none, and the prefix cache's
+        tree sound. Raises RuntimeError on the first violation."""
         self.allocator.check_consistency()
+        if self.prefix_cache is not None:
+            self.prefix_cache.check_consistency()
         if set(map(id, self.waiting)) & set(map(id, self.running)):
             raise RuntimeError("scheduler corrupt: request in both "
                                "waiting and running queues")

@@ -193,7 +193,6 @@ class TestPortInvariants:
 
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value", [
-        ("enable_prefix_caching", True), ("spec_config", object()),
         ("tp_size", 2), ("journal", object()),
         ("fault_injector", object()), ("slo_classes", [object()]),
         ("flight_recorder", object()), ("postmortem_dir", "/tmp/x"),
