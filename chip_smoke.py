@@ -195,6 +195,32 @@ without the final result line:
    serve, two speculative blocks (n-gram, lookahead 4) of the prefix /
    speculation serve, one ERNIE, one T5 and one GShard MoE train step:
    device busy share, top kernels and top host ops.
+23. serve_recovery (run after serve_chained): the resilience and recovery
+   layer on the serve model and engine. Eight requests of 32-512 prompt
+   tokens and 32 new tokens (two seeded-stochastic at temperature 0.8),
+   added up front and driven through an EngineSupervisor with a
+   file-backed RequestJournal in a temporary directory: uninterrupted,
+   supervised and bare, in the order A B B A (tokens/s of each: the
+   journal's cost); killed by `device_lost` at the first step after every
+   request has its first token and again 3 steps later, then the same
+   with chunked prefill (256) and the ragged step, killed part-way
+   through a chunked prefill. Each killed run must restart exactly twice
+   (fatal_fault), finish every request with its streamed tokens its
+   output exactly once, keep the journal's and the scheduler's audits,
+   pass the margin check on its greedy streams and end the seeded rows at
+   the uninterrupted run's draw index; prints the time to recover (salvage,
+   snapshot, factory, restore), the time from a restart to the first
+   token after it, the replayed tokens and peak memory. Then the faults
+   the engine survives: a transient dispatch fault every 5th dispatch
+   (streams bit-identical to the uninterrupted run, retries > 0), a
+   persistent fault on the third prefill (exactly that request failed,
+   the other 7 bit-identical) and a persistent drain fault on a decode
+   block (its rows failed, no page left in use after the in-flight block
+   was dropped, a new request then served). The restored paths must
+   launch K1, K4, K6 (unchunked) and K4, K6, K7 (chunked);
+24. recovery_fp32 (run after spec_fp32): the killed run of serve_recovery
+   at fp32 on 2 layers of full width: every restored stream identical to
+   the uninterrupted one.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -3624,6 +3650,378 @@ def phase_spec_fp32(seed, dev):
     return out
 
 
+RECOVERY_NEW = 32
+# the serve_recovery requests sampled stochastically (index: seed 100 + i)
+RECOVERY_SEEDED = (1, 5)
+
+
+def recovery_prompts(seed, vocab):
+    """Eight prompts of 32-512 tokens and each one's sampling knobs: greedy,
+    but for RECOVERY_SEEDED, which sample at temperature 0.8 from their own
+    seed."""
+    rng = np.random.RandomState(seed + 3)
+    prompts = [rng.randint(0, vocab, (int(n),)).tolist()
+               for n in rng.randint(32, 513, 8)]
+    knobs = [dict(temperature=0.8, top_k=40, top_p=0.95, seed=100 + i)
+             if i in RECOVERY_SEEDED else {} for i in range(8)]
+    return prompts, knobs
+
+
+def recovery_run(model, dev, prompts, knobs, kw, fi=None, journal=None,
+                 counters=None, then=None):
+    """Serve `prompts` (all added up front, RECOVERY_NEW tokens each)
+    through an EngineSupervisor whose factory builds `serve_engine(model,
+    dev, fault_injector=fi, **kw)`, or through one bare engine when
+    `journal` is None. Drives the supervisor step by step as its stream()
+    does, timing the first token after each restart; with `counters`,
+    zeroes them at the first restart and reads them at the end (the
+    restored path's launches). A supervised run ends with the journal's
+    and the scheduler's audits, then `then(supervisor)` if given. Returns
+    the readings, the streamed tokens, each request's final state and, per
+    step, the state the kill points are chosen from; no engine outlives
+    the call, so each run's peak memory is its own."""
+    from paddle_tpu_torch.serving import EngineSupervisor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if journal is None:
+        sup = None
+        eng = serve_engine(model, dev, fault_injector=fi, **kw)
+    else:
+        sup = EngineSupervisor(
+            lambda: serve_engine(model, dev, fault_injector=fi, **kw),
+            journal=journal)
+    front = sup if sup is not None else eng
+    rids = [front.add_request(p, max_new_tokens=RECOVERY_NEW, **k)
+            for p, k in zip(prompts, knobs)]
+    streamed = {r: [] for r in rids}
+    # per restart: seconds from its end to the next token, None when the
+    # next restart came first
+    trace, first_after, restart_end = [], [], None
+    while True:
+        eng = sup.engine if sup is not None else eng
+        live = [eng.requests[r] for r in rids if r in eng.requests]
+        trace.append(dict(
+            all_first=all(streamed[r] for r in rids),
+            mid_prefill=any(0 < q.num_computed_tokens < len(q.prompt)
+                            and q.status == "running" for q in live)))
+        if eng.scheduler.has_work():
+            events = front.step()
+        elif eng._pending is not None or eng._spill:
+            events = eng.drain_all()
+        else:
+            break
+        now = time.perf_counter()
+        if sup is not None and len(sup.restarts) > len(first_after):
+            first_after.append(None)
+            restart_end = now
+            if counters is not None and len(first_after) == 1:
+                zero_counters(counters)
+        elif restart_end is not None and events:
+            first_after[-1] = now - restart_end
+            restart_end = None
+        for rid, tok in events:
+            streamed[rid].append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated(),
+               trace=trace, rids=rids, streamed=streamed,
+               first_token_after_restart_s=first_after)
+    if counters is not None:
+        out["launches"] = read_counters(counters)
+    eng = sup.engine if sup is not None else eng
+    # a request that ended before the last restart lives only in the
+    # journal: its draw index is the one its record replays
+    out.update(outputs=[front.output(r) for r in rids],
+               status=[front.status(r) for r in rids],
+               draws=[eng._draws[r] if r in eng.requests else
+                      sup.journal.record(r).key_splits
+                      + len(sup.journal.record(r).delivered) for r in rids],
+               retries=eng.stats()["transient_retries"],
+               restarts=list(sup.restarts) if sup is not None else [])
+    tokens = sum(len(o) - len(p) for o, p in zip(out["outputs"], prompts))
+    out["tokens_per_s"] = tokens / wall
+    if sup is not None:
+        sup.journal.check_consistency()
+        eng.scheduler.check_consistency()
+    if then is not None:
+        out["then"] = then(front)
+    return out
+
+
+class _Outputs:
+    """`output(rid)` over a finished run's streams, for `rescore`."""
+
+    def __init__(self, run):
+        self._out = dict(zip(run["rids"], run["outputs"]))
+
+    def output(self, rid):
+        return self._out[rid]
+
+
+def hold_recovered(tag, run, ref, prompts, knobs, restarts, model, dev,
+                   tol, identical):
+    """The checks of a killed run against its uninterrupted `ref`: exactly
+    `restarts` restarts, all fatal_fault; every request finished and its
+    streamed tokens after the prompt equal to its output (exactly once);
+    the journal's and the scheduler's audits; the greedy streams held by
+    the margin check, or, with `identical`, every stream equal to the
+    reference's; the seeded rows' draw indices equal to the reference's."""
+    reasons = [r["reason"] for r in run["restarts"]]
+    if reasons != ["fatal_fault"] * restarts:
+        raise AssertionError(f"{tag}: restarts {reasons}, expected "
+                             f"{restarts} x fatal_fault")
+    for i, rid in enumerate(run["rids"]):
+        if run["status"][i][0] != "finished":
+            raise AssertionError(f"{tag}: request {rid} ended "
+                                 f"{run['status'][i]}")
+        if list(prompts[i]) + run["streamed"][rid] != run["outputs"][i]:
+            raise AssertionError(f"{tag}: request {rid}: the streamed tokens "
+                                 "are not its output exactly once")
+    same = sum(a == b for a, b in zip(run["outputs"], ref["outputs"]))
+    if identical and same != len(prompts):
+        raise AssertionError(f"{tag}: {same} of {len(prompts)} streams "
+                             "identical to the uninterrupted run")
+    greedy = [i for i, k in enumerate(knobs) if not k]
+    checked = None
+    if not identical:
+        checked, _, _ = rescore(model, _Outputs(run),
+                                [prompts[i] for i in greedy],
+                                [run["rids"][i] for i in greedy], tol, dev,
+                                tag)
+    for i in RECOVERY_SEEDED:
+        if run["draws"][i] != ref["draws"][i]:
+            raise AssertionError(
+                f"{tag}: seeded request {run['rids'][i]} ends at draw "
+                f"{run['draws'][i]}, the uninterrupted run at "
+                f"{ref['draws'][i]}")
+    info = run["restarts"]
+    first = run["first_token_after_restart_s"]
+    ms = {k: [round(r[k] * 1e3, 3) for r in info] for k in (
+        "t_recover_s", "t_salvage_s", "t_snapshot_s", "t_factory_s",
+        "t_restore_s")}
+    log(f"[{tag}] {len(info)} restarts, {same} of {len(prompts)} streams "
+        f"identical to the uninterrupted run; time to recover (ms) "
+        f"{ms['t_recover_s']}: salvage {ms['t_salvage_s']}, snapshot "
+        f"{ms['t_snapshot_s']}, factory {ms['t_factory_s']}, restore "
+        f"{ms['t_restore_s']}; restart to the first token after it (ms) "
+        f"{[t if t is None else round(t * 1e3, 3) for t in first]};"
+        f" replayed tokens {[r['replayed_tokens'] for r in info]}; peak "
+        f"memory {run['peak_bytes'] / 2**30:.3f} GiB (uninterrupted "
+        f"{ref['peak_bytes'] / 2**30:.3f}); wall {run['wall_s']:.3f} s, "
+        f"{run['tokens_per_s']:.1f} tokens/s (uninterrupted "
+        f"{ref['tokens_per_s']:.1f})")
+    return dict(restarts=[{k: r[k] for k in (
+        "reason", "t_recover_s", "t_salvage_s", "t_snapshot_s",
+        "t_factory_s", "t_restore_s", "readmitted", "replayed_tokens")}
+        for r in info], identical=same, margin_checked=checked,
+        first_token_after_restart_s=run["first_token_after_restart_s"],
+        peak_bytes=run["peak_bytes"], wall_s=run["wall_s"],
+        tokens_per_s=run["tokens_per_s"], launches=run.get("launches"))
+
+
+def kill_point(trace, chunked):
+    """The step a first kill lands on: unchunked, the first step after every
+    request has its first token; chunked, the first step taken while a
+    request is part-way through its chunked prefill."""
+    for k, s in enumerate(trace):
+        if (s["mid_prefill"] if chunked else s["all_first"]):
+            return k
+    raise AssertionError("no step fits the kill point")
+
+
+def phase_serve_recovery(model, seed, dev):
+    """The resilience and recovery layer at LLaMA-7B width: the Serve
+    engine's knobs, 8 requests of 32-512 prompt tokens and RECOVERY_NEW new
+    tokens (two seeded-stochastic), all added up front and driven through
+    an EngineSupervisor with a file-backed RequestJournal, every engine
+    factory closing over the one model and one FaultInjector.
+
+    1. uninterrupted: supervised + journal (A) and a bare engine (B), in
+       the order A B B A; the streams must agree, tokens/s of each;
+    2. kill: device_lost at the first step after every request has its
+       first token and again 3 steps later; held by hold_recovered with the
+       margin check; prints the time to recover and its parts, the first
+       token after each restart, the replayed tokens and peak memory;
+    3. kill, chunked: the same with chunked prefill (256) and the ragged
+       step, killed part-way through a chunked prefill (K7 re-prefills);
+    4. faults survived: a transient dispatch fault every 5th dispatch (the
+       streams bit-identical to run 1, retries > 0); a persistent fault on
+       the third prefill (exactly that request failed with its error, the
+       other 7 bit-identical to run 1); a persistent drain fault on the
+       second decode drain (its rows failed, the pool audited clean after
+       the in-flight block was dropped, and a new request then served).
+    Launch counters are zeroed at each killed run's first restart and read
+    at its end: the restored path's K1, K4, K6 (unchunked) and K4, K6, K7
+    (chunked) must have launched."""
+    import tempfile
+
+    from paddle_tpu_torch.serving import FaultInjector, RequestJournal
+
+    t_phase = time.perf_counter()
+    prompts, knobs = recovery_prompts(seed, model.llama.config.vocab_size)
+    counters = serve_counters()
+    plain = dict(kv_dtype="bf16")
+    chunked = dict(plain, enable_chunked_prefill=True,
+                   prefill_chunk_tokens=256)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def journal(name):
+            return RequestJournal(path=os.path.join(tmp, f"{name}.jsonl"))
+
+        def run(name, kw, fi=None, bare=False, counted=False, then=None):
+            return recovery_run(model, dev, prompts, knobs, kw, fi,
+                                None if bare else journal(name),
+                                counters if counted else None, then)
+
+        runs = {"A": [], "B": []}
+        for tag in "ABBA":
+            runs[tag].append(run(f"uninterrupted_{len(runs[tag])}", plain,
+                                 bare=tag == "B"))
+        ref = runs["A"][0]
+        for r in runs["A"] + runs["B"]:
+            if r["outputs"] != ref["outputs"]:
+                raise AssertionError("serve_recovery: the uninterrupted "
+                                     "runs' streams differ")
+        tps = {t: [round(r["tokens_per_s"], 1) for r in runs[t]]
+               for t in runs}
+        log(f"[serve_recovery] uninterrupted, A B B A: supervised + journal "
+            f"{tps['A']} tokens/s, bare engine {tps['B']} tokens/s")
+        out["uninterrupted"] = dict(
+            supervised_tokens_per_s=tps["A"], bare_tokens_per_s=tps["B"],
+            peak_bytes=ref["peak_bytes"])
+
+        k = kill_point(ref["trace"], chunked=False)
+        fi = FaultInjector().fail_at("device_lost", k) \
+            .fail_at("device_lost", k + 3)
+        killed = run("kill", plain, fi, counted=True)
+        out["kill"] = hold_recovered("serve_recovery_kill", killed, ref,
+                                     prompts, knobs, 2, model, dev,
+                                     MARGIN_TOL["bf16"], identical=False)
+        out["kill"]["kill_steps"] = [k, k + 3]
+
+        cref = run("chunked", chunked)
+        k = kill_point(cref["trace"], chunked=True)
+        fi = FaultInjector().fail_at("device_lost", k) \
+            .fail_at("device_lost", k + 3)
+        killed = run("kill_chunked", chunked, fi, counted=True)
+        out["kill_chunked"] = hold_recovered(
+            "serve_recovery_kill_chunked", killed, cref, prompts, knobs, 2,
+            model, dev, MARGIN_TOL["bf16"], identical=False)
+        out["kill_chunked"]["kill_steps"] = [k, k + 3]
+        for key, need in (("kill", "K1 K4 K6"), ("kill_chunked", "K4 K6 K7")):
+            missing = [n for n in need.split()
+                       if out[key]["launches"][n] <= 0]
+            if missing:
+                raise AssertionError(f"serve_recovery {key}: kernels never "
+                                     f"launched after the restart: {missing}")
+
+        tr = run("transient", plain, FaultInjector().fail_every("dispatch", 5))
+        if tr["outputs"] != ref["outputs"] or tr["retries"] <= 0 \
+                or tr["restarts"]:
+            raise AssertionError(
+                f"serve_recovery transient: streams identical "
+                f"{tr['outputs'] == ref['outputs']}, retries "
+                f"{tr['retries']}, restarts {len(tr['restarts'])}")
+        log(f"[serve_recovery] transient dispatch faults: {tr['retries']} "
+            f"retries, 8 of 8 streams bit-identical to run 1, "
+            f"{tr['tokens_per_s']:.1f} tokens/s")
+        out["transient"] = dict(retries=tr["retries"],
+                                tokens_per_s=tr["tokens_per_s"])
+
+        pf = run("persistent_prefill", plain,
+                 FaultInjector().fail_at("dispatch", 2, transient=False))
+        status, err = pf["status"][2]
+        others = [i for i in range(8) if i != 2]
+        if status != "failed" or not err or not err.startswith("prefill") \
+                or any(pf["status"][i][0] != "finished" for i in others) \
+                or any(pf["outputs"][i] != ref["outputs"][i]
+                       for i in others):
+            raise AssertionError(
+                f"serve_recovery persistent prefill: {pf['status']}, "
+                f"others identical "
+                f"{[pf['outputs'][i] == ref['outputs'][i] for i in others]}")
+        log(f"[serve_recovery] persistent prefill fault: request "
+            f"{pf['rids'][2]} failed ({err}); 7 of 7 others bit-identical "
+            "to run 1")
+        out["persistent_prefill"] = dict(error=err)
+
+        def serve_on(sup):
+            # the pool as the dropped block left it, then one more request
+            in_use, pending = (sup.engine.cache.allocator.num_used,
+                               sup.engine._pending)
+            after = sup.add_request(prompts[0], max_new_tokens=RECOVERY_NEW)
+            sup.run()
+            torch.cuda.synchronize()
+            if sup.status(after)[0] != "finished":
+                raise AssertionError("serve_recovery persistent drain: the "
+                                     "engine did not serve on")
+            rescore(model, sup, [prompts[0]], [after], MARGIN_TOL["bf16"],
+                    dev, "serve_recovery_after_drain_fault")
+            return in_use, pending is None
+
+        dr = run("persistent_drain", plain,
+                 FaultInjector().fail_at("drain", 1, transient=False),
+                 then=serve_on)
+        failed = [i for i, s in enumerate(dr["status"]) if s[0] == "failed"]
+        in_use, dropped = dr["then"]
+        if not failed or any(not dr["status"][i][1].startswith("drain")
+                             for i in failed) or in_use != 0 or not dropped:
+            raise AssertionError(
+                f"serve_recovery persistent drain: {dr['status']}, pages in "
+                f"use {in_use}, pending block dropped {dropped}")
+        log(f"[serve_recovery] persistent drain fault: {len(failed)} rows "
+            f"failed, pool audit clean ({in_use} pages in use) after the "
+            "in-flight block was dropped; a new request then served")
+        out["persistent_drain"] = dict(failed=len(failed))
+    out["launches"] = {n: out["kill"]["launches"][n]
+                       + out["kill_chunked"]["launches"][n]
+                       for n in out["kill"]["launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[serve_recovery] launches on the restored paths: "
+        f"{out['launches']}; the phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_recovery_fp32(seed, dev):
+    """Run 2 of serve_recovery (two kills) without bf16's near-ties:
+    LLaMA-7B's widths cut to 2 layers, fp32 weights from the seed and fp32
+    pools. Every restored stream, greedy and seeded, must be identical to
+    the uninterrupted run's."""
+    import dataclasses
+    import tempfile
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import FaultInjector, RequestJournal
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.llama7b(), num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             seed=seed)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    prompts, knobs = recovery_prompts(seed, cfg.vocab_size)
+    kw = dict(kv_dtype="fp32")
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = recovery_run(model, dev, prompts, knobs, kw, journal=
+                           RequestJournal(os.path.join(tmp, "ref.jsonl")))
+        k = kill_point(ref["trace"], chunked=False)
+        fi = FaultInjector().fail_at("device_lost", k) \
+            .fail_at("device_lost", k + 3)
+        killed = recovery_run(model, dev, prompts, knobs, kw, fi,
+                              RequestJournal(os.path.join(tmp, "k.jsonl")))
+        out = hold_recovered("recovery_fp32", killed, ref, prompts, knobs, 2,
+                             model, dev, MARGIN_TOL["fp32"], identical=True)
+    del model
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[recovery_fp32] 8 of 8 restored streams identical; "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -3850,6 +4248,10 @@ def main(argv=None):
     result["serve_chained"] = r
     launches["serve_chained"] = r["launches"]
     release()
+    r = phase_serve_recovery(model, args.seed, dev)
+    result["serve_recovery"] = r
+    launches["serve_recovery"] = r["launches"]
+    release()
     t0 = time.perf_counter()
     r = phase_serve_prefix_spec(model, args.seed, dev, args.profile,
                                 args.out)
@@ -3862,6 +4264,8 @@ def main(argv=None):
     r["phases_s"] = time.perf_counter() - t0
     log(f"[serve_prefix_spec] this phase and spec_fp32 took "
         f"{r['phases_s']:.1f} s")
+    result["recovery_fp32"] = phase_recovery_fp32(args.seed, dev)
+    release()
     result["train"] = phase_train(args.seed, dev, args.profile, args.out)
     launches["train"] = result["train"]["launches"]
     release()

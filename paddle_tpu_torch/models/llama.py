@@ -32,6 +32,15 @@ from ..ops.rope import apply_rope, rope_tables
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM"]
 
+# the reference's causal-LM loss surface (`fused_lm_loss`, `labels=`)
+_S11 = "queue 1, S11 (GPT, and LLaMA's training surface)"
+
+
+def _not_ported(knob: str, value) -> NotImplementedError:
+    return NotImplementedError(
+        f"{knob}={value!r} is not ported to paddle_tpu_torch yet "
+        f"(ROADMAP {_S11})")
+
 
 @dataclasses.dataclass
 class LlamaConfig:
@@ -44,6 +53,12 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6
+    # the reference's fused LM-head loss; refused when passed
+    fused_lm_loss: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.fused_lm_loss is not None:
+            raise _not_ported("fused_lm_loss", self.fused_lm_loss)
 
     @classmethod
     def llama7b(cls):
@@ -208,7 +223,9 @@ class LlamaForCausalLM(nn.Module):
         self.lm_head.weight.normal_(0.0, math.sqrt(2.0 / (in_f + out_f)),
                                     generator=gen)
 
-    def forward(self, input_ids, caches=None, start_pos=0):
+    def forward(self, input_ids, caches=None, start_pos=0, labels=None):
+        if labels is not None:
+            raise _not_ported("labels", "<tensor>")
         if caches is None:
             return self.lm_head(self.llama(input_ids))
         h, caches = self.llama(input_ids, caches, start_pos)

@@ -52,10 +52,28 @@ at the request's next draw index.
 Under speculation the draw index still advances by exactly the tokens
 emitted. The JAX engine's threefry bits are not reproduced.
 
+Resilience (serving.resilience): a bounded waiting queue with queue-wait
+shedding (`max_waiting`, `max_queue_wait_s`), per-request deadlines
+(`add_request(deadline_s=)`), and a seeded `FaultInjector` whose sites
+guard every dispatch and drain (`_guarded_call`): a transient fault is
+retried once after `retry_backoff_s`, a persistent one quarantines exactly
+the implicated requests (status "failed", error recorded, pages released),
+a fatal one leaves the engine for the supervisor. An engine without an
+injector, deadlines or a queue-wait bound runs none of it beyond `None`
+checks.
+
+Recovery (serving.recovery, imported only by the methods that need it):
+`journal=` / `attach_journal` records every submitted request and every
+token at the moment `step()` returns it, so `snapshot()` / `restore()`
+re-admit each unfinished request as prompt + delivered tokens, resuming at
+its draw index; `EngineSupervisor` drives that on fatal faults, a step
+watchdog and fault storms.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item rather than ignored: tensor parallelism, the request journal, fault
-injection, deadlines, SLO classes, the flight recorder and post-mortem
-dumps.
+item rather than ignored: tensor parallelism (`tp_size`, `devices`,
+`tp_quantized_allreduce`, `tp_overlap`, `tp_overlap_chunks`), SLO classes
+(`slo_classes`, `slo_refresh_every`, `add_request(slo_class=)`), the
+flight recorder and post-mortem dumps.
 """
 from __future__ import annotations
 
@@ -72,9 +90,10 @@ from .kv_cache import (KV_DTYPES, PagedKVCache, host_to_device,
                        overflow_position, pages_for)
 from .prefix_cache import PrefixCache
 from .ragged import build_ragged_inputs, token_buckets
-from .resilience import TERMINAL_STATUSES
+from .resilience import TERMINAL_STATUSES, is_fatal, is_transient
 from .sampling import PAD_TOKEN, sample_batch
-from .scheduler import Request, SamplingParams, Scheduler
+from .scheduler import (Request, SamplingParams, Scheduler,
+                        reserve_request_ids)
 
 __all__ = ["ServingEngine", "ServingObs", "PAD_TOKEN"]
 
@@ -101,6 +120,14 @@ def _start_host_copy(t: torch.Tensor):
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(t.device))
     return host, event
+
+
+def _pull(rec: dict) -> np.ndarray:
+    """A block record's tokens on the host: wait for its copy's event,
+    then read the pinned buffer."""
+    if rec["event"] is not None:
+        rec["event"].synchronize()
+    return rec["host"].numpy()
 
 
 class ServingObs:
@@ -167,6 +194,16 @@ class ServingObs:
                             "allocatable KV pages right now")
         self.kv_util = g("serving_kv_page_utilization",
                          "fraction of allocatable KV pages in use")
+        # resilience: one series per non-finished terminal status, and the
+        # dispatch / drain sites retried after a transient fault
+        self.terminated = {
+            status: c("serving_requests_terminated_total",
+                      "requests reaching a non-finished terminal status",
+                      labels={"status": status})
+            for status in ("cancelled", "expired", "failed", "shed")}
+        self.retries = c("serving_transient_retries_total",
+                         "dispatch/drain sites retried after a transient "
+                         "fault")
         # speculative decoding handles, bound by bind_spec() only when the
         # engine runs with spec_config
         self.spec_drafted = None
@@ -225,6 +262,9 @@ class ServingObs:
             self.spec_tokens_per_step.observe(emitted / s_cnt)
 
     # --------------------------------------------------- scheduler hooks
+    def terminal(self, status: str) -> None:
+        self.terminated[status].inc()
+
     def preempted(self, req: Request) -> None:
         self.preemptions.inc()
         if req.parked:
@@ -241,19 +281,18 @@ class ServingObs:
 
 # engine knobs of the reference that the port does not run yet, with the
 # ROADMAP item that ports each
+_S5 = "queue 1, S5 (tensor-parallel serving)"
+_S9 = "queue 1, S9 (SLO tracking, flight recorder, post-mortems)"
 _NOT_PORTED = {
-    "tp_size": "queue 1, S5 (tensor-parallel serving)",
-    "journal": "queue 1, S7 (journal and recovery)",
-    "fault_injector": "queue 1, S8 (resilience: fault injection, "
-                      "deadlines)",
-    "deadline_s": "queue 1, S8 (resilience: fault injection, deadlines)",
-    "slo_classes": "queue 1, S9 (SLO tracking, flight recorder, "
-                   "post-mortems)",
-    "flight_recorder": "queue 1, S9 (SLO tracking, flight recorder, "
-                       "post-mortems)",
-    "postmortem_dir": "queue 1, S9 (SLO tracking, flight recorder, "
-                      "post-mortems)",
+    "tp_size": _S5, "devices": _S5, "tp_quantized_allreduce": _S5,
+    "tp_overlap": _S5, "tp_overlap_chunks": _S5,
+    "slo_classes": _S9, "slo_refresh_every": _S9, "slo_class": _S9,
+    "flight_recorder": _S9, "postmortem_dir": _S9,
 }
+
+# the reference's legacy spelling of unquantized pools (`cache_dtype`)
+_CACHE_DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16",
+                 "float32": "fp32", "bfloat16": "bf16"}
 
 
 def _not_ported(knob: str, value) -> NotImplementedError:
@@ -277,28 +316,55 @@ class ServingEngine:
                  enable_metrics: bool = True,
                  metrics: Optional[MetricsRegistry] = None,
                  max_waiting: Optional[int] = None,
+                 max_queue_wait_s: Optional[float] = None,
                  max_preemptions: Optional[int] = 8,
+                 fault_injector=None,
+                 retry_backoff_s: float = 0.02,
+                 journal=None,
                  device=None,
+                 cache_dtype=None,
                  enable_prefix_caching: bool = False,
                  spec_config=None,
                  tp_size: int = 1,
-                 journal=None,
-                 fault_injector=None,
+                 devices: Optional[Sequence] = None,
+                 tp_quantized_allreduce: Optional[bool] = None,
+                 tp_overlap: Optional[bool] = None,
+                 tp_overlap_chunks: Optional[int] = None,
                  slo_classes: Optional[Sequence] = None,
+                 slo_refresh_every: Optional[int] = None,
                  flight_recorder=None,
                  postmortem_dir: Optional[str] = None):
         from ..models.generation import _config_of
 
         for knob, value in (
-                ("journal", journal),
-                ("fault_injector", fault_injector),
+                ("devices", devices),
+                ("tp_quantized_allreduce", tp_quantized_allreduce),
+                ("tp_overlap", tp_overlap),
+                ("tp_overlap_chunks", tp_overlap_chunks),
                 ("slo_classes", slo_classes),
+                ("slo_refresh_every", slo_refresh_every),
                 ("flight_recorder", flight_recorder),
                 ("postmortem_dir", postmortem_dir)):
-            if value:
+            if value is not None:
                 raise _not_ported(knob, value)
         if int(tp_size) != 1:
             raise _not_ported("tp_size", tp_size)
+        kv_dtype = {"float32": "fp32", "bfloat16": "bf16"}.get(
+            kv_dtype, kv_dtype)
+        if cache_dtype is not None:
+            # the reference's rule: a non-default cache_dtype sets the
+            # pool format unless kv_dtype names another one
+            legacy = _CACHE_DTYPES.get(cache_dtype)
+            if legacy is None:
+                raise ValueError(
+                    f"unsupported cache_dtype {cache_dtype!r}: pools take "
+                    "float32/bfloat16, or use kv_dtype='int8'/'fp8'")
+            if kv_dtype == "fp32" and legacy != "fp32":
+                kv_dtype = legacy
+            elif legacy != "fp32" and kv_dtype != legacy:
+                raise ValueError(
+                    f"conflicting cache_dtype={cache_dtype!r} and "
+                    f"kv_dtype={kv_dtype!r}: pick one knob")
         if kv_dtype not in KV_DTYPES and kv_dtype not in ("int8", "fp8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}: expected one "
                              "of 'fp32', 'bf16', 'int8', 'fp8'")
@@ -310,8 +376,7 @@ class ServingEngine:
         self.model = model
         model.eval()
         cfg = _config_of(model)
-        self.kv_dtype = {"float32": "fp32", "bfloat16": "bf16"}.get(
-            kv_dtype, kv_dtype)
+        self.kv_dtype = kv_dtype
         self.page_size = page_size
         self.max_batch_size = max_batch_size
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
@@ -395,6 +460,26 @@ class ServingEngine:
         self.prefix_cache = (PrefixCache(self.cache.allocator, page_size,
                                          metrics=self.metrics)
                              if enable_prefix_caching else None)
+        # resilience: queue-wait shedding, deadlines, transient retry and
+        # seeded fault injection, each a None / empty check when unused
+        self._max_queue_wait_s = (float(max_queue_wait_s)
+                                  if max_queue_wait_s is not None else None)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self._faults = fault_injector
+        # recovery: the exactly-once delivery ledger, appended when step()
+        # RETURNS tokens (serving.recovery); None costs one check a step
+        self._journal = journal
+        # every fault _guarded_call or the device_lost gate observed,
+        # transient or not: the supervisor's fault-storm window reads its
+        # deltas (a plain int, so it works with metrics off)
+        self.fault_events = 0
+        # live request ids carrying a deadline; the expiry sweep runs only
+        # while this is non-empty or max_queue_wait_s is set
+        self._deadlined: set = set()
+        if fault_injector is not None:
+            self.cache.allocator.bind_faults(fault_injector)
+            if self.prefix_cache is not None:
+                self.prefix_cache.bind_faults(fault_injector)
         self.prefill_buckets = tuple(sorted(
             prefill_buckets or _default_buckets(self.max_seq_len)))
         if self.prefill_buckets[-1] < self.max_seq_len:
@@ -445,16 +530,22 @@ class ServingEngine:
                     temperature: float = 0.0, top_k: int = 0,
                     top_p: float = 1.0, seed: Optional[int] = None,
                     eos_token_id: Optional[int] = None,
-                    deadline_s: Optional[float] = None) -> int:
+                    deadline_s: Optional[float] = None,
+                    slo_class: Optional[str] = None) -> int:
         """Queue one prompt; returns a request id. Non-blocking: the
         request runs as `step()`/`stream()` turn the crank. All validation
         happens up front, so a rejected request leaves no trace. Raises
-        `EngineOverloaded` when the bounded waiting queue is full."""
-        if deadline_s is not None:
-            raise _not_ported("deadline_s", deadline_s)
+        `EngineOverloaded` when the bounded waiting queue is full.
+        `deadline_s` bounds the request's total latency from arrival: past
+        it a waiting request expires before admission and a running one
+        at the next block boundary (status "expired" either way)."""
+        if slo_class is not None:
+            raise _not_ported("slo_class", slo_class)
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0 (got {deadline_s})")
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
@@ -471,12 +562,29 @@ class ServingEngine:
                       sampling=SamplingParams(temperature, top_k, top_p,
                                               seed),
                       eos_token_id=eos_token_id)
+        if deadline_s is not None:
+            req.deadline_t = req.arrival_t + deadline_s
         self.scheduler.add(req)       # may raise: register only after
         self.requests[req.request_id] = req
+        if deadline_s is not None:
+            self._deadlined.add(req.request_id)
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31 - 1))
         self._seeds[req.request_id] = int(seed)
         self._draws[req.request_id] = 0
+        if self._journal is not None:
+            # the EFFECTIVE seed (drawn above when the caller passed None)
+            # and a wall-clock deadline go in the ledger: a rebuild
+            # continues from both
+            now_wall = time.time()
+            self._journal.submit(
+                request_id=req.request_id, prompt=prompt,
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, top_p=top_p, seed=int(seed),
+                eos_token_id=eos_token_id,
+                deadline_wall=(now_wall + deadline_s
+                               if deadline_s is not None else None),
+                arrival_wall=now_wall)
         return req.request_id
 
     def output(self, request_id: int) -> List[int]:
@@ -487,9 +595,10 @@ class ServingEngine:
         return list(req.prompt) + list(req.generated)
 
     def status(self, request_id: int) -> Tuple[str, Optional[str]]:
-        """(status, error) for one request; error is always None here (the
-        port has no failure isolation yet)."""
-        return self.requests[request_id].status, None
+        """(status, error) for one request; error is set only for status
+        "failed" (the isolated failure, as text)."""
+        req = self.requests[request_id]
+        return req.status, req.error
 
     def cancel(self, request_id: int) -> bool:
         """Cancel a waiting or running request. A request with tokens in
@@ -505,13 +614,124 @@ class ServingEngine:
             self._spill.extend(self._drain_pending())
             if req.status in TERMINAL_STATUSES:
                 return False      # the drained tokens finished it
-        return self.scheduler.finalize(req, "cancelled")
+        return self._finalize(req, "cancelled")
+
+    # ----------------------------------------------------------- resilience
+    def _finalize(self, req: Request, status: str,
+                  error: Optional[str] = None) -> bool:
+        """Terminal transition through the scheduler (queues, refcounted
+        page release) plus the engine's deadline bookkeeping. Every
+        failure-side ending passes here, so the journal records it here
+        and a replay never resurrects a request that already ended."""
+        done = self.scheduler.finalize(req, status, error=error)
+        if done and self._journal is not None \
+                and self._journal.known(req.request_id):
+            self._journal.terminal(req.request_id, status, error)
+        if self._deadlined:
+            self._deadlined.discard(req.request_id)
+        return done
+
+    def _expire_and_shed(self) -> None:
+        """Deadline / queue-wait sweep at the top of a step (a block
+        boundary), run only while armed: waiting requests past their
+        deadline expire and ones waiting longer than `max_queue_wait_s`
+        are shed before admission spends pages on them; running requests
+        past their deadline expire after any in-flight block drains."""
+        now = time.perf_counter()
+        for req in list(self.scheduler.waiting):
+            if req.deadline_t is not None and now >= req.deadline_t:
+                self._finalize(req, "expired")
+            elif self._max_queue_wait_s is not None and \
+                    now - req.arrival_t >= self._max_queue_wait_s:
+                self._finalize(req, "shed")
+        expired = [r for r in self.scheduler.running
+                   if r.deadline_t is not None and now >= r.deadline_t]
+        if expired:
+            if self._pending is not None:
+                # surface the in-flight tokens before the pages go
+                self._spill.extend(self._drain_pending())
+            for req in expired:
+                if req.status == "running":   # the drain may finish it
+                    self._finalize(req, "expired")
+
+    def _guarded_call(self, site: str, fn):
+        """Failure isolation for one dispatch or drain site: consults the
+        fault injector (when bound), retries a TRANSIENT fault once after
+        `retry_backoff_s`, and otherwise hands the exception back for the
+        caller to quarantine. A FATAL fault is re-raised untouched for the
+        supervisor. Every fault seen here bumps `fault_events`. Returns
+        (result, None) on success and (None, exc) on isolation. An
+        injected fault fires before `fn` runs, so a retried site computes
+        nothing twice."""
+        fi = self._faults
+        try:
+            if fi is not None:
+                fi.check(site)
+            return fn(), None
+        except Exception as e:  # noqa: BLE001 (the isolation boundary)
+            self.fault_events += 1
+            if is_fatal(e):
+                raise
+            if not is_transient(e):
+                return None, e
+            if self._obs is not None:
+                self._obs.retries.inc()
+            if self.retry_backoff_s > 0:
+                time.sleep(self.retry_backoff_s)
+            try:
+                if fi is not None:
+                    fi.check(site)
+                return fn(), None
+            except Exception as e2:  # noqa: BLE001
+                self.fault_events += 1
+                if is_fatal(e2):
+                    raise
+                return None, e2
+
+    def _quarantine(self, reqs: Sequence[Request], exc: BaseException,
+                    site: str) -> None:
+        """Isolate a failed dispatch or drain to exactly the implicated
+        requests: status "failed" with the error recorded, pages released
+        through the refcounts, the allocator and scheduler re-audited. A
+        pending record that carries any of them is dropped BEFORE their
+        pages are freed (its carries are suspect; a block still in flight
+        on the stream writes before any later dispatch reuses a page)."""
+        err = f"{site}: {type(exc).__name__}: {exc}"
+        rids = {r.request_id for r in reqs}
+        if self._pending is not None \
+                and rids & set(self._pending["rids"]):
+            rec, self._pending = self._pending, None
+            for i, r in enumerate(rec["reqs"]):
+                r.inflight = max(r.inflight - rec["incr"][i], 0)
+        for req in reqs:
+            if req.status not in TERMINAL_STATUSES:
+                self._finalize(req, "failed", error=err)
+        self.scheduler.check_consistency()
 
     # ---------------------------------------------------------------- steps
     def step(self) -> List[Tuple[int, int]]:
         """One scheduler decision + at most one dispatch. Returns the
         (request_id, token) pairs that reached the host this step: a
-        decode block's tokens surface one step AFTER its dispatch."""
+        decode block's tokens surface one step AFTER its dispatch. This is
+        also the recovery boundary: the injector's `device_lost` site
+        fires here (fatal by default, left for the supervisor), and the
+        returned events are journaled here, at the moment they become
+        visible to the caller."""
+        fi = self._faults
+        if fi is not None:
+            try:
+                fi.check("device_lost")
+            except Exception:
+                self.fault_events += 1
+                raise
+        events = self._step_impl()
+        if self._journal is not None and events:
+            self._journal_delivery(events)
+        return events
+
+    def _step_impl(self) -> List[Tuple[int, int]]:
+        if self._deadlined or self._max_queue_wait_s is not None:
+            self._expire_and_shed()            # may spill drained tokens
         if not any(r.prefill_done for r in self.scheduler.running):
             # decode-stall gaps only count while some request continuously
             # wanted decode steps: a wave boundary, or a stretch where
@@ -552,7 +772,7 @@ class ServingEngine:
             events.extend(self._drain_pending())
         for task in decision.chunks:
             if task.req.status != "running":
-                continue    # finalized mid-step (cancel)
+                continue    # finalized mid-step (cancel, expiry, fault)
             if task.start != task.req.num_computed_tokens:
                 # stale extent: the request was preempted (and possibly
                 # re-admitted) after this task was queued
@@ -560,10 +780,36 @@ class ServingEngine:
             events.extend(self._chunk_prefill(task))
         return events
 
+    def _journal_delivery(self, events: List[Tuple[int, int]]) -> None:
+        """Append just-returned events to the journal: called where tokens
+        become visible to a `step()` / `stream()` caller, never at drain
+        time (a drained but unreturned token must stay recomputable, not
+        re-deliverable). Consecutive same-request runs land as one record;
+        a request whose stream just completed gets its `finished` record
+        after its tokens."""
+        j = self._journal
+        t_wall = time.time()
+        i = 0
+        while i < len(events):
+            rid = events[i][0]
+            k = i + 1
+            while k < len(events) and events[k][0] == rid:
+                k += 1
+            if j.known(rid):
+                j.tokens(rid, [t for _, t in events[i:k]], t_wall=t_wall)
+            i = k
+        for rid in dict.fromkeys(r for r, _ in events):
+            if j.known(rid) and self.requests[rid].status == "finished":
+                j.terminal(rid, "finished")
+
     def drain_all(self) -> List[Tuple[int, int]]:
-        """Flush everything already computed out to the caller."""
+        """Flush everything already computed out to the caller: spilled
+        events plus the pending block, journaled like a step's return."""
         spilled, self._spill = self._spill, []
-        return spilled + self._drain_pending()
+        events = spilled + self._drain_pending()
+        if self._journal is not None and events:
+            self._journal_delivery(events)
+        return events
 
     def stream(self):
         """Generator of (request_id, token, done) events until every
@@ -652,12 +898,21 @@ class ServingEngine:
         knobs = self._knobs([req], 1)
         draws = host_to_device(
             np.asarray([self._draws[req.request_id]], np.int64), self.device)
+
+        def dispatch():
+            with torch.no_grad():
+                logits, _ = self.model(ids, caches=self.cache.layer_views(
+                    page_table), start_pos=n_cached)
+                tok = sample_batch(logits[:, len(suffix) - 1], knobs, draws)
+                return int(tok[0])             # the prefill's host sync
+
         t0 = time.perf_counter()
-        with torch.no_grad():
-            logits, _ = self.model(ids, caches=self.cache.layer_views(
-                page_table), start_pos=n_cached)
-            tok = sample_batch(logits[:, len(suffix) - 1], knobs, draws)
-            token = int(tok[0])                # the prefill's host sync
+        token, err = self._guarded_call("dispatch", dispatch)
+        if err is not None:
+            # isolate THIS request; a pending decode block belongs to other
+            # (prefilled) requests and keeps flying
+            self._quarantine([req], err, "prefill")
+            return []
         req.num_computed_tokens = len(req.prompt)
         if self.prefix_cache is not None:
             # the prompt's full pages become reusable (the partial last
@@ -700,13 +955,23 @@ class ServingEngine:
             knobs = self._knobs([req], 1)
             draws = host_to_device(
                 np.asarray([self._draws[req.request_id]], np.int64), dev)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            logits, _ = self.model(ids, caches=self.cache.layer_views(
-                page_table), start_pos=offset)
-            if final:
+
+        def dispatch():
+            with torch.no_grad():
+                logits, _ = self.model(ids, caches=self.cache.layer_views(
+                    page_table), start_pos=offset)
+                if not final:
+                    return PAD_TOKEN           # no host sync, no draw
                 tok = sample_batch(logits[:, n - 1], knobs, draws)
-                token = int(tok[0])            # the final chunk's host sync
+                return int(tok[0])             # the final chunk's host sync
+
+        t0 = time.perf_counter()
+        token, err = self._guarded_call("dispatch", dispatch)
+        if err is not None:
+            # only this request: its cursor never advanced, so finalize
+            # releases exactly its chunk-to-date pages
+            self._quarantine([req], err, "prefill_chunk")
+            return []
         req.num_computed_tokens = start + n
         now = time.perf_counter()
         o = self._obs
@@ -785,35 +1050,45 @@ class ServingEngine:
             dbuf = host_to_device(self._spec.build_draft_buffer(
                 decode, self.max_batch_size, h * (1 + L), self.spec_config,
                 self.prefix_cache), dev)
+
+        def dispatch():
+            with torch.no_grad():
+                logits, _ = self.model(
+                    flat_ids, caches=self.cache.layer_views(page_tables,
+                                                            row_ids),
+                    start_pos=flat_pos)
+                nxt = sample_batch(logits[0, last_idx], knobs, draws)
+                alive = remaining > 0
+                emit, tok, pos, drw, rem = self._advance(
+                    nxt, tokens, positions, draws, knobs, remaining,
+                    max_pages)
+                emitted = [emit[:, None]]
+                # chunk rows are parked now; a chunk-only step skips the
+                # iterations in which every row would be dead
+                views = (self.cache.layer_views(page_tables) if decode
+                         else None)
+                if spec_on:
+                    # the tokens and the accept counters come back in ONE
+                    # copy
+                    emitted.extend(self._spec.verify_windows(
+                        self.model, views, dbuf, tok, pos, drw, knobs, rem,
+                        windows=h - 1 if decode else 0, lookahead=L,
+                        page_size=self.page_size, first=nxt, alive=alive))
+                elif decode:
+                    for _ in range(h - 1):
+                        emit, tok, pos, drw, rem = self._decode_iter(
+                            views, tok, pos, drw, knobs, rem, max_pages)
+                        emitted.append(emit[:, None])
+                return _start_host_copy(torch.cat(emitted, dim=1))
+
         t0 = time.perf_counter()
-        with torch.no_grad():
-            logits, _ = self.model(
-                flat_ids, caches=self.cache.layer_views(page_tables,
-                                                        row_ids),
-                start_pos=flat_pos)
-            nxt = sample_batch(logits[0, last_idx], knobs, draws)
-            alive = remaining > 0
-            emit, tokens, positions, draws, remaining = self._advance(
-                nxt, tokens, positions, draws, knobs, remaining, max_pages)
-            emitted = [emit[:, None]]
-            # chunk rows are parked now; a chunk-only step skips the
-            # iterations in which every row would be dead
-            views = self.cache.layer_views(page_tables) if decode else None
-            if spec_on:
-                # the tokens and the accept counters come back in ONE copy
-                emitted.extend(self._spec.verify_windows(
-                    self.model, views, dbuf, tokens, positions, draws,
-                    knobs, remaining, windows=h - 1 if decode else 0,
-                    lookahead=L, page_size=self.page_size, first=nxt,
-                    alive=alive))
-            elif decode:
-                for _ in range(h - 1):
-                    emit, tokens, positions, draws, remaining = \
-                        self._decode_iter(views, tokens, positions, draws,
-                                          knobs, remaining, max_pages)
-                    emitted.append(emit[:, None])
-            emitted = torch.cat(emitted, dim=1)
-        host, event = _start_host_copy(emitted)
+        out, err = self._guarded_call("dispatch", dispatch)
+        if err is not None:
+            # one dispatch carries every row: a fault implicates them all
+            self._quarantine([r for r in batch.reqs
+                              if r.status == "running"], err, "ragged")
+            return events
+        host, event = out
         for req, n in zip(batch.reqs, batch.incr):
             req.inflight += n
         now = time.perf_counter()
@@ -969,14 +1244,23 @@ class ServingEngine:
             reqs, b, cap, self.spec_config, self.prefix_cache), self.device)
         incr = [max(min(cap, r.max_new_tokens - len(r.generated)
                         - r.inflight), 0) for r in reqs]
+
+        def dispatch():
+            with torch.no_grad():
+                out = torch.cat(self._spec.verify_windows(
+                    self.model, self.cache.layer_views(page_tables), dbuf,
+                    tokens, positions, draws, knobs, remaining, windows=h,
+                    lookahead=L, page_size=self.page_size), dim=1)
+            # the tokens and the accept counters come back in ONE copy
+            return _start_host_copy(out)
+
         t0 = time.perf_counter()
-        with torch.no_grad():
-            out = torch.cat(self._spec.verify_windows(
-                self.model, self.cache.layer_views(page_tables), dbuf,
-                tokens, positions, draws, knobs, remaining, windows=h,
-                lookahead=L, page_size=self.page_size), dim=1)
-        # the tokens and the accept counters come back in ONE copy
-        host, event = _start_host_copy(out)
+        out, err = self._guarded_call("dispatch", dispatch)
+        if err is not None:
+            self._quarantine([r for r in reqs if r.status == "running"],
+                             err, "spec")
+            return events
+        host, event = out
         for req, n in zip(reqs, incr):
             req.inflight += n
         o = self._obs
@@ -1031,12 +1315,25 @@ class ServingEngine:
         # host sees them; the scheduler reserves pages against this bound
         incr = [max(min(h, r.max_new_tokens - len(r.generated) - r.inflight),
                     0) for r in reqs]
+
+        def dispatch():
+            with torch.no_grad():
+                emitted, *carries = self._decode_block(
+                    tokens, page_tables, positions, draws, knobs, remaining)
+            return _start_host_copy(emitted), carries
+
         t0 = time.perf_counter()
-        with torch.no_grad():
-            emitted, tokens, positions, draws, remaining = \
-                self._decode_block(tokens, page_tables, positions, draws,
-                                   knobs, remaining)
-        host, event = _start_host_copy(emitted)
+        out, err = self._guarded_call("dispatch", dispatch)
+        if err is not None:
+            # a decode dispatch implicates the whole batch. Drain the
+            # previous block FIRST (its tokens are sound and its writes
+            # land before the pages are released), then isolate whatever
+            # still runs
+            ev = self._drain_pending()
+            self._quarantine([r for r in reqs if r.status == "running"],
+                             err, "decode")
+            return events_prev + ev
+        (host, event), (tokens, positions, draws, remaining) = out
         for req, n in zip(reqs, incr):
             req.inflight += n
         if self._obs is not None:
@@ -1084,10 +1381,18 @@ class ServingEngine:
         charge is reverted."""
         o = self._obs
         t_in = time.perf_counter()
-        if rec["event"] is not None:
-            rec["event"].synchronize()
-        toks = rec["host"].numpy()
+        toks, err = self._guarded_call("drain", lambda: _pull(rec))
         windows = rec.get("windows")
+        if err is not None:
+            # the block's tokens are lost: give back the in-flight bound
+            # and isolate exactly its running rows (rec is detached from
+            # _pending already, so teardown releases pages directly; a
+            # speculative record's worst-case charge goes with them)
+            for i, req in enumerate(rec["reqs"]):
+                req.inflight = max(req.inflight - rec["incr"][i], 0)
+            self._quarantine([r for r in rec["reqs"]
+                              if r.status == "running"], err, "drain")
+            return []
         if windows is not None:
             toks, sstats = toks[:, :-3], toks[:, -3:]
         if o is not None:
@@ -1139,6 +1444,280 @@ class ServingEngine:
         self._last_drain_t = now
         return events
 
+    # ------------------------------------------------------------- recovery
+    def attach_journal(self, journal) -> None:
+        """Attach the RequestJournal this engine appends to. Must happen
+        before any request is added: a request the journal does not know
+        cannot be recovered."""
+        self._journal = journal
+
+    def salvage(self) -> List[Tuple[int, int]]:
+        """The supervisor's best-effort drain before a restart: surface
+        what a still-answering device can deliver (spilled events plus the
+        pending block) and journal it. Unlike the steady-state drain this
+        never quarantines: a block the device cannot hand back is dropped,
+        its tokens were never delivered, and the rebuilt engine recomputes
+        them. Every row of the record gives back its in-flight bound
+        whether or not the copy's event is reached. The injector's `drain`
+        site is consulted, so chaos schedules can kill the salvage too."""
+        events = list(self._spill)
+        self._spill = []
+        rec, self._pending = self._pending, None
+        if rec is not None:
+            toks = None
+            try:
+                if self._faults is not None:
+                    self._faults.check("drain")
+                toks = _pull(rec)
+            except Exception:  # noqa: BLE001 (the device may be gone)
+                self.fault_events += 1
+            for i, req in enumerate(rec["reqs"]):
+                req.inflight = max(req.inflight - rec["incr"][i], 0)
+            if toks is not None:
+                now = time.perf_counter()
+                windows = rec.get("windows")
+                if windows is not None:
+                    toks = toks[:, :-3]
+                for i, req in enumerate(rec["reqs"]):
+                    if req.status != "running":
+                        continue
+                    row = toks[i]
+                    if windows is not None:
+                        row = self._spec.parse_emitted_row(row, windows)
+                    for t in row:
+                        t = int(t)
+                        if t == PAD_TOKEN:
+                            break
+                        events.append(self._emit(req, t, now))
+                        if req.status != "running":
+                            break
+        if self._journal is not None and events:
+            self._journal_delivery(events)
+        return events
+
+    def release_pools(self) -> None:
+        """Drop this engine's KV pools and any undrained block so that a
+        replacement can allocate its own. The engine cannot serve after
+        this; the supervisor calls it once `snapshot()` has returned."""
+        self._pending = None
+        self.cache.pools = []
+
+    def snapshot(self):
+        """Serializable boundary state of every request the journal holds
+        live: original prompt, delivered tokens, sampling knobs and the
+        effective seed, wall-clock deadlines and timestamps, and the draw
+        index replayed from the delivered count (never the live
+        `_draws`, which a lost spill can leave ahead of what was
+        delivered). KV pages and the pending block are absent: restore
+        re-prefills the fold instead. Needs an attached journal."""
+        from .recovery import EngineSnapshot, RequestSnapshot, \
+            replay_key_state
+
+        if self._journal is None:
+            raise RuntimeError(
+                "snapshot() needs an attached journal: the journal is the "
+                "source of truth for what each consumer was shown")
+        snaps = []
+        for rec in self._journal.live_records():
+            live = self.requests.get(rec.request_id)
+            snaps.append(RequestSnapshot(
+                request_id=rec.request_id, prompt=list(rec.prompt),
+                delivered=list(rec.delivered),
+                max_new_tokens=rec.max_new_tokens,
+                temperature=rec.temperature, top_k=rec.top_k,
+                top_p=rec.top_p, seed=rec.seed,
+                eos_token_id=rec.eos_token_id,
+                deadline_wall=rec.deadline_wall,
+                arrival_wall=rec.arrival_wall,
+                first_token_wall=rec.first_token_wall,
+                last_token_wall=rec.last_token_wall,
+                preemptions=live.preemptions if live is not None else 0,
+                parked=live.parked if live is not None else False,
+                draws=replay_key_state(rec.seed, rec.key_splits
+                                       + len(rec.delivered))))
+        config = {
+            "page_size": self.page_size,
+            "max_batch_size": self.max_batch_size,
+            "max_seq_len": self.max_seq_len,
+            "decode_horizon": self.decode_horizon,
+            "enable_chunked_prefill": self.enable_chunked_prefill,
+            "enable_prefix_caching": self.prefix_cache is not None,
+            "tp_size": 1,
+        }
+        return EngineSnapshot(config=config, requests=snaps,
+                              taken_wall=time.time())
+
+    def restore(self, snapshot, cancelled: Sequence[int] = ()) -> List[int]:
+        """Rebuild request state on a FRESH engine from a snapshot. Each
+        unfinished request is re-admitted in submission order under its
+        ORIGINAL id as a folded prompt (original prompt + delivered
+        tokens, as preemption folds), resuming at its draw index, so its
+        continuation is the stream it would have produced. A request whose
+        delivered stream already meets its stopping rule is rebuilt as
+        finished; one in `cancelled` (cancelled while the restore was in
+        flight) ends "cancelled"; one whose wall-clock deadline passed
+        during the outage ends "expired", never resurrected. Returns the
+        re-admitted request ids."""
+        if self.requests:
+            raise RuntimeError(
+                "restore() needs a fresh engine: this one already holds "
+                f"{len(self.requests)} requests")
+        if snapshot.config.get("max_seq_len", self.max_seq_len) > \
+                self.max_seq_len:
+            raise ValueError(
+                f"restore target's max_seq_len ({self.max_seq_len}) is "
+                "smaller than the snapshot's "
+                f"({snapshot.config['max_seq_len']}): folded prompts may "
+                "not fit")
+        if snapshot.requests:
+            reserve_request_ids(max(r.request_id
+                                    for r in snapshot.requests))
+        cancelled = set(cancelled)
+        now_wall = time.time()
+        # the snapshot's wall-clock anchors on this process's perf_counter
+        # timeline: deadlines keep counting down across the outage
+        offset = time.perf_counter() - now_wall
+        readmitted: List[int] = []
+        for rs in snapshot.requests:
+            rid = rs.request_id
+            done = (len(rs.delivered) >= rs.max_new_tokens
+                    or (rs.eos_token_id is not None and rs.delivered
+                        and rs.delivered[-1] == rs.eos_token_id))
+            sampling = SamplingParams(rs.temperature, rs.top_k, rs.top_p,
+                                      rs.seed)
+            self._seeds[rid] = int(rs.seed)
+            self._draws[rid] = int(rs.draws)
+            if done:
+                # everything was delivered and only the `finished` record
+                # was lost: rebuild, never recompute
+                req = Request(prompt=list(rs.prompt),
+                              max_new_tokens=rs.max_new_tokens,
+                              sampling=sampling,
+                              eos_token_id=rs.eos_token_id, request_id=rid)
+                req.generated = list(rs.delivered)
+                req.num_computed_tokens = len(rs.prompt)
+                self._restore_times(req, rs, offset)
+                req.finish_t = time.perf_counter()
+                self.requests[rid] = req
+                self.scheduler.finish(req)
+                if self._journal is not None and self._journal.known(rid):
+                    self._journal.terminal(rid, "finished")
+                continue
+            req = Request(prompt=list(rs.prompt) + list(rs.delivered),
+                          max_new_tokens=(rs.max_new_tokens
+                                          - len(rs.delivered)),
+                          sampling=sampling, eos_token_id=rs.eos_token_id,
+                          request_id=rid)
+            req.preemptions = rs.preemptions
+            req.parked = rs.parked
+            self._restore_times(req, rs, offset)
+            self.requests[rid] = req
+            if rid in cancelled:
+                # a cancel issued mid-restore wins over re-admission
+                self._finalize(req, "cancelled")
+                continue
+            if rs.deadline_wall is not None:
+                req.deadline_t = rs.deadline_wall + offset
+                if now_wall >= rs.deadline_wall:
+                    # the deadline passed during the outage
+                    self._finalize(req, "expired")
+                    continue
+            self.scheduler.add(req, force=True)
+            if req.deadline_t is not None:
+                self._deadlined.add(rid)
+            readmitted.append(rid)
+        return readmitted
+
+    @staticmethod
+    def _restore_times(req: Request, rs, offset: float) -> None:
+        req.arrival_t = rs.arrival_wall + offset
+        if rs.first_token_wall is not None:
+            req.first_token_t = rs.first_token_wall + offset
+        if rs.last_token_wall is not None:
+            req.last_token_t = rs.last_token_wall + offset
+
+    def adopt_request(self, *, prompt: List[int],
+                      delivered: Sequence[int] = (),
+                      max_new_tokens: int,
+                      temperature: float = 0.0, top_k: int = 0,
+                      top_p: float = 1.0, seed: int,
+                      eos_token_id: Optional[int] = None,
+                      deadline_wall: Optional[float] = None,
+                      key_splits: int = 0,
+                      request_id: Optional[int] = None,
+                      slo_class: Optional[str] = None) -> int:
+        """Re-admit another engine's in-flight request into this running
+        engine (the single-request form of `restore()`): it enters as the
+        folded prompt `prompt + delivered` with the remaining budget, at
+        draw index `key_splits + len(delivered)`, so its continuation is
+        the stream the other engine would have produced.
+        `request_id=None` mints a fresh id; passing one keeps it
+        (`reserve_request_ids` fences the counter either way). A journal
+        that does not know the id gets the fold as a new submission
+        carrying the accumulated draw count (`key_splits`). A
+        `deadline_wall` already past finalizes the request "expired".
+        Returns the id the request now runs under."""
+        from .recovery import replay_key_state
+
+        if slo_class is not None:
+            raise _not_ported("slo_class", slo_class)
+        prompt = [int(t) for t in prompt]
+        delivered = [int(t) for t in delivered]
+        if not prompt:
+            raise ValueError("empty prompt")
+        remaining = max_new_tokens - len(delivered)
+        if remaining < 1:
+            raise ValueError(
+                f"nothing left to generate: {len(delivered)} of "
+                f"{max_new_tokens} tokens already delivered")
+        folded = prompt + delivered
+        if len(folded) + remaining > self.max_seq_len:
+            raise ValueError(
+                f"folded prompt ({len(folded)}) + remaining budget "
+                f"({remaining}) exceeds max_seq_len {self.max_seq_len}")
+        if not self.enable_chunked_prefill \
+                and len(folded) > self.prefill_buckets[-1]:
+            raise ValueError(
+                f"folded prompt length {len(folded)} exceeds the largest "
+                f"prefill bucket {self.prefill_buckets[-1]}")
+        if request_id is not None:
+            if request_id in self.requests:
+                raise ValueError(
+                    f"request {request_id} already lives on this engine")
+            reserve_request_ids(request_id)
+        req = Request(prompt=folded, max_new_tokens=remaining,
+                      sampling=SamplingParams(temperature, top_k, top_p,
+                                              seed),
+                      eos_token_id=eos_token_id,
+                      **({"request_id": request_id}
+                         if request_id is not None else {}))
+        rid = req.request_id
+        now_wall = time.time()
+        offset = time.perf_counter() - now_wall
+        expired = deadline_wall is not None and now_wall >= deadline_wall
+        if not expired:
+            # may raise on the page budget, before any registration; force
+            # because an engine already admitted this request once
+            self.scheduler.add(req, force=True)
+        self.requests[rid] = req
+        self._seeds[rid] = int(seed)
+        self._draws[rid] = replay_key_state(seed,
+                                            key_splits + len(delivered))
+        if self._journal is not None and not self._journal.known(rid):
+            self._journal.submit(
+                request_id=rid, prompt=folded, max_new_tokens=remaining,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed, eos_token_id=eos_token_id,
+                deadline_wall=deadline_wall, arrival_wall=now_wall,
+                key_splits=key_splits + len(delivered))
+        if deadline_wall is not None:
+            req.deadline_t = deadline_wall + offset
+            if expired:
+                self._finalize(req, "expired")
+                return rid
+            self._deadlined.add(rid)
+        return rid
+
     # -------------------------------------------------------------- metrics
     def stats(self) -> Dict[str, object]:
         """Aggregate serving metrics, a thin view over the metrics
@@ -1180,6 +1759,17 @@ class ServingEngine:
         s["num_requests"] = len(self.requests)
         s["num_finished"] = sum(r.status == "finished"
                                 for r in self.requests.values())
+        # resilience outcomes from request state, so the shape is the same
+        # with metrics off (the registry keeps the same counts under
+        # serving_requests_terminated_total{status=})
+        term = dict.fromkeys(("cancelled", "expired", "failed", "shed"), 0)
+        for r in self.requests.values():
+            if r.status in term:
+                term[r.status] += 1
+        s["terminal"] = term
+        s["transient_retries"] = (int(o.retries.value) if o is not None
+                                  else 0)
+        s["parked"] = sum(r.parked for r in self.requests.values())
         s["free_pages"] = self.cache.allocator.num_free
         empty = Histogram.empty_summary()
         if self.prefix_cache is not None:

@@ -87,6 +87,8 @@ class BlockAllocator:
         self._m_alloc = None
         self._m_recycle = None
         self._m_share = None
+        # fault injection (bind_faults): a None check only when unbound
+        self._faults = None
 
     def bind_metrics(self, registry) -> None:
         """Attach page-lifecycle counters from a MetricsRegistry (handles
@@ -99,6 +101,12 @@ class BlockAllocator:
         self._m_share = registry.counter(
             "serving_kv_page_shares_total",
             "extra references acquired on shared pages")
+
+    def bind_faults(self, injector) -> None:
+        """Attach a resilience.FaultInjector; every alloc / alloc_n entry
+        then consults its `alloc` site (one check per entry, not per
+        page)."""
+        self._faults = injector
 
     @property
     def num_free(self) -> int:
@@ -122,6 +130,12 @@ class BlockAllocator:
         """Live references on `page` (0 = free)."""
         return self._refs.get(page, 0)
 
+    def live_pages(self) -> List[int]:
+        """Sorted page ids holding at least one live reference (what a
+        restore-side audit compares with the pages the rebuilt requests
+        and the prefix cache account for)."""
+        return sorted(self._refs)
+
     def _alloc_unchecked(self) -> Optional[int]:
         if not self._free:
             return None
@@ -134,11 +148,16 @@ class BlockAllocator:
 
     def alloc(self) -> Optional[int]:
         """One free page id (refcount 1), or None when the pool is
-        exhausted."""
+        exhausted. May raise InjectedFault under a bound FaultInjector
+        (the scheduler degrades it to the exhausted path)."""
+        if self._faults is not None:
+            self._faults.check("alloc")
         return self._alloc_unchecked()
 
     def alloc_n(self, n: int) -> Optional[List[int]]:
         """All-or-nothing batch alloc (request admission)."""
+        if self._faults is not None:
+            self._faults.check("alloc")
         if len(self._free) < n:
             return None
         return [self._alloc_unchecked() for _ in range(n)]

@@ -85,6 +85,14 @@ class PrefixCache:
         self._m_pages = reg.gauge(
             "serving_prefix_cached_pages",
             "pages resident in the radix tree")
+        # fault injection (bind_faults): a None check only when unbound
+        self._faults = None
+
+    def bind_faults(self, injector) -> None:
+        """Attach a resilience.FaultInjector; `match` then consults its
+        `prefix_match` site (the scheduler degrades an injected lookup
+        fault to a miss). `peek` and `continuation` fire no fault."""
+        self._faults = injector
 
     # ------------------------------------------------------------- lookup
     def _chunk(self, tokens: Sequence[int], i: int) -> Chunk:
@@ -97,6 +105,9 @@ class PrefixCache:
         `allocator.free`. Capped at len(tokens) - 1 tokens so a fully
         cached prompt still has a suffix to prefill."""
         self._tick += 1
+        if self._faults is not None:
+            # raises BEFORE any reference is acquired: nothing leaks
+            self._faults.check("prefix_match")
         node = self._root
         pages: List[int] = []
         for i in range((len(tokens) - 1) // self.page_size):

@@ -1,8 +1,42 @@
-"""The part of paddle_tpu/serving/resilience.py:58-68 the scheduler uses:
-the terminal request statuses and the backpressure error."""
+"""Failure semantics for the serving stack (ported from
+paddle_tpu/serving/resilience.py; pure Python, copied rather than imported).
+
+- **terminal statuses**: a request ends in exactly one of
+  `finished | cancelled | expired | failed | shed` (`TERMINAL_STATUSES`);
+- **`EngineOverloaded`**: the typed backpressure signal `add_request`
+  raises when the bounded waiting queue (`max_waiting`) is full;
+- **`FaultInjector` / `InjectedFault`**: deterministic, seeded fault
+  injection threaded through the engine (`dispatch`, `drain` and
+  `device_lost` sites), the `BlockAllocator` (`alloc`) and the
+  `PrefixCache` (`prefix_match`) behind `None`-check hooks, so an engine
+  without an injector runs none of it.
+
+Fault taxonomy, escalating in blast radius:
+
+- **transient** (`transient=True`, every `InjectedFault`'s default): the
+  engine's dispatch / drain guard retries the site once after
+  `retry_backoff_s`; it costs latency, never a request;
+- **persistent** (`transient=False`, or any unknown exception): the
+  implicated requests are quarantined (status `failed`, the error on the
+  Request, pages released) and the engine serves the rest;
+- **fatal** (`fatal=True`, `is_fatal`): the engine is the casualty. The
+  fault leaves the engine untouched for the `EngineSupervisor`
+  (serving.recovery), which salvages, snapshots, rebuilds and re-admits.
+  The injector's `device_lost` site defaults its rules to fatal.
+
+`FaultInjector.fail_rate` draws from a per-site `random.Random` seeded by
+the string `f"{seed}:{site}"`, exactly as the reference does, so for one
+seed and one call sequence both packages fire at the same calls.
+"""
 from __future__ import annotations
 
-__all__ = ["TERMINAL_STATUSES", "EngineOverloaded"]
+import random
+from typing import Dict, List, Optional, Tuple
+
+__all__ = [
+    "EngineDead", "EngineOverloaded", "FaultInjector", "InjectedFault",
+    "TERMINAL_STATUSES", "describe_fault", "is_fatal", "is_transient",
+]
 
 # every way a request's lifecycle can end; `Request.status` lands on
 # exactly one of these and never changes again
@@ -16,3 +50,201 @@ class EngineOverloaded(RuntimeError):
     Deliberately a distinct type (not ValueError) so callers can tell
     "malformed request" from "come back later" without string matching.
     """
+
+
+class EngineDead(RuntimeError):
+    """An `EngineSupervisor` exhausted `max_restarts` and gave up.
+
+    Raised by the restart that crosses the budget, and by every
+    subsequent `add_request`/`step`/`restart` on the dead supervisor.
+    Past this point the supervisor keeps answering `status`/`output`/
+    `stats` from the journal (the engine object is gone).
+
+    `reason` is the escalation reason of the final straw (one of
+    `RESTART_REASONS` in recovery.py); `restarts` the number of restarts
+    that were attempted before giving up.
+    """
+
+    def __init__(self, msg: str, reason: Optional[str] = None,
+                 restarts: int = 0):
+        super().__init__(msg)
+        self.reason = reason
+        self.restarts = restarts
+
+
+class InjectedFault(RuntimeError):
+    """Raised by `FaultInjector.check` at an armed trigger point.
+
+    `transient=True` (the default) marks the fault as retryable: the
+    engine's dispatch/drain guard retries the site once with backoff, so
+    a transient fault costs latency, never a request. `transient=False`
+    models a hard failure and quarantines the implicated request(s).
+    `fatal=True` (which forces `transient=False`) models an engine-level
+    failure — a lost device, a wedged runtime — that no per-request
+    isolation can contain: the engine re-raises it for the supervisor's
+    snapshot/rebuild/re-admit ladder.
+    """
+
+    def __init__(self, site: str, index: int, transient: bool = True,
+                 fatal: bool = False):
+        if fatal:
+            transient = False
+        kind = ("fatal" if fatal
+                else "transient" if transient else "persistent")
+        super().__init__(
+            f"injected {kind} {site} fault (call #{index})")
+        self.site = site
+        self.index = index
+        self.transient = transient
+        self.fatal = fatal
+
+
+def is_transient(exc: BaseException) -> bool:
+    """True when `exc` marks itself retryable (duck-typed `transient`
+    attribute; InjectedFault sets it, real infrastructure errors can
+    too). Unknown exceptions default to persistent — retrying a NaN or a
+    tripped invariant would just fail again."""
+    return bool(getattr(exc, "transient", False))
+
+
+def is_fatal(exc: BaseException) -> bool:
+    """True when `exc` marks the whole ENGINE as dead (duck-typed `fatal`
+    attribute; InjectedFault sets it for `device_lost`-style schedules,
+    real runtime errors can too). Fatal faults are never retried or
+    quarantined — they escalate to the EngineSupervisor's
+    snapshot/rebuild/re-admit path (recovery.py)."""
+    return bool(getattr(exc, "fatal", False))
+
+
+def describe_fault(exc: BaseException) -> Dict[str, object]:
+    """Small JSON-able classification of a fault for telemetry payloads
+    (flight-recorder events, post-mortem bundles): exception type name
+    plus its position in the transient/persistent/fatal taxonomy."""
+    return {
+        "exc": type(exc).__name__,
+        "transient": is_transient(exc),
+        "fatal": is_fatal(exc),
+    }
+
+
+class FaultInjector:
+    """Deterministic fault schedule over named trigger points.
+
+    Sites (see `SITES`): `dispatch` (every prefill / chunk / decode-block
+    / ragged-step dispatch, counted together in launch order — retries advance the
+    count), `drain` (the device->host token pull), `alloc` (every
+    BlockAllocator alloc/alloc_n entry), `prefix_match` (PrefixCache
+    radix lookups), `device_lost` (checked once at the top of every
+    `ServingEngine.step()` — rules armed there default to FATAL, so
+    `fail_at("device_lost", k)` kills the whole engine deterministically
+    at step k, the recovery chaos tests' kill switch). Instrumented code
+    calls `check(site)` once per event; the injector counts the call and
+    raises `InjectedFault` when a rule matches. Three rule shapes:
+
+    - `fail_at(site, index)` — fire on exactly the `index`-th call
+      (0-based) of that site: "alloc fails on call 7";
+    - `fail_every(site, n)` — fire on every n-th call (calls n-1, 2n-1,
+      ...): "every 50th dispatch raises";
+    - `fail_rate(site, p)` — fire each call with probability `p` from a
+      per-site `random.Random(seed ^ site)` stream, so runs with the
+      same seed and call sequence inject identically and sites don't
+      perturb each other's streams.
+
+    Everything is host-side Python, so schedules are exact in call
+    order. `counts` / `fired` / `log` expose what actually happened for
+    assertions.
+    """
+
+    SITES = ("dispatch", "drain", "alloc", "prefix_match",
+             "device_lost")
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+        self._rules: Dict[str, List[tuple]] = {}
+        self._rngs: Dict[str, random.Random] = {}
+        self.counts: Dict[str, int] = {}
+        self.fired: Dict[str, int] = {}
+        # (site, call index, transient) per injected fault, in order
+        self.log: List[Tuple[str, int, bool]] = []
+
+    def _site(self, site: str) -> str:
+        if site not in self.SITES:
+            raise ValueError(
+                f"unknown fault site {site!r}; one of {self.SITES}")
+        return site
+
+    def _flags(self, site: str, transient: Optional[bool],
+               fatal: Optional[bool]) -> Tuple[bool, bool]:
+        """Resolve a rule's (transient, fatal) flags. `device_lost` rules
+        default to fatal — losing the device is by definition an
+        engine-level failure — while every other site defaults to a
+        plain transient fault; `fatal=True` always forces
+        `transient=False` (a dead engine is not retryable)."""
+        if fatal is None:
+            fatal = site == "device_lost"
+        if transient is None:
+            transient = not fatal
+        if fatal:
+            transient = False
+        return transient, fatal
+
+    # ------------------------------------------------------------- rules
+    def fail_at(self, site: str, index: int,
+                transient: Optional[bool] = None,
+                fatal: Optional[bool] = None) -> "FaultInjector":
+        site = self._site(site)
+        transient, fatal = self._flags(site, transient, fatal)
+        self._rules.setdefault(site, []).append(
+            ("at", int(index), transient, fatal))
+        return self
+
+    def fail_every(self, site: str, n: int,
+                   transient: Optional[bool] = None,
+                   fatal: Optional[bool] = None) -> "FaultInjector":
+        if n < 1:
+            raise ValueError("fail_every needs n >= 1")
+        site = self._site(site)
+        transient, fatal = self._flags(site, transient, fatal)
+        self._rules.setdefault(site, []).append(
+            ("every", int(n), transient, fatal))
+        return self
+
+    def fail_rate(self, site: str, p: float,
+                  transient: Optional[bool] = None,
+                  fatal: Optional[bool] = None) -> "FaultInjector":
+        if not 0.0 <= p <= 1.0:
+            raise ValueError("fail_rate needs p in [0, 1]")
+        site = self._site(site)
+        transient, fatal = self._flags(site, transient, fatal)
+        self._rules.setdefault(site, []).append(
+            ("rate", float(p), transient, fatal))
+        return self
+
+    # ------------------------------------------------------------ firing
+    def check(self, site: str) -> None:
+        """One trigger-point event: count it, raise if a rule matches.
+        Called only behind `if injector is not None` guards — a serving
+        stack without an injector never reaches this."""
+        i = self.counts.get(site, 0)
+        self.counts[site] = i + 1
+        for kind, arg, transient, fatal in self._rules.get(site, ()):
+            if kind == "at":
+                hit = i == arg
+            elif kind == "every":
+                hit = (i + 1) % arg == 0
+            else:  # rate
+                rng = self._rngs.get(site)
+                if rng is None:
+                    # str seeds hash via sha512 inside random.seed, so
+                    # the stream is stable across processes (a tuple
+                    # hash would pick up PYTHONHASHSEED salting)
+                    rng = self._rngs[site] = random.Random(
+                        f"{self.seed}:{site}")
+                hit = rng.random() < arg
+            if hit:
+                self.fired[site] = self.fired.get(site, 0) + 1
+                self.log.append((site, i, transient))
+                raise InjectedFault(site, i, transient, fatal=fatal)
+
+    def total_fired(self) -> int:
+        return sum(self.fired.values())

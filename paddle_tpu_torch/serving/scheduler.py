@@ -48,12 +48,22 @@ import time
 from typing import List, Optional, Sequence
 
 from .kv_cache import NULL_PAGE, BlockAllocator, pages_for
-from .resilience import TERMINAL_STATUSES, EngineOverloaded
+from .resilience import EngineOverloaded, InjectedFault, TERMINAL_STATUSES
 
 __all__ = ["ChunkTask", "Request", "SamplingParams", "Scheduler",
-           "ScheduleDecision"]
+           "ScheduleDecision", "reserve_request_ids"]
 
 _REQUEST_IDS = itertools.count()
+
+
+def reserve_request_ids(up_to: int) -> None:
+    """Advance the global request-id counter past `up_to`. A restore
+    rebuilds Requests with their ORIGINAL ids (stream consumers and the
+    journal key on them), so a rebuilt engine must never hand a new
+    request an id the snapshot already owns."""
+    global _REQUEST_IDS
+    nxt = next(_REQUEST_IDS)
+    _REQUEST_IDS = itertools.count(max(nxt, up_to + 1))
 
 
 @dataclasses.dataclass
@@ -81,6 +91,12 @@ class Request:
     generated: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
     preemptions: int = 0
+    # absolute perf_counter deadline (arrival_t + deadline_s), or None.
+    # Past it a waiting request expires before admission and a running one
+    # at the next block boundary
+    deadline_t: Optional[float] = None
+    # set when status lands on "failed": the isolated failure, as text
+    error: Optional[str] = None
     # preemption-storm guard tripped: requeued at the BACK of the queue
     parked: bool = False
     # upper bound on tokens sampled by a dispatched-but-undrained decode
@@ -210,14 +226,18 @@ class Scheduler:
         self.running: List[Request] = []
 
     # ------------------------------------------------------------ lifecycle
-    def add(self, req: Request) -> None:
+    def add(self, req: Request, force: bool = False) -> None:
+        """Enqueue `req`. `force=True` bypasses the bounded-queue check:
+        a restore re-admits requests the engine already accepted once, and
+        bouncing them off `max_waiting` would turn a restart into
+        shedding."""
         need = pages_for(len(req.prompt) + req.max_new_tokens,
                          self.page_size)
         if need > self.max_pages_per_seq:
             raise ValueError(
                 f"request needs {need} pages > max_pages_per_seq "
                 f"{self.max_pages_per_seq}; raise max_seq_len/page budget")
-        if self.max_waiting is not None and \
+        if not force and self.max_waiting is not None and \
                 len(self.waiting) >= self.max_waiting:
             raise EngineOverloaded(
                 f"waiting queue is full ({len(self.waiting)} >= "
@@ -234,16 +254,20 @@ class Scheduler:
         if req in self.running:
             self.running.remove(req)
 
-    def finalize(self, req: Request, status: str) -> bool:
-        """Terminal transition for the failure-side statuses (cancelled,
-        ...): pull the request out of its queue and release its pages.
-        Idempotent: a request already terminal is left alone (returns
-        False). The engine drains any in-flight decode block first."""
+    def finalize(self, req: Request, status: str,
+                 error: Optional[str] = None) -> bool:
+        """Terminal transition for the failure-side statuses (cancelled /
+        expired / failed / shed): pull the request out of its queue and
+        release its pages through the refcounted path, so a shared prefix
+        page only loses THIS request's reference. Idempotent: a request
+        already terminal is left alone (returns False). The engine drains
+        any in-flight decode block first."""
         if req.status in TERMINAL_STATUSES:
             return False
         if status not in TERMINAL_STATUSES or status == "finished":
             raise ValueError(f"finalize cannot set status {status!r}")
         req.status = status
+        req.error = error
         req.inflight = 0
         req.finish_t = time.perf_counter()
         self.allocator.free_all(req.pages)
@@ -252,6 +276,8 @@ class Scheduler:
             self.running.remove(req)
         if req in self.waiting:
             self.waiting.remove(req)
+        if self.obs is not None:
+            self.obs.terminal(status)
         return True
 
     def has_work(self) -> bool:
@@ -298,26 +324,39 @@ class Scheduler:
 
     def _alloc_n(self, n: int) -> Optional[List[int]]:
         """All-or-nothing alloc that evicts cached pages no sequence holds
-        before reporting exhaustion."""
-        pages = self.allocator.alloc_n(n)
-        if pages is None and self.prefix_cache is not None:
-            self.prefix_cache.evict(n - self.allocator.num_free)
+        before reporting exhaustion. An injected alloc fault degrades to
+        the exhausted path: admission defers a step, which loses
+        nothing."""
+        try:
             pages = self.allocator.alloc_n(n)
+            if pages is None and self.prefix_cache is not None:
+                self.prefix_cache.evict(n - self.allocator.num_free)
+                pages = self.allocator.alloc_n(n)
+        except InjectedFault:
+            return None
         return pages
 
     def _alloc_one(self) -> Optional[int]:
-        page = self.allocator.alloc()
-        if page is None and self.prefix_cache is not None \
-                and self.prefix_cache.evict(1):
+        try:
             page = self.allocator.alloc()
+            if page is None and self.prefix_cache is not None \
+                    and self.prefix_cache.evict(1):
+                page = self.allocator.alloc()
+        except InjectedFault:
+            return None
         return page
 
     def _match(self, req: Request) -> List[int]:
         """The cached full-page prefix of `req`'s prompt (one reference a
-        page, owned by the caller), or [] without a prefix cache."""
+        page, owned by the caller), or [] without a prefix cache. An
+        injected lookup fault degrades to a miss: the request prefills its
+        whole prompt, with the same stream either way."""
         if self.prefix_cache is None:
             return []
-        return self.prefix_cache.match(req.prompt)
+        try:
+            return self.prefix_cache.match(req.prompt)
+        except InjectedFault:
+            return []
 
     def _admit(self, req: Request, cached: List[int],
                pages: List[int]) -> Request:

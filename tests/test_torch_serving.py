@@ -8,7 +8,9 @@ ServingEngine on the same weights, plus the port's own invariants.
   independent of the horizon and of the batch they ride in; streams
   unchanged under page pressure (preemption);
 - allocator and scheduler unit cases mirrored from tests/test_serving.py;
-- the engine knobs that are not ported raise NotImplementedError.
+- the engine knobs that are not ported raise NotImplementedError naming
+  their ROADMAP item; `cache_dtype` is the reference's legacy spelling of
+  fp32 / bf16 pools, with its conflict rule.
 
 All on the CPU, where every kernel wrapper runs its plain version.
 """
@@ -192,19 +194,71 @@ class TestPortInvariants:
 
 
 class TestEngineSurface:
-    @pytest.mark.parametrize("knob,value", [
-        ("tp_size", 2), ("journal", object()),
-        ("fault_injector", object()), ("slo_classes", [object()]),
-        ("flight_recorder", object()), ("postmortem_dir", "/tmp/x"),
+    @pytest.mark.parametrize("knob,value,item", [
+        ("tp_size", 2, "S5"), ("devices", ["cuda:0", "cuda:1"], "S5"),
+        ("tp_quantized_allreduce", True, "S5"), ("tp_overlap", True, "S5"),
+        ("tp_overlap_chunks", 2, "S5"), ("slo_classes", [object()], "S9"),
+        ("slo_refresh_every", 64, "S9"), ("flight_recorder", object(), "S9"),
+        ("postmortem_dir", "/tmp/x", "S9"),
     ])
-    def test_unported_knobs_raise_naming_the_roadmap(self, knob, value):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    def test_unported_knobs_raise_naming_the_roadmap(self, knob, value,
+                                                     item):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             _engine(_port_llama(), **{knob: value})
 
     def test_deadline_raises(self):
+        # deadlines are ported: only a non-positive one is refused
         eng = _engine(_port_llama())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.add_request([1, 2], deadline_s=1.0)
+        for bad in (0.0, -1.0):
+            with pytest.raises(ValueError, match="deadline_s"):
+                eng.add_request([1, 2], deadline_s=bad)
+        assert not eng.requests
+
+    def test_slo_class_raises_naming_the_roadmap(self):
+        eng = _engine(_port_llama())
+        with pytest.raises(NotImplementedError, match="ROADMAP.*S9"):
+            eng.add_request([1, 2], slo_class="interactive")
+        assert not eng.requests
+
+    @pytest.mark.parametrize("knob", ["fused_lm_loss", "labels"])
+    def test_llama_loss_surface_raises_naming_the_roadmap(self, knob):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*S11"):
+            if knob == "fused_lm_loss":
+                LlamaConfig(fused_lm_loss=True)
+            else:
+                _port_llama()(torch.zeros((1, 4), dtype=torch.int64),
+                              labels=torch.zeros((1, 4), dtype=torch.int64))
+
+    @pytest.mark.parametrize("cache_dtype,kv_dtype,pool", [
+        (torch.bfloat16, "fp32", torch.bfloat16),
+        ("bfloat16", "fp32", torch.bfloat16),
+        (torch.float32, "fp32", torch.float32),
+        ("float32", "bf16", torch.bfloat16),
+        ("bfloat16", "bf16", torch.bfloat16),
+        (torch.float32, "int8", torch.int8),
+    ])
+    def test_cache_dtype_is_the_legacy_pool_spelling(self, cache_dtype,
+                                                     kv_dtype, pool):
+        eng = _engine(_port_llama(), cache_dtype=cache_dtype,
+                      kv_dtype=kv_dtype)
+        assert eng.cache.pools[0][0].dtype == pool
+
+    def test_cache_dtype_streams_equal_kv_dtype_streams(self):
+        prompts = _prompts(9)
+        outs = [_staggered(_engine(_port_llama(), **kw), prompts,
+                           max_new_tokens=6)
+                for kw in (dict(cache_dtype="bfloat16"),
+                           dict(kv_dtype="bf16"))]
+        assert outs[0] == outs[1]
+
+    @pytest.mark.parametrize("cache_dtype,kv_dtype", [
+        ("bfloat16", "int8"), (torch.bfloat16, "fp8"),
+        (torch.float16, "fp32"), ("int8", "fp32"),
+    ])
+    def test_cache_dtype_conflicts_raise(self, cache_dtype, kv_dtype):
+        with pytest.raises(ValueError, match="cache_dtype"):
+            _engine(_port_llama(), cache_dtype=cache_dtype,
+                    kv_dtype=kv_dtype)
 
     def test_default_device_raises_without_a_card(self):
         if torch.cuda.is_available():
