@@ -221,6 +221,36 @@ without the final result line:
 24. recovery_fp32 (run after spec_fp32): the killed run of serve_recovery
    at fp32 on 2 layers of full width: every restored stream identical to
    the uninterrupted one.
+25. serve_cluster (run after serve_recovery): a ServingCluster of three
+   serve engines sharing the one LLaMA-7B on the card, each with two SLO
+   classes, its own FlightRecorder across rebuilds and a post-mortem
+   directory, supervised with max_restarts=1. Twelve greedy requests of
+   32 new tokens, two late: six share a 512-token prefix, six have their
+   own 64-480-token prompts. Replica 1 is killed by `device_lost` twice
+   once each of its requests is mid-decode: it restarts, then dies and
+   its live requests migrate to the survivors as folded re-prefills.
+   Every request must finish exactly once through `stream()` (no token
+   twice, one `done` each, `check_consistency()`), pass the margin check,
+   and K1, K4, K6 must launch; the death's post-mortem bundle must hold
+   the fault, the death and the migrations and render through
+   `tools/postmortem.py`; `ServingCluster(tp_size=2)` must raise naming
+   S5. Prints placements, affinity hits / misses, migrations, migrated
+   tokens, `serving_cluster_migration_seconds`, the first token after the
+   death, tokens/s, goodput and attainment per SLO class, peak memory,
+   and how many streams equal an uninterrupted single engine's;
+26. cluster_fp32 (run after recovery_fp32): the same kill at fp32 on 2
+   layers of full width: every stream identical to the uninterrupted
+   single engine's;
+27. serve_observed (run after serve_cluster): the Serve phase's 8
+   requests in the order A B B A, A with `enable_metrics=False`, B with
+   metrics, two SLO classes, a FlightRecorder and the lifecycle tracker
+   (tokens/s of each: the observability plane's cost); then a Profiler
+   window with the device target over three decode steps: its chrome
+   trace must hold `serving.decode_block` and `serving.request[<rid>]`
+   spans and render through `tools/trace_summary.py`, its torch.profiler
+   trace must hold K6's kernel inside the window, `stats()["slo"]` must
+   be filled, and the healthy engine's post-mortem bundle must render
+   through `tools/postmortem.py`.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -3151,16 +3181,20 @@ def phase_multi_rank(seed, dev):
     return out
 
 
-def serve(engine, prompts, late, max_new):
+def serve(engine, prompts, late, max_new, classes=None):
     """Add all but the `late` last prompts, step twice, add the rest, run.
-    Returns the request ids and the wall seconds."""
+    `classes` gives each request its SLO class. Returns the request ids and
+    the wall seconds."""
+    kw = [{} if classes is None else {"slo_class": c}
+          for c in (classes or prompts)]
     t0 = time.perf_counter()
-    rids = [engine.add_request(p, max_new_tokens=max_new)
-            for p in prompts[:len(prompts) - late]]
+    n = len(prompts) - late
+    rids = [engine.add_request(p, max_new_tokens=max_new, **k)
+            for p, k in zip(prompts[:n], kw[:n])]
     for _ in range(2):
         engine.step()
-    rids += [engine.add_request(p, max_new_tokens=max_new)
-             for p in prompts[len(prompts) - late:]]
+    rids += [engine.add_request(p, max_new_tokens=max_new, **k)
+             for p, k in zip(prompts[n:], kw[n:])]
     engine.run()
     torch.cuda.synchronize()
     return rids, time.perf_counter() - t0
@@ -3204,17 +3238,18 @@ def read_counters(counters):
     return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
 
-def rescore(model, engine, prompts, rids, tol, dev, tag):
-    """Re-score the longest and the shortest request with the no-cache
-    forward: wherever its top-2 logit margin exceeds `tol`, the engine's
-    greedy token must be its argmax. Returns (positions checked, positions
-    that differ, the largest margin among those)."""
+def rescore(model, engine, prompts, rids, tol, dev, tag, every=False):
+    """Re-score the longest and the shortest request (with `every`, each
+    request) with the no-cache forward: wherever its top-2 logit margin
+    exceeds `tol`, the engine's greedy token must be its argmax. Returns
+    (positions checked, positions that differ, the largest margin among
+    those)."""
     checked = mismatched = total = 0
     worst = 0.0
     margins = []
     lens = [len(p) for p in prompts]
     order = np.argsort(lens)
-    for i in (order[-1], order[0]):
+    for i in (range(len(prompts)) if every else (order[-1], order[0])):
         seq = engine.output(rids[i])
         n = len(prompts[i])
         with torch.no_grad():
@@ -4022,6 +4057,431 @@ def phase_recovery_fp32(seed, dev):
     return out
 
 
+CLUSTER_REPLICAS = 3
+CLUSTER_NEW = 32
+CLUSTER_KILLED = 1
+# every replica registers both classes; requests alternate between them
+# (the shared-prefix ones interactive, the others batch)
+CLUSTER_SLO = (("interactive", 0.5, 0.1), ("batch", 5.0, 0.5))
+
+
+def cluster_prompts(seed, vocab):
+    """Twelve prompts, interleaved: six share a seeded PREFIX_TOKENS-token
+    prefix (own suffixes of 16-64 tokens), six have their own 64-480
+    tokens. The last two (one of each) arrive late."""
+    rng = np.random.RandomState(seed + 5)
+    prefix = rng.randint(0, vocab, (PREFIX_TOKENS,)).tolist()
+    shared = [prefix + rng.randint(0, vocab, (int(n),)).tolist()
+              for n in rng.randint(16, 65, 6)]
+    own = [rng.randint(0, vocab, (int(n),)).tolist()
+           for n in rng.randint(64, 481, 6)]
+    return [p for pair in zip(shared, own) for p in pair]
+
+
+def cluster_factory(model, dev, kw, recorders, registries, pm_dir):
+    """Replica engines: the serve engine over the one shared model, the
+    two SLO classes, and per replica one FlightRecorder and one
+    MetricsRegistry that its rebuilds keep."""
+    from paddle_tpu_torch.observability import (FlightRecorder,
+                                                MetricsRegistry, SloClass)
+
+    classes = [SloClass(*c) for c in CLUSTER_SLO]
+
+    def make(replica=None, fault_injector=None):
+        return serve_engine(
+            model, dev, fault_injector=fault_injector, slo_classes=classes,
+            metrics=registries.setdefault(replica, MetricsRegistry()),
+            flight_recorder=recorders.setdefault(
+                replica, FlightRecorder(capacity=4096)),
+            postmortem_dir=pm_dir, **kw)
+    return make
+
+
+def cluster_run(model, dev, prompts, kw, pm_dir, kill=True, counters=None):
+    """Serve `prompts` (CLUSTER_NEW tokens each, the last two after the
+    cluster's second step) on a ServingCluster of CLUSTER_REPLICAS serve
+    engines under supervisors with max_restarts=1, through `stream()`.
+    With `kill`, replica CLUSTER_KILLED's injector fires `device_lost` at
+    its next step and two steps later once each of its requests has a
+    decode block delivered: it restarts once, then dies and its live
+    requests migrate. Checks every request finished exactly once through
+    the stream (no token twice, one `done`) and the cluster's audit.
+    Returns the readings; no engine outlives the call."""
+    from paddle_tpu_torch.serving import FaultInjector, ServingCluster
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    recorders, registries = {}, {}
+    inj = [FaultInjector() for _ in range(CLUSTER_REPLICAS)]
+    cl = ServingCluster(cluster_factory(model, dev, kw, recorders,
+                                        registries, pm_dir),
+                        num_replicas=CLUSTER_REPLICAS, fault_injectors=inj,
+                        supervisor_kw=dict(max_restarts=1),
+                        postmortem_dir=pm_dir)
+    deaths = []
+    on_death = cl._on_replica_death
+
+    def timed_death(rep, exc):
+        deaths.append(time.perf_counter())
+        return on_death(rep, exc)
+
+    cl._on_replica_death = timed_death
+    classes = [CLUSTER_SLO[i % 2][0] for i in range(len(prompts))]
+    if counters is not None:
+        zero_counters(counters)
+    t0 = time.perf_counter()
+    rids = [cl.add_request(p, max_new_tokens=CLUSTER_NEW, slo_class=c)
+            for p, c in zip(prompts[:-2], classes[:-2])]
+    seen, done = {}, {}
+    armed = not kill
+    first_after = None
+    for rid, tok, fin in cl.stream():
+        seen.setdefault(rid, []).append(tok)
+        done[rid] = done.get(rid, 0) + fin
+        if deaths and first_after is None \
+                and cl._records[rid].migrations:
+            first_after = time.perf_counter() - deaths[0]
+        if len(rids) < len(prompts) and cl._step_count >= 2:
+            rids += [cl.add_request(p, max_new_tokens=CLUSTER_NEW,
+                                    slo_class=c)
+                     for p, c in zip(prompts[-2:], classes[-2:])]
+        if not armed:
+            mine = [r for r in cl._records.values()
+                    if r.replica == CLUSTER_KILLED]
+            if mine and all(len(r.delivered) > 8 for r in mine):
+                k = inj[CLUSTER_KILLED].counts.get("device_lost", 0)
+                inj[CLUSTER_KILLED].fail_at("device_lost", k) \
+                    .fail_at("device_lost", k + 2)
+                armed = True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(counters) if counters is not None else None
+    peak = torch.cuda.max_memory_allocated()
+    for i, rid in enumerate(rids):
+        if cl.status(rid) != ("finished", None):
+            raise AssertionError(f"cluster: request {rid} ended "
+                                 f"{cl.status(rid)}")
+        out = cl.output(rid)
+        if seen.get(rid, []) != out[len(prompts[i]):] \
+                or len(out) != len(prompts[i]) + CLUSTER_NEW \
+                or done.get(rid) != 1:
+            raise AssertionError(
+                f"cluster: request {rid}: {len(seen.get(rid, []))} tokens "
+                f"streamed, {done.get(rid)} done flags, not its output "
+                "exactly once")
+    cl.check_consistency()
+    st = cl.stats()
+    if kill and (st["health"].count("dead") != 1
+                 or st["health"][CLUSTER_KILLED] != "dead"
+                 or not st["migrations"]):
+        raise AssertionError(f"cluster: health {st['health']}, "
+                             f"{st['migrations']} migrations")
+    mig = cl.metrics.get("serving_cluster_migration_seconds")
+    slo = {}
+    for name, _, _ in CLUSTER_SLO:
+        rows = [reg.get("serving_slo_goodput_tokens_total",
+                        {"slo_class": name}) for reg in registries.values()]
+        live = [rep.supervisor.engine.stats()["slo"][name]
+                for rep in cl.replicas if rep.supervisor.engine is not None]
+        slo[name] = dict(
+            goodput_tokens=int(sum(c.value for c in rows if c is not None)),
+            tokens=CLUSTER_NEW * classes.count(name),
+            attainment=[row["attainment"] for row in live],
+            ttft_p50_s=[row["lifetime"]["ttft"]["p50"] for row in live],
+            tpot_p50_s=[row["lifetime"]["tpot"]["p50"] for row in live])
+    tokens = sum(len(v) for v in seen.values())
+    res = dict(
+        rids=rids, outputs=[cl.output(r) for r in rids], wall_s=wall,
+        tokens_per_s=tokens / wall, peak_bytes=peak, launches=launches,
+        routed=st["router"]["routed"],
+        affinity_hits=st["router"]["affinity_hits"],
+        affinity_misses=st["router"]["affinity_misses"],
+        migrations=st["migrations"], migrated_tokens=st["migrated_tokens"],
+        migration_s=(mig.sum if mig is not None else 0.0),
+        migration_count=(mig.count if mig is not None else 0),
+        first_token_after_death_s=first_after, health=st["health"],
+        restarts=[len(rep.supervisor.restarts) for rep in cl.replicas],
+        postmortems=list(cl.postmortem_paths), slo=slo,
+        telemetry_series=len(cl.telemetry()["metrics"]["metrics"]),
+        migrated_rids=[r for r in rids if cl._records[r].migrations])
+    cl.close()
+    return res, cl
+
+
+def _run_tool(name, *args):
+    """Run tools/<name>.py (stdlib-only repo tools) in a subprocess;
+    returns its stdout, failing on a non-zero exit."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", f"{name}.py")
+    proc = subprocess.run([sys.executable, path, *args],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/{name}.py exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def hold_bundle(path, tag):
+    """The dead replica's post-mortem bundle must hold the fatal fault,
+    the death and the migrations, and render through tools/postmortem.py."""
+    with open(path) as f:
+        bundle = json.load(f)
+    kinds = [e["kind"] for e in bundle["events"]]
+    fatal = [e for e in bundle["events"]
+             if e["kind"] == "fault" and e.get("fatal")
+             and e.get("site") == "device_lost"]
+    moves = [e for e in bundle["events"] if e["kind"] == "migrate"]
+    if not fatal or "dead" not in kinds or not moves \
+            or any(m["src"] != CLUSTER_KILLED for m in moves):
+        raise AssertionError(f"{tag}: bundle kinds {sorted(set(kinds))}")
+    text = _run_tool("postmortem", path)
+    if "post-mortem:" not in text or ">>" not in text:
+        raise AssertionError(f"{tag}: tools/postmortem.py rendered no "
+                             "migration")
+    return dict(events=len(bundle["events"]), migrate_events=len(moves),
+                kinds=sorted(set(kinds)))
+
+
+def phase_serve_cluster(model, seed, dev, out_dir=None):
+    """Three LLaMA-7B replicas on the one card, replica 1 killed and its
+    requests migrated (see the module docstring, phase 25)."""
+    import tempfile
+
+    from paddle_tpu_torch.serving import ServingCluster
+
+    t_phase = time.perf_counter()
+    prompts = cluster_prompts(seed, model.llama.config.vocab_size)
+    try:
+        ServingCluster(lambda: None, num_replicas=2, tp_size=2)
+        raise AssertionError("serve_cluster: tp_size=2 did not raise")
+    except NotImplementedError as e:
+        if "S5" not in str(e):
+            raise AssertionError(f"serve_cluster: tp_size=2 raised {e}")
+    # the uninterrupted single engine: the streams' yardstick
+    engine = serve_engine(model, dev, kv_dtype="bf16")
+    ref_rids = [engine.add_request(p, max_new_tokens=CLUSTER_NEW)
+                for p in prompts]
+    ref = engine.run()
+    ref = [ref[r] for r in ref_rids]
+    del engine
+    counters = serve_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        pm_dir = os.path.join(out_dir or tmp, "cluster_postmortems")
+        run, cl = cluster_run(model, dev, prompts, dict(kv_dtype="bf16"),
+                              pm_dir, counters=counters)
+        launches = {k: run["launches"][k] for k in ("K1", "K4", "K6")}
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"serve_cluster: kernels never launched: "
+                                 f"{missing}")
+        if len(run["postmortems"]) != 1:
+            raise AssertionError(f"serve_cluster: bundles "
+                                 f"{run['postmortems']}")
+        bundle = hold_bundle(run["postmortems"][0], "serve_cluster")
+        checked, _, _ = rescore(model, cl, prompts, run["rids"],
+                                MARGIN_TOL["bf16"], dev, "serve_cluster",
+                                every=True)
+        del cl
+    same = sum(a == b for a, b in zip(run["outputs"], ref))
+    migrated = [run["rids"].index(r) for r in run["migrated_rids"]]
+    same_migrated = sum(run["outputs"][i] == ref[i] for i in migrated)
+    fta = run["first_token_after_death_s"]
+    log(f"[serve_cluster] {CLUSTER_REPLICAS} replicas, prompts "
+        f"{sorted(len(p) for p in prompts)}: placements {run['routed']}, "
+        f"affinity hits {run['affinity_hits']} misses "
+        f"{run['affinity_misses']}; replica {CLUSTER_KILLED} killed "
+        f"(restarts {run['restarts']}, health {run['health']}): "
+        f"{run['migrations']} migrations, {run['migrated_tokens']} migrated "
+        f"(re-prefilled) tokens, serving_cluster_migration_seconds "
+        f"{run['migration_s'] * 1e3:.3f} ms over {run['migration_count']}; "
+        f"first token after the death "
+        f"{'none' if fta is None else f'{fta * 1e3:.3f} ms'}")
+    log(f"[serve_cluster] {run['tokens_per_s']:.1f} tokens/s ("
+        f"{run['wall_s']:.3f} s); peak memory "
+        f"{run['peak_bytes'] / 2**30:.3f} GiB; {same} of {len(prompts)} "
+        f"streams ({same_migrated} of {len(migrated)} migrated) identical "
+        f"to the uninterrupted single engine; launches {launches}; bundle "
+        f"{bundle['events']} events, {bundle['migrate_events']} migrations;"
+        f" telemetry() merged {run['telemetry_series']} series")
+    for name, row in run["slo"].items():
+        log(f"[serve_cluster] SLO {name}: goodput {row['goodput_tokens']} "
+            f"of {row['tokens']} tokens; attainment by live replica "
+            f"{[{k: round(v, 4) for k, v in a.items()} for a in row['attainment']]}"
+            f"; TTFT p50 {[round(x * 1e3, 1) for x in row['ttft_p50_s']]} "
+            f"ms, TPOT p50 {[round(x * 1e3, 2) for x in row['tpot_p50_s']]}"
+            " ms")
+    run.update(identical=same, migrated_identical=same_migrated,
+               margin_checked=checked, bundle=bundle, launches=launches,
+               phase_s=time.perf_counter() - t_phase)
+    del run["outputs"]
+    log(f"[serve_cluster] the phase took {run['phase_s']:.1f} s")
+    return run
+
+
+def phase_cluster_fp32(seed, dev):
+    """serve_cluster's kill at fp32 on 2 layers of full width: every
+    stream, the migrated ones too, identical to the uninterrupted single
+    engine's."""
+    import dataclasses
+    import tempfile
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.llama7b(), num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             seed=seed)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    prompts = cluster_prompts(seed, cfg.vocab_size)
+    engine = serve_engine(model, dev, kv_dtype="fp32")
+    ref_rids = [engine.add_request(p, max_new_tokens=CLUSTER_NEW)
+                for p in prompts]
+    ref = engine.run()
+    ref = [ref[r] for r in ref_rids]
+    del engine
+    with tempfile.TemporaryDirectory() as tmp:
+        run, cl = cluster_run(model, dev, prompts, dict(kv_dtype="fp32"),
+                              tmp)
+        del cl
+    same = sum(a == b for a, b in zip(run["outputs"], ref))
+    if same != len(prompts):
+        raise AssertionError(f"cluster_fp32: {same} of {len(prompts)} "
+                             "streams identical to the uninterrupted run")
+    del model
+    out = dict(identical=same, migrations=run["migrations"],
+               migrated_tokens=run["migrated_tokens"],
+               first_token_after_death_s=run["first_token_after_death_s"],
+               phase_s=time.perf_counter() - t0)
+    log(f"[cluster_fp32] {same} of {len(prompts)} streams identical ("
+        f"{run['migrations']} migrated); {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_serve_observed(model, seed, dev, out_dir=None):
+    """The observability plane on the Serve engine (module docstring,
+    phase 27)."""
+    import tempfile
+
+    from paddle_tpu_torch import profiler as P
+    from paddle_tpu_torch.observability import FlightRecorder, SloClass
+
+    t_phase = time.perf_counter()
+    cfg = model.llama.config
+    rng = np.random.RandomState(seed)
+    for n in (40, 200):               # phase_slice's warm-up draws
+        rng.randint(0, cfg.vocab_size, (n,))
+    lens = rng.randint(32, 513, 8)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
+    classes = [SloClass(*c) for c in CLUSTER_SLO]
+    names = [CLUSTER_SLO[i % 2][0] for i in range(len(prompts))]
+    observed = dict(kv_dtype="bf16", slo_classes=classes)
+    counters = serve_counters()
+    zero_counters(counters)
+    runs = {"A": [], "B": []}
+    streams = []
+    for tag in "ABBA":
+        if tag == "A":
+            engine = serve_engine(model, dev, kv_dtype="bf16",
+                                  enable_metrics=False)
+        else:
+            engine = serve_engine(model, dev,
+                                  flight_recorder=FlightRecorder(),
+                                  **observed)
+        rids, wall = serve(engine, prompts, 2, 32,
+                           classes=None if tag == "A" else names)
+        runs[tag].append(8 * 32 / wall)
+        streams.append([engine.output(r) for r in rids])
+        del engine
+    if any(s != streams[0] for s in streams):
+        raise AssertionError("serve_observed: the observed and unobserved "
+                             "streams differ")
+    tmp = tempfile.TemporaryDirectory()
+    base = os.path.join(out_dir, "serve_observed") if out_dir else tmp.name
+    engine = serve_engine(model, dev, flight_recorder=FlightRecorder(),
+                          **observed)
+    rids = [engine.add_request(p, max_new_tokens=32, slo_class=c)
+            for p, c in zip(prompts, names)]
+    # eight prefills (steps 0-7), a fresh decode block (8), then the window
+    # records three chained decode steps
+    prof = P.Profiler(scheduler=P.make_scheduler(closed=9, ready=0,
+                                                 record=3, repeat=1),
+                      on_trace_ready=P.export_chrome_tracing(
+                          base, "serve_observed"),
+                      profile_dir=os.path.join(tmp.name, "device"))
+    prof.start()
+    while engine.scheduler.has_work() or engine._pending is not None:
+        if engine.scheduler.has_work():
+            engine.step()
+        else:
+            engine.drain_all()
+        prof.step()
+    prof.stop()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in read_counters(counters).items()
+                if k in ("K1", "K4", "K6")}
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"serve_observed: kernels never launched: "
+                             f"{missing}")
+    trace = prof._last_export
+    with open(trace) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]]
+    lanes = [n for n in names if n.startswith("serving.request[")]
+    if "serving.decode_block" not in names or not lanes:
+        raise AssertionError(f"serve_observed: the chrome trace holds "
+                             f"{sorted(set(names))[:20]}")
+    summary = _run_tool("trace_summary", trace, "--requests")
+    if "serving.decode_block" not in summary:
+        raise AssertionError("serve_observed: tools/trace_summary.py did "
+                             "not render the decode blocks")
+    if prof.device_trace_path is None:
+        raise AssertionError("serve_observed: no device trace")
+    with open(prof.device_trace_path) as f:
+        dev_events = json.load(f)["traceEvents"]
+    spans = [e for e in dev_events if e.get("name") == "serving.decode_block"
+             and e.get("ph") == "X"]
+    k6 = [e for e in dev_events if e.get("cat") == "kernel"
+          and "paged_decode" in e.get("name", "")]
+    if not spans or not k6 \
+            or not any(e["ts"] >= min(s["ts"] for s in spans) for e in k6):
+        raise AssertionError(f"serve_observed: device trace holds "
+                             f"{len(spans)} decode_block spans and "
+                             f"{len(k6)} K6 kernels")
+    stats = engine.stats()
+    if set(stats["slo"]) != {c.name for c in classes} or not all(
+            row["lifetime"]["ttft"]["count"] == 4
+            for row in stats["slo"].values()):
+        raise AssertionError(f"serve_observed: stats()['slo'] "
+                             f"{stats['slo']}")
+    bundle = engine.dump_postmortem("healthy", directory=base)
+    text = _run_tool("postmortem", bundle)
+    if "post-mortem:" not in text:
+        raise AssertionError("serve_observed: tools/postmortem.py rendered "
+                             "nothing")
+    del engine
+    tmp.cleanup()
+    ratio = (sum(runs["B"]) / sum(runs["A"]))
+    log(f"[serve_observed] A B B A tokens/s: unobserved {[round(x, 1) for x in runs['A']]}, "
+        f"observed {[round(x, 1) for x in runs['B']]} (B / A {ratio:.4f}); "
+        f"streams identical; trace {trace} ({len(names)} host spans, "
+        f"{len(lanes)} request-lane spans), device trace "
+        f"{len(spans)} decode_block spans, {len(k6)} K6 kernels in the "
+        f"window; goodput {stats['goodput_tokens']} of "
+        f"{stats['tokens_generated']} tokens; launches {launches}")
+    out = dict(unobserved_tokens_per_s=runs["A"],
+               observed_tokens_per_s=runs["B"], observed_over_unobserved=ratio,
+               trace=trace, host_spans=len(names), request_spans=len(lanes),
+               device_decode_spans=len(spans), device_k6_kernels=len(k6),
+               slo={k: v["attainment"] for k, v in stats["slo"].items()},
+               goodput_tokens=stats["goodput_tokens"], launches=launches,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[serve_observed] the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -4252,6 +4712,14 @@ def main(argv=None):
     result["serve_recovery"] = r
     launches["serve_recovery"] = r["launches"]
     release()
+    r = phase_serve_cluster(model, args.seed, dev, args.out)
+    result["serve_cluster"] = r
+    launches["serve_cluster"] = r["launches"]
+    release()
+    r = phase_serve_observed(model, args.seed, dev, args.out)
+    result["serve_observed"] = r
+    launches["serve_observed"] = r["launches"]
+    release()
     t0 = time.perf_counter()
     r = phase_serve_prefix_spec(model, args.seed, dev, args.profile,
                                 args.out)
@@ -4265,6 +4733,8 @@ def main(argv=None):
     log(f"[serve_prefix_spec] this phase and spec_fp32 took "
         f"{r['phases_s']:.1f} s")
     result["recovery_fp32"] = phase_recovery_fp32(args.seed, dev)
+    release()
+    result["cluster_fp32"] = phase_cluster_fp32(args.seed, dev)
     release()
     result["train"] = phase_train(args.seed, dev, args.profile, args.out)
     launches["train"] = result["train"]["launches"]

@@ -1,9 +1,9 @@
 """Counters, gauges and fixed-log-bucket histograms over one registry
-(the port's own copy of paddle_tpu/observability/metrics.py, without the
-Prometheus exporter).
+(the port's own copy of paddle_tpu/observability/metrics.py).
 
 Every counter the serving engine, scheduler and allocator report lives in
-ONE `MetricsRegistry`; `ServingEngine.stats()` is a thin view over it.
+ONE `MetricsRegistry`; `ServingEngine.stats()` is a thin view over it, and
+the Prometheus / JSON exporters (export.py) walk it.
 
 Design constraints, in order:
 
@@ -27,7 +27,7 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
 
@@ -215,8 +215,9 @@ class MetricsRegistry:
     """Get-or-create registry of named (optionally labelled) metrics.
 
     One registry per ServingEngine by default (so per-engine stats never
-    mix). The lock guards creation only — handles are meant to be resolved once
-    and held, keeping the hot path lock-free.
+    mix), plus a process-global one (`observability.global_registry()`)
+    for library-level signals. The lock guards creation only — handles are
+    meant to be resolved once and held, keeping the hot path lock-free.
     """
 
     def __init__(self):
@@ -261,3 +262,36 @@ class MetricsRegistry:
     def get(self, name: str, labels: Optional[Dict[str, str]] = None):
         """Existing metric or None — lookups never create."""
         return self._metrics.get((name, _label_key(labels)))
+
+    def collect(self) -> List[object]:
+        """All metrics, sorted by (name, labels) for stable exposition."""
+        with self._lock:
+            return [self._metrics[k] for k in sorted(self._metrics)]
+
+    # ------------------------------------------------------------- export
+    def snapshot(self) -> Dict[str, object]:
+        """JSON-able dump of every metric (sparse histogram buckets).
+        `export.registry_from_snapshot` rebuilds an equal registry."""
+        out = []
+        for m in self.collect():
+            d = {"name": m.name, "type": m.kind, "labels": dict(m.labels)}
+            if m.help:
+                d["help"] = m.help
+            if m.kind == "histogram":
+                d.update({
+                    "lo": m.lo, "hi": m.hi, "growth": m.growth,
+                    "count": m._count, "sum": m._sum,
+                    "min": m._min if m._count else None,
+                    "max": m._max if m._count else None,
+                    "buckets": {str(i): c for i, c in enumerate(m._counts)
+                                if c},
+                })
+            else:
+                d["value"] = m.value
+            out.append(d)
+        return {"metrics": out}
+
+    def to_prometheus(self) -> str:
+        from .export import to_prometheus
+
+        return to_prometheus(self)

@@ -69,11 +69,25 @@ re-admit each unfinished request as prompt + delivered tokens, resuming at
 its draw index; `EngineSupervisor` drives that on fatal faults, a step
 watchdog and fault storms.
 
+Observability (paddle_tpu_torch.observability, .profiler): with metrics on,
+`ServingObs` holds every registry handle plus a `LifecycleTracker` whose
+per-request points and spans (`serving.request[<rid>].<stage>`) fold into
+an armed profiler window; each dispatch and drain runs inside a
+`RecordEvent` (`serving.prefill`, `serving.prefill_chunk`,
+`serving.ragged_step`, `serving.decode_block`, `serving.spec_block`,
+`serving.host_drain`). `slo_classes=` adds per-class TTFT / TPOT targets,
+goodput and windowed attainment (`add_request(slo_class=)`);
+`flight_recorder=` keeps a bounded ring of control-plane events
+(schedule, dispatch, drain, fault, quarantine, preempt, terminal, adopt)
+that `build_postmortem` / `dump_postmortem` bundle, and `postmortem_dir=`
+dumps one on every quarantine. Tokens reach the host a step after their
+block is dispatched, through a pinned copy and an event: first-token
+points, TTFT and TPOT are stamped there, at the drain, never behind an
+added device sync. Each layer is a `None` check when off.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
 item rather than ignored: tensor parallelism (`tp_size`, `devices`,
-`tp_quantized_allreduce`, `tp_overlap`, `tp_overlap_chunks`), SLO classes
-(`slo_classes`, `slo_refresh_every`, `add_request(slo_class=)`), the
-flight recorder and post-mortem dumps.
+`tp_quantized_allreduce`, `tp_overlap`, `tp_overlap_chunks`).
 """
 from __future__ import annotations
 
@@ -84,13 +98,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, same_device
-from ..observability import Histogram, MetricsRegistry
+from ..observability import Histogram, LifecycleTracker, MetricsRegistry
+from ..observability.flight_recorder import (
+    build_postmortem as _build_bundle, dump_postmortem as _dump_bundle)
+from ..observability.slo import SloTracker
+from ..profiler import RecordEvent
 from .attention import advance_positions
 from .kv_cache import (KV_DTYPES, PagedKVCache, host_to_device,
                        overflow_position, pages_for)
 from .prefix_cache import PrefixCache
 from .ragged import build_ragged_inputs, token_buckets
-from .resilience import TERMINAL_STATUSES, is_fatal, is_transient
+from .resilience import (TERMINAL_STATUSES, describe_fault, is_fatal,
+                         is_transient)
 from .sampling import PAD_TOKEN, sample_batch
 from .scheduler import (Request, SamplingParams, Scheduler,
                         reserve_request_ids)
@@ -132,12 +151,15 @@ def _pull(rec: dict) -> np.ndarray:
 
 class ServingObs:
     """Every observability handle the serving hot path touches, resolved
-    ONCE against the engine's MetricsRegistry. With
+    ONCE against the engine's MetricsRegistry, plus the per-request
+    LifecycleTracker. The scheduler receives this same object and calls
+    the small hooks below at queue transitions. With
     `enable_metrics=False` the engine holds None instead and does no
     metrics work at all."""
 
     def __init__(self, registry: MetricsRegistry):
         self.registry = registry
+        self.lifecycle = LifecycleTracker()
         c, g, h = registry.counter, registry.gauge, registry.histogram
         self.prefill_steps = c("serving_prefill_steps_total",
                                "prefill dispatches")
@@ -157,7 +179,7 @@ class ServingObs:
                             "prefill and decode-block dispatches")
         self.preemptions = c("serving_preemptions_total",
                              "requests preempted and requeued")
-        self.parked = c("serving_requests_parked_total",
+        self.parked_total = c("serving_requests_parked_total",
                         "preemption-storm guard trips (victim requeued at "
                         "the back of the queue)")
         self.prefill_seconds = c("serving_prefill_seconds_total",
@@ -186,6 +208,12 @@ class ServingObs:
             phase: h("serving_step_phase_seconds",
                      "per-step wall time by phase", labels={"phase": phase})
             for phase in ("schedule", "assemble", "dispatch", "drain")}
+        # dispatch-to-drain wall of each block: how long its work stayed on
+        # the device side of the overlap (host wall, not device time)
+        self.device_residency = h(
+            "serving_device_residency_seconds",
+            "dispatch-to-drain wall per block: how long work was "
+            "resident on the device side of the async overlap")
         self.queue_waiting = g("serving_queue_depth", "scheduler queue depth",
                                labels={"state": "waiting"})
         self.queue_running = g("serving_queue_depth", "scheduler queue depth",
@@ -262,13 +290,31 @@ class ServingObs:
             self.spec_tokens_per_step.observe(emitted / s_cnt)
 
     # --------------------------------------------------- scheduler hooks
-    def terminal(self, status: str) -> None:
-        self.terminated[status].inc()
+    def enqueued(self, req: Request) -> None:
+        self.lifecycle.point(req.request_id, "enqueued", req.arrival_t)
+
+    def admitted(self, req: Request) -> None:
+        self.lifecycle.point(req.request_id, "admitted")
 
     def preempted(self, req: Request) -> None:
         self.preemptions.inc()
-        if req.parked:
-            self.parked.inc()
+        now = time.perf_counter()
+        self.lifecycle.point(req.request_id, "preempted", now)
+        self.lifecycle.point(req.request_id, "requeued", now)
+
+    def finished(self, req: Request) -> None:
+        self.lifecycle.point(req.request_id, "finished", req.finish_t)
+
+    def terminal(self, req: Request, status: str) -> None:
+        """A request reached cancelled / expired / failed / shed: count it
+        and stamp the lifecycle, so chrome traces and `trace_summary
+        --requests` show how the request ended."""
+        self.terminated[status].inc()
+        self.lifecycle.point(req.request_id, status, req.finish_t)
+
+    def parked(self, req: Request) -> None:
+        self.parked_total.inc()
+        self.lifecycle.point(req.request_id, "parked")
 
     def sample_queues(self, waiting: int, running: int, allocator) -> None:
         self.queue_waiting.set(waiting)
@@ -282,12 +328,9 @@ class ServingObs:
 # engine knobs of the reference that the port does not run yet, with the
 # ROADMAP item that ports each
 _S5 = "queue 1, S5 (tensor-parallel serving)"
-_S9 = "queue 1, S9 (SLO tracking, flight recorder, post-mortems)"
 _NOT_PORTED = {
     "tp_size": _S5, "devices": _S5, "tp_quantized_allreduce": _S5,
     "tp_overlap": _S5, "tp_overlap_chunks": _S5,
-    "slo_classes": _S9, "slo_refresh_every": _S9, "slo_class": _S9,
-    "flight_recorder": _S9, "postmortem_dir": _S9,
 }
 
 # the reference's legacy spelling of unquantized pools (`cache_dtype`)
@@ -331,7 +374,7 @@ class ServingEngine:
                  tp_overlap: Optional[bool] = None,
                  tp_overlap_chunks: Optional[int] = None,
                  slo_classes: Optional[Sequence] = None,
-                 slo_refresh_every: Optional[int] = None,
+                 slo_refresh_every: int = 64,
                  flight_recorder=None,
                  postmortem_dir: Optional[str] = None):
         from ..models.generation import _config_of
@@ -340,11 +383,7 @@ class ServingEngine:
                 ("devices", devices),
                 ("tp_quantized_allreduce", tp_quantized_allreduce),
                 ("tp_overlap", tp_overlap),
-                ("tp_overlap_chunks", tp_overlap_chunks),
-                ("slo_classes", slo_classes),
-                ("slo_refresh_every", slo_refresh_every),
-                ("flight_recorder", flight_recorder),
-                ("postmortem_dir", postmortem_dir)):
+                ("tp_overlap_chunks", tp_overlap_chunks)):
             if value is not None:
                 raise _not_ported(knob, value)
         if int(tp_size) != 1:
@@ -454,6 +493,26 @@ class ServingEngine:
                                    self._fp32_pool_bytes(), rms)
             if self.spec_config is not None:
                 self._obs.bind_spec()
+        # SLO accounting: per-class TTFT / TPOT targets feeding windowed
+        # attainment gauges and a goodput counter. It lives in the metrics
+        # registry, so it needs one; with no classes the engine holds None
+        # and runs no SLO code
+        if slo_classes:
+            if self.metrics is None:
+                raise ValueError(
+                    "slo_classes requires metrics (SLO accounting lives "
+                    "in the registry); drop enable_metrics=False")
+            self._slo = SloTracker(self.metrics, slo_classes,
+                                   refresh_every=slo_refresh_every)
+        else:
+            self._slo = None
+        # flight recorder: a bounded ring of control-plane events, None =
+        # no recorder code runs. Independent of metrics
+        self._recorder = flight_recorder
+        # where quarantine post-mortem bundles land; None = bundles only
+        # on an explicit dump_postmortem(directory=...)
+        self._postmortem_dir = postmortem_dir
+        self.last_postmortem_path: Optional[str] = None
         # automatic prefix caching: prefilled prompts leave their full
         # pages in a radix tree, and a later prompt sharing a page-aligned
         # prefix reuses them and prefills only its suffix
@@ -491,7 +550,9 @@ class ServingEngine:
                                    prefix_cache=self.prefix_cache,
                                    decode_horizon=self.decode_horizon,
                                    drain_hook=self._drain_for_scheduler,
-                                   obs=self._obs, max_waiting=max_waiting,
+                                   obs=self._obs,
+                                   recorder=flight_recorder,
+                                   max_waiting=max_waiting,
                                    max_preemptions=max_preemptions,
                                    # chunked prefill takes any folded
                                    # length: no bucket ceiling to guard
@@ -538,14 +599,19 @@ class ServingEngine:
         `EngineOverloaded` when the bounded waiting queue is full.
         `deadline_s` bounds the request's total latency from arrival: past
         it a waiting request expires before admission and a running one
-        at the next block boundary (status "expired" either way)."""
-        if slo_class is not None:
-            raise _not_ported("slo_class", slo_class)
+        at the next block boundary (status "expired" either way).
+        `slo_class` opts the request into per-class SLO accounting; it
+        must name a class registered through `slo_classes=`."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be > 0 (got {deadline_s})")
+        if slo_class is not None and (
+                self._slo is None or not self._slo.has_class(slo_class)):
+            raise ValueError(
+                f"unknown SLO class {slo_class!r}; register it via "
+                "ServingEngine(slo_classes=[SloClass(...)])")
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens "
@@ -561,7 +627,7 @@ class ServingEngine:
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       sampling=SamplingParams(temperature, top_k, top_p,
                                               seed),
-                      eos_token_id=eos_token_id)
+                      eos_token_id=eos_token_id, slo_class=slo_class)
         if deadline_s is not None:
             req.deadline_t = req.arrival_t + deadline_s
         self.scheduler.add(req)       # may raise: register only after
@@ -670,6 +736,9 @@ class ServingEngine:
             return fn(), None
         except Exception as e:  # noqa: BLE001 (the isolation boundary)
             self.fault_events += 1
+            if self._recorder is not None:
+                self._recorder.record("fault", site=site, error=str(e),
+                                      **describe_fault(e))
             if is_fatal(e):
                 raise
             if not is_transient(e):
@@ -684,6 +753,10 @@ class ServingEngine:
                 return fn(), None
             except Exception as e2:  # noqa: BLE001
                 self.fault_events += 1
+                if self._recorder is not None:
+                    self._recorder.record("fault", site=site, retry=True,
+                                          error=str(e2),
+                                          **describe_fault(e2))
                 if is_fatal(e2):
                     raise
                 return None, e2
@@ -698,6 +771,9 @@ class ServingEngine:
         on the stream writes before any later dispatch reuses a page)."""
         err = f"{site}: {type(exc).__name__}: {exc}"
         rids = {r.request_id for r in reqs}
+        if self._recorder is not None:
+            self._recorder.record("quarantine", site=site, error=err,
+                                  rids=sorted(rids))
         if self._pending is not None \
                 and rids & set(self._pending["rids"]):
             rec, self._pending = self._pending, None
@@ -707,6 +783,13 @@ class ServingEngine:
             if req.status not in TERMINAL_STATUSES:
                 self._finalize(req, "failed", error=err)
         self.scheduler.check_consistency()
+        if self._postmortem_dir is not None:
+            # a quarantine is a casualty worth forensics even though the
+            # engine survives; the dump itself must never take it down
+            try:
+                self.dump_postmortem(f"quarantine-{site}")
+            except Exception:  # noqa: BLE001 (forensics must not kill)
+                pass
 
     # ---------------------------------------------------------------- steps
     def step(self) -> List[Tuple[int, int]]:
@@ -721,12 +804,17 @@ class ServingEngine:
         if fi is not None:
             try:
                 fi.check("device_lost")
-            except Exception:
+            except Exception as e:
                 self.fault_events += 1
+                if self._recorder is not None:
+                    self._recorder.record("fault", site="device_lost",
+                                          error=str(e), **describe_fault(e))
                 raise
         events = self._step_impl()
         if self._journal is not None and events:
             self._journal_delivery(events)
+        if self._slo is not None:
+            self._slo.step_tick()
         return events
 
     def _step_impl(self) -> List[Tuple[int, int]]:
@@ -749,6 +837,12 @@ class ServingEngine:
         if self._obs is not None:
             self._obs.step_phase["schedule"].observe(
                 time.perf_counter() - t_sched)
+        if self._recorder is not None:
+            self._recorder.record(
+                "schedule", decision=decision.kind,
+                prefill=(decision.prefill.request_id
+                         if decision.prefill is not None else None),
+                decode=len(decision.decode), chunks=len(decision.chunks))
         spilled, self._spill = self._spill, []
         if decision.kind == "prefill":
             return spilled + self._prefill(decision.prefill)
@@ -866,7 +960,11 @@ class ServingEngine:
         if req.first_token_t is None:
             req.first_token_t = now
             if o is not None:
-                o.ttft.observe(max(now - req.arrival_t, 0.0))
+                ttft = max(now - req.arrival_t, 0.0)
+                o.ttft.observe(ttft)
+                o.lifecycle.point(req.request_id, "first_token", now)
+                if self._slo is not None:
+                    self._slo.first_token(req.slo_class, ttft)
         req.last_token_t = now
         if req.is_done():
             req.finish_t = now
@@ -907,7 +1005,12 @@ class ServingEngine:
                 return int(tok[0])             # the prefill's host sync
 
         t0 = time.perf_counter()
-        token, err = self._guarded_call("dispatch", dispatch)
+        if self._recorder is not None:
+            self._recorder.record(
+                "dispatch", family="prefill_offset" if n_cached else "prefill",
+                rid=req.request_id, tokens=len(suffix))
+        with RecordEvent("serving.prefill"):
+            token, err = self._guarded_call("dispatch", dispatch)
         if err is not None:
             # isolate THIS request; a pending decode block belongs to other
             # (prefilled) requests and keeps flying
@@ -926,11 +1029,17 @@ class ServingEngine:
             o.dispatches.inc()
             o.host_syncs.inc()
             o.prefill_seconds.inc(now - t0)
+            o.lifecycle.span(req.request_id, "prefill", t0, now)
             o.step_phase["assemble"].observe(t0 - t_in)
             o.step_phase["dispatch"].observe(now - t0)
         events = [self._emit(req, token, now)]
         if o is not None and prev_t is not None:
-            o.inter_token.observe(max(now - prev_t, 0.0))
+            # a requeued request: the gap since its last token before the
+            # preemption is its inter-token latency
+            gap = max(now - prev_t, 0.0)
+            o.inter_token.observe(gap)
+            if self._slo is not None:
+                self._slo.decode_tokens(req.slo_class, gap, 1)
         return events
 
     # ------------------------------------------------------ chunked prefill
@@ -966,7 +1075,11 @@ class ServingEngine:
                 return int(tok[0])             # the final chunk's host sync
 
         t0 = time.perf_counter()
-        token, err = self._guarded_call("dispatch", dispatch)
+        if self._recorder is not None:
+            self._recorder.record("dispatch", family="prefill_chunk",
+                                  rid=req.request_id, tokens=n, final=final)
+        with RecordEvent("serving.prefill_chunk"):
+            token, err = self._guarded_call("dispatch", dispatch)
         if err is not None:
             # only this request: its cursor never advanced, so finalize
             # releases exactly its chunk-to-date pages
@@ -979,6 +1092,11 @@ class ServingEngine:
             o.prefill_chunks.inc()
             o.dispatches.inc()
             o.prefill_seconds.inc(now - t0)
+            # intermediate chunks go to the profiler only (the retained
+            # lifecycle lists must not grow a chunk at a time); the final
+            # chunk is the retained "prefill" stage
+            o.lifecycle.span(req.request_id, "prefill", t0, now,
+                             retain=final)
             o.step_phase["assemble"].observe(t0 - t_in)
             o.step_phase["dispatch"].observe(now - t0)
         if not final:
@@ -991,7 +1109,10 @@ class ServingEngine:
             o.host_syncs.inc()
         events = [self._emit(req, token, now)]
         if o is not None and prev_t is not None:
-            o.inter_token.observe(max(now - prev_t, 0.0))
+            gap = max(now - prev_t, 0.0)
+            o.inter_token.observe(gap)
+            if self._slo is not None:
+                self._slo.decode_tokens(req.slo_class, gap, 1)
         return events
 
     # ---------------------------------------------------------- ragged step
@@ -1082,7 +1203,13 @@ class ServingEngine:
                 return _start_host_copy(torch.cat(emitted, dim=1))
 
         t0 = time.perf_counter()
-        out, err = self._guarded_call("dispatch", dispatch)
+        if self._recorder is not None:
+            self._recorder.record("dispatch", family="ragged",
+                                  rows=len(batch.reqs), decode=len(decode),
+                                  chunks=len(chunks),
+                                  t_bucket=batch.t_bucket)
+        with RecordEvent("serving.ragged_step"):
+            out, err = self._guarded_call("dispatch", dispatch)
         if err is not None:
             # one dispatch carries every row: a fault implicates them all
             self._quarantine([r for r in batch.reqs
@@ -1101,6 +1228,8 @@ class ServingEngine:
                 self.prefix_cache.insert(task.req.prompt, task.req.pages)
             if o is not None:
                 o.prefill_chunks.inc()
+                o.lifecycle.span(task.req.request_id, "prefill", t0, now,
+                                 retain=task.is_final)
                 if task.is_final:
                     o.prefill_steps.inc()
         if o is not None:
@@ -1255,7 +1384,11 @@ class ServingEngine:
             return _start_host_copy(out)
 
         t0 = time.perf_counter()
-        out, err = self._guarded_call("dispatch", dispatch)
+        if self._recorder is not None:
+            self._recorder.record("dispatch", family="spec", rows=len(reqs),
+                                  horizon=h, lookahead=L)
+        with RecordEvent("serving.spec_block"):
+            out, err = self._guarded_call("dispatch", dispatch)
         if err is not None:
             self._quarantine([r for r in reqs if r.status == "running"],
                              err, "spec")
@@ -1323,7 +1456,11 @@ class ServingEngine:
             return _start_host_copy(emitted), carries
 
         t0 = time.perf_counter()
-        out, err = self._guarded_call("dispatch", dispatch)
+        if self._recorder is not None:
+            self._recorder.record("dispatch", family="decode",
+                                  rows=len(reqs), horizon=h)
+        with RecordEvent("serving.decode_block"):
+            out, err = self._guarded_call("dispatch", dispatch)
         if err is not None:
             # a decode dispatch implicates the whole batch. Drain the
             # previous block FIRST (its tokens are sound and its writes
@@ -1381,7 +1518,8 @@ class ServingEngine:
         charge is reverted."""
         o = self._obs
         t_in = time.perf_counter()
-        toks, err = self._guarded_call("drain", lambda: _pull(rec))
+        with RecordEvent("serving.host_drain"):
+            toks, err = self._guarded_call("drain", lambda: _pull(rec))
         windows = rec.get("windows")
         if err is not None:
             # the block's tokens are lost: give back the in-flight bound
@@ -1424,12 +1562,26 @@ class ServingEngine:
                 req.spec_emitted += k
                 if o is not None:
                     o.spec_drained(d_cnt, a_cnt, s_cnt, k)
-            if o is not None and k and prev_t is not None:
-                # the block lands as a burst: spread its host-visible gap
-                # evenly over the k tokens it carried
-                per_tok = max(now - prev_t, 0.0) / k
-                for _ in range(k):
-                    o.inter_token.observe(per_tok)
+                    if req.status != "running" and req.spec_target_steps:
+                        acc = req.spec_accepted / max(req.spec_drafted, 1)
+                        tps = req.spec_emitted / req.spec_target_steps
+                        o.lifecycle.point(
+                            req.request_id,
+                            f"spec[a={acc:.2f},t/s={tps:.1f}]", now)
+            if o is not None and k:
+                # one lifecycle span per request per drained block, to the
+                # profiler only (per-block volume must not grow the
+                # tracker's retained lists)
+                o.lifecycle.span(req.request_id, "decode_block", rec["t0"],
+                                 now, retain=False)
+                if prev_t is not None:
+                    # the block lands as a burst: spread its host-visible
+                    # gap evenly over the k tokens it carried
+                    per_tok = max(now - prev_t, 0.0) / k
+                    for _ in range(k):
+                        o.inter_token.observe(per_tok)
+                    if self._slo is not None:
+                        self._slo.decode_tokens(req.slo_class, per_tok, k)
         if windows is not None:
             # roll the worst-case page charge back to what was accepted;
             # the next block's charge tops it up again in schedule()
@@ -1441,6 +1593,10 @@ class ServingEngine:
         if o is not None:
             o.decode_seconds.inc(max(now - start, 0.0))
             o.step_phase["drain"].observe(now - t_in)
+            o.device_residency.observe(max(now - rec["t0"], 0.0))
+        if self._recorder is not None:
+            self._recorder.record("drain", family=rec["kind"],
+                                  rows=len(rec["reqs"]), tokens=len(events))
         self._last_drain_t = now
         return events
 
@@ -1625,6 +1781,8 @@ class ServingEngine:
             self.scheduler.add(req, force=True)
             if req.deadline_t is not None:
                 self._deadlined.add(rid)
+            if self._obs is not None:
+                self._obs.lifecycle.point(rid, "recovered")
             readmitted.append(rid)
         return readmitted
 
@@ -1659,12 +1817,16 @@ class ServingEngine:
         Returns the id the request now runs under."""
         from .recovery import replay_key_state
 
-        if slo_class is not None:
-            raise _not_ported("slo_class", slo_class)
         prompt = [int(t) for t in prompt]
         delivered = [int(t) for t in delivered]
         if not prompt:
             raise ValueError("empty prompt")
+        if slo_class is not None and (
+                self._slo is None or not self._slo.has_class(slo_class)):
+            # a migrated request's class may not exist on the adopting
+            # engine: the caller drops it rather than naming an unknown one
+            raise ValueError(
+                f"unknown SLO class {slo_class!r} on adopting engine")
         remaining = max_new_tokens - len(delivered)
         if remaining < 1:
             raise ValueError(
@@ -1688,7 +1850,7 @@ class ServingEngine:
         req = Request(prompt=folded, max_new_tokens=remaining,
                       sampling=SamplingParams(temperature, top_k, top_p,
                                               seed),
-                      eos_token_id=eos_token_id,
+                      eos_token_id=eos_token_id, slo_class=slo_class,
                       **({"request_id": request_id}
                          if request_id is not None else {}))
         rid = req.request_id
@@ -1716,6 +1878,11 @@ class ServingEngine:
                 self._finalize(req, "expired")
                 return rid
             self._deadlined.add(rid)
+        if self._obs is not None:
+            self._obs.lifecycle.point(rid, "adopted")
+        if self._recorder is not None:
+            self._recorder.record("adopt", rid=rid, delivered=len(delivered),
+                                  remaining=remaining)
         return rid
 
     # -------------------------------------------------------------- metrics
@@ -1805,6 +1972,18 @@ class ServingEngine:
             phase: (o.step_phase[phase].summary() if o is not None
                     else empty)
             for phase in ("schedule", "assemble", "dispatch", "drain")}
+        s["step_breakdown"]["device_residency"] = (
+            o.device_residency.summary() if o is not None else empty)
+        # SLO / goodput: per-class targets, windowed TTFT / TPOT percentiles
+        # and attainment, and the all-class goodput counter beside the raw
+        # tokens_generated
+        if self._slo is not None:
+            self._slo.refresh(advance=False)
+            s["slo"] = self._slo.summary()
+            s["goodput_tokens"] = self._slo.goodput_tokens
+        else:
+            s["slo"] = {}
+            s["goodput_tokens"] = 0
         s["requests"] = {
             rid: {"ttft_s": (req.first_token_t - req.arrival_t
                              if req.first_token_t else None),
@@ -1812,6 +1991,35 @@ class ServingEngine:
                                 if req.finish_t else None),
                   "tokens": len(req.generated),
                   "preemptions": req.preemptions,
-                  "status": req.status}
+                  "status": req.status,
+                  "slo_class": req.slo_class}
             for rid, req in self.requests.items()}
         return s
+
+    # ------------------------------------------------------------ forensics
+    def build_postmortem(self, reason: str,
+                         info: Optional[Dict[str, object]] = None
+                         ) -> Dict[str, object]:
+        """Assemble (but do not write) a post-mortem bundle from this
+        engine's recorder ring, metrics registry, request table and journal
+        tail. Works with any subset of those attached."""
+        return _build_bundle(reason, recorder=self._recorder,
+                             registry=self.metrics,
+                             requests=self.requests.values(),
+                             journal=self._journal, info=info)
+
+    def dump_postmortem(self, reason: str,
+                        directory: Optional[str] = None,
+                        info: Optional[Dict[str, object]] = None) -> str:
+        """Build a bundle and write it to `directory` (default: the
+        engine's `postmortem_dir`). Returns the path, also kept as
+        `last_postmortem_path`."""
+        directory = directory or self._postmortem_dir
+        if directory is None:
+            raise ValueError(
+                "no directory: pass one or set postmortem_dir= on the "
+                "engine")
+        path = _dump_bundle(self.build_postmortem(reason, info=info),
+                            directory)
+        self.last_postmortem_path = path
+        return path

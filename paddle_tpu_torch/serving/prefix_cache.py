@@ -30,8 +30,8 @@ Invariants:
 - cached pages are never written again: suffix prefills and decode steps
   write positions >= the cached offset, which land in private pages.
 
-Not ported here: `bind_faults` and the injected-fault degrade-to-miss path
-(ROADMAP queue 1, S8), and the profiler span around a lookup (S9).
+Each committed lookup (`match`) runs inside the profiler span
+`serving.prefix_cache.lookup`.
 """
 from __future__ import annotations
 
@@ -39,6 +39,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..observability import MetricsRegistry
+from ..profiler import RecordEvent
 from .kv_cache import NULL_PAGE, BlockAllocator
 
 __all__ = ["PrefixCache", "PrefixNode"]
@@ -108,17 +109,18 @@ class PrefixCache:
         if self._faults is not None:
             # raises BEFORE any reference is acquired: nothing leaks
             self._faults.check("prefix_match")
-        node = self._root
-        pages: List[int] = []
-        for i in range((len(tokens) - 1) // self.page_size):
-            child = node.children.get(self._chunk(tokens, i))
-            if child is None:
-                break
-            child.last_used = self._tick
-            self.allocator.acquire(child.page)
-            pages.append(child.page)
-            node = child
-        return pages
+        with RecordEvent("serving.prefix_cache.lookup"):
+            node = self._root
+            pages: List[int] = []
+            for i in range((len(tokens) - 1) // self.page_size):
+                child = node.children.get(self._chunk(tokens, i))
+                if child is None:
+                    break
+                child.last_used = self._tick
+                self.allocator.acquire(child.page)
+                pages.append(child.page)
+                node = child
+            return pages
 
     def peek(self, tokens: Sequence[int]) -> int:
         """Longest cached full-page prefix of `tokens`, in TOKENS, read

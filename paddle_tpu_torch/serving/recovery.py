@@ -463,6 +463,13 @@ class EngineSupervisor:
         # window where a concurrent control-plane cancel() must still win
         self._mid_restore_hook: Optional[Callable] = None
         self.restarts: List[dict] = []
+        # forensics: the post-mortem bundle built when the engine is
+        # declared dead (and written to the engine's postmortem_dir when it
+        # has one); `_dead_recorder` keeps the dead engine's flight-recorder
+        # ring alive, so a ServingCluster can append its migration records
+        self.postmortem: Optional[dict] = None
+        self.postmortem_path: Optional[str] = None
+        self._dead_recorder = None
         self.metrics = metrics
         if metrics is not None:
             self._m_restarts = {
@@ -624,13 +631,48 @@ class EngineSupervisor:
     def _restart(self, reason: str,
                  exc: Optional[BaseException] = None
                  ) -> List[Tuple[int, int]]:
+        from ..profiler import add_host_span
+
         if len(self.restarts) >= self.max_restarts:
             # the budget is gone: declare the engine dead. The engine
             # object is dropped (the device it wrapped is what kept
-            # failing); the journal stays as the record of every request,
-            # which stats/status/output answer from
+            # failing) and its KV pools freed; the journal stays as the
+            # record of every request, which stats/status/output answer
+            # from and a ServingCluster migrates from
             self.dead_reason = (
                 f"{reason}" + (f": {exc}" if exc else ""))
+            # forensics BEFORE the engine is dropped: record the death in
+            # its ring, build the bundle, keep the ring for the cluster's
+            # migration records, dump it when the engine has a
+            # postmortem_dir. Guarded: forensics never masks the raise
+            old = self.engine
+            try:
+                rec = getattr(old, "_recorder", None)
+                if rec is not None:
+                    rec.record("dead", reason=reason,
+                               error=(str(exc) if exc else None),
+                               restarts=len(self.restarts))
+                self._dead_recorder = rec
+                build = getattr(old, "build_postmortem", None)
+                if build is not None:
+                    self.postmortem = build(
+                        f"dead-{reason}",
+                        info={"restarts": list(self.restarts),
+                              "dead_reason": self.dead_reason})
+                if (self.postmortem is not None
+                        and getattr(old, "_postmortem_dir", None)):
+                    from ..observability.flight_recorder import \
+                        dump_postmortem
+                    self.postmortem_path = dump_postmortem(
+                        self.postmortem, old._postmortem_dir)
+            except Exception:  # noqa: BLE001 (forensics must not mask death)
+                pass
+            try:
+                # the pools only: a factory may share the model's weights
+                # with other engines
+                old.release_pools()
+            except Exception:  # noqa: BLE001 (the device may be gone)
+                pass
             self.engine = None
             raise EngineDead(
                 f"engine restarted {len(self.restarts)} times "
@@ -683,6 +725,16 @@ class EngineSupervisor:
         self.journal.restart(epoch, reason, t1 - t0,
                              readmitted=len(readmitted),
                              replayed_tokens=replayed)
+        rec = getattr(new, "_recorder", None)
+        if rec is not None:
+            # factories sharing one FlightRecorder across rebuilds get one
+            # continuous ring with the restart marked in line
+            rec.record("restart", epoch=epoch, reason=reason,
+                       readmitted=len(readmitted))
+        # chrome-trace marker: tools/trace_summary.py draws this span as a
+        # `-- restart #k --` divider inside request timelines
+        add_host_span(f"serving.recovery[{epoch}].{reason}", t0, t1,
+                      event_type="Recovery")
         if self._m_restarts is not None:
             self._m_restarts[reason].inc()
             self._m_recover.observe(t1 - t0)

@@ -112,6 +112,11 @@ class Request:
     # num_computed_tokens < len(prompt) is mid-prefill: it never joins the
     # decode batch, and its pages cover exactly its computed tokens
     num_computed_tokens: int = 0
+    # SLO class name (observability/slo.py), or None when the request opted
+    # out of SLO accounting. Validated by the engine at admission; the
+    # scheduler never reads it, it rides along for the engine's latency
+    # observation sites
+    slo_class: Optional[str] = None
     # speculative decoding, filled by the engine's drain: draft tokens
     # verified / accepted, target-model passes that scored this row, and
     # tokens emitted by speculative blocks (all 0 with speculation off)
@@ -182,7 +187,7 @@ class Scheduler:
     def __init__(self, allocator: BlockAllocator, page_size: int,
                  max_batch_size: int, max_pages_per_seq: int,
                  prefix_cache=None, decode_horizon: int = 1,
-                 drain_hook=None, obs=None,
+                 drain_hook=None, obs=None, recorder=None,
                  max_waiting: Optional[int] = None,
                  max_preemptions: Optional[int] = None,
                  max_prefill_tokens: Optional[int] = None,
@@ -220,8 +225,12 @@ class Scheduler:
         # called once per _ensure_decode_pages on pool exhaustion, before
         # any preemption: the engine drains its in-flight decode block
         self.drain_hook = drain_hook
-        # the engine's ServingObs (preemption counter, queue gauges)
+        # the engine's ServingObs: lifecycle points at every queue
+        # transition, the preemption / terminal counters, queue gauges
         self.obs = obs
+        # the engine's FlightRecorder: terminal and preempt records. None
+        # = the scheduler executes no recorder code at all
+        self.recorder = recorder
         self.waiting: List[Request] = []
         self.running: List[Request] = []
 
@@ -243,6 +252,8 @@ class Scheduler:
                 f"waiting queue is full ({len(self.waiting)} >= "
                 f"max_waiting={self.max_waiting}); retry later")
         self.waiting.append(req)
+        if self.obs is not None:
+            self.obs.enqueued(req)
 
     def finish(self, req: Request) -> None:
         """Drop a completed request's page references; a shared page
@@ -253,6 +264,12 @@ class Scheduler:
         req.pages = []
         if req in self.running:
             self.running.remove(req)
+        if self.obs is not None:
+            self.obs.finished(req)
+        if self.recorder is not None:
+            self.recorder.record("terminal", rid=req.request_id,
+                                 status="finished",
+                                 generated=len(req.generated))
 
     def finalize(self, req: Request, status: str,
                  error: Optional[str] = None) -> bool:
@@ -277,7 +294,10 @@ class Scheduler:
         if req in self.waiting:
             self.waiting.remove(req)
         if self.obs is not None:
-            self.obs.terminal(status)
+            self.obs.terminal(req, status)
+        if self.recorder is not None:
+            self.recorder.record("terminal", rid=req.request_id,
+                                 status=status, error=error)
         return True
 
     def has_work(self) -> bool:
@@ -370,6 +390,8 @@ class Scheduler:
             self.prefix_cache.record(len(req.prompt), req.cached_tokens)
         req.status = "running"
         self.running.append(req)
+        if self.obs is not None:
+            self.obs.admitted(req)
         return req
 
     def _try_admit(self) -> Optional[Request]:
@@ -421,10 +443,16 @@ class Scheduler:
                 and victim.preemptions > self.max_preemptions:
             victim.parked = True
             self.waiting.append(victim)
+            if self.obs is not None:
+                self.obs.parked(victim)
         else:
             self.waiting.insert(0, victim)
         if self.obs is not None:
             self.obs.preempted(victim)
+        if self.recorder is not None:
+            self.recorder.record("preempt", rid=victim.request_id,
+                                 parked=victim.parked,
+                                 preemptions=victim.preemptions)
 
     def _ensure_decode_pages(self) -> None:
         """Copy-on-extend, one decode BLOCK at a time (see module doc)."""

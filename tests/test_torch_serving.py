@@ -8,8 +8,10 @@ ServingEngine on the same weights, plus the port's own invariants.
   independent of the horizon and of the batch they ride in; streams
   unchanged under page pressure (preemption);
 - allocator and scheduler unit cases mirrored from tests/test_serving.py;
-- the engine knobs that are not ported raise NotImplementedError naming
-  their ROADMAP item; `cache_dtype` is the reference's legacy spelling of
+- the engine knobs that are not ported (tensor parallelism) raise
+  NotImplementedError naming their ROADMAP item, and the observability
+  knobs (SLO classes, the flight recorder, post-mortems) are taken;
+  `cache_dtype` is the reference's legacy spelling of
   fp32 / bf16 pools, with its conflict rule.
 
 All on the CPU, where every kernel wrapper runs its plain version.
@@ -203,8 +205,24 @@ class TestEngineSurface:
     ])
     def test_unported_knobs_raise_naming_the_roadmap(self, knob, value,
                                                      item):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            _engine(_port_llama(), **{knob: value})
+        # the S5 knobs still raise; the S9 knobs (SLO classes, the flight
+        # recorder, post-mortems) are ported and now taken
+        if item == "S5":
+            with pytest.raises(NotImplementedError,
+                               match=f"ROADMAP.*{item}"):
+                _engine(_port_llama(), **{knob: value})
+            return
+        from paddle_tpu_torch.observability import FlightRecorder, SloClass
+
+        value = {"slo_classes": [SloClass("interactive", 1.0, 0.1)],
+                 "flight_recorder": FlightRecorder()}.get(knob, value)
+        eng = _engine(_port_llama(), **{knob: value})
+        held = {"slo_classes": eng._slo is not None
+                and eng._slo.class_names == ("interactive",),
+                "slo_refresh_every": eng._slo is None,
+                "flight_recorder": eng._recorder is value,
+                "postmortem_dir": eng._postmortem_dir == value}[knob]
+        assert held
 
     def test_deadline_raises(self):
         # deadlines are ported: only a non-positive one is refused
@@ -215,10 +233,19 @@ class TestEngineSurface:
         assert not eng.requests
 
     def test_slo_class_raises_naming_the_roadmap(self):
+        # slo_class is ported: a registered class is taken, an unknown one
+        # is refused with the reference's ValueError and leaves no trace
+        from paddle_tpu_torch.observability import SloClass
+
         eng = _engine(_port_llama())
-        with pytest.raises(NotImplementedError, match="ROADMAP.*S9"):
+        with pytest.raises(ValueError, match="SLO class"):
             eng.add_request([1, 2], slo_class="interactive")
         assert not eng.requests
+        eng = _engine(_port_llama(),
+                      slo_classes=[SloClass("interactive", 1.0, 0.1)])
+        rid = eng.add_request([1, 2], max_new_tokens=4,
+                              slo_class="interactive")
+        assert eng.requests[rid].slo_class == "interactive"
 
     @pytest.mark.parametrize("knob", ["fused_lm_loss", "labels"])
     def test_llama_loss_surface_raises_naming_the_roadmap(self, knob):
