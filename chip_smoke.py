@@ -193,7 +193,8 @@ without the final result line:
 22. with --profile: torch.profiler windows of one prefill and two decode
    blocks of the served slice, two ragged steps of the bf16 chunked
    serve, two speculative blocks (n-gram, lookahead 4) of the prefix /
-   speculation serve, one ERNIE, one T5 and one GShard MoE train step:
+   speculation serve, one ERNIE, one T5, one GPT and one GShard MoE train
+   step:
    device busy share, top kernels and top host ops.
 23. serve_recovery (run after serve_chained): the resilience and recovery
    layer on the serve model and engine. Eight requests of 32-512 prompt
@@ -251,6 +252,53 @@ without the final result line:
    trace must hold K6's kernel inside the window, `stats()["slo"]` must
    be filled, and the healthy engine's post-mortem bundle must render
    through `tools/postmortem.py`.
+
+28. gpt_kernels (run with the other kernel phases): K1, K2 and K3 at GPT-3
+   1.3B's training shape, (8, 2048, 16, 128) causal with attention dropout
+   0.1 in bf16 (and batch 1 in fp32), against their plain versions under
+   TOL_REL; K1 at `generate`'s static decode shape, (4, 1, 32, 128)
+   queries over a (4, 320, 32, 128) cache under a (1, 1, 1, 320) float
+   mask; K4 and K5 in LayerNorm mode at (16384, 2048) fp32 and K4 at
+   (512, 2048) bf16; kernel, plain and library (sdpa, F.layer_norm) times
+   and the bound;
+29. generate (run after serve_prefix_spec, on its LLaMA-7B): 4 seeded
+   prompts of 256 tokens, 64 new tokens over a bf16 static cache: greedy
+   (K1 exactly once a layer a step; every stream through the margin
+   check, and against the Serve engine's streams for the same prompts:
+   where they part, the no-cache margin must be under MARGIN_TOL), seeded
+   sampling (temperature 0.8, top-k 50, top-p 0.9: the same seed twice
+   identical, another seed different) and beam search (2 prompts, 4
+   beams, 32 new tokens, an eos id); prints the prefill ms, decode
+   tokens/s, peak memory and K1's launches;
+30. generate_fp32 (after cluster_fp32): LLaMA-7B and GPT-3 1.3B widths at
+   2 layers, fp32: greedy and beam streams on the card identical to the
+   CPU's (the plain versions), seeded sampled streams identical or parted
+   only where the two tokens' perturbed logits lie within
+   SAMPLED_FP32_TOL; T5-base at 2 + 2 layers, greedy, identical; a bf16
+   LLaMA over an fp32 cache through the margin check;
+31. generate_t5: T5-base bf16, 8 x 512 source tokens, 64 new tokens,
+   greedy; the stream held to the uncached decoder's argmax where its
+   top-2 margin passes T5_MARGIN_TOL; prints the encoder ms and decode
+   tokens/s;
+32. serve_gpt: GPT-3 1.3B bf16 served by the Serve engine, 8 greedy
+   requests of 32-512 prompt tokens and 32 new tokens, two late,
+   unchunked (K1, K4, K6 must launch) and chunked (256, the ragged step:
+   K4, K6, K7), each stream against `generate`'s (where they part, the
+   margin must be under MARGIN_TOL) and through the margin check;
+33. train_gpt (after step_check): the GPT-3 1.3B causal-LM step at full
+   width (GPTConfig.gpt3_1p3b, 1.3157 B parameters, random weights from
+   --seed), batch 8 x 2048, O1 bf16, dropout 0.1 / 0.1, the fused LM
+   loss, Adam 1e-4, one fixed batch, 3 warm-up (the last under sync debug
+   mode "error") and 10 timed steps through make_causal_lm_train_step;
+   K1-K5 exactly 24, 24, 24, 49, 49 a step; the loss finite and falling;
+   prints tokens/s/chip, step ms, MFU (bench.py's FLOPs per token) and
+   peak memory (--profile adds one profiled step);
+34. gpt_step_check: GPT-3 1.3B widths at 2 layers, fp32, dropout 0, batch
+   2 x 256, the fused LM loss: loss, every gradient (GRAD_RTOL) and one
+   Adam update (ADAM_ATOL, both fed the CPU's gradients) card against
+   CPU; LLaMA-7B widths at 2 layers with `labels=`, unfused and fused,
+   the same without the update; one O1 step of the GPT with the fused
+   head against the unfused (O1_LOSS_RTOL, O1_GRAD_COS).
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -1529,6 +1577,10 @@ def flash_edge_cases(dev):
     worst = {}
     for dtype, (b, s, h, d), causal, full_mask in (
             (torch.bfloat16, (2, 200, 2, 128), True, False),
+            # GPT's training form, causal + dropout at head_dim 128, at a
+            # length off the tiles, in bf16 (wgmma) and fp32 (FMA)
+            (torch.bfloat16, (2, 257, 4, 128), True, False),
+            (torch.float32, (1, 130, 2, 128), True, False),
             (torch.bfloat16, (2, 131, 3, 64), False, True),
             (torch.float32, (2, 200, 4, 40), True, True)):
         q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
@@ -4482,6 +4534,827 @@ def phase_serve_observed(model, seed, dev, out_dir=None):
     return out
 
 
+# ------------------------------------------- generation and the GPT family
+
+# GPT-3 1.3B attention at its published context, the Train GPT batch:
+# (b, S, heads, head_dim)
+GPT_ATTN = (8, 2048, 16, 128)
+GPT_HIDDEN = 2048
+# the static decode shape of the Generate cell: LLaMA-7B's 32 heads of 128,
+# 4 rows, a 256-token prompt plus 64 new tokens in the cache; the query at
+# position STATIC_DECODE_POS sees the keys 0..STATIC_DECODE_POS
+STATIC_DECODE = (4, 320, 32, 128)
+STATIC_DECODE_POS = 288
+
+
+def gpt_launches(layers):
+    """A GPT train step's launches: K1-K3 once a block, K4 / K5 for the
+    block's two norms and the final norm (GPT-3 1.3B: 24, 24, 24, 49,
+    49)."""
+    return {"K1": layers, "K2": layers, "K3": layers, "K4": 2 * layers + 1,
+            "K5": 2 * layers + 1}
+
+
+# the Generate cell: LLaMA-7B, GEN_ROWS prompts of GEN_PROMPT tokens, GEN_NEW
+# new tokens, sampled at GEN_SAMPLING; beam search over GEN_BEAM_ROWS of
+# them with GEN_BEAMS beams and GEN_BEAM_NEW new tokens
+GEN_ROWS, GEN_PROMPT, GEN_NEW = 4, 256, 64
+GEN_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+GEN_BEAM_ROWS, GEN_BEAMS, GEN_BEAM_NEW = 2, 4, 32
+# the card-against-CPU generation at fp32 (2 layers of full width): rows,
+# prompt tokens, new tokens (greedy and sampled), beam new tokens and beams
+GEN_FP32 = dict(rows=2, prompt=64, new=16, beam_new=8, beams=3)
+# T5-base generation: rows, source tokens, new tokens
+T5_GEN = (8, 512, 64)
+# T5's tied head scales its logits by d_model**-0.5: random T5-base logits
+# are ~0.02, their top-2 margins mostly below 0.01, so the bf16 cached
+# decode is held to the uncached decoder's argmax where the margin passes
+# 0.01 (the bf16 logits' own rounding is ~2e-4 there)
+T5_MARGIN_TOL = 0.01
+# a sampled stream on the card against the CPU at fp32: where they part,
+# the two tokens' Gumbel-perturbed logits must lie within this (the fp32
+# logits differ by summation order, ~1e-5)
+SAMPLED_FP32_TOL = 1e-3
+# the bf16 fused and unfused causal-LM heads of one O1 step: the loss
+# within 2e-2 relative and every gradient's cosine above 0.99, the bounds
+# of the port's O1 tests against the reference (tests/test_torch_gpt.py)
+O1_LOSS_RTOL, O1_GRAD_COS = 2e-2, 0.99
+# the Adam update, card against CPU fed the same gradients: fp32 rounding
+# of one step of ~lr
+ADAM_ATOL = 1e-6
+
+
+def gpt_kernel_cases(rows, dev):
+    """K1, K2 and K3 at GPT-3 1.3B's training shape (GPT_ATTN), causal with
+    attention dropout 0.1, bf16 at batch 8 and fp32 at batch 1, each
+    gradient held to the plain backward on the same inputs; K1 at the
+    static decode shape; K4 / K5 in LayerNorm mode at GPT's width. Returns
+    {"K1 gpt", "K2 gpt", "K3 gpt", "K1 static decode", "K4 gpt", "K5 gpt"}
+    rows for the summary."""
+    main = gpt_attention_cases(rows, dev)
+    main["K1 static decode"] = static_decode_cases(rows, dev)
+    main.update(gpt_norm_cases(rows, dev))
+    return main
+
+
+def gpt_attention_cases(rows, dev):
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    b0, s, h, d = GPT_ATTN
+    p = TRAIN_DROPOUT
+    seed = torch.tensor([9001], dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    main = {}
+    for dtype, b in ((torch.bfloat16, b0), (torch.float32, 1)):
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
+                         .to(dtype) for _ in range(4))
+        out, lse = fa.flash_attention(q, k, v, None, True, True, p, seed)
+        torch.cuda.synchronize()
+        e1, t1, e_lse = check_k1(out, lse, q, k, v, dtype, None, True, p,
+                                 seed)
+        delta = fa.attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, None, True, p, seed)
+        dq = fa.flash_attention_dq(*args)
+        dk, dv = fa.flash_attention_dkv(*args)
+        rdq, rdk, rdv = fa.flash_attention_backward_reference(*args)
+        torch.cuda.synchronize()
+        e2 = check_rel("K2", dq, rdq, dtype)
+        e3 = max(check_rel("K3", dk, rdk, dtype),
+                 check_rel("K3", dv, rdv, dtype),
+                 key=lambda et: et[0] / et[1])
+        del dq, dk, dv, rdq, rdk, rdv
+        ms1 = time_ms(lambda: fa.flash_attention(q, k, v, None, True, True,
+                                                 p, seed))
+        ms2 = time_ms(lambda: fa.flash_attention_dq(*args))
+        ms3 = time_ms(lambda: fa.flash_attention_dkv(*args))
+        plain1 = time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, None, True, True, p, seed), 3, 1)
+        plain_b = time_ms(
+            lambda: fa.flash_attention_backward_reference(*args), 3, 1)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        with torch.no_grad():
+            lib1 = time_ms(lambda: sdpa(qt, kt, vt, dropout_p=p,
+                                        is_causal=True))
+        lib_out = sdpa(qt, kt, vt, dropout_p=p, is_causal=True)
+        dout_t = dout.transpose(1, 2)
+        lib_b = time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dout_t, retain_graph=True))
+        pairs = s * (s + 1) // 2
+        io_in = nbytes(q, k, v, dout, lse, delta)
+        b1 = bound(nbytes(q, k, v, out, lse), 4 * b * h * d * pairs, dtype)
+        b2 = bound(io_in + nbytes(q), 6 * b * h * d * pairs, dtype)
+        b3 = bound(io_in + nbytes(k, v), 8 * b * h * d * pairs, dtype)
+        case = f"GPT causal ({b}, {s}, {h}, {d}), dropout {p}"
+        note = "sdpa backward, dQ+dK+dV together"
+        r1 = _row(dtype, case, e1, t1, ms1, plain1, lib1, *b1, lse_err=e_lse,
+                  dropout_p=p, library_note="sdpa forward, is_causal")
+        r2 = _row(dtype, case, *e2, ms2, plain_b, lib_b, *b2,
+                  library_note=note)
+        r3 = _row(dtype, case, *e3, ms3, plain_b, lib_b, *b3,
+                  library_note=note)
+        for name, r in (("K1", r1), ("K2", r2), ("K3", r3)):
+            _log_row(name, r)
+            rows.append((name, r))
+        if dtype == torch.bfloat16:
+            main = {"K1 gpt": r1, "K2 gpt": r2, "K3 gpt": r3}
+        del q, k, v, dout, out, lib_out, qt, kt, vt
+    return main
+
+
+def static_decode_cases(rows, dev):
+    """K1 at generate's static decode shape: one query row a batch entry
+    over the whole (b, 320, 32, 128) cache, under the (1, 1, 1, 320) float
+    mask that leaves the keys 0..STATIC_DECODE_POS visible; bf16 (the
+    Generate cell's cache) and fp32. Held to the plain version on fp32
+    values under TOL_REL; the bound counts the visible key rows, the
+    whole cache's bytes beside it. Returns the bf16 row."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, total, h, d = STATIC_DECODE
+    pos = STATIC_DECODE_POS
+    mask = torch.zeros(1, 1, 1, total, device=dev)
+    mask[..., pos + 1:] = -1e9
+    main = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(b, 1, h, d, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(b, total, h, d, generator=g, device=dev)
+                .to(dtype) for _ in range(2))
+        out, lse = fa.flash_attention(q, k, v, mask, return_lse=True)
+        torch.cuda.synchronize()
+        err, tol, e_lse = check_k1(out, lse, q, k, v, dtype, mask)
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, mask))
+        issued = time_ms(lambda: fa.flash_attention(q, k, v, mask),
+                         queued=False)
+        plain = time_ms(lambda: fa.flash_attention_reference(q, k, v, mask))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask.to(dtype)))
+        rows_seen = pos + 1
+        kv_bytes = 2 * b * rows_seen * h * d * q.element_size()
+        io = nbytes(q, out, mask) + kv_bytes
+        bms, by = bound(io, 4 * b * h * d * rows_seen, dtype)
+        whole = nbytes(q, out, mask, k, v) / HBM_BYTES_PER_S * 1e3
+        case = (f"static decode ({b}, 1, {h}, {d}) x ({b}, {total}, {h}, "
+                f"{d}), (1, 1, 1, {total}) mask, {rows_seen} keys visible")
+        r = _row(dtype, case, err, tol, ms, plain, lib, bms, by,
+                 lse_err=e_lse, issued_ms=issued, whole_cache_bound_ms=whole,
+                 library_note="sdpa with the same float mask")
+        _log_row("K1", r)
+        log(f"[K1] {str(dtype)[6:]} static decode: issued from Python "
+            f"{issued:.4f} ms; the whole cache's bytes {whole:.4f} ms at "
+            "3.35 TB/s")
+        rows.append(("K1", r))
+        if dtype == torch.bfloat16:
+            main = r
+    return main
+
+
+def gpt_norm_cases(rows, dev):
+    """K4 and K5 in LayerNorm mode (eps 1e-5) at GPT-3 1.3B's width: the
+    Train GPT step's 16384 rows in fp32 (O1's type), and K4 in bf16 at 512
+    rows (the Serve GPT prefill). Library: F.layer_norm and its
+    backward."""
+    from paddle_tpu_torch.ops import norm
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    hd, eps, tF = GPT_HIDDEN, 1e-5, torch.nn.functional
+    main = {}
+    for dtype, n, with_bwd in ((torch.float32, GPT_ATTN[0] * GPT_ATTN[1],
+                                True), (torch.bfloat16, 512, False)):
+        x = (torch.randn(n, hd, generator=g, device=dev) * 2 + 0.3).to(dtype)
+        w = (1 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
+        bias = (0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
+        y, mu, rs = norm.norm_forward(x, w, bias, eps, True)
+        ry, rmu, rrs = norm.norm_forward_reference(x, w, bias, eps, True)
+        torch.cuda.synchronize()
+        err4 = max(max_err(y, ry), max_err(mu, rmu),
+                   max_err(rs, rrs) / float(rrs.abs().max()))
+        tol4 = check("K4", err4, dtype)
+        ms4 = time_ms(lambda: norm.norm_forward(x, w, bias, eps, True))
+        plain4 = time_ms(lambda: norm.norm_forward_reference(x, w, bias, eps,
+                                                             True))
+        lib4 = time_ms(lambda: tF.layer_norm(x, (hd,), w, bias, eps))
+        b4 = bound(nbytes(x, w, bias, y, mu, rs), 8 * x.numel(), dtype)
+        case = f"layer ({n}, {hd})"
+        r4 = _row(dtype, case, err4, tol4, ms4, plain4, lib4, *b4)
+        _log_row("K4", r4)
+        rows.append(("K4", r4))
+        main[f"K4 gpt {str(dtype)[6:]}"] = r4
+        if with_bwd:
+            dy = torch.randn(n, hd, generator=g, device=dev).to(dtype)
+            dx = norm.norm_backward(x, w, dy, mu, rs, True)
+            rdx = norm.norm_backward_reference(x, w, dy, mu, rs, True)
+            torch.cuda.synchronize()
+            err5, tol5 = check_rel("K5", dx, rdx, dtype)
+            ms5 = time_ms(lambda: norm.norm_backward(x, w, dy, mu, rs, True))
+            plain5 = time_ms(lambda: norm.norm_backward_reference(
+                x, w, dy, mu, rs, True))
+            xl = x.detach().requires_grad_()
+            yl = tF.layer_norm(xl, (hd,), w, bias, eps)
+            lib5 = time_ms(lambda: torch.autograd.grad(yl, xl, dy,
+                                                       retain_graph=True))
+            b5 = bound(nbytes(x, w, dy, mu, rs, dx), 10 * x.numel(), dtype)
+            r5 = _row(dtype, case, err5, tol5, ms5, plain5, lib5, *b5,
+                      library_note="F.layer_norm backward (dx, and dw)")
+            _log_row("K5", r5)
+            rows.append(("K5", r5))
+            main["K5 gpt"] = r5
+            del dy, dx, rdx, xl, yl
+        del x, y
+    return main
+
+
+class _Streams:
+    """`rescore`'s view of token streams that no engine served."""
+
+    def __init__(self, seqs):
+        self.seqs = seqs
+
+    def output(self, i):
+        return self.seqs[i]
+
+
+def hold_divergence(model, a, b, n_prompt, tol, dev, tag):
+    """Streams a and b (lists of token lists, prompts included) of one
+    greedy model: where a pair parts, the no-cache forward's top-2 margin
+    at the first differing position must be at most `tol` (else one of
+    them took a token the model clearly does not pick). Returns (identical
+    streams, the largest margin at a parting)."""
+    same, worst = 0, 0.0
+    for x, y, n in zip(a, b, n_prompt):
+        if x == y:
+            same += 1
+            continue
+        j = next(i for i, (u, w) in enumerate(zip(x, y)) if u != w)
+        if j < n:
+            raise AssertionError(f"{tag}: the streams differ in the prompt")
+        with torch.no_grad():
+            logits = model(torch.tensor([x[:j]], device=dev))[0, -1].float()
+        top2 = logits.topk(2).values
+        margin = float(top2[0] - top2[1])
+        worst = max(worst, margin)
+        if margin > tol:
+            raise AssertionError(f"{tag}: streams part at position {j} where "
+                                 f"the top-2 margin is {margin:.4f} > {tol}")
+    log(f"[{tag}] {same} of {len(a)} streams identical; where they part the "
+        f"top-2 margin is at most {worst:.4f} (tol {tol})")
+    return same, worst
+
+
+def phase_generate(model, seed, dev):
+    """`generate` on the Serve cell's LLaMA-7B (bf16 weights, a bf16
+    cache): GEN_ROWS seeded prompts of GEN_PROMPT tokens, GEN_NEW new
+    tokens. Greedy: each stream through the margin check, and against the
+    port's ServingEngine's streams for the same prompts (K1 static against
+    K6 paged rounds otherwise: where they part, the margin must be small);
+    sampled at GEN_SAMPLING: the same seed twice identical, another seed
+    different; beam search. Prints the prefill ms, decode tokens/s, peak
+    memory and K1's launches (every layer once a step)."""
+    from paddle_tpu_torch.models import generate, init_caches
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = model.llama.config
+    rng = np.random.RandomState(seed + 13)
+    prompts = rng.randint(0, cfg.vocab_size, (GEN_ROWS, GEN_PROMPT))
+    ids = torch.from_numpy(prompts).to(dev)
+    bf16 = dict(cache_dtype=torch.bfloat16)
+    generate(model, ids[:, :32], max_new_tokens=4, temperature=0.0, **bf16)
+    caches = init_caches(model, GEN_ROWS, GEN_PROMPT + GEN_NEW,
+                         torch.bfloat16)
+    with torch.no_grad():
+        prefill_ms = time_ms(lambda: model(ids, caches=caches, start_pos=0),
+                             5, 1, queued=False)
+    del caches
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = generate(model, ids, max_new_tokens=GEN_NEW, temperature=0.0,
+                   **bf16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_hidden_layers
+    if k1 != layers * GEN_NEW:
+        raise AssertionError(f"generate: K1 launched {k1} times, not "
+                             f"{layers} x {GEN_NEW}")
+    decode_tps = GEN_ROWS * (GEN_NEW - 1) / (wall - prefill_ms / 1e3)
+    seqs = out.tolist()
+    if out.shape != (GEN_ROWS, GEN_PROMPT + GEN_NEW) or not torch.equal(
+            out[:, :GEN_PROMPT], ids):
+        raise AssertionError(f"generate: output {tuple(out.shape)}")
+    log(f"[generate] LLaMA-7B bf16, {GEN_ROWS} x {GEN_PROMPT} prompt tokens, "
+        f"{GEN_NEW} new: {wall:.3f} s; prefill {prefill_ms:.2f} ms (CUDA "
+        f"events, calls issued one by one); decode {decode_tps:.1f} "
+        f"tokens/s ({(wall - prefill_ms / 1e3) / (GEN_NEW - 1) * 1e3:.2f} ms "
+        f"a step); peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} "
+        f"held before); K1 {k1} launches ({layers} at the prefill shape, "
+        f"{k1 - layers} at the decode shape)")
+    checked, _, _ = rescore(model, _Streams(seqs), list(prompts),
+                            list(range(GEN_ROWS)), MARGIN_TOL["bf16"], dev,
+                            "generate", every=True)
+    engine = serve_engine(model, dev, kv_dtype="bf16")
+    rids = [engine.add_request(p, max_new_tokens=GEN_NEW) for p in prompts]
+    engine.run()
+    served = [engine.output(r) for r in rids]
+    del engine
+    gc.collect()
+    same, worst = hold_divergence(model, seqs, served, [GEN_PROMPT] *
+                                  GEN_ROWS, MARGIN_TOL["bf16"], dev,
+                                  "generate vs engine")
+    a = generate(model, ids, max_new_tokens=GEN_NEW, seed=seed, **bf16,
+                 **GEN_SAMPLING)
+    b = generate(model, ids, max_new_tokens=GEN_NEW, seed=seed, **bf16,
+                 **GEN_SAMPLING)
+    c = generate(model, ids, max_new_tokens=GEN_NEW, seed=seed + 1, **bf16,
+                 **GEN_SAMPLING)
+    if not torch.equal(a, b) or torch.equal(a, c):
+        raise AssertionError("generate: seeded sampling not reproducible, "
+                             "or another seed gave the same streams")
+    eos = seqs[0][GEN_PROMPT + 3]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    beam = generate(model, ids[:GEN_BEAM_ROWS], max_new_tokens=GEN_BEAM_NEW,
+                    num_beams=GEN_BEAMS, eos_token_id=eos, **bf16)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    if beam.shape != (GEN_BEAM_ROWS, GEN_PROMPT + GEN_BEAM_NEW) or not \
+            torch.equal(beam[:, :GEN_PROMPT], ids[:GEN_BEAM_ROWS]):
+        raise AssertionError(f"beam search: output {tuple(beam.shape)}")
+    for row in beam[:, GEN_PROMPT:].tolist():
+        if eos in row and any(t != eos for t in row[row.index(eos):]):
+            raise AssertionError("beam search: a token other than eos after "
+                                 "eos")
+    log(f"[generate] sampled ({GEN_SAMPLING}): seed {seed} twice identical, "
+        f"seed {seed + 1} differs; beam search ({GEN_BEAM_ROWS} rows x "
+        f"{GEN_BEAMS} beams, {GEN_BEAM_NEW} new, eos {eos}): {beam_s:.3f} s")
+    return dict(launches={"K1": k1}, wall_s=wall, prefill_ms=prefill_ms,
+                decode_tokens_per_s=decode_tps, peak_bytes=peak,
+                held_bytes=held, margin_checked=checked,
+                identical_to_engine=same, worst_parting_margin=worst,
+                beam_s=beam_s)
+
+
+def hold_sampled(cpu, card_out, cpu_out, n_prompt, seed, tag):
+    """Sampled streams of one fp32 model, card against CPU: where a row
+    parts, the two tokens' Gumbel-perturbed filtered logits (the CPU's, at
+    that draw) lie within SAMPLED_FP32_TOL. Returns identical rows."""
+    from paddle_tpu_torch.models import generation as gen
+
+    same, rows = 0, card_out.shape[0]
+    for r, (x, y) in enumerate(zip(card_out.tolist(), cpu_out.tolist())):
+        if x == y:
+            same += 1
+            continue
+        j = next(i for i, (u, w) in enumerate(zip(x, y)) if u != w)
+        with torch.no_grad():
+            logits = cpu(torch.tensor([y[:j]]))[0, -1:]
+        u = gen._Draws(seed, rows, logits.shape[-1], "cpu")(j - n_prompt)
+        s = (gen._filter(logits, **{k: GEN_SAMPLING[k] for k in
+                                    ("temperature", "top_k", "top_p")})
+             - torch.log(-torch.log(u[r:r + 1])))[0]
+        gap = abs(float(s[x[j]] - s[y[j]]))
+        if not gap <= SAMPLED_FP32_TOL:
+            raise AssertionError(f"{tag}: sampled row {r} parts at {j} with "
+                                 f"a perturbed-logit gap {gap}")
+    return same
+
+
+def generate_card_vs_cpu(tag, card, cpu, vocab, seed, dev):
+    """Greedy, beam and seeded sampled `generate` of one fp32 decoder on
+    the card and on the CPU (its plain versions): greedy and beam streams
+    identical, sampled ones under hold_sampled."""
+    from paddle_tpu_torch.models import generate
+
+    g = GEN_FP32
+    ids = np.random.RandomState(seed + 17).randint(0, vocab, (g["rows"],
+                                                              g["prompt"]))
+    runs = {"greedy": dict(max_new_tokens=g["new"], temperature=0.0),
+            "beam": dict(max_new_tokens=g["beam_new"], num_beams=g["beams"]),
+            "sampled": dict(max_new_tokens=g["new"], seed=seed,
+                            **GEN_SAMPLING)}
+    out = {}
+    for name, kw in runs.items():
+        a = generate(card, torch.from_numpy(ids).to(dev), **kw).cpu()
+        b = generate(cpu, torch.from_numpy(ids), **kw)
+        if name == "sampled":
+            out[name] = hold_sampled(cpu, a, b, g["prompt"], seed, tag)
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {name} streams differ, card "
+                                 f"{a.tolist()} cpu {b.tolist()}")
+        else:
+            out[name] = len(ids)
+    log(f"[generate_fp32] {tag}: greedy {out['greedy']} and beam "
+        f"{out['beam']} of {len(ids)} rows identical card against CPU; "
+        f"sampled {out['sampled']} identical (the rest within "
+        f"{SAMPLED_FP32_TOL})")
+    return out
+
+
+def phase_generate_fp32(seed, dev):
+    """`generate` at fp32 on 2 layers of full width, card against CPU:
+    LLaMA-7B and GPT-3 1.3B (greedy, beam, sampled), and T5-base's greedy
+    `generate` at 2 + 2 layers; then a bf16 LLaMA over an fp32 cache (the
+    static attention's type rule), through the margin check."""
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaConfig, LlamaForCausalLM,
+                                         T5Config,
+                                         T5ForConditionalGeneration,
+                                         generate)
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    lcfg = LlamaConfig.llama7b()
+    lcfg.num_hidden_layers = 2
+    gcfg = GPTConfig.gpt3_1p3b()
+    gcfg.num_hidden_layers = 2
+    gcfg.hidden_dropout_prob = gcfg.attention_probs_dropout_prob = 0.0
+    for tag, cls, cfg in (("llama", LlamaForCausalLM, lcfg),
+                          ("gpt", GPTForCausalLM, gcfg)):
+        card = cls(cfg, device=dev, seed=seed)
+        cpu = cls(cfg, device="cpu", seed=seed)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        out[tag] = generate_card_vs_cpu(tag, card, cpu, cfg.vocab_size,
+                                        seed, dev)
+        if tag == "llama":
+            del cpu
+            half = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16)
+            half.load_state_dict(card.state_dict())
+            del card
+            ids = np.random.RandomState(seed + 19).randint(
+                0, cfg.vocab_size, (GEN_FP32["rows"], GEN_FP32["prompt"]))
+            n0 = fa.flash_attention.launches
+            seqs = generate(half, torch.from_numpy(ids).to(dev),
+                            max_new_tokens=GEN_FP32["new"], temperature=0.0,
+                            cache_dtype="float32").tolist()
+            ran = fa.flash_attention.launches - n0
+            checked, _, _ = rescore(half, _Streams(seqs), list(ids),
+                                    list(range(len(ids))),
+                                    MARGIN_TOL["bf16"], dev,
+                                    "generate bf16 model, fp32 cache",
+                                    every=True)
+            out["bf16_model_fp32_cache"] = dict(checked=checked,
+                                                k1_launches=ran)
+            del half
+        else:
+            del card, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    tcfg = T5Config.t5_base()
+    tcfg.num_layers = 2
+    card = T5ForConditionalGeneration(tcfg, device=dev, seed=seed)
+    cpu = T5ForConditionalGeneration(tcfg, device="cpu", seed=seed)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    src = np.random.RandomState(seed + 23).randint(0, tcfg.vocab_size,
+                                                   (2, 128))
+    a = card.generate(torch.from_numpy(src).to(dev), max_new_tokens=16).cpu()
+    b = cpu.generate(torch.from_numpy(src), max_new_tokens=16)
+    if not torch.equal(a, b):
+        raise AssertionError(f"t5 greedy streams differ: card {a.tolist()} "
+                             f"cpu {b.tolist()}")
+    log("[generate_fp32] t5: greedy 2 of 2 rows identical card against CPU")
+    out["t5"] = {"greedy": 2}
+    return out
+
+
+def phase_generate_t5(seed, dev):
+    """T5-base (bf16, random weights from the seed) `generate`: T5_GEN's
+    rows of source tokens, greedy. Prints the encoder ms (the encoder and
+    the cross K/V projections), decode tokens/s and K1's launches; the
+    stream is held to the uncached decoder's argmax where its top-2 margin
+    passes T5_MARGIN_TOL."""
+    from paddle_tpu_torch.models import T5Config, T5ForConditionalGeneration
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import norm
+
+    cfg = T5Config.t5_base()
+    b, src_len, new = T5_GEN
+    model = T5ForConditionalGeneration(cfg, device=dev, dtype=torch.bfloat16,
+                                       seed=seed).eval()
+    src = torch.from_numpy(np.random.RandomState(seed + 29).randint(
+        0, cfg.vocab_size, (b, src_len))).to(dev)
+    model.generate(src[:, :64], max_new_tokens=4)
+    with torch.no_grad():
+        enc_ms = time_ms(lambda: model(src), 5, 1, queued=False)
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = norm.norm_forward.launches = 0
+    t0 = time.perf_counter()
+    out = model.generate(src, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": fa.flash_attention.launches,
+                "K4": norm.norm_forward.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = out.shape[1]
+    tps = b * steps / (wall - enc_ms / 1e3)
+    if out.shape != (b, new):
+        raise AssertionError(f"t5 generate: output {tuple(out.shape)}")
+    start = torch.full((b, 1), cfg.decoder_start_token_id, device=dev)
+    dec_in = torch.cat([start, out[:, :-1].long()], dim=1)
+    with torch.no_grad():
+        logits = model(src, dec_in).float()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("t5: non-finite logits in the uncached decoder")
+    top2 = logits.topk(2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    sure = margin > T5_MARGIN_TOL
+    wrong = sure & (top2.indices[..., 0] != out.long())
+    if int(sure.sum()) == 0 or bool(wrong.any()):
+        raise AssertionError(f"t5 generate: {int(sure.sum())} positions over "
+                             f"the margin, {int(wrong.sum())} of them wrong")
+    log(f"[generate_t5] T5-base bf16, {b} x {src_len} source tokens, {new} "
+        f"new: encoder {enc_ms:.2f} ms; {wall:.3f} s in all, decode "
+        f"{tps:.1f} tokens/s; peak memory {peak / 2**30:.2f} GiB; launches "
+        f"{launches}; {int(sure.sum())} of {b * new} positions had a top-2 "
+        f"margin > {T5_MARGIN_TOL} and all matched the uncached argmax")
+    return dict(launches=launches, encoder_ms=enc_ms, wall_s=wall,
+                decode_tokens_per_s=tps, peak_bytes=peak,
+                margin_checked=int(sure.sum()))
+
+
+def phase_train_gpt(seed, dev, profile=False, out_dir=None):
+    """The GPT-3 1.3B causal-LM step (GPTConfig.gpt3_1p3b), batch 8 x 2048,
+    O1 bf16, dropout 0.1 / 0.1, the fused LM loss, Adam 1e-4, one fixed
+    seeded batch (labels = the ids), through make_causal_lm_train_step: 3
+    warm-up (the last under sync debug mode "error") and 10 timed steps."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.training import make_causal_lm_train_step
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.fused_lm_loss = True
+    batch, seq, warmup, steps = GPT_ATTN[0], GPT_ATTN[1], 3, 10
+    held = torch.cuda.memory_allocated()
+    model = GPTForCausalLM(cfg, device=dev, seed=seed)
+    opt = Adam(learning_rate=1e-4, parameters=model.parameters())
+    step = make_causal_lm_train_step(model, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (batch, seq))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log(f"[train_gpt] GPT-3 1.3B ({cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, FFN "
+        f"{cfg.intermediate_size}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e9:.4f} B params), batch {batch} x seq {seq}, bf16 "
+        f"O1, dropout {cfg.hidden_dropout_prob}/"
+        f"{cfg.attention_probs_dropout_prob}, fused LM loss, Adam 1e-4")
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        torch.cuda.set_sync_debug_mode("error" if i == warmup - 1 else 0)
+        try:
+            losses.append(step(ids, ids, gen))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    counters = train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(ids, ids, gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    loss_vals = [float(x) for x in losses]
+    tps = batch * seq * steps / wall
+    fpt = flops_per_token(model, cfg, seq)
+    mfu = tps * fpt / PEAK_FLOPS[torch.bfloat16]
+    log(f"[train_gpt] warm-up {warmup} steps {warm_s:.2f} s (the last under "
+        f"sync debug mode 'error'); {steps} timed steps {wall:.3f} s: "
+        f"{tps:.1f} tokens/s/chip, step {wall / steps * 1e3:.2f} ms, MFU "
+        f"{mfu:.4f} ({fpt / 1e9:.3f} GFLOP/token, "
+        f"{fpt * batch * seq / 1e12:.1f} TFLOP a step, over 989 TFLOP/s), "
+        f"peak memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held "
+        "before the phase)")
+    log("[train_gpt] loss by step: " + ", ".join(f"{x:.4f}"
+                                                 for x in loss_vals))
+    log(f"[train_gpt] launches in the {steps} timed steps: {launches}")
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError(f"non-finite training loss: {loss_vals}")
+    if not loss_vals[-1] < loss_vals[0]:
+        raise AssertionError(f"loss did not fall: {loss_vals}")
+    expected = gpt_launches(cfg.num_hidden_layers)
+    wrong = {k: n for k, n in launches.items() if n != expected[k] * steps}
+    if wrong:
+        raise AssertionError(f"launches {wrong} (over {steps} steps) != "
+                             f"{expected} a step")
+    prof = None
+    if profile:
+        prof = profile_window("train_gpt_step", lambda: step(ids, ids, gen),
+                              out_dir)
+    return dict(launches=launches, tokens_per_s=tps,
+                step_ms=wall / steps * 1e3, mfu=mfu, flops_per_token=fpt,
+                n_params=n_params, peak_bytes=peak, held_bytes=held,
+                losses=loss_vals, wall_s=wall, warmup_s=warm_s,
+                batch=batch, profile=prof)
+
+
+def step_card_vs_cpu(tag, card, cpu, ids, labels, dev, adam=False):
+    """One fp32 forward with labels and backward on the card (kernels) and
+    on the CPU (plain versions) from the same weights: the loss and every
+    gradient under check_grads; with `adam`, one Adam update of each, both
+    fed the CPU's gradients, the parameters within ADAM_ATOL. Returns the
+    readings."""
+    from paddle_tpu_torch.optimizer import Adam
+
+    counters = train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    losses = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        m.train()
+        d = next(m.parameters()).device
+        loss = m(ids.to(d), labels=labels.to(d))
+        loss.backward()
+        losses[name] = float(loss.detach())
+    ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+    if any(n <= 0 for n in ran.values()):
+        raise AssertionError(f"{tag}: the card's step skipped a kernel: {ran}")
+    worst, worst_name = check_grads(grad_errors(card, cpu), losses, tag,
+                                    GRAD_RTOL)
+    out = dict(loss_card=losses["card"], loss_cpu=losses["cpu"],
+               worst_grad_rel=worst, worst_grad=worst_name, launches=ran)
+    line = (f"[gpt_step_check] {tag}: loss card {losses['card']!r} cpu "
+            f"{losses['cpu']!r}; every gradient within {GRAD_RTOL} x "
+            f"max|cpu grad|, worst {worst:.3g} ({worst_name}); kernels "
+            f"launched {ran}")
+    if adam:
+        with torch.no_grad():
+            for pc, pp in zip(card.parameters(), cpu.parameters()):
+                pc.grad.copy_(pp.grad)
+        for m in (card, cpu):
+            Adam(learning_rate=1e-4, parameters=m.parameters()).step()
+        err = max(max_err(pc.cpu(), pp) for pc, pp in
+                  zip(card.parameters(), cpu.parameters()))
+        if not err <= ADAM_ATOL:
+            raise AssertionError(f"{tag}: Adam update max abs error {err}")
+        out["adam_max_abs_err"] = err
+        line += f"; one Adam update within {err:.3g} (tol {ADAM_ATOL})"
+    log(line)
+    return out
+
+
+def o1_fused_vs_unfused(card, ids, dev):
+    """One O1 forward and backward of the card model with the fused and
+    the unfused causal-LM head: the losses within O1_LOSS_RTOL and every
+    gradient's cosine above O1_GRAD_COS."""
+    from paddle_tpu_torch import amp
+
+    grads, losses = {}, {}
+    for fused in (False, True):
+        card.gpt.config.fused_lm_loss = fused
+        card.zero_grad(set_to_none=True)
+        with amp.auto_cast(level="O1"):
+            loss = card(ids.to(dev), labels=ids.to(dev))
+        loss.backward()
+        losses[fused] = float(loss.detach())
+        grads[fused] = {n: p.grad.detach().double().flatten()
+                        for n, p in card.named_parameters()}
+    if not abs(losses[True] - losses[False]) <= O1_LOSS_RTOL * abs(
+            losses[False]):
+        raise AssertionError(f"O1 fused loss {losses[True]} vs unfused "
+                             f"{losses[False]}")
+    cos = {n: float(grads[True][n] @ g / (grads[True][n].norm() * g.norm()))
+           for n, g in grads[False].items()}
+    low = min(cos, key=cos.get)
+    if not cos[low] > O1_GRAD_COS:
+        raise AssertionError(f"O1 fused vs unfused: gradient cosine "
+                             f"{cos[low]} ({low})")
+    log(f"[gpt_step_check] O1 bf16: fused loss {losses[True]!r}, unfused "
+        f"{losses[False]!r}; the lowest gradient cosine {cos[low]:.6f} "
+        f"({low})")
+    return dict(fused=losses[True], unfused=losses[False],
+                min_cosine=cos[low])
+
+
+def phase_gpt_step_check(seed, dev):
+    """GPT-3 1.3B's widths at 2 layers, fp32, dropout 0, batch 2 x 256: the
+    fused LM loss, every gradient and one Adam update on the card against
+    the CPU; the same at LLaMA-7B's widths (2 layers, batch 2 x 64) with
+    `labels=`, unfused and fused; then an O1 step of the GPT with the fused
+    head against the unfused."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaConfig, LlamaForCausalLM)
+
+    out = {}
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_hidden_layers = 2
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    cfg.fused_lm_loss = True
+    card = GPTForCausalLM(cfg, device=dev, seed=seed)
+    cpu = GPTForCausalLM(dataclasses.replace(cfg), device="cpu", seed=seed)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        0, cfg.vocab_size, (2, 256)))
+    out["gpt"] = step_card_vs_cpu("GPT 2-layer fused loss", card, cpu, ids,
+                                  ids, dev, adam=True)
+    del cpu
+    out["gpt_o1"] = o1_fused_vs_unfused(card, ids, dev)
+    del card
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fused in (False, True):
+        lcfg = LlamaConfig.llama7b()
+        lcfg.num_hidden_layers = 2
+        lcfg.fused_lm_loss = fused
+        card = LlamaForCausalLM(lcfg, device=dev, seed=seed)
+        cpu = LlamaForCausalLM(lcfg, device="cpu", seed=seed)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()})
+        ids = torch.from_numpy(np.random.RandomState(seed + 3).randint(
+            0, lcfg.vocab_size, (2, 64)))
+        tag = f"LLaMA 2-layer labels{', fused' if fused else ''}"
+        out["llama_fused" if fused else "llama"] = step_card_vs_cpu(
+            tag, card, cpu, ids, ids, dev)
+        del card, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def load_gpt3(seed, dev):
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    model = GPTForCausalLM(GPTConfig.gpt3_1p3b(), device=dev,
+                           dtype=torch.bfloat16, seed=seed)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return model
+
+
+def phase_serve_gpt(seed, dev):
+    """GPT-3 1.3B (bf16, random weights from the seed) served by the Serve
+    cell's engine: 8 greedy requests of 32-512 prompt tokens and 32 new
+    tokens, two late, unchunked and then chunked (256, the ragged step).
+    Each run's streams against `generate`'s on the same model (where they
+    part, the margin must be small) and through the margin check; K1, K4
+    and K6 must launch unchunked, K4, K6 and K7 chunked."""
+    from paddle_tpu_torch.models import generate
+
+    model = load_gpt3(seed, dev)
+    cfg = model.gpt.config
+    rng = np.random.RandomState(seed + 31)
+    lens = rng.randint(32, 513, 8)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
+    refs = [generate(model, torch.from_numpy(p).to(dev)[None],
+                     max_new_tokens=32, temperature=0.0,
+                     cache_dtype=torch.bfloat16)[0].tolist()
+            for p in prompts]
+    counters = serve_counters()
+    out = {}
+    for tag, kw, need in (
+            ("serve_gpt", dict(kv_dtype="bf16"), ("K1", "K4", "K6")),
+            ("serve_gpt_chunked", dict(kv_dtype="bf16",
+                                       enable_chunked_prefill=True,
+                                       prefill_chunk_tokens=256),
+             ("K4", "K6", "K7"))):
+        serve(serve_engine(model, dev, **kw),
+              [p[:40] for p in prompts[:2]], 1, 9)
+        engine = serve_engine(model, dev, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(counters)
+        rids, wall = serve(engine, prompts, 2, 32)
+        launches = {k: n for k, n in read_counters(counters).items()
+                    if k in ("K1", "K4", "K6", "K7")}
+        stats = engine.stats()
+        tokens = stats["tokens_generated"]
+        peak = torch.cuda.max_memory_allocated()
+        missing = [k for k in need if launches[k] <= 0]
+        if stats["num_finished"] != 8 or tokens != 8 * 32 or missing:
+            raise AssertionError(f"{tag}: {stats['num_finished']} finished, "
+                                 f"{tokens} tokens, never launched "
+                                 f"{missing}")
+        log(f"[{tag}] GPT-3 1.3B bf16, prompts {sorted(lens.tolist())}, 32 "
+            f"new each, 2 late: {tokens} tokens in {wall:.3f} s = "
+            f"{tokens / wall:.1f} tokens/s; decode "
+            f"{stats['decode_tokens_per_s']:.1f} tokens/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches}")
+        streams = [engine.output(r) for r in rids]
+        same, worst = hold_divergence(model, streams, refs, lens.tolist(),
+                                      MARGIN_TOL["bf16"], dev,
+                                      f"{tag} vs generate")
+        checked, _, _ = rescore(model, engine, prompts, rids,
+                                MARGIN_TOL["bf16"], dev, tag)
+        out[tag] = dict(launches=launches, tokens_per_s=tokens / wall,
+                        decode_tokens_per_s=stats["decode_tokens_per_s"],
+                        peak_bytes=peak, identical_to_generate=same,
+                        worst_parting_margin=worst, margin_checked=checked)
+        del engine
+        gc.collect()
+    return out
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -4502,9 +5375,14 @@ def profile_window(label, fn, out_dir):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # a record_function label (the optimizer's "Optimizer.step#...") also
+    # appears as a device-side annotation spanning its kernels: keep only
+    # names no host event carries, so no kernel is counted twice
+    cpu = torch.autograd.DeviceType.CPU
+    host_keys = {e.key for e in prof.key_averages() if e.device_type == cpu}
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-            if _device_us(e) > 0 and e.device_type != torch.autograd
-            .DeviceType.CPU]
+            if _device_us(e) > 0 and e.device_type != cpu
+            and e.key not in host_keys]
     busy = sum(us for _, us, _ in rows) / 1e6
     rows.sort(key=lambda r: -r[1])
     log(f"[profile] {label}: wall {wall * 1e3:.1f} ms, kernels "
@@ -4587,7 +5465,9 @@ KERNELS = {
 
 def summarize(main_rows, launches_by_path):
     """The kernels' JSON summary: each kernel's main-path row (the ERNIE
-    training path's shapes for K1-K5, T5's encoder for K2 with d(mask) (its
+    training path's shapes for K1-K5, with GPT-3 1.3B's training shapes
+    beside them, and K1's static decode shape; T5's encoder for K2 with
+    d(mask) (its
     ms is the kernel plus the batch sum), the serving path's for K6, K6q
     and K7, the GShard MoE dispatch for K9, with its combine beside it, a
     ring step on the diagonal at RING_ATTN for K1r-K3r, every step kind
@@ -4611,7 +5491,20 @@ def summarize(main_rows, launches_by_path):
             entry.update({x: r[x] for x in (
                 "kernel_ms", "ms_without_dmask", "batch_sum_ms", "groups",
                 "buffer_bytes", "whole_ds_bytes", "buffer_bound_ms")})
+        gpt_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "dtype", "case")
+        if k in ("K1", "K2", "K3"):
+            entry["gpt_train"] = {x: main_rows[f"{k} gpt"][x]
+                                  for x in gpt_keys}
+        if k in ("K4", "K5"):
+            entry["gpt_layer_norm"] = [
+                {x: row[x] for x in gpt_keys} for key, row in
+                main_rows.items() if key.startswith(f"{k} gpt")]
         if k == "K1":
+            entry["static_decode"] = dict(
+                {x: main_rows["K1 static decode"][x] for x in gpt_keys},
+                whole_cache_bound_ms=main_rows["K1 static decode"][
+                    "whole_cache_bound_ms"])
             entry["dropout_p"] = r.get("dropout_p", 0.0)
             entry["lse_max_abs_err"] = r.get("lse_err")
             v = main_rows["K1 verify"]
@@ -4657,16 +5550,19 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile one prefill and two decode blocks of the "
                          "served slice, two ragged steps of the chunked "
-                         "serve, two speculative blocks, one ERNIE, one T5 "
-                         "and one MoE train step with torch.profiler")
+                         "serve, two speculative blocks, one ERNIE, one T5, "
+                         "one GPT and one MoE train step with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    result = {"nvidia_smi": smi, "build_s": phase_build(args.out)}
+    result = {"nvidia_smi": smi, "build_s": phase_build(args.out),
+              "phase_s": {}}
     rows, main_rows, launches = [], {}, {}
+    mark = [time.perf_counter()]
     # the summary's K1 / K4 rows are the training path's (k1 /
     # k45_train_cases); K1's verify window rides beside its row
     main_rows.update(k1_cases(rows, dev))
@@ -4680,6 +5576,7 @@ def main(argv=None):
     result["edge_cases"] = flash_edge_cases(dev)
     main_rows.update(k45_train_cases(rows, dev))
     main_rows.update(t5_kernel_cases(rows, dev))
+    main_rows.update(gpt_kernel_cases(rows, dev))
     main_rows.update(k9_cases(rows, dev, args.seed))
     main_rows.update(phase_ring_kernels(rows, dev))
     result["cases"] = [dict(kernel=k, **r) for k, r in rows]
@@ -4689,6 +5586,12 @@ def main(argv=None):
         # them before the next phase measures its own peak memory
         gc.collect()
         torch.cuda.empty_cache()
+        # the wall since the last release, under the newest result key
+        now = time.perf_counter()
+        key = list(result)[-1]
+        result["phase_s"][key] = now - mark[0]
+        mark[0] = now
+        log(f"[time] {key}: {result['phase_s'][key]:.1f} s")
 
     release()
     model = load_llama7b(args.seed, dev)
@@ -4723,23 +5626,43 @@ def main(argv=None):
     t0 = time.perf_counter()
     r = phase_serve_prefix_spec(model, args.seed, dev, args.profile,
                                 args.out)
-    result["serve_prefix_spec"] = r
+    result["serve_prefix_spec"] = spec = r
     launches["serve_prefix_spec"] = r["launches"]
+    release()
+    spec_s = time.perf_counter() - t0
+    result["generate"] = r = phase_generate(model, args.seed, dev)
+    launches["generate"] = r["launches"]
     del model
     release()
+    t0 = time.perf_counter()
     result["spec_fp32"] = phase_spec_fp32(args.seed, dev)
     release()
-    r["phases_s"] = time.perf_counter() - t0
+    spec["phases_s"] = spec_s + time.perf_counter() - t0
     log(f"[serve_prefix_spec] this phase and spec_fp32 took "
-        f"{r['phases_s']:.1f} s")
+        f"{spec['phases_s']:.1f} s")
     result["recovery_fp32"] = phase_recovery_fp32(args.seed, dev)
     release()
     result["cluster_fp32"] = phase_cluster_fp32(args.seed, dev)
+    release()
+    result["generate_fp32"] = phase_generate_fp32(args.seed, dev)
+    release()
+    result["generate_t5"] = r = phase_generate_t5(args.seed, dev)
+    launches["generate_t5"] = r["launches"]
+    release()
+    result["serve_gpt"] = r = phase_serve_gpt(args.seed, dev)
+    for tag, run in r.items():
+        launches[tag] = run["launches"]
     release()
     result["train"] = phase_train(args.seed, dev, args.profile, args.out)
     launches["train"] = result["train"]["launches"]
     release()
     result["step_check"] = phase_step_check(args.seed, dev)
+    release()
+    result["train_gpt"] = phase_train_gpt(args.seed, dev, args.profile,
+                                          args.out)
+    launches["train_gpt"] = result["train_gpt"]["launches"]
+    release()
+    result["gpt_step_check"] = phase_gpt_step_check(args.seed, dev)
     release()
     result["train_t5"] = phase_train_t5(args.seed, dev, args.profile,
                                         args.out)

@@ -4,8 +4,15 @@ RMSNorm + rotary embeddings + SwiGLU + grouped-query attention. Module
 paths and parameter names match the JAX package
 (`llama.layers.0.self_attn.q_proj.weight`, ...), so weights cross by name
 (`weights.load_reference_state`). Two forwards, as in the reference: the
-no-cache causal forward, and the paged-cache forward the serving engine
-drives (`caches` = one `PagedLayerCache` per layer, written in place).
+no-cache causal forward, and the cache forward (`caches` = one cache per
+layer, written in place: the static `(k, v)` pairs of
+`generation.generate`, or the serving engine's `PagedLayerCache` views).
+
+With `labels`, the no-cache forward returns the reference's shifted causal
+LM loss: `loss` over the head's logits, or, with `fused_lm_loss`, the
+chunked `fused_linear_cross_entropy` head, which never builds the (b*s,
+vocab) logits. The projections are the port's `Linear`, so `amp.auto_cast`
+O1 runs them in bf16 as the reference's dispatch does.
 
 Construction takes `device` (default: the port's default device, "cuda",
 which raises when there is no card), `dtype` and `seed`: weights are drawn
@@ -26,21 +33,11 @@ from torch import nn
 
 from ..device import resolve_device
 from ..nn import functional as F
-from ..nn.layers import RMSNorm
+from ..nn.layers import Linear, RMSNorm
 from ..ops.rope import apply_rope, rope_tables
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM"]
-
-# the reference's causal-LM loss surface (`fused_lm_loss`, `labels=`)
-_S11 = "queue 1, S11 (GPT, and LLaMA's training surface)"
-
-
-def _not_ported(knob: str, value) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob}={value!r} is not ported to paddle_tpu_torch yet "
-        f"(ROADMAP {_S11})")
-
 
 @dataclasses.dataclass
 class LlamaConfig:
@@ -53,12 +50,9 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6
-    # the reference's fused LM-head loss; refused when passed
-    fused_lm_loss: Optional[bool] = None
-
-    def __post_init__(self):
-        if self.fused_lm_loss is not None:
-            raise _not_ported("fused_lm_loss", self.fused_lm_loss)
+    # LM head via fused_linear_cross_entropy when labels ride into
+    # forward: the (b*s, vocab) fp32 logits never materialize
+    fused_lm_loss: bool = False
 
     @classmethod
     def llama7b(cls):
@@ -71,8 +65,8 @@ class LlamaConfig:
                    intermediate_size=128, max_position_embeddings=64)
 
 
-def _linear(i: int, o: int, fk) -> nn.Linear:
-    return nn.Linear(i, o, bias=False, **fk)
+def _linear(i: int, o: int, fk) -> Linear:
+    return Linear(i, o, bias=False, **fk)
 
 
 class LlamaAttention(nn.Module):
@@ -99,9 +93,9 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(h, h, fk)
 
     def forward(self, x, cache=None, start_pos=0, rope=None):
-        """cache: optional PagedLayerCache, the serving path (returns
-        (out, cache) after writing this block's K/V into the pool in
-        place). Without cache, the causal no-cache forward. rope: the
+        """cache: an optional static (k, v) pair or PagedLayerCache (returns
+        (out, cache) after writing this block's K/V into it in place).
+        Without cache, the causal no-cache forward. rope: the
         (cos, sin) tables for these positions, when the caller computed
         them once for all layers."""
         from .generation import attend_with_cache
@@ -224,9 +218,29 @@ class LlamaForCausalLM(nn.Module):
                                     generator=gen)
 
     def forward(self, input_ids, caches=None, start_pos=0, labels=None):
-        if labels is not None:
-            raise _not_ported("labels", "<tensor>")
         if caches is None:
-            return self.lm_head(self.llama(input_ids))
+            h = self.llama(input_ids)
+            if labels is not None and self.llama.config.fused_lm_loss:
+                # shifted causal CE fused with the head projection; the
+                # port's head weight is torch's (vocab, hidden), the
+                # transpose of paddle's (hidden, vocab), hence transpose_y
+                hidden = h.shape[-1]
+                return F.fused_linear_cross_entropy(
+                    h[:, :-1].reshape(-1, hidden), self.lm_head.weight,
+                    None, labels[:, 1:].reshape(-1), transpose_y=True)
+            logits = self.lm_head(h)
+            if labels is not None:
+                return self.loss(logits, labels)
+            return logits
         h, caches = self.llama(input_ids, caches, start_pos)
         return self.lm_head(h), caches
+
+    def generate(self, input_ids, **kwargs):
+        from .generation import generate
+
+        return generate(self, input_ids, **kwargs)
+
+    def loss(self, logits, labels):
+        vocab = logits.shape[-1]
+        return F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                               labels[:, 1:].reshape(-1))

@@ -27,10 +27,13 @@ every Linear and Embedding weight of `T5Model` (the bias tables and the
 shared embedding included), RMSNorm ones; an untied `lm_head` keeps paddle
 Linear's default Xavier-normal init, as in the reference.
 
-Generation (the `caches=` decode call and `generate`, over the static
-(k, v) cache of `attend_with_cache`) is not ported yet (ROADMAP queue 1,
-S10): those calls raise, and the arguments only they use (`start_pos`,
-`enc`, `cross_kvs`, `kv_proj`, `q_offset`) are left out.
+Generation is greedy (`generate`): the encoder runs once and every
+decoder layer's cross-attention K/V is projected once per prompt
+(`project_kv`); then one decode call a token, whose self-attention writes
+into and attends over a static (k, v) cache of `max_new_tokens` positions
+through `generation.attend_with_cache` (K1 with the relative position
+bias of the token's offset folded into the visibility mask). The finished
+mask stays on the device and the host polls it every 8 steps.
 """
 from __future__ import annotations
 
@@ -48,11 +51,6 @@ from ..nn.layers import Dropout, Linear, RMSNorm
 
 __all__ = ["T5Config", "T5Attention", "T5LayerFF", "T5EncoderLayer",
            "T5DecoderLayer", "T5Model", "T5ForConditionalGeneration"]
-
-_S10 = ("T5 generation over the static (k, v) cache is not ported yet "
-        "(ROADMAP queue 1, S10: generate and attend_with_cache's static "
-        "branch)")
-
 
 @dataclasses.dataclass
 class T5Config:
@@ -150,14 +148,18 @@ class T5Attention(nn.Module):
             self.relative_attention_bias = nn.Embedding(
                 cfg.relative_attention_num_buckets, cfg.num_heads, **fk)
 
-    def compute_bias(self, q_len, k_len):
-        """(1, heads, q_len, k_len) trainable additive position bias:
-        bidirectional buckets in the encoder, causal in the decoder."""
+    def compute_bias(self, q_len, k_len, q_offset=0):
+        """(1, heads, q_len, k_len) trainable additive position bias of
+        queries at q_offset.. against keys at 0..: bidirectional buckets
+        in the encoder, causal in the decoder."""
         cfg = self.cfg
         w = self.relative_attention_bias.weight
-        buckets = _bucket_table(int(q_len), int(k_len), not self.causal,
+        q_offset = int(q_offset)
+        buckets = _bucket_table(q_offset + int(q_len), int(k_len),
+                                not self.causal,
                                 cfg.relative_attention_num_buckets,
-                                cfg.relative_attention_max_distance, w.device)
+                                cfg.relative_attention_max_distance,
+                                w.device)[q_offset:]
         vals = F.embedding(buckets, w)                        # (q, k, h)
         return vals.permute(2, 0, 1).unsqueeze(0)
 
@@ -169,19 +171,32 @@ class T5Attention(nn.Module):
         v = self.v(src).reshape(b, sk, self.num_heads, self.d_kv)
         return k, v
 
-    def forward(self, x, kv=None, position_bias=None, cache=None,
-                generator=None):
+    def forward(self, x, kv=None, kv_proj=None, position_bias=None,
+                cache=None, start_pos=0, generator=None):
         """kv: encoder states for cross-attention (self-attention when
-        None); a decode `cache` raises (S10). Returns (out, position_bias,
-        None)."""
-        if cache is not None:
-            raise NotImplementedError(_S10)
+        None); kv_proj: pre-projected (k, v) from project_kv (overrides
+        kv); cache: a static (k_cache, v_cache) pair for decode,
+        self-attention only, written at `start_pos` (a host int). Returns
+        (out, position_bias, new cache or None)."""
         b, s = x.shape[0], x.shape[1]
         # T5 uses UNscaled dot-product attention; the kernels divide by
         # sqrt(d_kv), so pre-scale q to cancel it
         q = (self.q(x) * math.sqrt(self.d_kv)).reshape(
             b, s, self.num_heads, self.d_kv)
-        k, v = self.project_kv(x if kv is None else kv)
+        if kv_proj is not None:
+            k, v = kv_proj
+        else:
+            k, v = self.project_kv(x if kv is None else kv)
+        if cache is not None:
+            from .generation import attend_with_cache
+
+            if position_bias is None and self.has_relative_bias:
+                position_bias = self.compute_bias(s, cache[0].shape[1],
+                                                  q_offset=start_pos)
+            ctx, cache = attend_with_cache(q, k, v, cache, start_pos, 1,
+                                           bias=position_bias)
+            out = self.o(ctx.reshape(b, s, self.num_heads * self.d_kv))
+            return out, position_bias, cache
         if position_bias is None and self.has_relative_bias:
             position_bias = self.compute_bias(s, k.shape[1])
         ctx = F.scaled_dot_product_attention(
@@ -249,15 +264,17 @@ class T5DecoderLayer(nn.Module):
         self.ff = T5LayerFF(cfg, **fk)
         self.dropout = Dropout(cfg.dropout_rate)
 
-    def forward(self, x, enc, self_bias=None, cache=None, generator=None):
-        a, self_bias, _ = self.self_attn(
+    def forward(self, x, enc, self_bias=None, cache=None, start_pos=0,
+                cross_kv=None, generator=None):
+        a, self_bias, cache = self.self_attn(
             self.ln1(x), position_bias=self_bias, cache=cache,
-            generator=generator)
+            start_pos=start_pos, generator=generator)
         x = x + self.dropout(a, generator)
-        c, _, _ = self.cross_attn(self.ln2(x), kv=enc, generator=generator)
+        c, _, _ = self.cross_attn(self.ln2(x), kv=enc, kv_proj=cross_kv,
+                                  generator=generator)
         x = x + self.dropout(c, generator)
         f = self.ff(self.ln3(x), generator)
-        return x + self.dropout(f, generator), self_bias, None
+        return x + self.dropout(f, generator), self_bias, cache
 
 
 class T5Model(nn.Module):
@@ -287,15 +304,30 @@ class T5Model(nn.Module):
             x, bias = layer(x, position_bias=bias, generator=generator)
         return self.encoder_norm(x)
 
-    def decode(self, decoder_input_ids, enc, caches=None, generator=None):
-        if caches is not None:
-            raise NotImplementedError(_S10)
+    def decode(self, decoder_input_ids, enc, caches=None, start_pos=0,
+               cross_kvs=None, generator=None):
+        """Decoder states; with `caches` (one static (k, v) pair per
+        layer, written at `start_pos`), (states, caches)."""
+        if caches is not None and len(caches) != len(self.decoder_layers):
+            raise ValueError(f"got {len(caches)} caches for "
+                             f"{len(self.decoder_layers)} decoder layers")
         x = self.dropout(F.embedding(decoder_input_ids, self.shared.weight),
                          generator)
         bias = None
-        for layer in self.decoder_layers:
-            x, bias, _ = layer(x, enc, self_bias=bias, generator=generator)
-        return self.decoder_norm(x)
+        new_caches = [] if caches is not None else None
+        for i, layer in enumerate(self.decoder_layers):
+            x, bias, cache = layer(
+                x, enc, self_bias=bias,
+                cache=caches[i] if caches is not None else None,
+                start_pos=start_pos,
+                cross_kv=cross_kvs[i] if cross_kvs is not None else None,
+                generator=generator)
+            if new_caches is not None:
+                new_caches.append(cache)
+        x = self.decoder_norm(x)
+        if new_caches is not None:
+            return x, new_caches
+        return x
 
     def forward(self, input_ids, decoder_input_ids, generator=None):
         return self.decode(decoder_input_ids,
@@ -341,19 +373,24 @@ class T5ForConditionalGeneration(nn.Module):
         return self.lm_head(h)
 
     def forward(self, input_ids, decoder_input_ids=None, caches=None,
-                generator=None):
-        """Two call shapes of the reference's three:
+                start_pos=0, enc=None, cross_kvs=None, generator=None):
+        """Three call shapes, as the reference's:
         - (input_ids, decoder_input_ids): training / eval logits;
         - (input_ids) with decoder_input_ids None: encoder only, returns
-          (encoder_states, per-layer cross-attention (k, v) projections).
-        The decode step over `caches` raises (ROADMAP S10)."""
-        if caches is not None:
-            raise NotImplementedError(_S10)
+          (encoder_states, per-layer cross-attention (k, v) projections);
+        - a decode step: decoder_input_ids with caches and enc / cross_kvs
+          (input_ids unused), returns (logits, new caches)."""
         if decoder_input_ids is None:
             enc = self.t5.encode(input_ids, generator)
             cross = tuple(layer.cross_attn.project_kv(enc)
                           for layer in self.t5.decoder_layers)
             return enc, cross
+        if caches is not None:
+            h, caches = self.t5.decode(decoder_input_ids, enc, caches=caches,
+                                       start_pos=start_pos,
+                                       cross_kvs=cross_kvs,
+                                       generator=generator)
+            return self._logits(h), caches
         return self._logits(self.t5(input_ids, decoder_input_ids,
                                     generator))
 
@@ -371,5 +408,43 @@ class T5ForConditionalGeneration(nn.Module):
         out = torch.cat([start, labels[:, :-1]], dim=1)
         return out.masked_fill(out == -100, cfg.pad_token_id)
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(_S10)
+    def generate(self, input_ids, max_new_tokens=32,
+                 eos_token_id: Optional[int] = None, cache_dtype=None):
+        """Greedy seq2seq decoding. One encoder pass (every decoder layer's
+        cross-attention K/V projected once), then one decode call a token
+        over per-layer self-attention caches of `max_new_tokens` positions
+        (`cache_dtype`, a torch dtype or its name; fp32 by default). The
+        finished mask stays on the device, polled every 8 steps. Returns
+        the (b, steps run) generated ids (int32, no start token), as the
+        reference does: an early exit leaves the columns it did not run
+        out."""
+        from .generation import _eval_mode, _resolve_dtype
+
+        cfg = self.config
+        dev = self.t5.shared.weight.device
+        ids = torch.as_tensor(input_ids, device=dev)
+        b = ids.shape[0]
+        dt = _resolve_dtype(cache_dtype or torch.float32)
+        with _eval_mode(self):
+            shape = (b, max_new_tokens, cfg.num_heads, cfg.d_kv)
+            caches = [(torch.zeros(shape, dtype=dt, device=dev),
+                       torch.zeros(shape, dtype=dt, device=dev))
+                      for _ in self.t5.decoder_layers]
+            enc, cross = self(ids)
+            cur = torch.full((b,), cfg.decoder_start_token_id,
+                             dtype=torch.int32, device=dev)
+            finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+            outs = []
+            for step in range(max_new_tokens):
+                logits, caches = self(None, cur[:, None], caches=caches,
+                                      start_pos=step, enc=enc,
+                                      cross_kvs=cross)
+                cur = logits[:, 0].argmax(dim=-1).to(torch.int32)
+                if eos_token_id is not None:
+                    cur = cur.masked_fill(finished, eos_token_id)
+                    finished = finished | (cur == eos_token_id)
+                outs.append(cur)
+                if (eos_token_id is not None and step % 8 == 7
+                        and bool(finished.all())):
+                    break
+        return torch.stack(outs, dim=1)

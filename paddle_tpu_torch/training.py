@@ -9,7 +9,13 @@ opt)` returns `step(input_ids, labels, generator) -> loss` for an
 encoder-decoder (T5): `model.shift_right(labels)` as the decoder inputs,
 the forward and `model.loss` under the same O1 bf16, then the same
 backward and update. Hidden and attention dropout draw from `generator`
-(on the model's device). `make_moe_train_step(layer, opt)` returns
+(on the model's device). `make_causal_lm_train_step(model, opt)` returns
+`step(ids, labels, generator) -> loss` for a decoder (GPT, LLaMA):
+`model(ids, labels=labels)`, the shifted causal LM loss (through the
+fused head when the config's `fused_lm_loss` asks for it), under the same
+O1 bf16, then the same backward and update; the generator reaches the
+forward only when the model's forward takes one (LLaMA has no dropout).
+`make_moe_train_step(layer, opt)` returns
 `step(x, target) -> loss` for an `MoELayer`: `mse_loss(layer(x), target)
 + 0.01 * layer.aux_loss` under the same O1 bf16 (0.01 is the Switch
 Transformer's load-balancing coefficient alpha), the composition the
@@ -21,6 +27,7 @@ back as a device tensor, and reading it is the caller's choice.
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable
 
 import torch
@@ -29,7 +36,7 @@ from . import amp
 from .nn import functional as F
 
 __all__ = ["make_train_step", "make_seq2seq_train_step",
-           "make_moe_train_step"]
+           "make_causal_lm_train_step", "make_moe_train_step"]
 
 
 def make_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer
@@ -60,6 +67,27 @@ def make_seq2seq_train_step(model: torch.nn.Module,
         with amp.auto_cast(level="O1", dtype="bfloat16"):
             logits = model(input_ids, decoder_input_ids, generator=generator)
             loss = model.loss(logits, labels)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return step
+
+
+def make_causal_lm_train_step(model: torch.nn.Module,
+                              opt: torch.optim.Optimizer
+                              ) -> Callable[[torch.Tensor, torch.Tensor,
+                                             torch.Generator], torch.Tensor]:
+    takes_generator = "generator" in inspect.signature(
+        model.forward).parameters
+
+    def step(ids: torch.Tensor, labels: torch.Tensor,
+             generator: torch.Generator) -> torch.Tensor:
+        model.train()
+        kw = {"generator": generator} if takes_generator else {}
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(ids, labels=labels, **kw)
         loss.backward()
         opt.step()
         opt.zero_grad(set_to_none=True)

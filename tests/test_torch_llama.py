@@ -139,3 +139,101 @@ class TestConstruction:
         with torch.no_grad():
             out = m(torch.zeros((1, 4), dtype=torch.int64))
         assert out.dtype == torch.bfloat16 and out.shape == (1, 4, 512)
+
+
+# ------------------------------------------- the causal-LM training surface
+
+def _jax_loss_step(fused, o1, ids):
+    """(loss, grads) of the reference LLaMA's `forward(labels=)`, through
+    `call_functional` and `jax.value_and_grad` (as tests/test_torch_ernie.py
+    builds its reference step)."""
+    import contextlib
+
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu import amp as jamp
+    from paddle_tpu.jit.functional import call_functional
+
+    model = _jax_llama()
+    model.llama.config.fused_lm_loss = fused
+    params, buffers = extract_state(model)
+
+    def loss_of(p):
+        ctx = (jamp.auto_cast(level="O1", dtype="bfloat16") if o1
+               else contextlib.nullcontext())
+        with ctx:
+            loss, _ = call_functional(model, p, buffers, (jnp.asarray(ids),),
+                                      kwargs={"labels": jnp.asarray(ids)},
+                                      training=True)
+        return loss
+
+    try:
+        loss, grads = jax.value_and_grad(loss_of)(params)
+    finally:
+        model.llama.config.fused_lm_loss = False
+    return float(loss), {k: np.asarray(v) for k, v in grads.items()}
+
+
+def _port_grads(model):
+    lin = {f"{n}.weight" for n, mod in model.named_modules()
+           if isinstance(mod, torch.nn.Linear)}
+    return {n: (p.grad.numpy().T if n in lin else p.grad.numpy())
+            for n, p in model.named_parameters()}
+
+
+class TestLossSurface:
+    """`labels=` and `fused_lm_loss` against the reference
+    (tests/test_llama.py's TestFusedLMLoss): the shifted causal CE, plain
+    and fused, loss within 1e-5 and every gradient within rtol 1e-4 / atol
+    1e-5 at fp32; `make_causal_lm_train_step` at O1 within the bf16 bounds
+    of tests/test_torch_ernie.py (loss 2e-2 relative, gradient cosines
+    above 0.99)."""
+
+    IDS = np.random.RandomState(0).randint(0, 512, (2, 12))
+
+    @pytest.mark.parametrize("fused", [False, True],
+                             ids=["logits path", "fused head"])
+    def test_fp32_loss_and_gradients_match_jax(self, fused):
+        ref_loss, ref_grads = _jax_loss_step(fused, False, self.IDS)
+        model = _port_llama()
+        model.llama.config.fused_lm_loss = fused
+        ids = torch.from_numpy(self.IDS)
+        loss = model(ids, labels=ids)
+        with torch.no_grad():
+            by_hand = model.loss(model(ids), ids)
+        np.testing.assert_allclose(loss.item(), ref_loss, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(loss.item(), by_hand.item(), rtol=1e-5)
+        loss.backward()
+        grads = _port_grads(model)
+        assert grads.keys() == ref_grads.keys()
+        for name, g in grads.items():
+            np.testing.assert_allclose(g, ref_grads[name], rtol=1e-4,
+                                       atol=1e-5, err_msg=name)
+
+    def test_o1_train_step_matches_jax(self):
+        from paddle_tpu_torch.optimizer import Adam
+        from paddle_tpu_torch.training import make_causal_lm_train_step
+
+        ref_loss, ref_grads = _jax_loss_step(True, True, self.IDS)
+        model = _port_llama()
+        model.llama.config.fused_lm_loss = True
+        opt = Adam(learning_rate=1e-4, parameters=model.parameters())
+        grads = {}
+        real_step = opt.step
+
+        def keep_grads():
+            grads.update(_port_grads(model))
+            real_step()
+
+        opt.step = keep_grads
+        step = make_causal_lm_train_step(model, opt)
+        ids = torch.from_numpy(self.IDS)
+        loss = float(step(ids, ids, torch.Generator()))
+        assert abs(loss - ref_loss) <= 2e-2 * abs(ref_loss), (loss, ref_loss)
+        assert grads.keys() == ref_grads.keys()
+        for name, g in grads.items():
+            r = ref_grads[name].astype(np.float64).ravel()
+            gg = g.astype(np.float64).ravel()
+            cos = gg @ r / (np.linalg.norm(gg) * np.linalg.norm(r))
+            assert cos > 0.99, (name, cos)
+        assert all(p.grad is None for p in model.parameters())

@@ -4,6 +4,10 @@ ServingEngine on the same weights, plus the port's own invariants.
 - the staggered-arrival script of tests/test_serving.py: the port's
   greedy streams are token-identical to the JAX engine's, and the port's
   logits over each final sequence agree with JAX's within atol 1e-4;
+- GPT on the same engine (test_serving.py's test_gpt_engine_parity and
+  test_gpt_prefix_caching_parity, and the chunked ragged step): streams
+  token-identical to the port's per-request `generate` and to the JAX
+  engine's;
 - decode_horizon 1 == 8; sampled streams reproducible from their seed and
   independent of the horizon and of the batch they ride in; streams
   unchanged under page pressure (preemption);
@@ -24,11 +28,14 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.jit.functional import extract_state
+from paddle_tpu.models import GPTConfig as JGPTConfig
+from paddle_tpu.models import GPTForCausalLM as JGPT
 from paddle_tpu.models import LlamaConfig as JLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JLlama
 from paddle_tpu.serving import ServingEngine as JServingEngine
 
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                     LlamaForCausalLM)
 from paddle_tpu_torch.serving import (
     NULL_PAGE, BlockAllocator, EngineOverloaded, PagedKVCache, Request,
     SamplingParams, Scheduler, ServingEngine, pages_for,
@@ -113,6 +120,83 @@ class TestAgainstJaxEngine:
             with torch.no_grad():
                 tl = _port_llama()(torch.from_numpy(ids)).numpy()
             np.testing.assert_allclose(tl, jl, atol=1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_gpt():
+    paddle.seed(1234)
+    m = JGPT(JGPTConfig.tiny())
+    m.eval()
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _port_gpt():
+    params, _ = extract_state(_jax_gpt())
+    m = GPTForCausalLM(GPTConfig.tiny(), device="cpu")
+    load_reference_state(m, {k: np.asarray(v) for k, v in params.items()})
+    return m
+
+
+def _port_generate_streams(model, prompts, max_new_tokens):
+    """Per-request greedy `generate`, the engine's oracle
+    (test_serving.py's _sequential_reference) on the port."""
+    return [model.generate(torch.from_numpy(np.asarray(p)[None]),
+                           max_new_tokens=max_new_tokens,
+                           temperature=0.0)[0].tolist() for p in prompts]
+
+
+def _gpt_run(eng, prompts, max_new_tokens=5):
+    rids = [eng.add_request(p, max_new_tokens=max_new_tokens,
+                            temperature=0.0) for p in prompts]
+    outs = eng.run()
+    return [outs[r] for r in rids]
+
+
+class TestGPTEngine:
+    """GPT rides the engine: absolute position embeddings from the (b,)
+    start_pos of a decode step, the scalar offset of a prefix-cache hit
+    and the (1, T) positions of the ragged step."""
+
+    def test_gpt_engine_parity(self):
+        rng = np.random.RandomState(5)
+        prompts = [rng.randint(0, 1024, (n,)) for n in (4, 9, 6, 2)]
+        refs = _port_generate_streams(_port_gpt(), prompts, 5)
+        got = _gpt_run(_engine(_port_gpt()), prompts)
+        assert got == refs
+        jeng = JServingEngine(_jax_gpt(), page_size=8, max_batch_size=4,
+                              max_seq_len=32, prefill_buckets=(16, 32))
+        assert got == _gpt_run(jeng, prompts)
+
+    def test_gpt_prefix_caching_parity(self):
+        rng = np.random.RandomState(13)
+        shared = rng.randint(0, 1024, (16,)).tolist()
+        prompts = [shared + rng.randint(0, 1024, (t,)).tolist()
+                   for t in (3, 7)]
+        refs = _port_generate_streams(_port_gpt(), prompts, 5)
+        eng = _engine(_port_gpt(), max_batch_size=2,
+                      enable_prefix_caching=True)
+        got = _gpt_run(eng, prompts)
+        assert got == refs
+        assert eng.stats()["prefix_cache"]["hit_tokens"] >= 16
+        jeng = JServingEngine(_jax_gpt(), page_size=8, max_batch_size=2,
+                              max_seq_len=32, prefill_buckets=(16, 32),
+                              enable_prefix_caching=True)
+        assert got == _gpt_run(jeng, prompts)
+
+    def test_gpt_chunked_ragged_parity(self):
+        """Chunks of 8 with the ragged step. Dead rows and padding tokens
+        sit at the table-overflow position: 32 with max_seq_len 32,
+        inside GPT tiny's 128-row position table, and 128 with max_seq_len
+        128, past it (the lookup clamps)."""
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(0, 1024, (n,)) for n in (20, 3, 11, 17)]
+        refs = _port_generate_streams(_port_gpt(), prompts, 5)
+        for max_seq_len in (32, 128):
+            eng = _engine(_port_gpt(), enable_chunked_prefill=True,
+                          prefill_chunk_tokens=8, max_seq_len=max_seq_len,
+                          prefill_buckets=(16, 32, 64, 128))
+            assert _gpt_run(eng, prompts) == refs, max_seq_len
 
 
 class TestPortInvariants:
@@ -249,12 +333,23 @@ class TestEngineSurface:
 
     @pytest.mark.parametrize("knob", ["fused_lm_loss", "labels"])
     def test_llama_loss_surface_raises_naming_the_roadmap(self, knob):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*S11"):
-            if knob == "fused_lm_loss":
-                LlamaConfig(fused_lm_loss=True)
-            else:
-                _port_llama()(torch.zeros((1, 4), dtype=torch.int64),
-                              labels=torch.zeros((1, 4), dtype=torch.int64))
+        """The loss surface these knobs were refused for is ported: both
+        give the shifted causal CE of the no-cache logits, and the engine
+        serves a model whose config asks for the fused head."""
+        cfg = LlamaConfig.tiny()
+        cfg.fused_lm_loss = knob == "fused_lm_loss"
+        model = LlamaForCausalLM(cfg, device="cpu")
+        model.load_state_dict(_port_llama().state_dict())
+        ids = torch.from_numpy(_prompts(4, (9, 9))[0][None])
+        with torch.no_grad():
+            logits = model(ids)
+            loss = model(ids, labels=ids)
+        ref = torch.nn.functional.cross_entropy(logits[0, :-1], ids[0, 1:])
+        np.testing.assert_allclose(float(loss), float(ref), rtol=1e-5)
+        eng = _engine(model)
+        rid = eng.add_request(ids[0].numpy(), max_new_tokens=2,
+                              temperature=0.0)
+        assert len(eng.run()[rid]) == 11
 
     @pytest.mark.parametrize("cache_dtype,kv_dtype,pool", [
         (torch.bfloat16, "fp32", torch.bfloat16),

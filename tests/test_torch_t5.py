@@ -18,7 +18,9 @@ step is built from `call_functional`, `jax.value_and_grad` and
   gradient's cosine above 0.99.
 - The port alone: causal decoder, bidirectional encoder, `shift_right`
   with -100, the default device, explicit generators, the seq2seq step as
-  a function of its generator, and generation raising.
+  a function of its generator, and greedy generation: cached decode
+  against the uncached decoder, and `generate` token-identical to the
+  JAX T5's, with and without eos.
 """
 import contextlib
 import functools
@@ -332,13 +334,78 @@ def test_seq2seq_step_is_a_function_of_its_generator():
 
 
 def test_generation_raises_naming_s10():
+    """The three surfaces that refused generation before the static cache
+    was ported now run: `generate`, the decode call shape of the forward
+    (returns (logits, caches)) and the decoder self-attention over a
+    (k, v) cache, which it writes in place at `start_pos`."""
     model = _model(5)
     ids = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="S10"):
-        model.generate(ids)
-    with pytest.raises(NotImplementedError, match="S10"):
-        model(ids, ids, caches=[None, None])
-    with pytest.raises(NotImplementedError, match="S10"):
-        model.t5.decoder_layers[0].self_attn(torch.zeros(1, 1, 32),
-                                             cache=(None, None))
+    out = model.generate(ids, max_new_tokens=3)
+    assert out.shape == (1, 3) and out.dtype == torch.int32
+    enc, cross = model(ids)
+    caches = [(torch.zeros(1, 3, 4, 8), torch.zeros(1, 3, 4, 8))
+              for _ in range(2)]
+    with torch.no_grad():
+        logits, new = model(None, ids[:, :1], caches=caches, start_pos=0,
+                            enc=enc, cross_kvs=cross)
+        assert logits.shape == (1, 1, 256) and new[0][0] is caches[0][0]
+        attn = model.t5.decoder_layers[0].self_attn
+        kc = torch.zeros(1, 3, 4, 8)
+        a, bias, (wk, _) = attn(torch.randn(1, 1, 32), cache=(
+            kc, torch.zeros(1, 3, 4, 8)), start_pos=1)
+    assert a.shape == (1, 1, 32) and tuple(bias.shape) == (1, 4, 1, 3)
+    assert wk is kc and kc[:, 1].abs().sum() > 0 and not kc[:, 0].any()
+    with pytest.raises(ValueError, match="caches"):
+        model(None, ids[:, :1], caches=caches[:1], enc=enc, cross_kvs=cross)
 
+
+@pytest.mark.parametrize("ff", ["relu", "gated-gelu"])
+def test_cached_decode_matches_full_forward(ff):
+    """tests/test_t5.py's check on the port: greedy decoding over the
+    caches equals the argmax of the uncached decoder over the greedy
+    prefix at every step, and the step logits agree (atol 2e-5)."""
+    model = _model(5, ff)
+    src = torch.from_numpy(np.random.RandomState(5).randint(0, 256, (2, 7)))
+    out = model.generate(src, max_new_tokens=6)
+    assert out.shape == (2, 6)
+    with torch.no_grad():
+        enc, cross = model(src)
+        caches = [(torch.zeros(2, 6, 4, 8), torch.zeros(2, 6, 4, 8))
+                  for _ in range(2)]
+        cur = torch.full((2, 1), model.config.decoder_start_token_id)
+        for t in range(6):
+            full = model._logits(model.t5.decode(cur, enc))[:, -1]
+            step, caches = model(None, cur[:, -1:], caches=caches,
+                                 start_pos=t, enc=enc, cross_kvs=cross)
+            np.testing.assert_allclose(step[:, 0].numpy(), full.numpy(),
+                                       rtol=0, atol=2e-5)
+            np.testing.assert_array_equal(full.argmax(-1).numpy(),
+                                          out[:, t].numpy())
+            cur = torch.cat([cur, out[:, t:t + 1].long()], dim=1)
+
+
+def test_generate_token_identical_to_jax():
+    """Greedy `generate` against the JAX T5's on the same weights (gated
+    GELU, 37 source tokens), 10 new tokens with an eos that row 0 meets at
+    once, over both rows and over row 0 alone (every row finished: the
+    early exit at the 8-step poll leaves the same columns out)."""
+    ff, src_len, _ = CASES["gated-gelu, ragged 37 / 19"]
+    jm = _jax_model(ff)
+    params, _ = extract_state(jm)
+    pm = _port(ff, {k: np.asarray(v) for k, v in params.items()})
+    src, _ = _batch(src_len, 8)
+    eos = int(pm.generate(torch.from_numpy(src), max_new_tokens=2)[0, 1])
+
+    def both(ids):
+        got = pm.generate(torch.from_numpy(ids), max_new_tokens=10,
+                          eos_token_id=eos)
+        ref = jm.generate(paddle.to_tensor(ids), max_new_tokens=10,
+                          eos_token_id=eos)
+        jm.train()                 # the cached reference stays in train
+        np.testing.assert_array_equal(got.numpy(), ref.numpy())
+        return got.numpy()
+
+    two = both(src)
+    assert (two[0, 1:] == eos).all()
+    one = both(src[:1])
+    assert one.shape == (1, 8) and (one[0, 1:] == eos).all()
