@@ -234,8 +234,8 @@ without the final result line:
    twice, one `done` each, `check_consistency()`), pass the margin check,
    and K1, K4, K6 must launch; the death's post-mortem bundle must hold
    the fault, the death and the migrations and render through
-   `tools/postmortem.py`; `ServingCluster(tp_size=2)` must raise naming
-   S5. Prints placements, affinity hits / misses, migrations, migrated
+   `tools/postmortem.py`; `ServingCluster(tp_size=2)` must refuse a
+   factory that takes no `tp_size=` / `devices=`. Prints placements, affinity hits / misses, migrations, migrated
    tokens, `serving_cluster_migration_seconds`, the first token after the
    death, tokens/s, goodput and attainment per SLO class, peak memory,
    and how many streams equal an uninterrupted single engine's;
@@ -298,7 +298,33 @@ without the final result line:
    Adam update (ADAM_ATOL, both fed the CPU's gradients) card against
    CPU; LLaMA-7B widths at 2 layers with `labels=`, unfused and fused,
    the same without the update; one O1 step of the GPT with the fused
-   head against the unfused (O1_LOSS_RTOL, O1_GRAD_COS).
+   head against the unfused (O1_LOSS_RTOL, O1_GRAD_COS);
+35. tp_kernels (run with the other kernel phases): K1 (the serve prefill
+   and a verify window), K6, K6q (int8, fp8) and K7 (the flat step) at a
+   tensor-parallel shard's head count, LLaMA-7B's 16 heads at tp=2 and 8
+   at tp=4, against their plain versions, with kernel, plain, library
+   times and the bound (`tp_kernel_cases`); then whether LLaMA-7B's shard
+   products at 8-512 rows give the rows of the whole product when cut into
+   2 or 4 row chunks (`row_chunk_products`, a reading);
+36. serve_tp (after serve_observed, on the Serve model): tensor-parallel
+   serving at tp 1, 2 and 4 with the Serve engine's knobs on the one card
+   repeated (`devices=[cuda:0] * tp`; also on distinct cards when there
+   are as many), then tp=2 chunked (256, ragged), over int8 pools with the
+   int8 all-reduce, and overlapped (2 chunks): 8 greedy requests, 32 new
+   tokens, 2 late. Streams held against tp=1 by the margin check; the
+   overlapped streams identical to serial tp=2; on one card K1 and K6
+   launch exactly tp times as often as at tp=1, K4 as often on one card
+   (a norm a device). Prints
+   tokens/s, `serving_tp_collective_seconds`, `overlap_fraction`, pool
+   bytes a shard, peak memory and launches;
+37. serve_tp_fp32 (after cluster_fp32): tp=2 at fp32 on 2 layers of full
+   width, card streams identical to the CPU's; a tp=2 snapshot restored
+   onto tp=4, every request exactly once;
+38. cluster_tp (after serve_tp_fp32): 2 replicas of tp=2 (fp32, 2 layers)
+   carved from the one card, replica 1 killed mid-decode, its requests
+   migrated, every request exactly once and every stream identical to
+   the run without the kill; serve_gpt adds serve_gpt_tp, its unchunked
+   run at tp=2, held against tp=1 by the margin check.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -649,17 +675,18 @@ def visible(q, k, kw):
     return seen
 
 
-def verify_window_inputs(g, dev, dtype):
+def verify_window_inputs(g, dev, dtype, h=32):
     """A speculative verify window as `serving.attention.
     _prefill_attention_paged` hands it to K1: 8 rows of 1 + SPEC_LOOKAHEAD
     query tokens against each row's whole gathered page table (64 pages of
-    16, LLaMA-7B's 32 heads of 128) under the paged prefill's float mask
-    (column j visible to lane i of row r iff j <= pos[r] + i, else -1e9),
-    rows at positions spread over the table. Returns (q, k, v, mask, pos,
-    paged cache over pools holding the same shape)."""
+    16, `h` heads of 128: LLaMA-7B's 32, or a tensor-parallel shard's)
+    under the paged prefill's float mask (column j visible to lane i of row
+    r iff j <= pos[r] + i, else -1e9), rows at positions spread over the
+    table. Returns (q, k, v, mask, pos, paged cache over pools holding the
+    same shape)."""
     from paddle_tpu_torch.serving.kv_cache import PagedLayerCache
 
-    b, lanes, h, d, ps, maxp = 8, 1 + SPEC_LOOKAHEAD, 32, 128, 16, 64
+    b, lanes, d, ps, maxp = 8, 1 + SPEC_LOOKAHEAD, 128, 16, 64
     length = ps * maxp
 
     def rnd(*shape):
@@ -4306,10 +4333,12 @@ def phase_serve_cluster(model, seed, dev, out_dir=None):
     t_phase = time.perf_counter()
     prompts = cluster_prompts(seed, model.llama.config.vocab_size)
     try:
-        ServingCluster(lambda: None, num_replicas=2, tp_size=2)
-        raise AssertionError("serve_cluster: tp_size=2 did not raise")
-    except NotImplementedError as e:
-        if "S5" not in str(e):
+        ServingCluster(lambda: None, num_replicas=2, tp_size=2,
+                       devices=[dev] * 4)
+        raise AssertionError("serve_cluster: a tp_size=2 cluster took a "
+                             "factory without tp_size= / devices=")
+    except ValueError as e:
+        if "tp_size" not in str(e):
             raise AssertionError(f"serve_cluster: tp_size=2 raised {e}")
     # the uninterrupted single engine: the streams' yardstick
     engine = serve_engine(model, dev, kv_dtype="bf16")
@@ -5299,7 +5328,10 @@ def phase_serve_gpt(seed, dev):
     tokens, two late, unchunked and then chunked (256, the ragged step).
     Each run's streams against `generate`'s on the same model (where they
     part, the margin must be small) and through the margin check; K1, K4
-    and K6 must launch unchunked, K4, K6 and K7 chunked."""
+    and K6 must launch unchunked, K4, K6 and K7 chunked. Then serve_gpt_tp:
+    the unchunked run at tp=2 on the one card repeated (8 heads a shard,
+    GPT's fused QKV interleaved), held against the tp=1 run's streams by
+    the margin check; K1, K4 and K6 must launch."""
     from paddle_tpu_torch.models import generate
 
     model = load_gpt3(seed, dev)
@@ -5341,6 +5373,8 @@ def phase_serve_gpt(seed, dev):
             f"{stats['decode_tokens_per_s']:.1f} tokens/s; peak memory "
             f"{peak / 2**30:.2f} GiB; launches {launches}")
         streams = [engine.output(r) for r in rids]
+        if tag == "serve_gpt":
+            tp1_streams = streams
         same, worst = hold_divergence(model, streams, refs, lens.tolist(),
                                       MARGIN_TOL["bf16"], dev,
                                       f"{tag} vs generate")
@@ -5352,6 +5386,546 @@ def phase_serve_gpt(seed, dev):
                         worst_parting_margin=worst, margin_checked=checked)
         del engine
         gc.collect()
+    r = tp_served(model, dev, "serve_gpt_tp", prompts,
+                  dict(kv_dtype="bf16", tp_size=2, devices=[dev] * 2),
+                  counters, ("K1", "K4", "K6"), warm=True)
+    r["identical_to_tp1"], r["worst_parting_margin"] = hold_divergence(
+        model, r.pop("streams"), tp1_streams, lens.tolist(),
+        MARGIN_TOL["bf16"], dev, "serve_gpt_tp vs tp1")
+    out["serve_gpt_tp"] = r
+    return out
+
+
+# ------------------------------------------------- tensor-parallel serving
+
+# LLaMA-7B's heads (and kv heads) a shard at tp 2 and 4
+TP_SHARD_HEADS = {2: 16, 4: 8}
+# the served runs of the TP phases: new tokens a request
+TP_NEW = 32
+
+
+def tp_kernel_cases(rows, dev):
+    """K1, K6, K6q and K7 at a tensor-parallel shard's head count: LLaMA-7B
+    at tp 2 and 4 runs every attention kernel over 16 and 8 heads (kv heads
+    the same) of 128. bf16 queries: K1 at the serve prefill (1, 512, h,
+    128) with the causal float mask and is_causal, and at a verify window
+    (verify_window_inputs), held row by row under TOL_REL against the plain
+    version on the values cast to fp32; K6 over bf16 pools and K6q over
+    int8 and fp8 pools at the decode shape (b 8, positions 0..1023), and K7
+    on the chunked serve's flat step (FLAT_T tokens) over bf16 pools, under
+    TOL against their plain versions (K7's parked tokens exactly zero).
+    Kernel, plain and library (sdpa; over the gathered pages for the paged
+    kernels) times and the bound. Returns {"K1 tp2 prefill": row, ...}."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.serving import attention as att
+    from paddle_tpu_torch.serving.kv_cache import PagedLayerCache
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    rng = np.random.RandomState(14)
+    dtype = torch.bfloat16
+    d, ps, maxp, b, s = 128, 16, 64, 8, 512
+    cap = maxp * ps
+    out = {}
+
+    def table(n_rows):
+        return torch.from_numpy(
+            rng.permutation(np.arange(1, n_rows * maxp + 1))[:n_rows * maxp]
+            .reshape(n_rows, maxp).astype(np.int32)).to(dev)
+
+    for tp, h in TP_SHARD_HEADS.items():
+        tag = f"{h} heads a shard (tp={tp})"
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+        causal = torch.full((s, s), -1e9, device=dev).triu(1)[None, None]
+        q, k, v = rnd(1, s, h, d), rnd(1, s, h, d), rnd(1, s, h, d)
+        wq, wk, wv, wmask, _, _ = verify_window_inputs(g, dev, dtype, h)
+        for key, label, (q_, k_, v_), kw in (
+                ("prefill", f"prefill {tuple(q.shape)}, causal float mask "
+                 "+ is_causal", (q, k, v),
+                 {"attn_mask": causal, "is_causal": True}),
+                ("verify", f"verify window {tuple(wq.shape)} x "
+                 f"{tuple(wk.shape)}, float mask", (wq, wk, wv),
+                 {"attn_mask": wmask})):
+            got = fa.flash_attention(q_, k_, v_, **kw)
+            ref = fa.flash_attention_reference(q_.float(), k_.float(),
+                                               v_.float(), **kw)
+            torch.cuda.synchronize()
+            per_row = [check_rel("K1", got[r], ref[r], dtype)
+                       for r in range(got.shape[0])]
+            # the row nearest its own limit, with that limit
+            err, tol = max(per_row, key=lambda et: et[0] / et[1])
+            ms = time_ms(lambda: fa.flash_attention(q_, k_, v_, **kw))
+            plain_ms = time_ms(lambda: fa.flash_attention_reference(
+                q_, k_, v_, **kw), 5, 1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q_, k_, v_))
+            mask = kw["attn_mask"].to(dtype)
+            lib_ms = time_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(qt, kt, vt,
+                                                           attn_mask=mask))
+            seen = visible(q_, k_, kw)
+            io = nbytes(q_, got, kw["attn_mask"]) + 2 * int(
+                seen.any(1).sum()) * h * d * k_.element_size()
+            bms, by = bound(io, 4 * h * d * int(seen.sum()), dtype)
+            row = _row(dtype, f"{tag}: {label}", err, tol, ms, plain_ms,
+                       lib_ms, bms, by, tp=tp, heads=h)
+            _log_row("K1", row)
+            rows.append(("K1", row))
+            out[f"K1 tp{tp} {key}"] = row
+        del q, k, v, wq, wk, wv
+        pos_np = np.linspace(0, cap - 1, b).astype(np.int32)
+        pos = torch.from_numpy(pos_np).to(dev)
+        for kv in ("bf16",) + QUANT_KV:
+            name = "K6q" if kv in QUANT_KV else "K6"
+            kp, vp, ks, vs = _pools(h, b * maxp + 1, ps, d, kv, g, dev)
+            tb = table(b)
+            qd = rnd(b, 1, h, d)
+            cache = PagedLayerCache(kp, vp, tb, k_scale=ks, v_scale=vs)
+            got = att.paged_decode_attention(qd, cache, pos, 1)
+            ref = att._paged_decode_reference(qd, cache, pos, 1)
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            tol = check(name, err, dtype)
+            ms = time_ms(lambda: att.paged_decode_attention(qd, cache, pos,
+                                                            1))
+            plain_ms = time_ms(lambda: att._paged_decode_reference(
+                qd, cache, pos, 1), 5, 1)
+            lib_ms = time_ms(_gathered_sdpa(qd, kp, vp, ks, vs, tb, pos, 1,
+                                            dtype))
+            toks = int((pos_np + 1).sum())
+            io = toks * 2 * h * (d * kp.element_size()
+                                 + (4 if kv in QUANT_KV else 0)) \
+                + nbytes(qd, got, tb, pos)
+            bms, by = bound(io, 4 * h * d * toks, dtype)
+            row = _row(dtype, f"{tag}: {kv} pools, b=8, positions "
+                       "0..1023", err, tol, ms, plain_ms, lib_ms, bms, by,
+                       tp=tp, heads=h, kv_dtype=kv)
+            _log_row(name, row)
+            rows.append((name, row))
+            out[f"{name} tp{tp}" + (f" {kv}" if name == "K6q" else "")] = row
+            del kp, vp, ks, vs
+        nrows = 9
+        kp, vp, _, _ = _pools(h, nrows * maxp + 1, ps, d, "bf16", g, dev)
+        tb = table(nrows)
+        pos_np = np.full((FLAT_T,), cap, np.int32)
+        rid_np = np.zeros((FLAT_T,), np.int32)
+        pos_np[:8] = np.linspace(0, cap - 1, 8).astype(np.int32)
+        rid_np[:8] = np.arange(8)
+        pos_np[8:264] = np.arange(512, 768)
+        rid_np[8:264] = 8
+        pos = torch.from_numpy(pos_np).to(dev)[None]
+        rid = torch.from_numpy(rid_np).to(dev)
+        qf = rnd(1, FLAT_T, h, d)
+        cache = PagedLayerCache(kp, vp, tb, rid, routing={})
+        got = att.ragged_paged_attention(qf, cache, pos, 1)
+        ref = att._ragged_attention_reference(qf, cache, pos, 1)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        tol = check("K7", err, dtype)
+        live = pos_np < cap
+        if float(got[0, torch.from_numpy(~live).to(dev)].abs().max()) != 0:
+            raise AssertionError(f"K7 {tag}: parked tokens not zero")
+        ms = time_ms(lambda: att.ragged_paged_attention(qf, cache, pos, 1))
+        plain_ms = time_ms(lambda: att._ragged_attention_reference(
+            qf, cache, pos, 1), 5, 1)
+        lib_ms = time_ms(_gathered_sdpa(qf[0][:, None], kp, vp, None, None,
+                                        tb[rid.long()], pos[0], 1, dtype))
+        span = {}
+        for p_, r_ in zip(pos_np[live], rid_np[live]):
+            span[r_] = max(span.get(r_, 0), int(p_) + 1)
+        io = sum(span.values()) * 2 * h * d * kp.element_size() + nbytes(
+            qf, got, tb, pos, rid)
+        bms, by = bound(io, 4 * h * d * int((pos_np[live] + 1).sum()),
+                        dtype)
+        row = _row(dtype, f"{tag}: bf16 pools, 8 decode tokens + a 256-token "
+                   f"chunk at 512, T={FLAT_T}", err, tol, ms, plain_ms,
+                   lib_ms, bms, by, tp=tp, heads=h)
+        _log_row("K7", row)
+        rows.append(("K7", row))
+        out[f"K7 tp{tp}"] = row
+        del kp, vp, qf
+    return out
+
+
+def row_chunk_products(dev):
+    """Why the overlapped reduction (serving/overlap.py) does not cut the
+    consumer's matmuls by rows: for the products of a LLaMA-7B shard at tp
+    2 and 4 (q / k / v, gate / up, o, down: (4096 / tp, 4096), (11008 /
+    tp, 4096), (4096, 4096 / tp), (4096, 11008 / tp)) in bf16 and fp32, at
+    8, 64, 256 and 512 rows, whether the rows of the products of 2 and of
+    4 row chunks equal the whole product's bit for bit. A reading, not a
+    check. Returns {dtype: [[out, in, rows, chunks, equal], ...]}."""
+    from paddle_tpu_torch.parallel import chunk_bounds
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        cells = []
+        for tp in TP_SHARD_HEADS:
+            for n, k in ((4096 // tp, 4096), (11008 // tp, 4096),
+                         (4096, 4096 // tp), (4096, 11008 // tp)):
+                w = (torch.randn(n, k, generator=g, device=dev)
+                     * 0.02).to(dtype)
+                for rows in (8, 64, 256, 512):
+                    x = torch.randn(rows, k, generator=g,
+                                    device=dev).to(dtype)
+                    whole = torch.nn.functional.linear(x, w)
+                    for chunks in (2, 4):
+                        parts = torch.cat([
+                            torch.nn.functional.linear(x[lo:hi], w)
+                            for lo, hi in chunk_bounds(chunks, rows)])
+                        cells.append([n, k, rows, chunks,
+                                      bool(torch.equal(parts, whole))])
+        out[str(dtype)[6:]] = cells
+        log(f"[row_chunk_products] {str(dtype)[6:]}: "
+            f"{sum(not c[4] for c in cells)} of {len(cells)} (out, in, "
+            "rows, chunks) products moved by a rounding when cut into row "
+            f"chunks: {[tuple(c[:4]) for c in cells if not c[4]]}")
+    return out
+
+
+def tp_groups(dev, tp):
+    """(label, devices) of the groups a tp-wide engine is served on: the
+    one card repeated, and tp distinct cards where the machine has them."""
+    groups = [("", [dev] * tp)]
+    if torch.cuda.device_count() >= tp:
+        groups.append(("_cards", [torch.device("cuda", i)
+                                  for i in range(tp)]))
+    return groups
+
+
+def tp_served(model, dev, tag, prompts, kw, counters, need, warm=False):
+    """One served run of `prompts` (TP_NEW new tokens each, the last two
+    late) on a fresh serve engine with the knobs `kw`; with `warm`, an
+    unmeasured engine of the same knobs serves two short requests first.
+    The launch counters are zeroed just before and read just after; each
+    kernel of `need` must launch. Returns the readings and the streams; no
+    engine outlives the call."""
+    if warm:
+        serve(serve_engine(model, dev, **kw), [p[:40] for p in prompts[:2]],
+              1, 9)
+        gc.collect()
+        torch.cuda.empty_cache()
+    engine = serve_engine(model, dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    rids, wall = serve(engine, prompts, 2, TP_NEW)
+    launches = read_counters(counters)
+    stats = engine.stats()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = stats["tokens_generated"]
+    missing = [k for k in need if launches[k] <= 0]
+    if stats["num_finished"] != len(prompts) \
+            or tokens != TP_NEW * len(prompts) or missing:
+        raise AssertionError(f"{tag}: {stats['num_finished']} finished, "
+                             f"{tokens} tokens, never launched {missing}")
+    tp = stats.get("tp")
+    coll = None
+    if tp is not None:
+        h = engine.metrics.get("serving_tp_collective_seconds", labels={
+            "overlap": "on" if tp["overlap"] else "off"})
+        coll = dict(count=h.count, mean_s=h.sum / h.count,
+                    summary=h.summary())
+    res = dict(tp_size=stats["tp_size"], tokens_per_s=tokens / wall,
+               wall_s=wall, decode_tokens_per_s=stats["decode_tokens_per_s"],
+               peak_bytes=peak, launches=launches,
+               pool_bytes=engine.cache.pool_bytes,
+               shard_pool_bytes=engine.cache.shard_pool_bytes,
+               collective=coll,
+               overlap_fraction=None if tp is None else tp[
+                   "overlap_fraction"],
+               devices=None if tp is None else tp["devices"],
+               streams=[engine.output(r) for r in rids])
+    log(f"[{tag}] {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} "
+        f"tokens/s; decode {stats['decode_tokens_per_s']:.1f} tokens/s; "
+        f"pool {res['pool_bytes'] / 2**30:.3f} GiB, "
+        f"{res['shard_pool_bytes'] / 2**30:.3f} GiB a shard; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}"
+        + ("" if coll is None else
+           f"; serving_tp_collective_seconds mean "
+           f"{coll['mean_s'] * 1e6:.1f} us over {coll['count']}; "
+           f"overlap_fraction {res['overlap_fraction']}; devices "
+           f"{res['devices']}"))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_tp(model, seed, dev):
+    """Tensor-parallel serving of the Serve cell's LLaMA-7B (bf16, the
+    Serve engine's knobs): 8 greedy requests of 32-512 prompt tokens,
+    TP_NEW new tokens each, two late, at tp 1, 2 and 4 on the one card
+    repeated (and on distinct cards where the machine has as many), each
+    after a warm-up engine of its knobs; then at tp 2 chunked (256, the
+    ragged step), over int8 pools with the int8 all-reduce, and with the
+    overlapped reduction (2 chunks). Each tp > 1 stream is held against
+    the tp=1 streams by the margin check (a row-parallel sum rounds
+    otherwise than the full product in bf16); the overlapped streams must
+    equal the serial tp=2 streams. The schedule does not depend on the
+    tokens (no eos, fixed budgets), so K1 and K6 must launch exactly tp
+    times as often as at tp 1 (one a shard a layer), and K4 once a layer
+    norm a device of the group plus the final norm once a forward (as
+    often as at tp 1 on one card)."""
+    cfg = model.llama.config
+    rng = np.random.RandomState(seed + 41)
+    lens = rng.randint(32, 513, 8)
+    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)) for n in lens]
+    counters = serve_counters()
+    bf16 = dict(kv_dtype="bf16")
+    runs = [("tp1", bf16, ("K1", "K4", "K6"), True)]
+    for tp in TP_SHARD_HEADS:
+        for suffix, devs in tp_groups(dev, tp):
+            runs.append((f"tp{tp}{suffix}",
+                         dict(bf16, tp_size=tp, devices=devs),
+                         ("K1", "K4", "K6"), True))
+            if suffix:
+                # across cards the overlap has copies to hide
+                runs.append((f"tp{tp}{suffix}_overlap",
+                             dict(bf16, tp_size=tp, devices=devs,
+                                  tp_overlap=True, tp_overlap_chunks=2),
+                             ("K1", "K4", "K6"), False))
+    two = dict(tp_size=2, devices=[dev] * 2)
+    runs += [("tp2_chunked", dict(bf16, enable_chunked_prefill=True,
+                                  prefill_chunk_tokens=256, **two),
+              ("K4", "K6", "K7"), False),
+             ("tp2_int8_qar", dict(kv_dtype="int8",
+                                   tp_quantized_allreduce=True, **two),
+              ("K1", "K4", "K6q"), False),
+             ("tp2_overlap", dict(bf16, tp_overlap=True,
+                                  tp_overlap_chunks=2, **two),
+              ("K1", "K4", "K6"), False)]
+    out = {}
+    for tag, kw, need, warm in runs:
+        out[tag] = tp_served(model, dev, f"serve_tp {tag}", prompts, kw,
+                             counters, need, warm)
+    base = out["tp1"]
+    # tp=1 runs 2 norms a layer and the final one a forward
+    layers = cfg.num_hidden_layers
+    forwards = base["launches"]["K4"] // (2 * layers + 1)
+    for tp in TP_SHARD_HEADS:
+        for suffix, devs in tp_groups(dev, tp):
+            got = out[f"tp{tp}{suffix}"]["launches"]
+            # the layers' norms once a device of the group, the final one
+            # once on the engine's
+            want = dict(K1=tp * base["launches"]["K1"],
+                        K6=tp * base["launches"]["K6"],
+                        K4=forwards * (2 * layers * len(set(devs)) + 1))
+            if any(got[k] != n for k, n in want.items()):
+                raise AssertionError(
+                    f"serve_tp tp{tp}{suffix}: launches {got}, want {want} "
+                    f"(tp1: {base['launches']})")
+    for tag in [t for t in out if t.endswith("_overlap")]:
+        serial = tag[:-len("_overlap")]
+        same = sum(a == b for a, b in zip(out[tag]["streams"],
+                                          out[serial]["streams"]))
+        if same != len(prompts):
+            raise AssertionError(f"serve_tp: {same} of 8 {tag} streams "
+                                 f"identical to the serial {serial} streams")
+        log(f"[serve_tp] {tag}: 8 of 8 streams identical to {serial}")
+    for tag, r in out.items():
+        if tag != "tp1":
+            kv = "int8" if "int8" in tag else "bf16"
+            r["identical_to_tp1"], r["worst_parting_margin"] = \
+                hold_divergence(model, r["streams"], base["streams"],
+                                lens.tolist(), MARGIN_TOL[kv], dev,
+                                f"serve_tp {tag} vs tp1")
+    for r in out.values():
+        del r["streams"]
+    log("[serve_tp] tokens/s on one card: " + ", ".join(
+        f"{t} {out[t]['tokens_per_s']:.1f}" for t in
+        ["tp1"] + [f"tp{tp}" for tp in TP_SHARD_HEADS]))
+    return out
+
+
+def tp_fp32_model(seed, dev):
+    """LLaMA-7B's widths cut to 2 layers, fp32 weights from the seed, on
+    `dev` (no gradients)."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = dataclasses.replace(LlamaConfig.llama7b(), num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
+                             seed=seed)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    return model
+
+
+def tp_fp32_prompts(seed, vocab):
+    rng = np.random.RandomState(seed + 43)
+    return [rng.randint(0, vocab, (int(n),)).tolist()
+            for n in rng.randint(32, 129, 8)]
+
+
+def phase_serve_tp_fp32(seed, dev):
+    """The tp=2 engine at fp32 on 2 layers of full width, without bf16's
+    near-ties: its 8 greedy streams (TP_NEW new tokens, two late) on the
+    card must be identical to the same TP engine's on the CPU (two CPU
+    shards, the plain versions). Then a tp=2 engine with a journal, all 8
+    requests up front, is snapshotted after its 8 prefills and two decode
+    blocks (10 steps) and restored onto a
+    tp=4 engine: every request must finish, its tokens streamed exactly
+    once, and the streams are held against the uninterrupted tp=2 run's
+    (margin check at fp32; identical ones counted)."""
+    from paddle_tpu_torch.serving import RequestJournal, ServingEngine
+
+    t0 = time.perf_counter()
+    card = tp_fp32_model(seed, dev)
+    cpu = tp_fp32_model(seed, torch.device("cpu"))
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    prompts = tp_fp32_prompts(seed, card.llama.config.vocab_size)
+    kw = dict(page_size=16, max_batch_size=8, max_seq_len=1024,
+              decode_horizon=8, kv_dtype="fp32", tp_size=2)
+    streams = {}
+    for where, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+        eng = ServingEngine(model, device=d, devices=[d] * 2, **kw)
+        rids, _ = serve(eng, prompts, 2, TP_NEW)
+        streams[where] = [eng.output(r) for r in rids]
+        del eng
+    del cpu
+    gc.collect()
+    same = sum(a == b for a, b in zip(streams["card"], streams["cpu"]))
+    if same != len(prompts):
+        raise AssertionError(f"serve_tp_fp32: {same} of {len(prompts)} "
+                             "card streams identical to the CPU's")
+    log(f"[serve_tp_fp32] tp=2: {same} of {len(prompts)} greedy streams "
+        "identical card against CPU")
+    ref_eng = ServingEngine(card, device=dev, devices=[dev] * 2, **kw)
+    ref_rids = [ref_eng.add_request(p, max_new_tokens=TP_NEW)
+                for p in prompts]
+    ref = ref_eng.run()
+    ref = [ref[r] for r in ref_rids]
+    del ref_eng
+    eng = ServingEngine(card, device=dev, devices=[dev] * 2,
+                        journal=RequestJournal(), **kw)
+    rids = [eng.add_request(p, max_new_tokens=TP_NEW) for p in prompts]
+    seen = {r: [] for r in rids}
+    done = {r: 0 for r in rids}
+    # every prefill and two decode blocks: tokens delivered to every row
+    for _ in range(len(prompts) + 2):
+        for rid, tok in eng.step():
+            seen[rid].append(tok)
+    before = sum(len(v) for v in seen.values())
+    snap = eng.snapshot()
+    journal = eng._journal
+    eng.release_pools()
+    del eng
+    gc.collect()
+    kw4 = dict(kw, tp_size=4)
+    eng = ServingEngine(card, device=dev, devices=[dev] * 4,
+                        journal=journal, **kw4)
+    eng.restore(snap)
+    for rid, tok, fin in eng.stream():
+        seen[rid].append(tok)
+        done[rid] += fin
+    outs = [eng.output(r) for r in rids]
+    for i, rid in enumerate(rids):
+        if eng.status(rid) != ("finished", None) or done[rid] != 1 \
+                or seen[rid] != outs[i][len(prompts[i]):] \
+                or len(seen[rid]) != TP_NEW:
+            raise AssertionError(
+                f"serve_tp_fp32: request {rid} ended {eng.status(rid)} with "
+                f"{len(seen[rid])} tokens streamed and {done[rid]} done "
+                "flags: not its output exactly once")
+    eng.scheduler.check_consistency()
+    journal.check_consistency()
+    del eng
+    identical, worst = hold_divergence(card, outs, ref,
+                                       [len(p) for p in prompts],
+                                       MARGIN_TOL["fp32"], dev,
+                                       "serve_tp_fp32 tp2 -> tp4 restore")
+    del card
+    out = dict(card_vs_cpu_identical=same, delivered_before_snapshot=before,
+               restored_identical=identical, worst_parting_margin=worst,
+               phase_s=time.perf_counter() - t0)
+    log(f"[serve_tp_fp32] tp=2 snapshot after {before} tokens restored onto "
+        f"tp=4: 8 of 8 requests exactly once, {identical} of 8 streams "
+        f"identical to the uninterrupted tp=2 run; {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_cluster_tp(seed, dev):
+    """A ServingCluster of 2 replicas of tp=2 (fp32, 2 layers of full width)
+    carved from the one card listed 4 times (and from 4 distinct cards
+    where the machine has them: replica 1's group then excludes the card
+    that holds the model, its embedding and head); replica 1 is killed by
+    `device_lost` once each of its requests has 8 tokens delivered, with no
+    restart, so it dies and its requests migrate. Every request must
+    finish with its streamed tokens its output exactly once, and every
+    stream must be identical to the same cluster's run without the kill."""
+    from paddle_tpu_torch.serving import FaultInjector, ServingCluster
+
+    t0 = time.perf_counter()
+    model = tp_fp32_model(seed, dev)
+    prompts = tp_fp32_prompts(seed + 1, model.llama.config.vocab_size)
+
+    def make(replica=None, fault_injector=None, tp_size=1, devices=None):
+        return serve_engine(model, dev, kv_dtype="fp32",
+                            fault_injector=fault_injector, tp_size=tp_size,
+                            devices=devices)
+
+    def run(kill, devices):
+        inj = [FaultInjector(), FaultInjector()]
+        cl = ServingCluster(make, num_replicas=2, tp_size=2,
+                            devices=devices, fault_injectors=inj,
+                            placement="round_robin",
+                            supervisor_kw=dict(max_restarts=0))
+        groups = [r.supervisor.engine._tp.devices for r in cl.replicas]
+        rids = [cl.add_request(p, max_new_tokens=TP_NEW) for p in prompts]
+        seen = {r: [] for r in rids}
+        done = {r: 0 for r in rids}
+        armed = not kill
+        for rid, tok, fin in cl.stream():
+            seen[rid].append(tok)
+            done[rid] += fin
+            mine = [r for r in cl._records.values() if r.replica == 1]
+            if not armed and mine and all(len(r.delivered) >= 8
+                                          for r in mine):
+                k = inj[1].counts.get("device_lost", 0)
+                inj[1].fail_at("device_lost", k)
+                armed = True
+        outs = [cl.output(r) for r in rids]
+        for i, rid in enumerate(rids):
+            if cl.status(rid) != ("finished", None) or done[rid] != 1 \
+                    or seen[rid] != outs[i][len(prompts[i]):]:
+                raise AssertionError(f"cluster_tp: request {rid} not its "
+                                     "output exactly once")
+        cl.check_consistency()
+        st = cl.stats()
+        cl.close()
+        return outs, st, groups
+
+    layouts = [("one card", [dev] * 4)]
+    if torch.cuda.device_count() >= 4:
+        layouts.append(("4 cards", [torch.device("cuda", i)
+                                    for i in range(4)]))
+    out = {}
+    for label, devices in layouts:
+        ref, _, groups = run(False, devices)
+        outs, st, _ = run(True, devices)
+        if st["health"].count("dead") != 1 or not st["migrations"]:
+            raise AssertionError(f"cluster_tp {label}: health "
+                                 f"{st['health']}, {st['migrations']} "
+                                 "migrations")
+        same = sum(a == b for a, b in zip(outs, ref))
+        if same != len(prompts):
+            raise AssertionError(f"cluster_tp {label}: {same} of "
+                                 f"{len(prompts)} streams identical to the "
+                                 "run without the kill")
+        out[label] = dict(identical=same, migrations=st["migrations"],
+                          migrated_tokens=st["migrated_tokens"],
+                          groups=[[str(d) for d in g] for g in groups])
+        log(f"[cluster_tp] 2 replicas of tp=2 on {out[label]['groups']}: "
+            f"replica 1 killed, {st['migrations']} migrated "
+            f"({st['migrated_tokens']} tokens), {same} of {len(prompts)} "
+            "streams identical to the run without the kill")
+    del model
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[cluster_tp] {out['phase_s']:.1f} s")
     return out
 
 
@@ -5516,6 +6090,13 @@ def summarize(main_rows, launches_by_path):
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "live_pairs")}
                 for label, s in main_rows[f"{k} steps"].items()}
+        shards = {key[len(k) + 1:]: {x: row[x] for x in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "dtype", "case")}
+            for key, row in main_rows.items()
+            if key.startswith(f"{k} tp")}
+        if shards:
+            entry["tp_shards"] = shards
         if k == "K9":
             c = main_rows["K9 combine"]
             entry["combine"] = {x: c[x] for x in (
@@ -5579,6 +6160,8 @@ def main(argv=None):
     main_rows.update(gpt_kernel_cases(rows, dev))
     main_rows.update(k9_cases(rows, dev, args.seed))
     main_rows.update(phase_ring_kernels(rows, dev))
+    main_rows.update(tp_kernel_cases(rows, dev))
+    result["row_chunk_products"] = row_chunk_products(dev)
     result["cases"] = [dict(kernel=k, **r) for k, r in rows]
 
     def release():
@@ -5623,6 +6206,10 @@ def main(argv=None):
     result["serve_observed"] = r
     launches["serve_observed"] = r["launches"]
     release()
+    result["serve_tp"] = r = phase_serve_tp(model, args.seed, dev)
+    for tag, run in r.items():
+        launches[f"serve_tp {tag}"] = run["launches"]
+    release()
     t0 = time.perf_counter()
     r = phase_serve_prefix_spec(model, args.seed, dev, args.profile,
                                 args.out)
@@ -5643,6 +6230,10 @@ def main(argv=None):
     result["recovery_fp32"] = phase_recovery_fp32(args.seed, dev)
     release()
     result["cluster_fp32"] = phase_cluster_fp32(args.seed, dev)
+    release()
+    result["serve_tp_fp32"] = phase_serve_tp_fp32(args.seed, dev)
+    release()
+    result["cluster_tp"] = phase_cluster_tp(args.seed, dev)
     release()
     result["generate_fp32"] = phase_generate_fp32(args.seed, dev)
     release()

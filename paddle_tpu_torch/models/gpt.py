@@ -29,9 +29,11 @@ the table-overflow position, whose output is never read back, and
 `F.embedding` on the card would stop the stream on an out-of-range index.
 (The reference's `jnp.take` returns NaN rows there instead.)
 
-Not ported: `tensor_parallel=True` (ROADMAP queue 1, S5 tensor-parallel
-serving and fleet), the pipeline stages `GPTEmbeddingPipe` /
-`GPTHeadPipe`, `gpt_pipe_layers` and `gpt_spmd_pipeline_fn` (fleet).
+Not ported: `tensor_parallel=True` (fleet's `VocabParallelEmbedding` and
+column / row parallel layers, ROADMAP queue 1 item 5), the pipeline stages
+`GPTEmbeddingPipe` / `GPTHeadPipe`, `gpt_pipe_layers` and
+`gpt_spmd_pipeline_fn` (fleet). Tensor-parallel serving does not need the
+first: it shards an ordinary model (serving/tp.py).
 """
 from __future__ import annotations
 
@@ -144,8 +146,10 @@ class GPTModel(nn.Module):
         if tensor_parallel:
             raise NotImplementedError(
                 "GPTModel(tensor_parallel=True) is not ported yet (ROADMAP "
-                "queue 1: S5, tensor-parallel serving, and fleet hybrid "
-                "parallelism)")
+                "queue 1 item 5; S5's tensor-parallel serving shards an "
+                "ordinary model through ServingEngine(tp_size=N) and never "
+                "sets it: the flag belongs to fleet's VocabParallelEmbedding "
+                "and parallel layers)")
         self.config = cfg = cfg or GPTConfig()
         fk = {"device": resolve_device(device), "dtype": dtype}
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)

@@ -61,8 +61,15 @@ bounded-queue check).
 Replicas share nothing but what the factory gives them: a factory may
 close over ONE model, so N replicas hold one copy of the weights and N
 KV pools; a dead replica frees its own pools (`release_pools`) and never
-the shared weights. Tensor-parallel replicas (`tp_size>1`, `devices=`)
-are not ported yet and raise NotImplementedError naming ROADMAP S5.
+the shared weights. Tensor-parallel replicas (`tp_size>1`): the device
+list (`devices=`, default every card of the process) is sorted and carved
+into `num_replicas` disjoint tp-wide groups (`parallel.mesh.
+carve_submeshes`; a list may repeat one card, so one H100 can hold every
+group), and the factory, which must take `tp_size=` and `devices=`, gets
+its replica's group. A replica's journal is device-independent, so a dead
+tp=2 replica's requests migrate onto a tp=1 survivor. `devices=` is
+resolved whatever the degree (a CUDA name raises on a machine without a
+card); at tp_size=1 it carves nothing, as in the reference.
 
 Zero cost when unused: a plain `ServingEngine` (or a bare supervisor)
 executes none of this module — tests pin that with a raise-on-touch
@@ -80,6 +87,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, \
 
 import numpy as np
 
+from ..device import resolve_device
 from ..observability import MetricsRegistry
 from ..profiler import add_host_span
 from .recovery import EngineSupervisor, RequestJournal
@@ -237,17 +245,20 @@ class ServingCluster:
         self.metrics = metrics if metrics is not None else (
             MetricsRegistry() if enable_metrics else None)
         self._init_metrics()
-        # tensor-parallel replicas carve the device list into sub-meshes
-        # in the reference; the port refuses them until S5 is ported
+        # tensor parallelism: carve the sorted device list into disjoint
+        # tp-wide groups, replica i getting entries [i*tp, (i+1)*tp); a
+        # tp_size=1 cluster imports and carves nothing
         self.tp_size = int(tp_size)
         if self.tp_size < 1:
             raise ValueError(f"tp_size must be >= 1, got {tp_size}")
-        if self.tp_size > 1 or devices is not None:
-            knob = (f"tp_size={tp_size}" if self.tp_size > 1
-                    else f"devices={devices!r}")
-            raise NotImplementedError(
-                f"ServingCluster({knob}) is not ported to paddle_tpu_torch "
-                "yet (ROADMAP queue 1, S5 (tensor-parallel serving))")
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+        self._replica_devices: Optional[List[tuple]] = None
+        if self.tp_size > 1:
+            from ..parallel.mesh import carve_submeshes
+
+            self._replica_devices = carve_submeshes(
+                num_replicas, self.tp_size, devices)
         # factory protocol: pass only what the signature admits
         params = inspect.signature(factory).parameters
         varkw = any(p.kind == inspect.Parameter.VAR_KEYWORD
@@ -255,7 +266,15 @@ class ServingCluster:
         self._factory_kw = {
             "replica": varkw or "replica" in params,
             "fault_injector": varkw or "fault_injector" in params,
+            "tp_size": varkw or "tp_size" in params,
+            "devices": varkw or "devices" in params,
         }
+        if self.tp_size > 1 and not (self._factory_kw["tp_size"]
+                                     and self._factory_kw["devices"]):
+            raise ValueError(
+                "ServingCluster(tp_size>1) needs a factory that accepts "
+                "tp_size= and devices= keywords (or **kwargs) so each "
+                "replica's engine lands on its carved group")
         self._factory = factory
         sup_kw = dict(supervisor_kw or {})
         self.replicas: List[ReplicaHandle] = []
@@ -375,6 +394,9 @@ class ServingCluster:
             if self._factory_kw["fault_injector"] \
                     and self.fault_injectors is not None:
                 kw["fault_injector"] = self.fault_injectors[index]
+            if self._replica_devices is not None:
+                kw["tp_size"] = self.tp_size
+                kw["devices"] = self._replica_devices[index]
             return self._factory(**kw)
         return make
 

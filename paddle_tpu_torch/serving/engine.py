@@ -85,9 +85,16 @@ block is dispatched, through a pinned copy and an event: first-token
 points, TTFT and TPOT are stamped there, at the drain, never behind an
 added device sync. Each layer is a `None` check when off.
 
-Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item rather than ignored: tensor parallelism (`tp_size`, `devices`,
-`tp_quantized_allreduce`, `tp_overlap`, `tp_overlap_chunks`).
+Tensor parallelism (`tp_size>1`, serving.tp, imported only then): the
+model's decoder stack is Megatron-sharded over `devices` (one card may
+hold every shard) and the KV pools by kv head, one host thread driving
+the shards in lockstep through a TP runner with the model's call
+signature; the scheduler, allocator, page tables, prefix cache and
+sampling stay single. `tp_quantized_allreduce=True` moves the layer
+reductions as block-scaled int8 (serving.quant); `tp_overlap=True` with
+`tp_overlap_chunks>1` pipelines them over row chunks (serving.overlap,
+imported only then) with the serial engine's arithmetic. Snapshots carry
+no device state, so a snapshot restores at any tp degree.
 """
 from __future__ import annotations
 
@@ -232,6 +239,10 @@ class ServingObs:
         self.retries = c("serving_transient_retries_total",
                          "dispatch/drain sites retried after a transient "
                          "fault")
+        # tensor-parallel handles, bound by bind_tp() only when the engine
+        # runs with tp_size > 1
+        self.tp_collective = None
+        self.tp_free_pages = None
         # speculative decoding handles, bound by bind_spec() only when the
         # engine runs with spec_config
         self.spec_drafted = None
@@ -259,6 +270,26 @@ class ServingObs:
                     "quantize->dequantize RMS relative error, one-shot "
                     "construction-time probe on gaussian K/V"
                     ).set(rms_error)
+
+    def bind_tp(self, tp_size: int, overlap: bool = False) -> None:
+        """Tensor-parallel handles: the measured all-reduce wall histogram
+        (labelled overlap on / off, so the serial and the pipelined wall
+        never mix), one free-page gauge a shard (page accounting is single,
+        so every shard reads the same number; the label keeps per-shard
+        dashboards well formed), and a `tp=N` tag on every emitted
+        lifecycle span name."""
+        r = self.registry
+        self.tp_collective = r.histogram(
+            "serving_tp_collective_seconds",
+            "measured all-reduce wall seconds on the engine's tp group "
+            "(decode-step payload shape)",
+            labels={"overlap": "on" if overlap else "off"})
+        self.tp_free_pages = [
+            r.gauge("serving_kv_pages_free",
+                    "free KV pages per tensor-parallel shard",
+                    labels={"shard": str(i)})
+            for i in range(tp_size)]
+        self.lifecycle.tag = f"tp={tp_size}"
 
     def bind_spec(self) -> None:
         """Speculative-decoding counters: drafted / accepted / wasted
@@ -323,25 +354,14 @@ class ServingObs:
         total = allocator.num_allocatable
         self.free_pages.set(free)
         self.kv_util.set(1.0 - free / total if total else 0.0)
+        if self.tp_free_pages is not None:
+            for shard_gauge in self.tp_free_pages:
+                shard_gauge.set(free)
 
-
-# engine knobs of the reference that the port does not run yet, with the
-# ROADMAP item that ports each
-_S5 = "queue 1, S5 (tensor-parallel serving)"
-_NOT_PORTED = {
-    "tp_size": _S5, "devices": _S5, "tp_quantized_allreduce": _S5,
-    "tp_overlap": _S5, "tp_overlap_chunks": _S5,
-}
 
 # the reference's legacy spelling of unquantized pools (`cache_dtype`)
 _CACHE_DTYPES = {torch.float32: "fp32", torch.bfloat16: "bf16",
                  "float32": "fp32", "bfloat16": "bf16"}
-
-
-def _not_ported(knob: str, value) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob}={value!r} is not ported to paddle_tpu_torch yet "
-        f"(ROADMAP {_NOT_PORTED[knob]})")
 
 
 class ServingEngine:
@@ -370,24 +390,15 @@ class ServingEngine:
                  spec_config=None,
                  tp_size: int = 1,
                  devices: Optional[Sequence] = None,
-                 tp_quantized_allreduce: Optional[bool] = None,
-                 tp_overlap: Optional[bool] = None,
-                 tp_overlap_chunks: Optional[int] = None,
+                 tp_quantized_allreduce: bool = False,
+                 tp_overlap: bool = False,
+                 tp_overlap_chunks: int = 2,
                  slo_classes: Optional[Sequence] = None,
                  slo_refresh_every: int = 64,
                  flight_recorder=None,
                  postmortem_dir: Optional[str] = None):
         from ..models.generation import _config_of
 
-        for knob, value in (
-                ("devices", devices),
-                ("tp_quantized_allreduce", tp_quantized_allreduce),
-                ("tp_overlap", tp_overlap),
-                ("tp_overlap_chunks", tp_overlap_chunks)):
-            if value is not None:
-                raise _not_ported(knob, value)
-        if int(tp_size) != 1:
-            raise _not_ported("tp_size", tp_size)
         kv_dtype = {"float32": "fp32", "bfloat16": "bf16"}.get(
             kv_dtype, kv_dtype)
         if cache_dtype is not None:
@@ -416,6 +427,41 @@ class ServingEngine:
         model.eval()
         cfg = _config_of(model)
         self.kv_dtype = kv_dtype
+        # tensor parallelism, with the reference's validation: the int8
+        # all-reduce and the overlap replace a reduction tp_size=1 lacks
+        self.tp_quantized_allreduce = bool(tp_quantized_allreduce)
+        if self.tp_quantized_allreduce and int(tp_size) < 2:
+            raise ValueError(
+                "tp_quantized_allreduce replaces the row-parallel psum and "
+                "needs tp_size >= 2 (tp_size=1 has no collective)")
+        self.tp_overlap = bool(tp_overlap)
+        self.tp_overlap_chunks = int(tp_overlap_chunks)
+        if self.tp_overlap:
+            if int(tp_size) < 2:
+                raise ValueError(
+                    "tp_overlap pipelines the row-parallel all-reduce and "
+                    "needs tp_size >= 2 (tp_size=1 has no collective to "
+                    "hide)")
+            if self.tp_overlap_chunks < 1:
+                raise ValueError(f"tp_overlap_chunks must be >= 1, got "
+                                 f"{tp_overlap_chunks}")
+        self.tp_size = int(tp_size)
+        if self.tp_size < 1:
+            raise ValueError(f"tp_size must be >= 1, got {tp_size}")
+        if self.tp_size > 1:
+            # the import stays inside the branch: a tp_size=1 engine runs
+            # no tensor-parallel code
+            from .tp import TPContext
+
+            self._tp = TPContext(
+                model, self.tp_size, devices=devices,
+                quantized_allreduce=self.tp_quantized_allreduce,
+                overlap=self.tp_overlap,
+                overlap_chunks=self.tp_overlap_chunks)
+        else:
+            self._tp = None
+        # what the dispatch code calls: the model, or its TP runner
+        self._fwd = model if self._tp is None else self._tp.runner
         self.page_size = page_size
         self.max_batch_size = max_batch_size
         self.max_seq_len = max_seq_len or cfg.max_position_embeddings
@@ -477,10 +523,19 @@ class ServingEngine:
             num_pages = max_batch_size * self.max_pages_per_seq + 1
         self.cache = PagedKVCache.for_model(model, num_pages, page_size,
                                             kv_dtype=self.kv_dtype)
+        if self._tp is not None:
+            self.cache.shard_pools(self._tp.devices)
         self.metrics = metrics if metrics is not None else (
             MetricsRegistry() if enable_metrics else None)
         self._obs = (ServingObs(self.metrics)
                      if self.metrics is not None else None)
+        if self._obs is not None and self._tp is not None:
+            self._obs.bind_tp(self.tp_size, overlap=self._tp.overlap)
+            # this group's all-reduce wall, measured once here (a probe a
+            # step would time the device queue, not the collective)
+            for dt in self._tp.collective_seconds(
+                    samples=3, rows=self.max_batch_size):
+                self._obs.tp_collective.observe(dt)
         if self.metrics is not None:
             self.cache.allocator.bind_metrics(self.metrics)
             c = self.cache
@@ -999,7 +1054,7 @@ class ServingEngine:
 
         def dispatch():
             with torch.no_grad():
-                logits, _ = self.model(ids, caches=self.cache.layer_views(
+                logits, _ = self._fwd(ids, caches=self.cache.layer_views(
                     page_table), start_pos=n_cached)
                 tok = sample_batch(logits[:, len(suffix) - 1], knobs, draws)
                 return int(tok[0])             # the prefill's host sync
@@ -1067,7 +1122,7 @@ class ServingEngine:
 
         def dispatch():
             with torch.no_grad():
-                logits, _ = self.model(ids, caches=self.cache.layer_views(
+                logits, _ = self._fwd(ids, caches=self.cache.layer_views(
                     page_table), start_pos=offset)
                 if not final:
                     return PAD_TOKEN           # no host sync, no draw
@@ -1174,7 +1229,7 @@ class ServingEngine:
 
         def dispatch():
             with torch.no_grad():
-                logits, _ = self.model(
+                logits, _ = self._fwd(
                     flat_ids, caches=self.cache.layer_views(page_tables,
                                                             row_ids),
                     start_pos=flat_pos)
@@ -1192,9 +1247,10 @@ class ServingEngine:
                     # the tokens and the accept counters come back in ONE
                     # copy
                     emitted.extend(self._spec.verify_windows(
-                        self.model, views, dbuf, tok, pos, drw, knobs, rem,
+                        self._fwd, views, dbuf, tok, pos, drw, knobs, rem,
                         windows=h - 1 if decode else 0, lookahead=L,
-                        page_size=self.page_size, first=nxt, alive=alive))
+                        page_size=self.page_size, max_pages=max_pages,
+                        first=nxt, alive=alive))
                 elif decode:
                     for _ in range(h - 1):
                         emit, tok, pos, drw, rem = self._decode_iter(
@@ -1280,8 +1336,8 @@ class ServingEngine:
     def _decode_iter(self, views, tokens, positions, draws, knobs,
                      remaining, max_pages: int):
         """One model step of every row with sampling and `_advance`."""
-        logits, _ = self.model(tokens[:, None], caches=views,
-                               start_pos=positions)
+        logits, _ = self._fwd(tokens[:, None], caches=views,
+                              start_pos=positions)
         nxt = sample_batch(logits[:, 0], knobs, draws)
         return self._advance(nxt, tokens, positions, draws, knobs,
                              remaining, max_pages)
@@ -1377,9 +1433,10 @@ class ServingEngine:
         def dispatch():
             with torch.no_grad():
                 out = torch.cat(self._spec.verify_windows(
-                    self.model, self.cache.layer_views(page_tables), dbuf,
+                    self._fwd, self.cache.layer_views(page_tables), dbuf,
                     tokens, positions, draws, knobs, remaining, windows=h,
-                    lookahead=L, page_size=self.page_size), dim=1)
+                    lookahead=L, page_size=self.page_size,
+                    max_pages=self.max_pages_per_seq), dim=1)
             # the tokens and the accept counters come back in ONE copy
             return _start_host_copy(out)
 
@@ -1656,7 +1713,7 @@ class ServingEngine:
         replacement can allocate its own. The engine cannot serve after
         this; the supervisor calls it once `snapshot()` has returned."""
         self._pending = None
-        self.cache.pools = []
+        self.cache.release()
 
     def snapshot(self):
         """Serializable boundary state of every request the journal holds
@@ -1698,7 +1755,9 @@ class ServingEngine:
             "decode_horizon": self.decode_horizon,
             "enable_chunked_prefill": self.enable_chunked_prefill,
             "enable_prefix_caching": self.prefix_cache is not None,
-            "tp_size": 1,
+            # a record of the degree only: the journal's token record is
+            # device-independent, so the snapshot restores at any degree
+            "tp_size": self.tp_size,
         }
         return EngineSnapshot(config=config, requests=snaps,
                               taken_wall=time.time())
@@ -1916,13 +1975,19 @@ class ServingEngine:
         s["tokens_per_sync"] = (s["tokens_generated"] / s["host_syncs"]
                                 if s["host_syncs"] else 0.0)
         s["decode_horizon"] = self.decode_horizon
+        s["tp_size"] = self.tp_size
+        if self._tp is not None:
+            s["tp"] = dict(self._tp.describe(),
+                           shard_pool_bytes=self.cache.shard_pool_bytes)
         s["kv_dtype"] = self.kv_dtype
         if self.cache.quantized:
             c = self.cache
             s["quant"] = {"kv_dtype": c.kv_dtype,
                           "pool_bytes": c.pool_bytes,
                           "page_bytes": c.page_bytes,
-                          "fp32_pool_bytes": self._fp32_pool_bytes()}
+                          "fp32_pool_bytes": self._fp32_pool_bytes(),
+                          "tp_quantized_allreduce":
+                              self.tp_quantized_allreduce}
         s["num_requests"] = len(self.requests)
         s["num_finished"] = sum(r.status == "finished"
                                 for r in self.requests.values())

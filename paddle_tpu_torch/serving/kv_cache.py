@@ -20,6 +20,14 @@ num_pages, page_size, 1) scale slabs, one scale per (head, page, slot),
 written through the same page/slot arithmetic as the data. A logical page
 is a data slab plus a scale slab, so the allocator and page tables never
 see the difference. Only quantized pools import `serving.quant`.
+
+Tensor-parallel engines shard the pools by kv head (`shard_pools`, the
+reference's `shard_pools` over a mesh, kv_cache.py:409-422): shard i of
+tp holds kv heads [i * kvh/tp, (i+1) * kvh/tp) of every layer as its own
+(kvh/tp, num_pages, page_size, head_dim) slabs on its own device, scale
+slabs split the same way. One logical page is then tp physical slabs: the
+allocator, page ids, page tables, the null page and the prefix cache stay
+single, and `layer_views` hands out one per-layer view list a shard.
 """
 from __future__ import annotations
 
@@ -267,12 +275,13 @@ class PagedLayerCache:
 
 def views_from_pools(pools: Sequence[Tuple[torch.Tensor, ...]],
                      page_table: torch.Tensor,
-                     row_ids: Optional[torch.Tensor] = None
+                     row_ids: Optional[torch.Tensor] = None,
+                     routing: Optional[dict] = None
                      ) -> List[PagedLayerCache]:
     """Per-layer PagedLayerCache list from pool tuples - (k, v) for plain
     pools, (k, v, k_scale, v_scale) for quantized ones - sharing one
-    routing dict."""
-    routing: dict = {}
+    routing dict (a fresh one unless given)."""
+    routing = {} if routing is None else routing
     return [PagedLayerCache(p[0], p[1], page_table, row_ids,
                             k_scale=p[2] if len(p) == 4 else None,
                             v_scale=p[3] if len(p) == 4 else None,
@@ -282,7 +291,8 @@ def views_from_pools(pools: Sequence[Tuple[torch.Tensor, ...]],
 
 class PagedKVCache:
     """The per-layer pools plus the allocator, on `device` (default: the
-    port's default device, which raises without a card)."""
+    port's default device, which raises without a card). After
+    `shard_pools(devices)` the pools live as per-shard slabs instead."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
                  num_kv_heads: int, head_dim: int, kv_dtype: str = "fp32",
@@ -297,33 +307,61 @@ class PagedKVCache:
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.device = resolve_device(device)
-        shape = (num_kv_heads, num_pages, page_size, head_dim)
         self.quant_spec = None
         if kv_dtype in KV_DTYPES:
             self.dtype = KV_DTYPES[kv_dtype]
-            self.pools = [(torch.zeros(shape, dtype=self.dtype,
-                                       device=self.device),
-                           torch.zeros(shape, dtype=self.dtype,
-                                       device=self.device))
-                          for _ in range(num_layers)]
         else:
-            # quantized pools ONLY: the fp32/bf16 path above never
-            # imports serving.quant
-            from .quant import SCALE_DTYPE, resolve_kv_dtype
+            # quantized pools ONLY: the fp32/bf16 path never imports
+            # serving.quant
+            from .quant import resolve_kv_dtype
 
             self.quant_spec = resolve_kv_dtype(kv_dtype, compute_dtype)
             self.dtype = self.quant_spec.storage_dtype
-            sshape = (num_kv_heads, num_pages, page_size, 1)
-
-            def slab(shp, dt, fill):
-                return torch.full(shp, fill, dtype=dt, device=self.device)
-
-            self.pools = [(slab(shape, self.dtype, 0), slab(shape,
-                                                            self.dtype, 0),
-                           slab(sshape, SCALE_DTYPE, 1.0),
-                           slab(sshape, SCALE_DTYPE, 1.0))
-                          for _ in range(num_layers)]
+        self.pools = self._make_pools(num_kv_heads, self.device)
+        # tensor parallelism (shard_pools): the shards' devices and their
+        # [shard][layer] pool tuples; None / [] for a single-device cache
+        self.shard_devices: Optional[Tuple[torch.device, ...]] = None
+        self.shards: List[List[Tuple[torch.Tensor, ...]]] = []
         self.allocator = BlockAllocator(num_pages)
+
+    def _make_pools(self, kv_heads: int, device: torch.device
+                    ) -> List[Tuple[torch.Tensor, ...]]:
+        """Fresh per-layer pool tuples of `kv_heads` heads on `device`:
+        zeroed data slabs, and for quantized pools scale slabs of ones (an
+        unwritten slot dequantizes to exact zeros)."""
+        shape = (kv_heads, self.num_pages, self.page_size, self.head_dim)
+
+        def slab(shp, dt, fill):
+            return torch.full(shp, fill, dtype=dt, device=device)
+
+        if self.quant_spec is None:
+            return [(slab(shape, self.dtype, 0), slab(shape, self.dtype, 0))
+                    for _ in range(self.num_layers)]
+        sshape = shape[:3] + (1,)
+        return [(slab(shape, self.dtype, 0), slab(shape, self.dtype, 0),
+                 slab(sshape, torch.float32, 1.0),
+                 slab(sshape, torch.float32, 1.0))
+                for _ in range(self.num_layers)]
+
+    def shard_pools(self, devices: Sequence[torch.device]) -> None:
+        """Re-home the pools as tensor-parallel slabs: shard i of
+        len(devices) gets num_kv_heads / tp kv heads of every layer on
+        devices[i]. The unsharded pools are dropped first, so the two never
+        coexist; the slabs start as fresh pools do (no page is written
+        before the engine's first step)."""
+        tp = len(devices)
+        if tp < 1 or self.num_kv_heads % tp:
+            raise ValueError(f"{self.num_kv_heads} kv heads do not split "
+                             f"over {tp} shards")
+        self.pools = []
+        self.shard_devices = tuple(devices)
+        self.shards = [self._make_pools(self.num_kv_heads // tp, dev)
+                       for dev in self.shard_devices]
+
+    def release(self) -> None:
+        """Drop every pool and slab (the engine cannot serve after this)."""
+        self.pools = []
+        self.shards = []
 
     @property
     def kv_dtype(self) -> str:
@@ -348,7 +386,14 @@ class PagedKVCache:
 
     @property
     def pool_bytes(self) -> int:
+        """Bytes of every pool slab, summed over the shards of a sharded
+        cache."""
         return self.num_pages * self.page_bytes
+
+    @property
+    def shard_pool_bytes(self) -> int:
+        """Bytes one shard's slabs hold (pool_bytes when unsharded)."""
+        return self.pool_bytes // len(self.shard_devices or (None,))
 
     @classmethod
     def for_model(cls, model, num_pages: int, page_size: int,
@@ -384,5 +429,18 @@ class PagedKVCache:
                     row_ids: Optional[torch.Tensor] = None
                     ) -> List[PagedLayerCache]:
         """Per-layer PagedLayerCache list in the shape the models expect
-        for their `caches` argument."""
-        return views_from_pools(self.pools, page_table, row_ids)
+        for their `caches` argument; for a sharded cache, one such list a
+        shard (what the TP runners of serving/tp.py take), whose page
+        table and row ids are copies on the shard's device (one copy and
+        one routing dict per distinct device)."""
+        if self.shard_devices is None:
+            return views_from_pools(self.pools, page_table, row_ids)
+        local = {}
+        for dev in self.shard_devices:
+            if dev not in local:
+                local[dev] = (
+                    page_table.to(dev, non_blocking=True),
+                    None if row_ids is None
+                    else row_ids.to(dev, non_blocking=True), {})
+        return [views_from_pools(slabs, *local[dev])
+                for slabs, dev in zip(self.shards, self.shard_devices)]

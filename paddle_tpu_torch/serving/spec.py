@@ -271,7 +271,7 @@ def _window(model, views, dbuf, tokens, positions, draws, knobs,
 
 def verify_windows(model, views, dbuf, tokens, positions, draws, knobs,
                    remaining, *, windows: int, lookahead: int,
-                   page_size: int, first=None, alive=None):
+                   page_size: int, max_pages: int, first=None, alive=None):
     """`windows` verify windows of (b, 1 + lookahead) tokens, all enqueued
     on the device with no host sync. Returns [emitted (b, windows * (L+1))
     int64, stats (b, 3) int64 of (drafted, accepted, target passes)].
@@ -282,8 +282,8 @@ def verify_windows(model, views, dbuf, tokens, positions, draws, knobs,
     there. Without them the block starts at the proposal's first lane."""
     b = tokens.shape[0]
     L = lookahead
-    park = overflow_position(views[0].page_table.shape[1], page_size) \
-        if windows else 0
+    # parked rows write past a (b, max_pages) table: the null page
+    park = overflow_position(max_pages, page_size)
     # L+1 PAD lanes past the buffer: a window reads L+1 lanes at its cursor
     dbuf = torch.cat([dbuf, torch.full((b, L + 1), PAD_TOKEN,
                                        dtype=dbuf.dtype,

@@ -18,8 +18,10 @@ do not cross packages: the port's draws are counter-based).
 
 Beyond the reference: a seeded request migrated off a dead replica whose
 new owner then restarts resumes at its draw index and keeps the
-uninterrupted stream; `tp_size>1` and `devices=` raise naming S5; a dead
-replica frees its own KV pools and never the weights its factory shares;
+uninterrupted stream; a `tp_size=2` cluster carves CPU groups and serves
+the tp=1 stream, and `devices=` naming CUDA raises on a machine without a
+card; a dead replica frees its own KV pools and never the weights its
+factory shares;
 a cluster's engines run on the card unless the factory asks for the CPU.
 
 All on the CPU, where every kernel wrapper runs its plain version.
@@ -770,8 +772,31 @@ class TestSurface:
     @pytest.mark.parametrize("kw", [dict(tp_size=2),
                                     dict(devices=["cuda:0", "cuda:1"])])
     def test_tensor_parallel_replicas_raise_naming_s5(self, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*S5"):
-            ServingCluster(_factory(), num_replicas=2, **kw)
+        # S5 is ported: a tp_size=2 cluster carves tp-wide CPU groups and
+        # serves the tp=1 stream; a CUDA device list raises on a card-less
+        # machine, as every CUDA entry point of the port does
+        if "devices" in kw:
+            if torch.cuda.is_available():
+                pytest.skip("a CUDA device exists; the raise needs a "
+                            "card-less machine")
+            with pytest.raises(RuntimeError, match="cuda"):
+                ServingCluster(_factory(), num_replicas=2, **kw)
+            return
+
+        def make(replica=None, fault_injector=None, tp_size=1,
+                 devices=None):
+            return ServingEngine(_port_llama(), device="cpu",
+                                 fault_injector=fault_injector,
+                                 tp_size=tp_size, devices=devices,
+                                 **_ENGINE_KW)
+
+        cl = ServingCluster(make, num_replicas=2, devices=["cpu"] * 4, **kw)
+        assert [r.supervisor.engine.tp_size for r in cl.replicas] == [2, 2]
+        prompt = [5, 9, 2, 7]
+        rid = cl.add_request(prompt, max_new_tokens=4, seed=7)
+        eng = _engine()
+        ref = eng.add_request(prompt, max_new_tokens=4, seed=7)
+        assert cl.run()[rid] == eng.run()[ref]
 
     def test_factory_engines_run_on_the_card_unless_asked(self):
         if torch.cuda.is_available():

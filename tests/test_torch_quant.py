@@ -14,7 +14,15 @@ against the JAX package, plus the port's own invariants.
 - greedy streams token-identical to the JAX engine at the same kv_dtype,
   chunked with the ragged step and unchunked; every quantized path of the
   port (unchunked, ragged, chained) emits the same stream;
-- an fp32 / bf16 engine never imports `serving.quant`.
+- an fp32 / bf16 engine never imports `serving.quant`;
+- the quantized all-reduce of tensor-parallel serving: `block_quantize`
+  writes the JAX package's int8 blocks and scales, `block_dequant_sum`
+  equals the JAX one, `quantized_allreduce` stays within the reference's
+  bound of the plain sum (half an int8 step of each block's amax a
+  shard) and gives every device the same bits; tp=2 engines over int8
+  pools, with and without the int8 all-reduce, emit the tp=1 int8 stream
+  (and the JAX engine's), and a tp=2 int8 stream folded onto a tp=1
+  int8 survivor through `adopt_request` completes it exactly.
 """
 import functools
 import sys
@@ -322,3 +330,86 @@ class TestZeroImport:
         with pytest.raises(AssertionError, match="quant touched"):
             ServingEngine(_port_llama(), device="cpu", kv_dtype="int8",
                           **_kw(None))
+
+
+# ------------------------------------------ the quantized all-reduce (S5)
+
+class TestQuantizedAllReduce:
+    @pytest.mark.parametrize("shape", [(2, 4, 300), (5, 256), (3, 1, 64)])
+    def test_block_quantize_matches_jax(self, shape):
+        x = np.random.RandomState(3).standard_normal(shape).astype(
+            np.float32)
+        x[0] = 0.0                        # an all-zero row: scale 1
+        q, scale = tquant.block_quantize(torch.from_numpy(x))
+        jq, js = jquant.block_quantize(jnp.asarray(x))
+        assert q.dtype == torch.int8 and scale.dtype == torch.float32
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(scale.numpy(), np.asarray(js))
+
+    def test_block_dequant_sum_matches_jax(self):
+        rng = np.random.RandomState(4)
+        parts = [rng.standard_normal((3, 300)).astype(np.float32)
+                 for _ in range(2)]
+        packed = [tquant.block_quantize(torch.from_numpy(p)) for p in parts]
+        got = tquant.block_dequant_sum([q for q, _ in packed],
+                                       [s for _, s in packed], 300,
+                                       torch.float32)
+        jpacked = [jquant.block_quantize(jnp.asarray(p)) for p in parts]
+        want = jquant.block_dequant_sum(
+            jnp.stack([q for q, _ in jpacked]),
+            jnp.stack([s for _, s in jpacked]), 300, jnp.float32)
+        assert got.shape == (3, 300)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize("tp", [2, 4])
+    def test_quantized_allreduce_within_the_reference_bound(self, tp):
+        rng = np.random.RandomState(3)
+        cpu = torch.device("cpu")
+        parts = [torch.from_numpy(rng.standard_normal((4, 300)).astype(
+            np.float32)) for _ in range(tp)]
+        out = tquant.quantized_allreduce(parts, [cpu] * tp)
+        exact = sum(p.double() for p in parts).float()
+        # half an int8 step of the block amax a shard; amax of N(0,1) over
+        # 256 is ~4 (tests/test_quant.py's bound, per shard)
+        np.testing.assert_allclose(out[cpu].numpy(), exact.numpy(),
+                                   atol=tp * 4 / 254, rtol=3e-2)
+        assert out[cpu].dtype == torch.float32
+
+    def test_every_target_holds_the_same_bits(self):
+        rng = np.random.RandomState(5)
+        cpu = torch.device("cpu")
+        parts = [torch.from_numpy(rng.standard_normal((2, 64)).astype(
+            np.float32)).to(torch.bfloat16) for _ in range(2)]
+        out = tquant.quantized_allreduce(parts, [cpu, cpu])
+        again = tquant.quantized_allreduce(list(reversed(parts))[::-1],
+                                           [cpu])
+        assert list(out) == [cpu] and out[cpu].dtype == torch.bfloat16
+        assert torch.equal(out[cpu], again[cpu])
+
+    @pytest.mark.parametrize("qar", [False, True])
+    def test_tp2_int8_streams_equal_tp1(self, qar):
+        eng = ServingEngine(_port_llama(), device="cpu", kv_dtype="int8",
+                            tp_size=2, tp_quantized_allreduce=qar,
+                            **_kw(None))
+        got = _staggered(eng)
+        assert got == _port_run("int8", None)[0] == \
+            _jax_streams("int8", None)
+        probe = eng.metrics.get("serving_tp_collective_seconds",
+                                labels={"overlap": "off"})
+        assert probe is not None and probe.count > 0
+        assert eng.stats()["quant"]["tp_quantized_allreduce"] is qar
+
+    def test_tp2_int8_migrates_onto_tp1_survivor(self):
+        """The fold of a tp=2 int8 engine's delivered tokens into a tp=1
+        int8 survivor (`adopt_request`) completes the same stream."""
+        prompt = list(PROMPTS[1])
+        src = ServingEngine(_port_llama(), device="cpu", kv_dtype="int8",
+                            tp_size=2, **_kw(None))
+        rid = src.add_request(prompt, max_new_tokens=10, seed=0)
+        full = src.run()[rid]
+        survivor = ServingEngine(_port_llama(), device="cpu",
+                                 kv_dtype="int8", **_kw(None))
+        new = survivor.adopt_request(prompt=prompt,
+                                     delivered=full[len(prompt):][:3],
+                                     max_new_tokens=10, seed=0)
+        assert survivor.run()[new] == full

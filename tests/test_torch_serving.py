@@ -12,9 +12,10 @@ ServingEngine on the same weights, plus the port's own invariants.
   independent of the horizon and of the batch they ride in; streams
   unchanged under page pressure (preemption);
 - allocator and scheduler unit cases mirrored from tests/test_serving.py;
-- the engine knobs that are not ported (tensor parallelism) raise
-  NotImplementedError naming their ROADMAP item, and the observability
-  knobs (SLO classes, the flight recorder, post-mortems) are taken;
+- the tensor-parallel knobs (S5) are taken with the reference's
+  validation (the int8 all-reduce and the overlap need tp_size >= 2;
+  `devices` is unused at tp_size=1), and so are the observability knobs
+  (SLO classes, the flight recorder, post-mortems);
   `cache_dtype` is the reference's legacy spelling of
   fp32 / bf16 pools, with its conflict rule.
 
@@ -289,12 +290,23 @@ class TestEngineSurface:
     ])
     def test_unported_knobs_raise_naming_the_roadmap(self, knob, value,
                                                      item):
-        # the S5 knobs still raise; the S9 knobs (SLO classes, the flight
-        # recorder, post-mortems) are ported and now taken
+        # the S5 and S9 knobs are ported and taken; the S5 ones with the
+        # reference's validation: the int8 all-reduce and the overlap
+        # replace a reduction that tp_size=1 lacks, and `devices` carves
+        # nothing at tp_size=1
         if item == "S5":
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP.*{item}"):
-                _engine(_port_llama(), **{knob: value})
+            if knob in ("tp_quantized_allreduce", "tp_overlap"):
+                with pytest.raises(ValueError, match="tp_size >= 2"):
+                    _engine(_port_llama(), **{knob: value})
+                return
+            eng = _engine(_port_llama(), **{knob: value})
+            cpu = torch.device("cpu")
+            held = {"tp_size": eng.tp_size == 2
+                    and eng.cache.shard_devices == (cpu, cpu),
+                    "devices": eng._tp is None,
+                    "tp_overlap_chunks": eng._tp is None
+                    and eng.tp_overlap_chunks == 2}[knob]
+            assert held
             return
         from paddle_tpu_torch.observability import FlightRecorder, SloClass
 

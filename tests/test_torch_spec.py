@@ -17,6 +17,9 @@ engine, against the JAX package and port against port.
   the port drains such a record before `schedule()`, and
   `test_ragged_spec_matches_spec_off_and_the_chained_step` holds it to the
   spec-off streams of both engines;
+- tensor parallelism: a tp=2 engine with speculation emits the tp=1
+  spec-off streams (and the JAX engine's), as the reference's test_spec
+  pins at tp=2;
 - port invariants: spec-on == spec-off for greedy streams; seeded
   stochastic streams reproducible and independent of the horizon; the
   accept / resample rule keeps the target distribution (a unit test over
@@ -332,6 +335,19 @@ class TestGreedyParity:
         assert on == off
         assert on == _jax_stream(_key(prompts, 12, dict(lookahead=4), kw))
         assert eng.stats()["preemptions"] >= 1
+
+    @pytest.mark.parametrize("h,L", [(8, 4), (4, 2)])
+    def test_tp2(self, h, L):
+        """Verify windows run through the TP runner: spec on at tp=2 ==
+        spec off at tp=1 == the JAX engine."""
+        prompts = _prompts(2)
+        off, _ = _run(prompts, 24, None, decode_horizon=h)
+        on, eng = _run(prompts, 24, dict(lookahead=L), decode_horizon=h,
+                       tp_size=2)
+        assert on == off == _jax_stream(_key(prompts, 24, None,
+                                             dict(decode_horizon=h)))
+        assert eng.stats()["spec"]["drafted_tokens"] > 0
+        assert eng.stats()["tp_size"] == 2
 
     def test_int8_pools(self):
         prompts = _prompts(3)
