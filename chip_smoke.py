@@ -324,7 +324,40 @@ without the final result line:
    carved from the one card, replica 1 killed mid-decode, its requests
    migrated, every request exactly once and every stream identical to
    the run without the kill; serve_gpt adds serve_gpt_tp, its unchunked
-   run at tp=2, held against tp=1 by the margin check.
+   run at tp=2, held against tp=1 by the margin check;
+39. plane_kernels (run with the other kernel phases): K1, K2 + K3 (bf16,
+   dropout 0.1) and K4 / K5 (fp32 LayerNorm) at a ZeRO rank's ERNIE-base
+   batch (8 x 512) and at the recompute cell's batch 64, against their
+   plain versions, with kernel, plain, library times and the bound;
+40. recompute (after step_check): ERNIE-1.0 base with every encoder layer
+   recomputed: one O1 step on against off from the same weights and
+   generator under PyTorch's deterministic algorithms (the default CUDA
+   embedding backward is not run-to-run deterministic), the loss and
+   every gradient bit for bit, K1 twice and K4
+   24 more a step on; then batch 32 off and on and batch 64 on (3 + 5
+   steps each): tokens/s/chip, MFU, peak memory (lower on than off);
+41. train_gpt_o2 (after train_gpt): GPT-3 1.3B at 8 x 2048 under O2 with
+   GPT-3's recipe (`amp.decorate`, AdamW 0.9 / 0.95 / 1e-8 with decay 0.1
+   and fp32 masters, the global-norm clip 1.0, a linear warmup into a
+   cosine decay, a GradScaler), 3 + 10 steps: the loss finite and
+   falling, K1-K5 as in train_gpt; tokens/s/chip, MFU and peak memory
+   beside O1's; then 2 layers at full width in fp32, three AdamW + clip
+   + schedule updates card against CPU within ADAM_ATOL;
+42. train_zero (last): ZeRO data parallelism of ERNIE-1.0 base at the
+   Train ERNIE step (a global 32 x 512, O1, dropout 0.1, the fused MLM
+   loss, Adam 1e-4) over 4 ranks spawned once (gloo on one card, NCCL
+   with a card a rank; PyTorch's deterministic algorithms in each rank),
+   each rank's generator from (seed, rank), each leg
+   1 + 3 steps: stage 0 twice (run-to-run identity), stages 1 and 2,
+   stage 2 bucketed (25 MiB) serial and overlapped, grad_accum 2, bf16
+   with fp32 masters and a planted non-finite step (skipped, the scale
+   halved), telemetry off / on / on / off; stage 1 / 2 / bucketed /
+   overlapped and telemetry on bit-identical to their references,
+   optimizer bytes a rank a quarter of stage 0's; then a second world of
+   2 ranks restores the dp-4 checkpoint at stage 2 and stage 0, which
+   must stay bit-identical. Prints tokens/s/chip, optimizer and
+   parameter bytes a rank, staged bytes, the collective probes and the
+   overlap fraction of each leg.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -5994,6 +6027,796 @@ def phase_profile(model, prompts, dev, out_dir):
     return out
 
 
+# ------------------------------------------------- the training plane
+# ZeRO data parallelism: ERNIE-1.0 base at the Train ERNIE cell's step (a
+# global batch of 32 x 512, O1 bf16, dropout 0.1, the fused MLM loss, Adam
+# 1e-4) over ZERO_RANKS ranks, each leg ZERO_STEPS = (warm-up, timed) steps
+ZERO_RANKS = 4
+ZERO_BATCH = (32, 512)
+ZERO_STEPS = (1, 3)
+ZERO_BUCKET = 25 * 2 ** 20
+ZERO_LR = 1e-4
+# the bf16 leg's loss against the fp32 stage-2 leg's, step by step: bf16
+# weights and bf16 dp sums (the documented bounded-error mode)
+ZERO_BF16_RTOL = 2e-2
+# the recompute cell: ERNIE-1.0 base at batch 32 off and on, then batch
+# 64 on (bench.py's "64r"); (warm-up, timed) steps each
+RECOMPUTE_BATCHES = ((32, False), (32, True), (64, True))
+RECOMPUTE_STEPS = (3, 5)
+# GPT-3's recipe (Brown et al. 2020, table 2.1 and appendix B for the 1.3B
+# model): AdamW beta 0.9 / 0.95, eps 1e-8, weight decay 0.1, a global-norm
+# clip of 1.0, a linear warmup into a cosine decay to 10% of the peak
+# 2e-4; the warmup and decay cut to this phase's 13 steps
+GPT_O2_LR, GPT_O2_WARMUP, GPT_O2_DECAY = 2e-4, 3, 10
+GPT_O2_STEPS = (3, 10)
+
+
+def gpt3_recipe(model, lr=GPT_O2_LR, warmup=GPT_O2_WARMUP,
+                decay=GPT_O2_DECAY):
+    """(AdamW with the clip, its schedule) of GPT-3's recipe."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as plr
+
+    sched = plr.LinearWarmup(
+        plr.CosineAnnealingDecay(lr, T_max=decay, eta_min=lr / 10),
+        warmup_steps=warmup, start_lr=0.0, end_lr=lr)
+    opt = AdamW(learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-8,
+                weight_decay=0.1, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0), multi_precision=True)
+    return opt, sched
+
+
+def plane_kernel_cases(rows, dev):
+    """K1-K5 at the training plane's new shapes: a ZeRO rank's ERNIE-base
+    batch (8 of the 32) and the recompute cell's batch 64, bf16 attention
+    with dropout 0.1 (K2 + K3 through `FlashAttention.backward`), fp32
+    LayerNorm (the O1 and O2 type of every norm), each against its plain
+    version and timed alone. GPT-3 1.3B under O2 runs K1-K5 at the O1
+    phase's shapes and types (gpt_kernel_cases)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import norm
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    _, s, h, d = TRAIN_ATTN
+    p = TRAIN_DROPOUT
+    seed = torch.tensor([1515], dtype=torch.int32, device=dev)
+    out = {}
+    for label, b in (("zero rank", ZERO_BATCH[0] // ZERO_RANKS),
+                     ("64r", 64)):
+        dt = torch.bfloat16
+        q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
+                         .to(dt) for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, dropout_p=p,
+                                    seed=seed)
+        e1, t1, _ = check_k1(o, lse, q, k, v, dt, dropout_p=p, seed=seed)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        fa.FlashAttention.apply(qg, kg, vg, None, False, p, seed).backward(
+            dout)
+        delta = fa.attention_delta(o, dout)
+        args = (q, k, v, dout, lse, delta, None, False, p, seed)
+        rdq, rdk, rdv = fa.flash_attention_backward_reference(*args)
+        torch.cuda.synchronize()
+        e2, t2 = check_rel("K2", qg.grad, rdq, dt)
+        ek, tk = check_rel("K3", kg.grad, rdk, dt)
+        ev, tv = check_rel("K3", vg.grad, rdv, dt)
+        e3, t3 = (ek, tk) if ek / tk >= ev / tv else (ev, tv)
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, dropout_p=p)
+        dout_t = dout.transpose(1, 2)
+        case = f"{label} ({b}, {s}, {h}, {d}), dropout {p}"
+        ops = b * h * d * s * s
+        for k_, err, tol, fn, plain, lib, nb, fl in (
+                ("K1", e1, t1,
+                 lambda: fa.flash_attention(q, k, v, return_lse=True,
+                                            dropout_p=p, seed=seed),
+                 lambda: fa.flash_attention_reference(
+                     q, k, v, return_lse=True, dropout_p=p, seed=seed),
+                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                     qt.detach(), kt.detach(), vt.detach(), dropout_p=p),
+                 nbytes(q, k, v, o, lse), 4 * ops),
+                ("K2", e2, t2, lambda: fa.flash_attention_dq(*args),
+                 lambda: fa.flash_attention_backward_reference(*args),
+                 lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
+                                             retain_graph=True),
+                 nbytes(q, k, v, dout, q, lse, delta), 6 * ops),
+                ("K3", e3, t3, lambda: fa.flash_attention_dkv(*args),
+                 lambda: fa.flash_attention_backward_reference(*args),
+                 lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,
+                                             retain_graph=True),
+                 nbytes(q, k, v, dout, k, v, lse, delta), 8 * ops)):
+            row = _row(dt, case, err, tol, time_ms(fn),
+                       time_ms(plain, 5, 1), time_ms(lib),
+                       *bound(nb, fl, dt))
+            _log_row(k_, row)
+            rows.append((k_, row))
+            out[f"{k_} plane {label}"] = row
+        del q, k, v, dout, o, qg, kg, vg, lib_out, qt, kt, vt
+        n, hd, dt = b * s, 768, torch.float32
+        x = (torch.randn(n, hd, generator=g, device=dev) * 2 + 0.3)
+        w = 1 + 0.1 * torch.randn(hd, generator=g, device=dev)
+        bias = 0.1 * torch.randn(hd, generator=g, device=dev)
+        dy = torch.randn(n, hd, generator=g, device=dev)
+        y, mu, rs = norm.norm_forward(x, w, bias, 1e-12, True)
+        ry, rmu, rrs = norm.norm_forward_reference(x, w, bias, 1e-12, True)
+        dx = norm.norm_backward(x, w, dy, mu, rs, True)
+        rdx = norm.norm_backward_reference(x, w, dy, mu, rs, True)
+        torch.cuda.synchronize()
+        e4 = max(max_err(y, ry), max_err(mu, rmu),
+                 max_err(rs, rrs) / float(rrs.abs().max()))
+        t4 = check("K4", e4, dt)
+        e5, t5 = check_rel("K5", dx, rdx, dt)
+        tF = torch.nn.functional
+        xl = x.detach().requires_grad_()
+        yl = tF.layer_norm(xl, (hd,), w, bias, 1e-12)
+        case = f"{label} layer ({n}, {hd})"
+        for k_, err, tol, fn, plain, lib, nb, fl in (
+                ("K4", e4, t4,
+                 lambda: norm.norm_forward(x, w, bias, 1e-12, True),
+                 lambda: norm.norm_forward_reference(x, w, bias, 1e-12,
+                                                     True),
+                 lambda: tF.layer_norm(x, (hd,), w, bias, 1e-12),
+                 nbytes(x, w, bias, y, mu, rs), 8 * x.numel()),
+                ("K5", e5, t5,
+                 lambda: norm.norm_backward(x, w, dy, mu, rs, True),
+                 lambda: norm.norm_backward_reference(x, w, dy, mu, rs,
+                                                      True),
+                 lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True),
+                 nbytes(x, w, dy, mu, rs, dx), 10 * x.numel())):
+            row = _row(dt, case, err, tol, time_ms(fn), time_ms(plain),
+                       time_ms(lib), *bound(nb, fl, dt))
+            _log_row(k_, row)
+            rows.append((k_, row))
+            out[f"{k_} plane {label}"] = row
+        del x, dy, y, dx, rdx, xl, yl
+    return out
+
+
+def _zero_world(seed, dev):
+    """The ERNIE-1.0 base model, the global batch, the generator and the
+    O1 loss function a ZeRO rank trains with. `plant[0] = True` makes the
+    loss infinite (a planted non-finite gradient)."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+
+    cfg = ErnieConfig.ernie_base()
+    cfg.fused_mlm_loss = True
+    model = ErnieForPretraining(cfg, device=dev, seed=seed)
+    model.train()
+    rng = np.random.RandomState(seed)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, ZERO_BATCH)).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, ZERO_BATCH)
+                              ).to(dev)
+    gen = torch.Generator(device=dev)
+    plant = [False]
+
+    def loss_fn(params, ids_, labels_):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = functional_call(model, params, (ids_,), {
+                "masked_lm_labels": labels_, "generator": gen})
+        return loss * float("inf") if plant[0] else loss
+
+    return cfg, model, (ids, labels), gen, plant, loss_fn
+
+
+class deterministic_library_ops:
+    """PyTorch's deterministic algorithms for the library ops of a step
+    (warn_only: an op without one warns and runs): bit parity between two
+    runs of the same step needs them. The default CUDA embedding backward
+    sums a row that many tokens share (ERNIE's token type 0, all 16384
+    tokens of a step) in an order that changes from run to run: on an
+    H100 the token-type gradient moved by ~2e-8 between two identical
+    steps, every other gradient equal. Uninitialized memory is left as it
+    is (every kernel of the port writes its outputs in full)."""
+
+    def __enter__(self):
+        import torch.utils.deterministic as det
+
+        self._saved = (torch.are_deterministic_algorithms_enabled(),
+                       torch.is_deterministic_algorithms_warn_only_enabled(),
+                       det.fill_uninitialized_memory)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det.fill_uninitialized_memory = False
+        return self
+
+    def __exit__(self, *exc):
+        import torch.utils.deterministic as det
+
+        on, warn, fill = self._saved
+        torch.use_deterministic_algorithms(on, warn_only=warn)
+        det.fill_uninitialized_memory = fill
+        return False
+
+
+def _first_difference(a, b):
+    """The first parameter whose bits differ between two dicts, or None."""
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            return k
+    return None
+
+
+def determinism_probe(dev, b=ZERO_BATCH[0] // ZERO_RANKS):
+    """Each training kernel (and the library calls of the step) launched
+    twice on the same inputs at a ZeRO rank's shapes: the names of those
+    whose two results differ in any bit."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import norm
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    _, s, h, d = TRAIN_ATTN
+    seed = torch.tensor([99], dtype=torch.int32, device=dev)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
+                     .bfloat16() for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, dropout_p=0.1,
+                                seed=seed)
+    delta = fa.attention_delta(o, dout)
+    args = (q, k, v, dout, lse, delta, None, False, 0.1, seed)
+    x = torch.randn(b * s, 768, generator=g, device=dev)
+    w, bias = torch.ones(768, device=dev), torch.zeros(768, device=dev)
+    _, mu, rs = norm.norm_forward(x, w, bias, 1e-12, True)
+    emb = torch.randn(18000, 768, generator=g, device=dev,
+                      requires_grad=True)
+    ids = torch.randint(0, 18000, (b, s), generator=g, device=dev)
+    calls = {
+        "K1": lambda: fa.flash_attention(q, k, v, return_lse=True,
+                                         dropout_p=0.1, seed=seed),
+        "K2": lambda: fa.flash_attention_dq(*args),
+        "K3": lambda: fa.flash_attention_dkv(*args),
+        "K4": lambda: norm.norm_forward(x, w, bias, 1e-12, True),
+        "K5": lambda: norm.norm_backward(x, w, x, mu, rs, True),
+        "matmul": lambda: x @ x[:768].T,
+        "embedding backward": lambda: torch.autograd.grad(
+            torch.nn.functional.embedding(ids, emb).sum(), emb),
+    }
+    differ = []
+    for name, fn in calls.items():
+        a, b_ = fn(), fn()
+        a = a if isinstance(a, (tuple, list)) else (a,)
+        b_ = b_ if isinstance(b_, (tuple, list)) else (b_,)
+        if not all(torch.equal(x_, y_) for x_, y_ in zip(a, b_)):
+            differ.append(name)
+    return differ
+
+
+def zero_world_rank(seed, ckpt):
+    """The body of each rank of phase_train_zero (run by
+    `distributed.spawn`): every ZeRO leg of ERNIE-1.0 base at dp =
+    ZERO_RANKS; writes the dp-4 checkpoint to `ckpt` (rank 0). Returns this
+    rank's readings; bit parity is judged here, against this rank's own
+    stage-0 parameters."""
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.observability import training as T
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import zero as Z
+
+    g = ptd.get_group()
+    dev = g.device
+    deterministic_library_ops().__enter__()     # this rank's process only
+    cfg, model, batch, gen, plant, loss_fn = _zero_world(seed, dev)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    counters = train_counters()
+    # rank r works on cuda:(r % count): the cards the world spans
+    count = torch.cuda.device_count()
+    cards = len({r % count for r in range(g.nranks)})
+    out = {"backend": g.backend, "device": str(dev), "legs": {}}
+    ref = {}
+
+    def leg(name, stage, params=None, host=None, t0=1, keep=False, **kw):
+        gen.manual_seed(seed * 1000 + g.rank)      # from (seed, rank)
+        opt = Adam(learning_rate=ZERO_LR, parameters=model.parameters())
+        step = Z.zero_train_step(model, opt, loss_fn, stage=stage, group=g,
+                                 **kw)
+        p, st = step.init_state(init if params is None else params)
+        if host is not None:
+            st = step.load_optimizer_state(host)
+        warm, timed = ZERO_STEPS
+        losses, t = [], t0
+        for _ in range(warm):
+            loss, p, st = step(p, st, batch, ZERO_LR, t)
+            losses.append(loss)
+            t += 1
+        torch.cuda.synchronize(dev)
+        ptd.barrier(g)
+        staged = g.staged_bytes
+        for fn in counters.values():
+            fn.launches = 0
+        t_start = time.perf_counter()
+        for _ in range(timed):
+            loss, p, st = step(p, st, batch, ZERO_LR, t)
+            losses.append(loss)
+            t += 1
+        torch.cuda.synchronize(dev)
+        ptd.barrier(g)
+        wall = time.perf_counter() - t_start
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if any(n <= 0 for n in launches.values()):
+            raise AssertionError(f"ZeRO leg {name}: a kernel of the path "
+                                 f"did not launch: {launches}")
+        tokens = ZERO_BATCH[0] * ZERO_BATCH[1]
+        rec = dict(stage=stage, losses=[float(x) for x in losses],
+                   step_ms=wall / timed * 1e3, wall_s=wall,
+                   tokens_per_s_chip=tokens * timed / wall / cards,
+                   launches=launches,
+                   staged_bytes_per_step=(g.staged_bytes - staged) / timed,
+                   opt_bytes=step.optimizer_state_bytes_per_chip(st),
+                   param_bytes=step.bytes_per_chip(p),
+                   knobs={k: v for k, v in kw.items()
+                          if k != "telemetry"})
+        if ref:
+            rec["differs_from_stage0"] = _first_difference(ref, p)
+        out["legs"][name] = rec
+        return (rec, p, st, step) if keep else rec
+
+    rec, p0, _, _ = leg("stage0", 0, keep=True)
+    ref.update(p0)
+    again = leg("stage0 again", 0)
+    if again["differs_from_stage0"] is not None:
+        out["not_deterministic"] = determinism_probe(dev)
+        return out
+    for stage in (1, 2):
+        leg(f"stage{stage}", stage)
+    _, p2, st2, s2 = leg("stage2 bucket", 2, keep=True,
+                         bucket_bytes=ZERO_BUCKET)
+    host = s2.save_optimizer_state(st2)
+    if g.rank == 0:
+        torch.save({"params": {k: v.cpu() for k, v in p2.items()},
+                    "state": host, "t": sum(ZERO_STEPS) + 1}, ckpt)
+    del host
+    rec, _, _, s3 = leg("stage2 overlap", 2, keep=True,
+                        bucket_bytes=ZERO_BUCKET, overlap=True)
+    rec["collective_s"] = s3.collective_seconds(samples=3, rows=1,
+                                                width=2 ** 20)
+    rec["comm_s"] = s3.comm_seconds(samples=2, elems=2 ** 20, best_of=2)
+    rec["overlap_fraction"] = s3.measure_overlap_fraction(samples=1,
+                                                          best_of=2)
+    rec["buckets"] = len(s3._buckets)
+    del s3
+    leg("stage2 accum2", 2, grad_accum=2)
+    ref.clear()
+    rec, p16, st16, s16 = leg("stage2 bf16", 2, keep=True,
+                              param_dtype="bf16")
+    scale = float(st16[Z._SCALER_KEY]["scale"])
+    plant[0] = True
+    _, p_after, st_after = s16(p16, st16, batch, ZERO_LR, sum(ZERO_STEPS) + 1)
+    plant[0] = False
+    rec["planted"] = dict(
+        params_kept=_first_difference(p16, p_after) is None,
+        state_kept=all(torch.equal(st16[k][s], st_after[k][s])
+                       for k in st16 if k != Z._SCALER_KEY
+                       for s in st16[k]),
+        scale_before=scale,
+        scale_after=float(st_after[Z._SCALER_KEY]["scale"]))
+    del p16, st16, s16, p_after, st_after
+    # telemetry off / on / on / off (A B B A); on must equal off
+    for i, on in enumerate((False, True, True, False)):
+        name = f"telemetry {'on' if on else 'off'} {'AB'[i in (1, 2)]}{i}"
+        kw = {}
+        tele = None
+        if on:
+            tele = T.TrainingTelemetry(tokens_per_step=ZERO_BATCH[0]
+                                       * ZERO_BATCH[1], enable_recorder=False)
+            kw["telemetry"] = tele
+        rec, p, _, _ = leg(name, 2, keep=True, **kw)
+        if i == 0:
+            ref.update(p)
+        else:
+            rec["differs_from_off"] = _first_difference(ref, p)
+        if tele is not None:
+            s = tele.summary()
+            rec["host_syncs"] = s["host_syncs"]
+            rec["last"] = s["last"]
+    return out
+
+
+def zero_restore_rank(seed, ckpt):
+    """The body of each rank of the second world (dp 2): the dp-4
+    checkpoint restored and trained on at stage 2 and at stage 0, which
+    must stay in lockstep bit for bit."""
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import zero as Z
+
+    g = ptd.get_group()
+    dev = g.device
+    deterministic_library_ops().__enter__()     # this rank's process only
+    cfg, model, batch, gen, _, loss_fn = _zero_world(seed, dev)
+    saved = torch.load(ckpt)
+    out = {"device": str(dev), "legs": {}}
+    results = {}
+    counters = train_counters()
+    for stage in (2, 0):
+        gen.manual_seed(seed * 1000 + g.rank)
+        opt = Adam(learning_rate=ZERO_LR, parameters=model.parameters())
+        step = Z.zero_train_step(model, opt, loss_fn, stage=stage, group=g)
+        p, _ = step.init_state({k: v.to(dev) for k, v in
+                                saved["params"].items()})
+        st = step.load_optimizer_state(saved["state"])
+        for fn in counters.values():
+            fn.launches = 0
+        losses = []
+        for t in range(saved["t"], saved["t"] + sum(ZERO_STEPS)):
+            loss, p, st = step(p, st, batch, ZERO_LR, t)
+            losses.append(float(loss))
+        launches = {k: fn.launches for k, fn in counters.items()}
+        if any(n <= 0 for n in launches.values()):
+            raise AssertionError(f"restored stage {stage}: a kernel did not "
+                                 f"launch: {launches}")
+        results[stage] = p
+        out["legs"][f"restored stage{stage}"] = dict(
+            losses=losses, launches=launches,
+            opt_bytes=step.optimizer_state_bytes_per_chip(st))
+    out["differs"] = _first_difference(results[0], results[2])
+    return out
+
+
+def phase_train_zero(seed, dev):
+    """ZeRO data-parallel ERNIE-1.0 base: one world of ZERO_RANKS ranks
+    (`distributed.spawn`, spawned once; gloo on one card, staging through
+    pinned host memory, NCCL with a card a rank) runs the legs of
+    `zero_world_rank`; a second world of 2 ranks restores the dp-4
+    checkpoint (zero_restore_rank). Stage 1 / 2 / bucketed / overlapped
+    must equal stage 0 bit for bit (after stage 0 equals itself run to
+    run), optimizer bytes a rank must be a quarter of stage 0's up to each
+    leaf's padding, the bf16 leg must skip the planted step and halve its
+    scale, telemetry on must equal off. Any rank's failure raises."""
+    import tempfile
+
+    from paddle_tpu_torch import distributed as ptd
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ptt_zero_") as tmp:
+        ckpt = os.path.join(tmp, "zero_dp4.pt")
+        ranks = ptd.spawn(zero_world_rank, (seed, ckpt), nprocs=ZERO_RANKS,
+                          timeout=900)
+        r0 = ranks[0]
+        if "not_deterministic" in r0:
+            raise AssertionError(
+                "ZeRO stage 0 run twice gave other bits: not run-to-run "
+                f"deterministic on this card: {r0['not_deterministic']} "
+                f"(first differing parameter "
+                f"{r0['legs']['stage0 again']['differs_from_stage0']})")
+        world2 = ptd.spawn(zero_restore_rank, (seed, ckpt), nprocs=2,
+                           timeout=600)
+    wall = time.perf_counter() - t0
+    shared = len({r["device"] for r in ranks}) < ZERO_RANKS
+    backend = r0["backend"]
+    legs = r0["legs"]
+    opt0 = legs["stage0"]["opt_bytes"]
+    log(f"[train_zero] ERNIE-1.0 base, global batch {ZERO_BATCH[0]} x "
+        f"{ZERO_BATCH[1]}, O1 bf16, dropout 0.1, fused MLM loss, Adam "
+        f"{ZERO_LR}, dp {ZERO_RANKS} on {[r['device'] for r in ranks]} over "
+        f"{backend} ({'ranks share the card' if shared else 'a card a rank'})"
+        f"; each leg {ZERO_STEPS[0]} + {ZERO_STEPS[1]} steps; {wall:.1f} s "
+        "with the restore world")
+    fails = []
+    for name, rec in legs.items():
+        diff = rec.get("differs_from_stage0", rec.get("differs_from_off"))
+        extra = ""
+        if "collective_s" in rec:
+            extra = (f"; collective probe (4 MiB all-reduce) "
+                     f"{min(rec['collective_s']) * 1e3:.2f} ms, "
+                     f"reduce-scatter {rec['comm_s']['reduce_scatter'] * 1e3:.2f}"
+                     f" ms, all-gather {rec['comm_s']['all_gather'] * 1e3:.2f}"
+                     f" ms (4 MiB), {rec['buckets']} buckets, overlap "
+                     f"fraction {rec['overlap_fraction']:.3f}")
+        if "host_syncs" in rec:
+            extra += f"; host drains {rec['host_syncs']}"
+        log(f"[train_zero] {name}: {rec['tokens_per_s_chip']:.1f} tokens/s/"
+            f"chip, step {rec['step_ms']:.1f} ms, optimizer "
+            f"{rec['opt_bytes'] / 2**20:.1f} MiB / parameters "
+            f"{rec['param_bytes'] / 2**20:.1f} MiB a rank, staged "
+            f"{rec['staged_bytes_per_step'] / 2**20:.1f} MiB a step a rank, "
+            f"launches {rec['launches']}, loss "
+            + ", ".join(f"{x:.5f}" for x in rec["losses"])
+            + (f"; bits differ from the reference from {diff}"
+               if diff is not None else "") + extra)
+        if diff is not None and "bf16" not in name and "accum" not in name:
+            fails.append(f"{name} differs from its reference at {diff}")
+        if not all(np.isfinite(rec["losses"])):
+            fails.append(f"{name}: non-finite loss")
+    for stage in (1, 2):
+        got = legs[f"stage{stage}"]["opt_bytes"]
+        # a quarter of stage 0's, up to each leaf's padding to 4 x chunk
+        if not opt0 / ZERO_RANKS <= got <= opt0 / ZERO_RANKS * 1.001:
+            fails.append(f"stage {stage} optimizer bytes {got} vs stage 0 "
+                         f"{opt0} / {ZERO_RANKS}")
+    b16 = legs["stage2 bf16"]
+    ref32 = legs["stage2"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(b16["losses"], ref32))
+    pl = b16["planted"]
+    log(f"[train_zero] bf16 leg: loss within {rel:.3g} of fp32 stage 2 (tol "
+        f"{ZERO_BF16_RTOL}); planted non-finite step: parameters kept "
+        f"{pl['params_kept']}, state kept {pl['state_kept']}, scale "
+        f"{pl['scale_before']} -> {pl['scale_after']}")
+    if not rel <= ZERO_BF16_RTOL:
+        fails.append(f"bf16 loss {rel} from fp32")
+    if not (pl["params_kept"] and pl["state_kept"]
+            and pl["scale_after"] == pl["scale_before"] / 2):
+        fails.append(f"the planted non-finite step was not skipped: {pl}")
+    for name, rec in legs.items():
+        if "host_syncs" in rec and rec["host_syncs"] != sum(ZERO_STEPS):
+            fails.append(f"{name}: {rec['host_syncs']} host drains")
+    w2 = world2[0]
+    for name, rec in w2["legs"].items():
+        log(f"[train_zero] dp-4 checkpoint restored at dp 2, {name}: loss "
+            + ", ".join(f"{x:.5f}" for x in rec["losses"])
+            + f"; optimizer {rec['opt_bytes'] / 2**20:.1f} MiB a rank; "
+            f"launches {rec['launches']}")
+    log(f"[train_zero] restored stage 2 vs stage 0 at dp 2: "
+        f"{'bit-identical' if w2['differs'] is None else 'differ at ' + w2['differs']}")
+    if w2["differs"] is not None:
+        fails.append(f"restored dp 2 stage 2 differs from stage 0 at "
+                     f"{w2['differs']}")
+    if fails:
+        raise AssertionError("train_zero: " + "; ".join(fails))
+    launches = {k: sum(r["legs"][n]["launches"][k] for r in ranks
+                       for n in r["legs"])
+                + sum(r["legs"][n]["launches"][k] for r in world2
+                      for n in r["legs"])
+                for k in TRAIN_LAUNCHES}
+    return dict(backend=backend, shared_card=shared, wall_s=wall,
+                legs=legs, per_rank=[r["legs"] for r in ranks],
+                restore=[r["legs"] for r in world2],
+                launches=launches)
+
+
+def recompute_grads(model, ids, labels, dev, seed):
+    """One training forward / backward; (loss, {name: grad})."""
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss, _ = model(ids, masked_lm_labels=labels, generator=gen)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None}
+
+
+def phase_recompute(seed, dev, profile=False, out_dir=None):
+    """ERNIE-1.0 base with every encoder layer recomputed: one O1 step with
+    recompute on against off from the same weights and generator, under
+    `deterministic_library_ops` (the loss and every gradient bit for bit),
+    then the train step at batch 32 off and on and at batch 64 on, with
+    PyTorch's default algorithms as in the Train ERNIE cell,
+    RECOMPUTE_STEPS each: tokens/s/chip, MFU, peak memory and launches (K1
+    and K4 replay in the backward)."""
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.training import make_train_step
+
+    cfg = ErnieConfig.ernie_base()
+    cfg.fused_mlm_loss = True
+    model = ErnieForPretraining(cfg, device=dev, seed=seed)
+    model.train()
+    rng = np.random.RandomState(seed)
+    data = {b: tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (b, 512))).to(dev)
+                     for _ in range(2))
+            for b in sorted({b for b, _ in RECOMPUTE_BATCHES})}
+    b0 = RECOMPUTE_BATCHES[0][0]
+    ids, labels = data[b0]
+    counters = train_counters()
+    got = {}
+    with deterministic_library_ops():
+        for on in (False, True):
+            model.config.recompute = on
+            for fn in counters.values():
+                fn.launches = 0
+            got[on] = recompute_grads(model, ids, labels, dev, seed) + (
+                {k: fn.launches for k, fn in counters.items()},)
+    (l0, g0, n0), (l1, g1, n1) = got[False], got[True]
+    same = torch.equal(l0, l1) and all(torch.equal(g0[k], g1[k]) for k in g0)
+    layers = cfg.num_hidden_layers
+    want = dict(n0, K1=2 * n0["K1"], K4=n0["K4"] + 2 * layers)
+    log(f"[recompute] one O1 step, recompute on vs off: loss {float(l0)!r} "
+        f"/ {float(l1)!r}, loss and every gradient "
+        f"{'bit-identical' if same else 'DIFFER'}; launches off {n0}, on "
+        f"{n1}")
+    if not same:
+        bad = next(k for k in g0 if not torch.equal(g0[k], g1[k]))
+        raise AssertionError(f"recompute on != off: first gradient {bad}, "
+                             f"max |diff| {max_err(g0[bad], g1[bad])}")
+    if n1 != want:
+        raise AssertionError(f"recompute launches {n1} != {want}")
+    del g0, g1
+    model.zero_grad(set_to_none=True)
+    out = {"same_bits": same, "launches_one_step": {"off": n0, "on": n1}}
+    fpt = flops_per_token(model, cfg, 512)
+    warm, timed = RECOMPUTE_STEPS
+    for b, on in RECOMPUTE_BATCHES:
+        model.config.recompute = on
+        opt = Adam(learning_rate=1e-4, parameters=model.parameters())
+        step = make_train_step(model, opt)
+        ids, labels = data[b]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(warm):
+            torch.cuda.set_sync_debug_mode("error" if i == warm - 1 else 0)
+            try:
+                step(ids, labels, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            losses.append(step(ids, labels, gen))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        lv = [float(x) for x in losses]
+        tps = b * 512 * timed / wall
+        mfu = tps * fpt / PEAK_FLOPS[torch.bfloat16]
+        tag = f"batch {b}{' recompute' if on else ''}"
+        log(f"[recompute] {tag}: {tps:.1f} tokens/s/chip, step "
+            f"{wall / timed * 1e3:.2f} ms, MFU {mfu:.4f} (model FLOPs, "
+            f"{fpt / 1e6:.1f} MFLOP/token), peak memory "
+            f"{peak / 2**30:.2f} GiB, launches in {timed} steps {launches}, "
+            "loss " + ", ".join(f"{x:.4f}" for x in lv))
+        if not all(np.isfinite(lv)):
+            raise AssertionError(f"recompute {tag}: non-finite loss {lv}")
+        if any(n <= 0 for n in launches.values()):
+            raise AssertionError(f"recompute {tag}: launches {launches}")
+        out[tag] = dict(tokens_per_s=tps, step_ms=wall / timed * 1e3,
+                        mfu=mfu, peak_bytes=peak, launches=launches,
+                        losses=lv)
+        if profile and on and b == b0:
+            out["profile"] = profile_window(
+                "recompute_step", lambda: step(ids, labels, gen), out_dir)
+        del opt, step
+    if not out[f"batch {b0} recompute"]["peak_bytes"] < out[
+            f"batch {b0}"]["peak_bytes"]:
+        raise AssertionError("recompute did not lower the peak memory")
+    runs = [out[f"batch {b}{' recompute' if on else ''}"]
+            for b, on in RECOMPUTE_BATCHES]
+    out["launches"] = {k: n0[k] + n1[k] + sum(r["launches"][k] for r in runs)
+                       for k in TRAIN_LAUNCHES}
+    return out
+
+
+def phase_train_gpt_o2(seed, dev, o1, profile=False, out_dir=None):
+    """GPT-3 1.3B at 8 x 2048 under O2 with GPT-3's recipe: `decorate`
+    (bf16 parameters, fp32 masters), AdamW (0.9, 0.95, 1e-8, decay 0.1),
+    the global-norm clip 1.0, warmup into cosine, a GradScaler, through
+    make_causal_lm_train_step(level="O2"): GPT_O2_STEPS (warm-up, timed)
+    steps; tokens/s/chip, MFU and peak memory beside the O1 phase's
+    (`o1`). Then, at full width with 2 layers in fp32, three AdamW + clip
+    + schedule updates on the card against the CPU's, both fed the CPU's
+    gradients."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.training import make_causal_lm_train_step
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.fused_lm_loss = True
+    batch, seq = GPT_ATTN[0], GPT_ATTN[1]
+    held = torch.cuda.memory_allocated()
+    model = GPTForCausalLM(cfg, device=dev, seed=seed)
+    opt, sched = gpt3_recipe(model)
+    model, opt = amp.decorate(model, opt, level="O2")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    step = make_causal_lm_train_step(model, opt, scaler=scaler, level="O2")
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (batch, seq))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    warm, timed = GPT_O2_STEPS
+    counters = train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    losses, lrs = [], []
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        lrs.append(opt.get_lr())
+        losses.append(step(ids, ids, gen))
+        sched.step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        lrs.append(opt.get_lr())
+        losses.append(step(ids, ids, gen))
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    lv = [float(x) for x in losses]
+    tps = batch * seq * timed / wall
+    fpt = flops_per_token(model, cfg, seq)
+    mfu = tps * fpt / PEAK_FLOPS[torch.bfloat16]
+    masters = sum(st["master_weight"].numel() for st in opt.state.values())
+    log(f"[train_gpt_o2] GPT-3 1.3B ({n_params / 1e9:.4f} B params, bf16 "
+        f"with {masters / 1e9:.4f} B fp32 master weights), batch {batch} x "
+        f"seq {seq}, O2, AdamW(0.9, 0.95, 1e-8, decay 0.1), global-norm "
+        f"clip 1.0, warmup {GPT_O2_WARMUP} into cosine over {GPT_O2_DECAY} "
+        f"(peak {GPT_O2_LR}), GradScaler (scale now "
+        f"{scaler.get_loss_scaling()}); warm-up {warm} steps {warm_s:.2f} s; "
+        f"{timed} timed steps {wall:.3f} s: {tps:.1f} tokens/s/chip (O1 "
+        f"{o1['tokens_per_s']:.1f}), step {wall / timed * 1e3:.2f} ms (O1 "
+        f"{o1['step_ms']:.2f}), MFU {mfu:.4f} (O1 {o1['mfu']:.4f}), peak "
+        f"memory {peak / 2**30:.2f} GiB (O1 {o1['peak_bytes'] / 2**30:.2f}; "
+        f"{held / 2**30:.2f} GiB held before the phase)")
+    log("[train_gpt_o2] lr by step: " + ", ".join(f"{x:.3g}" for x in lrs))
+    log("[train_gpt_o2] loss by step: " + ", ".join(f"{x:.4f}" for x in lv))
+    log(f"[train_gpt_o2] launches in the {timed} timed steps: {launches}")
+    if not all(np.isfinite(lv)):
+        raise AssertionError(f"non-finite O2 loss: {lv}")
+    if not lv[-1] < lv[0]:
+        raise AssertionError(f"O2 loss did not fall: {lv}")
+    expected = gpt_launches(cfg.num_hidden_layers)
+    wrong = {k: n for k, n in launches.items() if n != expected[k] * timed}
+    if wrong:
+        raise AssertionError(f"O2 launches {wrong} (over {timed} steps) != "
+                             f"{expected} a step")
+    out = dict(launches=launches, tokens_per_s=tps,
+               step_ms=wall / timed * 1e3, mfu=mfu, peak_bytes=peak,
+               held_bytes=held, losses=lv, lrs=lrs, n_params=n_params,
+               loss_scale=scaler.get_loss_scaling())
+    if profile:
+        out["profile"] = profile_window(
+            "train_gpt_o2_step", lambda: step(ids, ids, gen), out_dir)
+    del model, opt, step, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["recipe_check"] = gpt3_recipe_card_vs_cpu(seed, dev)
+    return out
+
+
+def gpt3_recipe_card_vs_cpu(seed, dev, updates=3):
+    """GPT-3 1.3B's widths at 2 layers, fp32, dropout 0, batch 2 x 256: the
+    loss and every gradient card against CPU (step_card_vs_cpu), then
+    `updates` AdamW + clip + schedule updates of each, both fed the CPU's
+    gradients, the parameters within ADAM_ATOL."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_hidden_layers = 2
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    cfg.fused_lm_loss = True
+    card = GPTForCausalLM(cfg, device=dev, seed=seed)
+    cpu = GPTForCausalLM(dataclasses.replace(cfg), device="cpu", seed=seed)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    ids = torch.from_numpy(np.random.RandomState(seed + 4).randint(
+        0, cfg.vocab_size, (2, 256)))
+    out = step_card_vs_cpu("GPT 2-layer, for the recipe", card, cpu, ids,
+                           ids, dev)
+    # the recipe's peak rate, reached at the first update; the clip acts
+    # (the global norm at init is above 1.0) and so does the decay
+    recipe = [gpt3_recipe(m, warmup=1, decay=updates) for m in (card, cpu)]
+    for _ in range(updates):
+        with torch.no_grad():
+            for pc, pp in zip(card.parameters(), cpu.parameters()):
+                pc.grad = pp.grad.to(dev)
+        for opt, sched in recipe:
+            opt.step()
+            sched.step()
+    err = max(max_err(pc.cpu(), pp) for pc, pp in
+              zip(card.parameters(), cpu.parameters()))
+    log(f"[train_gpt_o2] 2-layer fp32: {updates} AdamW + global-norm clip + "
+        f"warmup / cosine updates card vs CPU (same gradients): parameters "
+        f"within {err:.3g} (tol {ADAM_ATOL})")
+    if not err <= ADAM_ATOL:
+        raise AssertionError(f"recipe update max abs error {err}")
+    out["recipe_max_abs_err"] = err
+    return out
+
+
 KERNELS = {
     "K1": dict(name="flash_attention_forward", route="cuda",
                source="paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -6070,6 +6893,11 @@ def summarize(main_rows, launches_by_path):
         if k in ("K1", "K2", "K3"):
             entry["gpt_train"] = {x: main_rows[f"{k} gpt"][x]
                                   for x in gpt_keys}
+        plane = {key[len(k) + 7:]: {x: row[x] for x in gpt_keys}
+                 for key, row in main_rows.items()
+                 if key.startswith(f"{k} plane ")}
+        if plane:
+            entry["training_plane"] = plane
         if k in ("K4", "K5"):
             entry["gpt_layer_norm"] = [
                 {x: row[x] for x in gpt_keys} for key, row in
@@ -6131,9 +6959,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="profile one prefill and two decode blocks of the "
                          "served slice, two ragged steps of the chunked "
-                         "serve, two speculative blocks, one ERNIE, one T5, "
-                         "one GPT and one MoE train step with "
-                         "torch.profiler")
+                         "serve, two speculative blocks, one ERNIE, one "
+                         "recomputed ERNIE, one T5, one GPT (O1 and O2) "
+                         "and one MoE train step with torch.profiler")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     smi = phase_device()
@@ -6158,6 +6986,7 @@ def main(argv=None):
     main_rows.update(k45_train_cases(rows, dev))
     main_rows.update(t5_kernel_cases(rows, dev))
     main_rows.update(gpt_kernel_cases(rows, dev))
+    main_rows.update(plane_kernel_cases(rows, dev))
     main_rows.update(k9_cases(rows, dev, args.seed))
     main_rows.update(phase_ring_kernels(rows, dev))
     main_rows.update(tp_kernel_cases(rows, dev))
@@ -6249,9 +7078,17 @@ def main(argv=None):
     release()
     result["step_check"] = phase_step_check(args.seed, dev)
     release()
+    result["recompute"] = r = phase_recompute(args.seed, dev, args.profile,
+                                              args.out)
+    launches["recompute"] = r["launches"]
+    release()
     result["train_gpt"] = phase_train_gpt(args.seed, dev, args.profile,
                                           args.out)
     launches["train_gpt"] = result["train_gpt"]["launches"]
+    release()
+    result["train_gpt_o2"] = r = phase_train_gpt_o2(
+        args.seed, dev, result["train_gpt"], args.profile, args.out)
+    launches["train_gpt_o2"] = r["launches"]
     release()
     result["gpt_step_check"] = phase_gpt_step_check(args.seed, dev)
     release()
@@ -6279,6 +7116,10 @@ def main(argv=None):
                 for k in kernels}
     launches["moe_ep"] = {"K9": sum(p["train"]["launches"]["K9"]
                                     for p in r["moe_ep"])}
+    release()
+    result["train_zero"] = r = phase_train_zero(args.seed, dev)
+    launches["train_zero"] = r["launches"]
+    release()
     result["seconds"] = time.perf_counter() - t_start
     result["summary"] = summarize(main_rows, launches)
     if args.out:

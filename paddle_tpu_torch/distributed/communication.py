@@ -19,7 +19,7 @@ import torch.distributed as dist
 
 from .group import Group, _default
 
-__all__ = ["ReduceOp", "all_reduce", "all_gather", "alltoall_single",
+__all__ = ["ReduceOp", "Pending", "all_reduce", "all_gather", "alltoall_single",
            "send", "recv", "P2POp", "batch_isend_irecv",
            "barrier", "ring_shift", "all_to_all", "replicated", "pmean"]
 
@@ -83,32 +83,56 @@ def all_reduce(tensor: torch.Tensor, op=ReduceOp.SUM,
     return _back(wire, tensor, g)
 
 
+class Pending:
+    """A collective in flight (`async_op=True`): the backend moves the
+    bytes while the caller goes on; `wait()` finishes it (copying staged
+    bytes back to the card) and returns what the synchronous call would
+    have returned."""
+
+    def __init__(self, work, finish):
+        self._work = work
+        self._finish = finish
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._finish()
+
+
 def all_gather(tensor_list: Optional[List[torch.Tensor]],
-               tensor: torch.Tensor, group: Optional[Group] = None
-               ) -> List[torch.Tensor]:
+               tensor: torch.Tensor, group: Optional[Group] = None,
+               async_op: bool = False):
     """Every rank's `tensor`, in rank order, into `tensor_list` (cleared
-    first; a new list when None); returns the list."""
+    first; a new list when None); returns the list, or with `async_op` a
+    `Pending` whose `wait()` returns it."""
     g = _resolve(group)
     out = [] if tensor_list is None else tensor_list
     out.clear()
     if g.nranks == 1:
         out.append(tensor.clone())
-        return out
+        return Pending(None, lambda: out) if async_op else out
     wire = _out(tensor.contiguous(), g)
     bufs = [torch.empty_like(wire) for _ in range(g.nranks)]
-    dist.all_gather(bufs, wire, group=g.pg)
-    out.extend(_received(b, tensor, g) for b in bufs)
-    return out
+    work = dist.all_gather(bufs, wire, group=g.pg, async_op=async_op)
+
+    def finish():
+        out.extend(_received(b, tensor, g) for b in bufs)
+        return out
+
+    return Pending(work, finish) if async_op else finish()
 
 
 def alltoall_single(out_tensor: Optional[torch.Tensor],
                     in_tensor: torch.Tensor,
                     in_split_sizes: Optional[Sequence[int]] = None,
                     out_split_sizes: Optional[Sequence[int]] = None,
-                    group: Optional[Group] = None) -> torch.Tensor:
+                    group: Optional[Group] = None, async_op: bool = False):
     """Rank i sends the j-th slice of `in_tensor` (dim 0, equal parts or
     `in_split_sizes`) to rank j and receives rank j's i-th slice as the
-    j-th slice of `out_tensor` (a new tensor when None, equal splits)."""
+    j-th slice of `out_tensor` (a new tensor when None, equal splits).
+    Returns `out_tensor`, or with `async_op` a `Pending` whose `wait()`
+    returns it."""
     g = _resolve(group)
     in_tensor = in_tensor.contiguous()
     if out_tensor is None:
@@ -117,14 +141,17 @@ def alltoall_single(out_tensor: Optional[torch.Tensor],
                              "out_split_sizes")
         out_tensor = torch.empty_like(in_tensor)
     if g.nranks == 1:
-        return out_tensor.copy_(in_tensor)
+        out_tensor.copy_(in_tensor)
+        return Pending(None, lambda: out_tensor) if async_op else out_tensor
     wire_in = _out(in_tensor, g)
     wire_out = _in(out_tensor, g)
-    dist.all_to_all_single(
+    work = dist.all_to_all_single(
         wire_out, wire_in,
         None if out_split_sizes is None else list(out_split_sizes),
         None if in_split_sizes is None else list(in_split_sizes),
-        group=g.pg)
+        group=g.pg, async_op=async_op)
+    if async_op:
+        return Pending(work, lambda: _back(wire_out, out_tensor, g))
     return _back(wire_out, out_tensor, g)
 
 

@@ -13,7 +13,11 @@ logits.
 The forward takes the `torch.Generator` that hidden and attention dropout
 draw from (`generator=`, on the model's device; needed in training when
 dropout is on). Attention runs through the flash kernels (K1 forward with
-dropout, K2 / K3 backward) and every LayerNorm through K4 / K5.
+dropout, K2 / K3 backward) and every LayerNorm through K4 / K5. With
+`ErnieConfig.recompute`, each encoder layer is recomputed in the backward
+in training (`distributed.fleet.recompute`, as the reference's :166-170),
+its dropout draws replayed from the same generator state, so K1 and K4
+run again in the backward.
 
 Construction takes `device` (default: the port's default device, "cuda",
 which raises when there is no card), `dtype` and `seed`: weights are drawn
@@ -103,9 +107,9 @@ class ErnieLayer(nn.Module):
     def forward(self, x, attn_mask=None, generator=None):
         # post-LN (BERT convention)
         a = self.attention(x, attn_mask, generator)
-        x = self.attn_norm(x + self.dropout(a, generator))
+        x = self.attn_norm(F.add(x, self.dropout(a, generator)))
         f = self.ffn_out(F.gelu(self.ffn_in(x)))
-        return self.ffn_norm(x + self.dropout(f, generator))
+        return self.ffn_norm(F.add(x, self.dropout(f, generator)))
 
 
 class ErnieEmbeddings(nn.Module):
@@ -129,10 +133,10 @@ class ErnieEmbeddings(nn.Module):
                                         device=input_ids.device)[None]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        emb = (F.embedding(input_ids, self.word_embeddings.weight)
-               + F.embedding(position_ids, self.position_embeddings.weight)
-               + F.embedding(token_type_ids,
-                             self.token_type_embeddings.weight))
+        emb = F.add(F.add(
+            F.embedding(input_ids, self.word_embeddings.weight),
+            F.embedding(position_ids, self.position_embeddings.weight)),
+            F.embedding(token_type_ids, self.token_type_embeddings.weight))
         return self.dropout(self.norm(emb), generator)
 
 
@@ -144,11 +148,6 @@ class ErnieModel(nn.Module):
         super().__init__()
         self.config = cfg or ErnieConfig.ernie_base()
         cfg = self.config
-        if cfg.recompute:
-            raise NotImplementedError(
-                "ErnieConfig.recompute (activation checkpointing) is not "
-                "ported yet (ROADMAP queue 1, T6: recompute via "
-                "torch.utils.checkpoint)")
         fk = {"device": device, "dtype": dtype}
         self.embeddings = ErnieEmbeddings(cfg, **fk)
         self.layers = nn.ModuleList([ErnieLayer(cfg, **fk)
@@ -163,8 +162,14 @@ class ErnieModel(nn.Module):
                               )[:, None, None, :]
         x = self.embeddings(input_ids, token_type_ids, position_ids,
                             generator)
-        for layer in self.layers:
-            x = layer(x, attention_mask, generator)
+        if self.config.recompute and self.training:
+            from ..distributed.fleet.recompute import recompute
+
+            for layer in self.layers:
+                x = recompute(layer, x, attention_mask, generator)
+        else:
+            for layer in self.layers:
+                x = layer(x, attention_mask, generator)
         pooled = F.tanh(self.pooler(x[:, 0]))
         return x, pooled
 

@@ -130,9 +130,10 @@ class GPTBlock(nn.Module):
 
     def forward(self, x, cache=None, start_pos=0, generator=None):
         if cache is None:
-            x = x + self.dropout(self.attn(self.ln1(x), generator=generator),
-                                 generator)
-            return x + self._ffn(x, generator)
+            x = F.add(x, self.dropout(self.attn(self.ln1(x),
+                                                generator=generator),
+                                      generator))
+            return F.add(x, self._ffn(x, generator))
         attn, cache = self.attn(self.ln1(x), cache, start_pos)
         x = x + self.dropout(attn, generator)
         return x + self._ffn(x, generator), cache
@@ -201,8 +202,8 @@ class GPTModel(nn.Module):
                                            input_ids.device)
         position_ids = position_ids.clamp(
             0, self.config.max_position_embeddings - 1)
-        x = self.dropout(F.embedding(input_ids, self.wte.weight)
-                         + F.embedding(position_ids, self.wpe.weight),
+        x = self.dropout(F.add(F.embedding(input_ids, self.wte.weight),
+                               F.embedding(position_ids, self.wpe.weight)),
                          generator)
         if caches is None:
             for blk in self.blocks:

@@ -132,7 +132,8 @@ class LlamaMLP(nn.Module):
         self.down_proj = _linear(cfg.intermediate_size, cfg.hidden_size, fk)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(F.multiply(F.silu(self.gate_proj(x)),
+                                         self.up_proj(x)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -147,8 +148,8 @@ class LlamaDecoderLayer(nn.Module):
 
     def forward(self, x, cache=None, start_pos=0, rope=None):
         if cache is None:
-            x = x + self.self_attn(self.input_layernorm(x), rope=rope)
-            return x + self.mlp(self.post_attention_layernorm(x))
+            x = F.add(x, self.self_attn(self.input_layernorm(x), rope=rope))
+            return F.add(x, self.mlp(self.post_attention_layernorm(x)))
         attn, cache = self.self_attn(self.input_layernorm(x), cache,
                                      start_pos, rope)
         x = x + attn

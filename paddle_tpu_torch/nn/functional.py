@@ -6,10 +6,11 @@ ops.yaml ops they dispatch to).
 backward) and `scaled_dot_product_attention` the flash-attention kernels
 (K1 forward with dropout, K2 / K3 backward), as their JAX counterparts
 reach the Pallas kernels; `linear`, `matmul`, `embedding`, `gelu`, `relu`,
-`silu`, `tanh`, `dropout` and `mse_loss` (:536) are PyTorch's own
-arithmetic, and the two cross-entropies live in `ops.cross_entropy`. The
-ops of the amp lists cast their inputs through `amp.cast_inputs` first, as
-the reference's dispatch does under `auto_cast`. `linear` takes PyTorch's
+`silu`, `tanh`, `add`, `multiply`, `dropout` and `mse_loss` (:536) are
+PyTorch's own arithmetic, and the two cross-entropies live in
+`ops.cross_entropy`. Every op asks `amp.cast_inputs` for its inputs' types
+first, as the reference's dispatch does under `auto_cast` (O1 casts only
+the listed ops, O2 every op). `linear` takes PyTorch's
 (out, in) weight layout: `weights.load_reference_state` transposes
 paddle's (in, out) weights when they cross.
 
@@ -31,7 +32,7 @@ from ..ops.norm import layer_norm as _layer_norm
 from ..ops.norm import rms_norm as _rms_norm
 
 __all__ = ["linear", "matmul", "embedding", "silu", "gelu", "relu", "tanh",
-           "dropout", "rms_norm", "layer_norm",
+           "add", "multiply", "dropout", "rms_norm", "layer_norm",
            "scaled_dot_product_attention", "cross_entropy",
            "fused_linear_cross_entropy", "mse_loss"]
 
@@ -51,24 +52,42 @@ def matmul(x: torch.Tensor, y: torch.Tensor,
 
 
 def embedding(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    (weight,) = amp.cast_inputs("embedding", weight)
     return _tF.embedding(x, weight)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
+    (x,) = amp.cast_inputs("silu", x)
     return _tF.silu(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU, exact (erf), paddle's default."""
+    (x,) = amp.cast_inputs("gelu", x)
     return _tF.gelu(x)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
+    (x,) = amp.cast_inputs("relu", x)
     return torch.relu(x)
 
 
 def tanh(x: torch.Tensor) -> torch.Tensor:
+    (x,) = amp.cast_inputs("tanh", x)
     return torch.tanh(x)
+
+
+def add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y; under O2 both in the amp type, as the reference's `add`
+    (the models' residual adds)."""
+    x, y = amp.cast_inputs("add", x, y)
+    return x + y
+
+
+def multiply(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x * y; under O2 both in the amp type (SwiGLU's gate product)."""
+    x, y = amp.cast_inputs("multiply", x, y)
+    return x * y
 
 
 def _need_generator(generator, what):
@@ -89,6 +108,7 @@ def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
     if not 0.0 < p < 1.0:
         raise ValueError(f"dropout p must lie in [0, 1), got {p}")
     gen = _need_generator(generator, "dropout")
+    (x,) = amp.cast_inputs("dropout", x)
     keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
     return torch.where(keep, x * (1.0 / (1.0 - p)), 0.0)
 
@@ -151,7 +171,9 @@ def cross_entropy(logits: torch.Tensor, label: torch.Tensor,
 def mse_loss(input: torch.Tensor, label: torch.Tensor,
               reduction: str = "mean") -> torch.Tensor:
     """mean / sum / none of (input - label)^2 (nn_ops.mse_loss): on neither
-    amp list, so it computes in its inputs' type."""
+    amp list, so it computes in its inputs' type (the amp type under
+    O2)."""
+    input, label = amp.cast_inputs("mse_loss", input, label)
     loss = torch.square(input - label)
     if reduction == "none":
         return loss

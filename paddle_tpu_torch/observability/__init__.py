@@ -14,8 +14,9 @@
   events, and the JSON post-mortem bundles (`tools/postmortem.py` renders
   them).
 
-The ZeRO training plane of the reference (`TrainingTelemetry`,
-`DivergenceSentinel`, ...) is not ported yet.
+- `training`: the ZeRO trainer's plane (`TrainingTelemetry`,
+  `DivergenceSentinel`, `TrainingDiverged`), imported only by a trainer
+  that turns telemetry on (not re-exported here).
 
 `global_registry()` is the process-wide registry for library-level
 signals; each ServingEngine keeps its own registry by default so

@@ -24,6 +24,16 @@ with `group`, the layer runs expert-parallel over its ranks
 (`MoELayer.expert_parallel_forward`), each rank on its share of the
 tokens of x and of target. The steps make no host sync: the loss comes
 back as a device tensor, and reading it is the caller's choice.
+
+Each step takes an amp `level` ("O1" by default; "O2" after
+`amp.decorate`, which makes the parameters bf16 and gives the optimizer
+fp32 master weights) and an optional `scaler` (`amp.GradScaler`): the loss
+is scaled before the backward, `scaler.step` unscales the gradients, reads
+the found-inf flag (the step's one host read) and skips the update on
+inf / NaN, and `scaler.update` moves the scale. The gradient clip and the
+learning-rate schedule belong to the optimizer (`grad_clip=`, an
+`LRScheduler` as its `learning_rate`, which the caller steps), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -39,44 +49,57 @@ __all__ = ["make_train_step", "make_seq2seq_train_step",
            "make_causal_lm_train_step", "make_moe_train_step"]
 
 
-def make_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer
+def _update(loss: torch.Tensor, opt: torch.optim.Optimizer, scaler) -> None:
+    """Backward and one optimizer update (through the scaler when there is
+    one: scale, backward, `scaler.step`, `scaler.update`), then the
+    gradients dropped."""
+    if scaler is None:
+        loss.backward()
+        opt.step()
+    else:
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+    opt.zero_grad(set_to_none=True)
+
+
+def make_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                    scaler=None, level: str = "O1"
                     ) -> Callable[[torch.Tensor, torch.Tensor,
                                    torch.Generator], torch.Tensor]:
     def step(ids: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator) -> torch.Tensor:
         model.train()
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
+        with amp.auto_cast(level=level, dtype="bfloat16"):
             loss, _ = model(ids, masked_lm_labels=labels,
                             generator=generator)
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        _update(loss, opt, scaler)
         return loss.detach()
 
     return step
 
 
 def make_seq2seq_train_step(model: torch.nn.Module,
-                            opt: torch.optim.Optimizer
+                            opt: torch.optim.Optimizer, scaler=None,
+                            level: str = "O1"
                             ) -> Callable[[torch.Tensor, torch.Tensor,
                                            torch.Generator], torch.Tensor]:
     def step(input_ids: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator) -> torch.Tensor:
         model.train()
         decoder_input_ids = model.shift_right(labels)
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
+        with amp.auto_cast(level=level, dtype="bfloat16"):
             logits = model(input_ids, decoder_input_ids, generator=generator)
             loss = model.loss(logits, labels)
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        _update(loss, opt, scaler)
         return loss.detach()
 
     return step
 
 
 def make_causal_lm_train_step(model: torch.nn.Module,
-                              opt: torch.optim.Optimizer
+                              opt: torch.optim.Optimizer, scaler=None,
+                              level: str = "O1"
                               ) -> Callable[[torch.Tensor, torch.Tensor,
                                              torch.Generator], torch.Tensor]:
     takes_generator = "generator" in inspect.signature(
@@ -86,22 +109,21 @@ def make_causal_lm_train_step(model: torch.nn.Module,
              generator: torch.Generator) -> torch.Tensor:
         model.train()
         kw = {"generator": generator} if takes_generator else {}
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
+        with amp.auto_cast(level=level, dtype="bfloat16"):
             loss = model(ids, labels=labels, **kw)
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        _update(loss, opt, scaler)
         return loss.detach()
 
     return step
 
 
 def make_moe_train_step(layer: torch.nn.Module, opt: torch.optim.Optimizer,
-                        group=None) -> Callable[[torch.Tensor, torch.Tensor],
-                                                torch.Tensor]:
+                        group=None, scaler=None, level: str = "O1"
+                        ) -> Callable[[torch.Tensor, torch.Tensor],
+                                      torch.Tensor]:
     def step(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         layer.train()
-        with amp.auto_cast(level="O1", dtype="bfloat16"):
+        with amp.auto_cast(level=level, dtype="bfloat16"):
             if group is None:
                 y = layer(x)
             else:
@@ -110,9 +132,7 @@ def make_moe_train_step(layer: torch.nn.Module, opt: torch.optim.Optimizer,
                 per = rows.shape[0] // group.nranks
                 target = rows[group.rank * per:(group.rank + 1) * per]
             loss = F.mse_loss(y, target) + 0.01 * layer.aux_loss
-        loss.backward()
-        opt.step()
-        opt.zero_grad(set_to_none=True)
+        _update(loss, opt, scaler)
         return loss.detach()
 
     return step
