@@ -21,7 +21,13 @@ What is ported, slice by slice:
    attention mask;
 5. the MoE layer's train step (`incubate.distributed.models.moe`,
    `training.make_moe_train_step`), its dispatch and combine through the
-   row gather K9 (`ops.moe_dispatch`).
+   row gather K9 (`ops.moe_dispatch`);
+
+and later slices serving, generation and tensor parallelism (ROADMAP.md)
+and the training plane: the optimizer family (`optimizer`, `optimizer.lr`,
+`nn.clip`), amp O2 with the `GradScaler`, recompute
+(`distributed.fleet.recompute`), ZeRO data parallelism (`parallel.zero`)
+and its telemetry (`observability.training`).
 
 The kernels are CUDA C++ (`csrc/`, built by `_build`) except K4 / K5,
 which are Triton (`ops.norm`).

@@ -57,7 +57,7 @@ EVENT_KINDS = (
     "dead",         # supervisor declared the engine dead
     "migrate",      # cluster moved a request off a dead replica
     "adopt",        # a surviving replica adopted a migrated request
-    # training plane (not ported yet)
+    # training plane (observability/training.py)
     "train_step",   # one ZeRO train step completed (scalars only)
     "diverged",     # the divergence sentinel flagged a condition
 )
