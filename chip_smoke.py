@@ -6349,6 +6349,14 @@ def zero_world_rank(seed, ckpt):
                           if k != "telemetry"})
         if ref:
             rec["differs_from_stage0"] = _first_difference(ref, p)
+        # the construction-time probes of this leg's engine (collectives
+        # over the group: every rank runs them together)
+        rec["collective_s"] = step.collective_seconds(samples=3, rows=1,
+                                                      width=2 ** 20)
+        if step._buckets:
+            rec["buckets"] = len(step._buckets)
+            rec["overlap_fraction"] = step.measure_overlap_fraction(
+                samples=1, best_of=2)
         out["legs"][name] = rec
         return (rec, p, st, step) if keep else rec
 
@@ -6369,12 +6377,7 @@ def zero_world_rank(seed, ckpt):
     del host
     rec, _, _, s3 = leg("stage2 overlap", 2, keep=True,
                         bucket_bytes=ZERO_BUCKET, overlap=True)
-    rec["collective_s"] = s3.collective_seconds(samples=3, rows=1,
-                                                width=2 ** 20)
     rec["comm_s"] = s3.comm_seconds(samples=2, elems=2 ** 20, best_of=2)
-    rec["overlap_fraction"] = s3.measure_overlap_fraction(samples=1,
-                                                          best_of=2)
-    rec["buckets"] = len(s3._buckets)
     del s3
     leg("stage2 accum2", 2, grad_accum=2)
     ref.clear()
@@ -6496,14 +6499,16 @@ def phase_train_zero(seed, dev):
     fails = []
     for name, rec in legs.items():
         diff = rec.get("differs_from_stage0", rec.get("differs_from_off"))
-        extra = ""
-        if "collective_s" in rec:
-            extra = (f"; collective probe (4 MiB all-reduce) "
-                     f"{min(rec['collective_s']) * 1e3:.2f} ms, "
-                     f"reduce-scatter {rec['comm_s']['reduce_scatter'] * 1e3:.2f}"
-                     f" ms, all-gather {rec['comm_s']['all_gather'] * 1e3:.2f}"
-                     f" ms (4 MiB), {rec['buckets']} buckets, overlap "
-                     f"fraction {rec['overlap_fraction']:.3f}")
+        extra = (f"; collective probe (4 MiB all-reduce) "
+                 f"{min(rec['collective_s']) * 1e3:.2f} ms")
+        if "comm_s" in rec:
+            extra += (f", reduce-scatter "
+                      f"{rec['comm_s']['reduce_scatter'] * 1e3:.2f} ms, "
+                      f"all-gather {rec['comm_s']['all_gather'] * 1e3:.2f} "
+                      "ms (4 MiB)")
+        if "overlap_fraction" in rec:
+            extra += (f"; {rec['buckets']} buckets, overlap fraction "
+                      f"{rec['overlap_fraction']:.3f}")
         if "host_syncs" in rec:
             extra += f"; host drains {rec['host_syncs']}"
         log(f"[train_zero] {name}: {rec['tokens_per_s_chip']:.1f} tokens/s/"
