@@ -348,7 +348,7 @@ without the final result line:
    loss, Adam 1e-4) over 4 ranks spawned once (gloo on one card, NCCL
    with a card a rank; PyTorch's deterministic algorithms in each rank),
    each rank's generator from (seed, rank), each leg
-   1 + 3 steps: stage 0 twice (run-to-run identity), stages 1 and 2,
+   1 + 2 steps: stage 0 twice (run-to-run identity), stages 1 and 2,
    stage 2 bucketed (25 MiB) serial and overlapped, grad_accum 2, bf16
    with fp32 masters and a planted non-finite step (skipped, the scale
    halved), telemetry off / on / on / off; stage 1 / 2 / bucketed /
@@ -357,7 +357,29 @@ without the final result line:
    2 ranks restores the dp-4 checkpoint at stage 2 and stage 0, which
    must stay bit-identical. Prints tokens/s/chip, optimizer and
    parameter bytes a rank, staged bytes, the collective probes and the
-   overlap fraction of each leg.
+   overlap fraction of each leg;
+43. fleet_kernels (run with the other kernel phases): K1, K2 + K3 (bf16,
+   causal, dropout 0.1) at a fleet rank's micro-batch of GPT-3 1.3B
+   (FLEET_ATTN: 2 x 2048, 16 / mp = 8 heads of 128) and K4 / K5 (fp32
+   LayerNorm) at its 4096 rows of width 2048, against their plain
+   versions, with kernel, plain, library times and the bound;
+44. embedding_determinism (after step_check): F4: two identical ERNIE-1.0
+   base O1 steps under PyTorch's defaults give the same bits in every
+   gradient (the port's fixed-order embedding backward); each lookup's
+   backward timed: the port's, PyTorch's default and its deterministic
+   form;
+45. train_fleet (last): fleet hybrid parallelism over 4 ranks spawned
+   once, after the single-rank references: GPT-3 1.3B at pp 2 x mp 2
+   through fleet.init, PipelineLayer(gpt_pipe_layers(tensor_parallel=
+   True)), distributed_model, distributed_optimizer and train_batch (2 O1
+   steps at dropout 0 against the single-rank accumulated step: loss and
+   global gradient norm within the bf16 bounds; one step at GPT-3's
+   recipe: tokens/s/chip, MFU, each rank's peak memory and staged bytes);
+   pp 2 x dp 2 and its interleaved form at fp32 bit for bit the
+   single-rank step; GroupSharded p_g_os bit for bit ZeroTrainStep stage
+   0 with a quarter of its parameter bytes; ZeroTrainStep dp 2 x tp 2 on
+   ERNIE-1.0 base within fp32 rounding of tp 1. PyTorch's default
+   algorithms in every rank.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -4659,16 +4681,19 @@ def gpt_kernel_cases(rows, dev):
     return main
 
 
-def gpt_attention_cases(rows, dev):
+def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt"):
+    """K1, K2 and K3 at `shape` (causal, dropout 0.1), bf16 at its batch
+    and (`fp32`) fp32 at batch 1; the bf16 rows under `"K1 <key>"`..."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(11)
-    b0, s, h, d = GPT_ATTN
+    b0, s, h, d = shape
     p = TRAIN_DROPOUT
     seed = torch.tensor([9001], dtype=torch.int32, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     main = {}
-    for dtype, b in ((torch.bfloat16, b0), (torch.float32, 1)):
+    for dtype, b in ((torch.bfloat16, b0),) + (
+            ((torch.float32, 1),) if fp32 else ()):
         q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
                          .to(dtype) for _ in range(4))
         out, lse = fa.flash_attention(q, k, v, None, True, True, p, seed)
@@ -4708,7 +4733,8 @@ def gpt_attention_cases(rows, dev):
         b1 = bound(nbytes(q, k, v, out, lse), 4 * b * h * d * pairs, dtype)
         b2 = bound(io_in + nbytes(q), 6 * b * h * d * pairs, dtype)
         b3 = bound(io_in + nbytes(k, v), 8 * b * h * d * pairs, dtype)
-        case = f"GPT causal ({b}, {s}, {h}, {d}), dropout {p}"
+        case = (f"GPT {'fleet rank ' if key != 'gpt' else ''}causal "
+                f"({b}, {s}, {h}, {d}), dropout {p}")
         note = "sdpa backward, dQ+dK+dV together"
         r1 = _row(dtype, case, e1, t1, ms1, plain1, lib1, *b1, lse_err=e_lse,
                   dropout_p=p, library_note="sdpa forward, is_causal")
@@ -4720,7 +4746,7 @@ def gpt_attention_cases(rows, dev):
             _log_row(name, r)
             rows.append((name, r))
         if dtype == torch.bfloat16:
-            main = {"K1 gpt": r1, "K2 gpt": r2, "K3 gpt": r3}
+            main = {f"K1 {key}": r1, f"K2 {key}": r2, f"K3 {key}": r3}
         del q, k, v, dout, out, lib_out, qt, kt, vt
     return main
 
@@ -4774,18 +4800,20 @@ def static_decode_cases(rows, dev):
     return main
 
 
-def gpt_norm_cases(rows, dev):
+def gpt_norm_cases(rows, dev, forms=None, key="gpt"):
     """K4 and K5 in LayerNorm mode (eps 1e-5) at GPT-3 1.3B's width: the
     Train GPT step's 16384 rows in fp32 (O1's type), and K4 in bf16 at 512
-    rows (the Serve GPT prefill). Library: F.layer_norm and its
-    backward."""
+    rows (the Serve GPT prefill), or `forms` ((dtype, rows, with the
+    backward), ...). Library: F.layer_norm and its backward."""
     from paddle_tpu_torch.ops import norm
 
     g = torch.Generator(device=dev).manual_seed(13)
     hd, eps, tF = GPT_HIDDEN, 1e-5, torch.nn.functional
     main = {}
-    for dtype, n, with_bwd in ((torch.float32, GPT_ATTN[0] * GPT_ATTN[1],
-                                True), (torch.bfloat16, 512, False)):
+    if forms is None:
+        forms = ((torch.float32, GPT_ATTN[0] * GPT_ATTN[1], True),
+                 (torch.bfloat16, 512, False))
+    for dtype, n, with_bwd in forms:
         x = (torch.randn(n, hd, generator=g, device=dev) * 2 + 0.3).to(dtype)
         w = (1 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
         bias = (0.1 * torch.randn(hd, generator=g, device=dev)).to(dtype)
@@ -4804,7 +4832,7 @@ def gpt_norm_cases(rows, dev):
         r4 = _row(dtype, case, err4, tol4, ms4, plain4, lib4, *b4)
         _log_row("K4", r4)
         rows.append(("K4", r4))
-        main[f"K4 gpt {str(dtype)[6:]}"] = r4
+        main[f"K4 {key} {str(dtype)[6:]}"] = r4
         if with_bwd:
             dy = torch.randn(n, hd, generator=g, device=dev).to(dtype)
             dx = norm.norm_backward(x, w, dy, mu, rs, True)
@@ -4823,7 +4851,7 @@ def gpt_norm_cases(rows, dev):
                       library_note="F.layer_norm backward (dx, and dw)")
             _log_row("K5", r5)
             rows.append(("K5", r5))
-            main["K5 gpt"] = r5
+            main[f"K5 {key}"] = r5
             del dy, dx, rdx, xl, yl
         del x, y
     return main
@@ -6033,7 +6061,8 @@ def phase_profile(model, prompts, dev, out_dir):
 # 1e-4) over ZERO_RANKS ranks, each leg ZERO_STEPS = (warm-up, timed) steps
 ZERO_RANKS = 4
 ZERO_BATCH = (32, 512)
-ZERO_STEPS = (1, 3)
+# (1 + 2: the whole run keeps to its time limit beside the fleet phase)
+ZERO_STEPS = (1, 2)
 ZERO_BUCKET = 25 * 2 ** 20
 ZERO_LR = 1e-4
 # the bf16 leg's loss against the fp32 stage-2 leg's, step by step: bf16
@@ -6822,6 +6851,652 @@ def gpt3_recipe_card_vs_cpu(seed, dev, updates=3):
     return out
 
 
+# ------------------------------------------------------- the fleet cell
+# GPT-3 1.3B at full width over FLEET_RANKS ranks: pp 2 x mp 2 x sharding 1,
+# the reference dry run's `_factor_axes(4)` (__graft_entry__.py:43-51);
+# global batch 8 x 2048 in FLEET_ACCUM micro-batches of 2 (a rank's K1-K3
+# at FLEET_ATTN: 16 / mp heads of 128), O1 bf16, Adam FLEET_LR
+FLEET_RANKS = 4
+FLEET_BATCH = (8, 2048)
+FLEET_ACCUM = 4
+FLEET_ATTN = (2, 2048, 8, 128)
+FLEET_LR = 1e-4
+FLEET_STEPS = 2
+# the pp 2 x mp 2 bf16 steps against the single-rank bf16 step at dropout
+# 0: both round every product's output to bf16, but the mp split cuts the
+# row-parallel products' sums in two and gathers the head in parts, so
+# the loss and the global gradient norm move by bf16 roundings
+FLEET_LOSS_RTOL, FLEET_NORM_RTOL = 5e-3, 2e-2
+# the fp32 pp-only and interleaved legs, and the GroupSharded leg, at full
+# width and cut depth: every rank holds its copy of the single-rank
+# reference's work (the GroupSharded leg's stage 0 keeps four whole
+# replicas with Adam state on the one card)
+FLEET_PP_LAYERS = 2
+FLEET_ZERO3_LAYERS = 4
+# ZeroTrainStep at dp 2 x tp 2 on ERNIE-1.0 base (fp32, dropout 0, SGD so
+# that an update is its gradient times lr): each parameter's update within
+# this relative L2 error of tp 1's (a LayerNorm weight's gradient is a sum
+# over the 16384 tokens whose terms cancel, so the reordered tp sums move
+# it by up to ~1e-4 of itself: 9.25e-5 on an H100), the losses within
+# FLEET_TP_LOSS_RTOL
+FLEET_TP_LR = 0.1
+FLEET_TP_UPDATE_RTOL = 1e-3
+FLEET_TP_LOSS_RTOL = 1e-5
+
+
+def fleet_kernel_cases(rows, dev):
+    """K1, K2, K3 at a fleet rank's micro-batch (FLEET_ATTN, bf16, causal,
+    dropout 0.1) and K4 / K5 in LayerNorm mode at its 2 x 2048 rows of
+    GPT-3 1.3B's width (fp32, O1's type), against their plain versions."""
+    main = gpt_attention_cases(rows, dev, FLEET_ATTN, fp32=False,
+                               key="fleet")
+    main.update(gpt_norm_cases(
+        rows, dev, ((torch.float32, FLEET_ATTN[0] * FLEET_ATTN[1], True),),
+        key="fleet"))
+    main["K4 fleet"] = main.pop("K4 fleet float32")
+    return main
+
+
+def embedding_determinism(seed, dev):
+    """F4 on the card: two identical ERNIE-1.0 base O1 steps (dropout 0.1,
+    32 x 512, the same weights and generator) under PyTorch's defaults
+    must give the same bits in every gradient, now that the port's
+    `F.embedding` sums each row in a fixed order; then each of ERNIE's
+    three lookups' backward timed (CUDA events): the port's, PyTorch's
+    default and PyTorch's deterministic form."""
+    from paddle_tpu_torch.nn import functional as F
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("deterministic algorithms are on: the check "
+                             "needs PyTorch's defaults")
+    cfg, model, (ids, labels), _, _, _ = _zero_world(seed, dev)
+    (l0, g0), (l1, g1) = [recompute_grads(model, ids, labels, dev, seed)
+                          for _ in range(2)]
+    differ = [k for k in g0 if not torch.equal(g0[k], g1[k])]
+    del model, g0, g1
+    lookups = {"word ids": (ids, cfg.vocab_size),
+               "positions": (torch.arange(ids.shape[1], device=dev)[None]
+                             .expand_as(ids), cfg.max_position_embeddings),
+               "token types (all 0)": (torch.zeros_like(ids), 2)}
+    times = {}
+    for name, (i, n) in lookups.items():
+        w = torch.randn(n, cfg.hidden_size, device=dev, requires_grad=True)
+        dy = torch.randn(*i.shape, cfg.hidden_size, device=dev)
+
+        def backward(fn):
+            return lambda: torch.autograd.grad(fn(i, w), w, dy)
+
+        row = {"port": time_ms(backward(F.embedding)),
+               "torch default": time_ms(backward(
+                   torch.nn.functional.embedding))}
+        with deterministic_library_ops():
+            row["torch deterministic"] = time_ms(backward(
+                torch.nn.functional.embedding))
+        times[name] = row
+    log(f"[embedding] two ERNIE-1.0 base O1 steps under PyTorch's defaults: "
+        f"losses {'equal' if torch.equal(l0, l1) else 'DIFFER'}, gradients "
+        f"that differ: {differ or 'none'}")
+    for name, row in times.items():
+        log(f"[embedding] {name} lookup backward ({tuple(ids.shape)} ids): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+    if differ or not torch.equal(l0, l1):
+        raise AssertionError(f"F4: two identical ERNIE steps differ at "
+                             f"{differ}")
+    return dict(identical=True, lookup_backward_ms=times)
+
+
+def fleet_batch(seed, dev, vocab):
+    return torch.from_numpy(np.random.RandomState(seed + 16).randint(
+        0, vocab, FLEET_BATCH)).to(dev)
+
+
+def fleet_cfg(layers=None, dropout=0.0):
+    from paddle_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = dropout
+    return cfg
+
+
+def digest(t):
+    import hashlib
+
+    return hashlib.sha1(t.detach().float().contiguous().cpu().numpy()
+                        .tobytes()).hexdigest()
+
+
+def _accumulated_step(pipe, opt, ids, accum, data_ranks, o1):
+    """One step of the single-rank reference in the pipeline's order:
+    each data rank's rows cut into `accum` micro-batches, their gradients
+    added in order, the data ranks' sums added in rank order, one
+    multiply by 1 / (accum x data ranks), the optimizer. Returns (loss,
+    the global gradient norm before the update)."""
+    import contextlib
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+
+    crit = GPTPretrainingCriterion()
+    sums, per = [], []
+    for rows in torch.split(ids, ids.shape[0] // data_ranks):
+        losses = []
+        for micro in torch.split(rows, rows.shape[0] // accum):
+            ctx = (amp.auto_cast(level="O1", dtype="bfloat16") if o1
+                   else contextlib.nullcontext())
+            with ctx:
+                loss = crit(pipe(micro), micro)
+            loss.backward()
+            losses.append(loss.detach())
+        per.append(sum(l.float() for l in losses) / len(losses))
+        if data_ranks > 1:
+            sums.append({n: p.grad.clone() for n, p in
+                         pipe.named_parameters()})
+            pipe.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        for n, p in pipe.named_parameters():
+            g = p.grad if data_ranks == 1 else sums[0][n]
+            for s in sums[1:]:
+                g = g + s[n]
+            p.grad = g * (1.0 / (accum * data_ranks))
+    norm = torch.sqrt(sum(torch.sum(p.grad.float() ** 2)
+                          for p in pipe.parameters()))
+    opt.step()
+    opt.clear_grad()
+    loss = per[0]
+    for v in per[1:]:
+        loss = loss + v
+    if data_ranks > 1:
+        loss = loss * (1.0 / data_ranks)
+    return float(loss), float(norm)
+
+
+def fleet_references(seed, dev):
+    """The single-rank references of phase_train_fleet, computed before
+    its world starts and freed: (a) GPT-3 1.3B's pipe layers on one rank,
+    O1, dropout 0, FLEET_STEPS steps accumulating the FLEET_ACCUM
+    micro-batches (loss and global gradient norm a step); (b) the
+    FLEET_PP_LAYERS-deep pipe layers at fp32, one step in the pp 2 x dp 2
+    order (loss and every parameter's digest)."""
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+    from paddle_tpu_torch.models.gpt import gpt_pipe_layers
+    from paddle_tpu_torch.optimizer import Adam
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg = fleet_cfg()
+    pipe = mpl.PipelineLayer(gpt_pipe_layers(cfg, device=dev, seed=seed),
+                             num_stages=1)
+    pipe.train()
+    out["n_params"] = sum(p.numel() for p in pipe.parameters())
+    out["flops_per_token"] = (6 * out["n_params"] + 12 * cfg.num_hidden_layers
+                              * cfg.hidden_size * FLEET_BATCH[1])
+    opt = Adam(learning_rate=FLEET_LR, parameters=pipe.parameters())
+    ids = fleet_batch(seed, dev, cfg.vocab_size)
+    out["steps"] = [_accumulated_step(pipe, opt, ids, FLEET_ACCUM, 1, True)
+                    for _ in range(FLEET_STEPS)]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del pipe, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = fleet_cfg(FLEET_PP_LAYERS)
+    pipe = mpl.PipelineLayer(gpt_pipe_layers(cfg, device=dev, seed=seed),
+                             num_stages=1)
+    pipe.train()
+    opt = Adam(learning_rate=FLEET_LR, parameters=pipe.parameters())
+    out["pp_loss"], _ = _accumulated_step(pipe, opt, ids, FLEET_ACCUM, 2,
+                                          False)
+    out["pp_digests"] = {n: digest(p) for n, p in pipe.named_parameters()}
+    del pipe, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+class _NormProbe:
+    """The optimizer of a pipeline leg, reading the hybrid global norm of
+    the reduced gradients before each step."""
+
+    def __init__(self, opt, hcg):
+        from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+        from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+            hybrid_parallel_optimizer as hpo)
+        from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+        self.split = hpo.is_mp_split
+        self.opt = opt
+        self.clip = mpl.HybridParallelClipGrad(ClipGradByGlobalNorm(1.0),
+                                               hcg)
+        self.norms = []
+
+    def step(self):
+        params = [p for p in self.opt._parameter_list if p.grad is not None]
+        self.norms.append(float(self.clip.hybrid_global_norm(
+            [p.grad for p in params],
+            [self.split(p) for p in params])))
+        self.opt.step()
+
+    def clear_grad(self):
+        self.opt.clear_grad()
+
+
+def _staged(ptd_group_mod):
+    return sum(g.staged_bytes for g in ptd_group_mod._GROUPS.values())
+
+
+def _fleet_init(**degrees):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {f"{k}_degree": v for k, v in degrees.items()}
+    s.pipeline_configs = {"accumulate_steps": FLEET_ACCUM}
+    return fleet.init(is_collective=True, strategy=s)
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ernie_tp_specs(cfg):
+    """The tp specs of ERNIE-1.0's Megatron split (the port's (out, in)
+    layout): QKV and ffn_in split by output rows, the attention output and
+    ffn_out by input columns; everything else replicated."""
+    specs = {}
+    for i in range(cfg.num_hidden_layers):
+        pre = f"ernie.layers.{i}."
+        specs.update({pre + "attention.qkv.weight": ("tp", None),
+                      pre + "attention.qkv.bias": ("tp",),
+                      pre + "attention.out.weight": (None, "tp"),
+                      pre + "ffn_in.weight": ("tp", None),
+                      pre + "ffn_in.bias": ("tp",),
+                      pre + "ffn_out.weight": (None, "tp")})
+    return specs
+
+
+def ernie_tensor_parallel(model, group):
+    """ERNIE-1.0's encoder layers made Megatron-parallel over `group`, in
+    place: the fused QKV and ffn_in column-parallel (the QKV's output in
+    the interleaved (tp, 3, heads / tp, hd) layout), the attention output
+    and ffn_out row-parallel, each attention on heads / tp heads. The
+    parameters keep their names and take this rank's tp shapes."""
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+
+    cfg, dev = model.config, model.mlm_bias.device
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    kw = dict(mp_group=group, device=dev)
+    for layer in model.ernie.layers:
+        att = layer.attention
+        att.qkv = mpl.ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                           **kw)
+        att.qkv.interleave_heads = att.num_heads
+        att.out = mpl.RowParallelLinear(h, h, input_is_parallel=True, **kw)
+        att.num_heads //= group.nranks
+        layer.ffn_in = mpl.ColumnParallelLinear(h, ffn, gather_output=False,
+                                                **kw)
+        layer.ffn_out = mpl.RowParallelLinear(ffn, h, input_is_parallel=True,
+                                              **kw)
+
+
+def _qkv_layout(full, heads, tp, inverse=False):
+    """GPT / ERNIE's fused QKV between the dense (3, heads, hd) output
+    layout and the interleaved (tp, 3, heads / tp, hd) one."""
+    from paddle_tpu_torch.serving.tp import interleave_qkv
+
+    out = {}
+    for n, v in full.items():
+        if ".qkv." in n:
+            v = (v.reshape(tp, 3, heads // tp, -1, *v.shape[1:])
+                 .transpose(0, 1).reshape(v.shape) if inverse
+                 else interleave_qkv(v, heads, tp))
+        out[n] = v
+    return out
+
+
+def fleet_world_rank(seed, refs):
+    """The body of each rank of phase_train_fleet (`distributed.spawn`):
+    its legs in the reference dry run's order. PyTorch's default
+    algorithms throughout (no deterministic mode: F4's fixed-order
+    embedding backward is what the bit-parity legs lean on)."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.distributed import group as ptd_group
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             gpt_pipe_layers)
+    from paddle_tpu_torch.optimizer import SGD, Adam
+    from paddle_tpu_torch.parallel import zero as Z
+
+    world = ptd.get_group()
+    dev = world.device
+    count = torch.cuda.device_count()
+    cards = len({r % count for r in range(world.nranks)})
+    counters = train_counters()
+    out = {"backend": world.backend, "device": str(dev), "legs": {}}
+    legs = out["legs"]
+    ids = fleet_batch(seed, dev, fleet_cfg().vocab_size)
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    # 1. GPT-3 1.3B, pp 2 x mp 2: fleet.init -> PipelineLayer ->
+    # distributed_model -> distributed_optimizer -> train_batch
+    t0 = time.perf_counter()
+    hcg = _fleet_init(pp=2, mp=2, sharding=1)
+    mpl.model_parallel_random_seed(seed, device=dev)
+    pipe = mpl.PipelineLayer(gpt_pipe_layers(fleet_cfg(), True, device=dev,
+                                             seed=seed),
+                             loss_fn=GPTPretrainingCriterion())
+    engine = fleet.distributed_model(pipe)
+    opt = _NormProbe(fleet.distributed_optimizer(Adam(
+        learning_rate=FLEET_LR, parameters=pipe.parameters())), hcg)
+    build_s = time.perf_counter() - t0
+    zero_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(FLEET_STEPS):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            losses.append(float(engine.train_batch((ids, ids), opt)))
+    torch.cuda.synchronize(dev)
+    parity_s = time.perf_counter() - t0
+    rec = dict(stage=hcg.get_stage_id(), mp_rank=hcg.get_model_parallel_rank(),
+               losses=losses, norms=opt.norms, launches=counts(),
+               build_s=build_s, parity_s=parity_s,
+               params=sum(p.numel() for p in pipe.parameters()))
+    # one step at GPT-3's recipe: dropout 0.1, AdamW + clip + schedule
+    for mod in pipe.modules():
+        if hasattr(mod, "dropout_p"):
+            mod.dropout_p = 0.1
+        if type(mod).__name__ == "Dropout":
+            mod.p = 0.1
+    inner, sched = gpt3_recipe(pipe)
+    recipe = fleet.distributed_optimizer(inner)
+    torch.cuda.synchronize(dev)
+    ptd.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    staged0 = _staged(ptd_group)
+    zero_counts()
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = float(engine.train_batch((ids, ids), recipe, sched))
+    torch.cuda.synchronize(dev)
+    ptd.barrier()
+    wall = time.perf_counter() - t0
+    tokens = FLEET_BATCH[0] * FLEET_BATCH[1]
+    rec.update(recipe_loss=loss, recipe_wall_s=wall,
+               recipe_launches=counts(),
+               tokens_per_s_chip=tokens / wall / cards,
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               staged_bytes_per_step=_staged(ptd_group) - staged0,
+               clip=type(inner._grad_clip).__name__)
+    legs["pp2 mp2"] = rec
+    del pipe, engine, opt, inner, recipe
+    _free()
+    # 2, 3. pp 2 x dp 2 (mp 1) and its interleaved form, fp32, cut depth:
+    # the single-rank bits
+    for name, vpp in (("pp2 dp2", 1), ("pp2 dp2 vpp2", 2)):
+        _fleet_init(pp=2, dp=2)
+        pipe = mpl.PipelineLayer(
+            gpt_pipe_layers(fleet_cfg(FLEET_PP_LAYERS), device=dev,
+                            seed=seed),
+            loss_fn=GPTPretrainingCriterion(),
+            num_virtual_pipeline_stages=vpp)
+        engine = fleet.distributed_model(pipe)
+        opt = fleet.distributed_optimizer(Adam(learning_rate=FLEET_LR,
+                                               parameters=pipe.parameters()))
+        zero_counts()
+        loss = float(engine.train_batch((ids, ids), opt))
+        mine = {n: digest(p) for n, p in pipe.named_parameters()}
+        legs[name] = dict(
+            loss=loss, chunks=pipe.local_chunks(), launches=counts(),
+            params=len(mine),
+            differ=[n for n, d in mine.items() if d != refs["pp_digests"][n]])
+        del pipe, engine, opt
+        _free()
+    # 4. GroupSharded stage 3 over sharding 4 against ZeroTrainStep(stage 0)
+    hcg = _fleet_init(sharding=4)
+    group = hcg.get_sharding_parallel_group()
+    cfg = fleet_cfg(FLEET_ZERO3_LAYERS)
+    per = FLEET_BATCH[0] // world.nranks
+    mine = ids[world.rank * per:(world.rank + 1) * per]
+    model = GPTForCausalLM(cfg, device=dev, seed=seed)
+    model.train()
+    wrapped, opt = Z.group_sharded_parallel(
+        model, Adam(learning_rate=FLEET_LR, parameters=model.parameters()),
+        level="p_g_os", group=group)
+    zero_counts()
+    t0 = time.perf_counter()
+    loss3 = wrapped(mine, labels=mine)
+    loss3.backward()
+    opt.step()
+    torch.cuda.synchronize(dev)
+    z3_s = time.perf_counter() - t0
+    z3_launches = counts()
+    loss3 = float(Z.ordered_psum(loss3.detach().reshape(1), group)[0]
+                  * (1.0 / group.nranks))
+    names = [n for n, _ in model.named_parameters()]
+    d3 = dict(zip(names, (digest(p) for p in wrapped.get_all_parameters())))
+    bytes3 = sum(p.numel() * p.element_size() for p in wrapped.parameters())
+    opt3 = opt.state_bytes()
+    del model, wrapped, opt
+    _free()
+    model = GPTForCausalLM(cfg, device=dev, seed=seed)
+    model.train()
+
+    def causal_loss(params, x, y):
+        return functional_call(model, params, (x,), {"labels": y})
+
+    step = Z.zero_train_step(model, Adam(learning_rate=FLEET_LR,
+                                         parameters=model.parameters()),
+                             causal_loss, stage=0, group=group)
+    p, st = step.init_state()
+    loss0, p, st = step(p, st, (ids, ids), FLEET_LR, 1)
+    d0 = {n: digest(v) for n, v in p.items()}
+    legs["group_sharded p_g_os"] = dict(
+        loss=loss3, stage0_loss=float(loss0), seconds=z3_s,
+        launches=z3_launches, param_bytes=bytes3,
+        stage0_param_bytes=step.bytes_per_chip(p), opt_bytes=opt3,
+        stage0_opt_bytes=step.optimizer_state_bytes_per_chip(st),
+        differ=[n for n in d0 if d0[n] != d3[n]])
+    del model, step, p, st
+    _free()
+    # 5. ZeroTrainStep(tp=2) on ERNIE-1.0 base against tp 1 (dp 2 on
+    # the pairs {0, 1} and {2, 3}, which compute the same)
+    ecfg = ErnieConfig.ernie_base()
+    ecfg.hidden_dropout_prob = ecfg.attention_probs_dropout_prob = 0.0
+    heads = ecfg.num_attention_heads
+    eids = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, ecfg.vocab_size, ZERO_BATCH)).to(dev)
+    pairs = [ptd.new_group([0, 1]), ptd.new_group([2, 3])]
+    runs = {}
+    for tp in (1, 2):
+        model = ErnieForPretraining(ecfg, device=dev, seed=seed)
+        model.train()
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt = SGD(learning_rate=FLEET_TP_LR, parameters=model.parameters())
+
+        def ernie_loss(params, x, y, _m=model):
+            loss, _ = functional_call(_m, params, (x,),
+                                      {"masked_lm_labels": y})
+            return loss
+
+        if tp == 1:
+            step = Z.zero_train_step(model, opt, ernie_loss, stage=1,
+                                     group=pairs[world.rank // 2])
+            start = init
+        else:
+            # dp 2 x tp 2 carved from the world (rank = d * 2 + t)
+            step = Z.zero_train_step(model, opt, ernie_loss, stage=1, dp=2,
+                                     tp=2, param_specs=ernie_tp_specs(ecfg))
+            ernie_tensor_parallel(model, step.tp_group)
+            start = _qkv_layout(init, heads, 2)
+        p, st = step.init_state(start)
+        zero_counts()
+        losses = []
+        for t in (1, 2):
+            loss, p, st = step(p, st, (eids, eids), FLEET_TP_LR, t)
+            losses.append(float(loss))
+        got = step.full_params(p)
+        if tp == 2:
+            got = _qkv_layout(got, heads, 2, inverse=True)
+        runs[tp] = dict(losses=losses, launches=counts(),
+                        update={n: got[n] - init[n] for n in init})
+        del model, step, opt, p, st, got
+        _free()
+    errs = {}
+    for n, d1 in runs[1]["update"].items():
+        d2 = runs[2]["update"][n]
+        scale = float(torch.linalg.vector_norm(d1))
+        errs[n] = (float(torch.linalg.vector_norm(d2 - d1)) / scale
+                   if scale > 0 else float(torch.linalg.vector_norm(d2)))
+    legs["zero tp2"] = dict(losses=runs[2]["losses"],
+                            tp1_losses=runs[1]["losses"],
+                            launches=runs[2]["launches"],
+                            worst_update=max(errs.items(),
+                                             key=lambda kv: kv[1]))
+    return out
+
+
+def phase_train_fleet(seed, dev):
+    """Fleet hybrid parallelism (ROADMAP queue 1 item 5a), one world of
+    FLEET_RANKS ranks spawned once (gloo on one card, staging through
+    pinned host memory; NCCL with a card a rank), after the single-rank
+    references (`fleet_references`, freed before the spawn): GPT-3 1.3B at
+    pp 2 x mp 2 through fleet.init, PipelineLayer(gpt_pipe_layers(...,
+    tensor_parallel=True)), distributed_model, distributed_optimizer and
+    train_batch, FLEET_STEPS O1 steps at dropout 0 held to the single-rank
+    accumulated step (loss within FLEET_LOSS_RTOL, global gradient norm
+    within FLEET_NORM_RTOL), then one step at GPT-3's recipe (dropout
+    0.1); pp 2 x dp 2 and its interleaved form (2 stages x 2 chunks) at
+    fp32, FLEET_PP_LAYERS deep, bit for bit the single-rank step;
+    GroupSharded stage 3 over sharding 4 (FLEET_ZERO3_LAYERS deep, fp32)
+    bit for bit ZeroTrainStep(stage=0), parameter bytes a quarter;
+    ZeroTrainStep at dp 2 x tp 2 on ERNIE-1.0 base against tp 1 within
+    fp32 rounding. Any rank's failure raises."""
+    from paddle_tpu_torch import distributed as ptd
+
+    t0 = time.perf_counter()
+    refs = fleet_references(seed, dev)
+    ref_s = time.perf_counter() - t0
+    ranks = ptd.spawn(fleet_world_rank,
+                      (seed, {"pp_digests": refs["pp_digests"]}),
+                      nprocs=FLEET_RANKS, timeout=900)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    legs = r0["legs"]
+    shared = len({r["device"] for r in ranks}) < FLEET_RANKS
+    fails = []
+    big = legs["pp2 mp2"]
+    log(f"[train_fleet] GPT-3 1.3B at full width ({refs['n_params'] / 1e9:.4f}"
+        f" B params), global batch {FLEET_BATCH[0]} x {FLEET_BATCH[1]} in "
+        f"{FLEET_ACCUM} micro-batches, O1 bf16, Adam {FLEET_LR}; "
+        f"{FLEET_RANKS} ranks on {[r['device'] for r in ranks]} over "
+        f"{r0['backend']} ({'ranks share the card' if shared else 'a card a rank'}"
+        f"); references {ref_s:.1f} s (peak {refs['peak_bytes'] / 2**30:.2f} "
+        f"GiB), phase {wall:.1f} s")
+    for i, (ref_loss, ref_norm) in enumerate(refs["steps"]):
+        loss, norm = big["losses"][i], big["norms"][i]
+        el, en = abs(loss - ref_loss) / ref_loss, abs(norm - ref_norm) / ref_norm
+        log(f"[train_fleet] pp 2 x mp 2 step {i + 1}: loss {loss:.6f} against "
+            f"the single-rank {ref_loss:.6f} (rel {el:.3g}, tol "
+            f"{FLEET_LOSS_RTOL}), global gradient norm {norm:.6f} against "
+            f"{ref_norm:.6f} (rel {en:.3g}, tol {FLEET_NORM_RTOL})")
+        if not el <= FLEET_LOSS_RTOL:
+            fails.append(f"pp2 mp2 step {i + 1} loss {loss} vs {ref_loss}")
+        if not en <= FLEET_NORM_RTOL:
+            fails.append(f"pp2 mp2 step {i + 1} norm {norm} vs {ref_norm}")
+    mfu = big["tokens_per_s_chip"] * refs["flops_per_token"] / \
+        PEAK_FLOPS[torch.bfloat16]
+    log(f"[train_fleet] pp 2 x mp 2 at GPT-3's recipe (dropout 0.1, AdamW, "
+        f"{big['clip']}, warmup + cosine): loss {big['recipe_loss']:.5f}, "
+        f"step {big['recipe_wall_s'] * 1e3:.1f} ms, "
+        f"{big['tokens_per_s_chip']:.1f} tokens/s/chip, MFU {mfu:.4f}; "
+        f"build {big['build_s']:.1f} s, the {FLEET_STEPS} parity steps "
+        f"{big['parity_s']:.1f} s")
+    for r in ranks:
+        b = r["legs"]["pp2 mp2"]
+        log(f"[train_fleet]   rank on {r['device']} (stage {b['stage']}, mp "
+            f"{b['mp_rank']}): {b['params'] / 1e6:.1f} M params, peak "
+            f"{b['peak_bytes'] / 2**30:.2f} GiB, staged "
+            f"{b['staged_bytes_per_step'] / 2**20:.1f} MiB a step, launches "
+            f"{b['launches']} (parity steps), {b['recipe_launches']} "
+            "(recipe step)")
+        if any(n <= 0 for n in b["launches"].values()):
+            fails.append(f"pp2 mp2: a kernel did not launch: {b['launches']}")
+    if not np.isfinite(big["recipe_loss"]):
+        fails.append(f"recipe step loss {big['recipe_loss']}")
+    for name in ("pp2 dp2", "pp2 dp2 vpp2"):
+        for r in ranks:
+            rec = r["legs"][name]
+            if rec["differ"] or rec["loss"] != refs["pp_loss"]:
+                fails.append(f"{name} on {r['device']}: loss {rec['loss']} vs "
+                             f"{refs['pp_loss']}, differs at {rec['differ']}")
+        rec = legs[name]
+        log(f"[train_fleet] {name} (fp32, {FLEET_PP_LAYERS} blocks at full "
+            f"width, chunks {[r['legs'][name]['chunks'] for r in ranks]}): "
+            f"loss {rec['loss']:.6f}, the single-rank {refs['pp_loss']:.6f}; "
+            f"{'bit-identical' if not any(r['legs'][name]['differ'] for r in ranks) else 'DIFFER'}"
+            f" over {sum(r['legs'][name]['params'] for r in ranks[::2])} "
+            f"parameters; launches {rec['launches']}")
+    z = legs["group_sharded p_g_os"]
+    log(f"[train_fleet] GroupSharded p_g_os over sharding {FLEET_RANKS} "
+        f"(fp32, {FLEET_ZERO3_LAYERS} blocks at full width, one step, "
+        f"{z['seconds']:.2f} s): loss {z['loss']:.6f} against stage 0's "
+        f"{z['stage0_loss']:.6f}; parameters "
+        f"{'bit-identical' if not z['differ'] else 'differ at ' + str(z['differ'][:3])}"
+        f"; parameter bytes a rank {z['param_bytes'] / 2**20:.1f} MiB "
+        f"against stage 0's {z['stage0_param_bytes'] / 2**20:.1f}, "
+        f"optimizer {z['opt_bytes'] / 2**20:.1f} MiB against "
+        f"{z['stage0_opt_bytes'] / 2**20:.1f}; launches {z['launches']}")
+    for r in ranks:
+        rz = r["legs"]["group_sharded p_g_os"]
+        if rz["differ"] or rz["loss"] != rz["stage0_loss"]:
+            fails.append(f"p_g_os differs from stage 0 on {r['device']} at "
+                         f"{rz['differ'][:3]}")
+    q = z["stage0_param_bytes"] / FLEET_RANKS
+    if not q <= z["param_bytes"] <= q * 1.001:
+        fails.append(f"p_g_os parameter bytes {z['param_bytes']} vs stage 0 "
+                     f"{z['stage0_param_bytes']} / {FLEET_RANKS}")
+    e = legs["zero tp2"]
+    worst_name, worst = e["worst_update"]
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(e["losses"],
+                                                     e["tp1_losses"]))
+    log(f"[train_fleet] ZeroTrainStep dp 2 x tp 2 on ERNIE-1.0 base (fp32, "
+        f"SGD {FLEET_TP_LR}, {ZERO_BATCH[0]} x {ZERO_BATCH[1]}): loss "
+        + ", ".join(f"{x:.6f}" for x in e["losses"]) + " against tp 1's "
+        + ", ".join(f"{x:.6f}" for x in e["tp1_losses"])
+        + f" (rel {lerr:.3g}, tol {FLEET_TP_LOSS_RTOL}); worst update "
+        f"{worst_name} rel {worst:.3g} (tol {FLEET_TP_UPDATE_RTOL}); "
+        f"launches {e['launches']}")
+    if not lerr <= FLEET_TP_LOSS_RTOL or not worst <= FLEET_TP_UPDATE_RTOL:
+        fails.append(f"zero tp2 vs tp1: loss rel {lerr}, update {worst_name} "
+                     f"rel {worst}")
+    if fails:
+        raise AssertionError("train_fleet: " + "; ".join(fails))
+    launches = {k: sum(r["legs"][n][key][k] for r in ranks for n, key in (
+        ("pp2 mp2", "launches"), ("pp2 mp2", "recipe_launches"),
+        ("pp2 dp2", "launches"), ("pp2 dp2 vpp2", "launches"),
+        ("group_sharded p_g_os", "launches"), ("zero tp2", "launches")))
+        for k in TRAIN_LAUNCHES}
+    return dict(backend=r0["backend"], shared_card=shared, wall_s=wall,
+                references=dict(steps=refs["steps"], pp_loss=refs["pp_loss"],
+                                seconds=ref_s, peak_bytes=refs["peak_bytes"],
+                                n_params=refs["n_params"]),
+                mfu=mfu, legs=legs,
+                per_rank=[r["legs"] for r in ranks], launches=launches)
+
+
 KERNELS = {
     "K1": dict(name="flash_attention_forward", route="cuda",
                source="paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -6903,6 +7578,9 @@ def summarize(main_rows, launches_by_path):
                  if key.startswith(f"{k} plane ")}
         if plane:
             entry["training_plane"] = plane
+        if f"{k} fleet" in main_rows:
+            entry["fleet_rank"] = {x: main_rows[f"{k} fleet"][x]
+                                   for x in gpt_keys}
         if k in ("K4", "K5"):
             entry["gpt_layer_norm"] = [
                 {x: row[x] for x in gpt_keys} for key, row in
@@ -6991,6 +7669,7 @@ def main(argv=None):
     main_rows.update(k45_train_cases(rows, dev))
     main_rows.update(t5_kernel_cases(rows, dev))
     main_rows.update(gpt_kernel_cases(rows, dev))
+    main_rows.update(fleet_kernel_cases(rows, dev))
     main_rows.update(plane_kernel_cases(rows, dev))
     main_rows.update(k9_cases(rows, dev, args.seed))
     main_rows.update(phase_ring_kernels(rows, dev))
@@ -7083,6 +7762,8 @@ def main(argv=None):
     release()
     result["step_check"] = phase_step_check(args.seed, dev)
     release()
+    result["embedding_determinism"] = embedding_determinism(args.seed, dev)
+    release()
     result["recompute"] = r = phase_recompute(args.seed, dev, args.profile,
                                               args.out)
     launches["recompute"] = r["launches"]
@@ -7124,6 +7805,9 @@ def main(argv=None):
     release()
     result["train_zero"] = r = phase_train_zero(args.seed, dev)
     launches["train_zero"] = r["launches"]
+    release()
+    result["train_fleet"] = r = phase_train_fleet(args.seed, dev)
+    launches["train_fleet"] = r["launches"]
     release()
     result["seconds"] = time.perf_counter() - t_start
     result["summary"] = summarize(main_rows, launches)

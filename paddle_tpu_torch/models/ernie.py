@@ -82,7 +82,7 @@ class ErnieSelfAttention(nn.Module):
         self.dropout_p = cfg.attention_probs_dropout_prob
 
     def forward(self, x, attn_mask=None, generator=None):
-        b, s, h = x.shape
+        b, s, _ = x.shape
         # (b, s, 3, heads, hd) -> q, k, v in sdpa's (b, s, heads, hd)
         q, k, v = self.qkv(x).reshape(b, s, 3, self.num_heads,
                                       self.head_dim).unbind(2)
@@ -90,7 +90,9 @@ class ErnieSelfAttention(nn.Module):
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.dropout_p if self.training else 0.0,
             training=self.training, generator=generator)
-        return self.out(ctx.reshape(b, s, h))
+        # num_heads * head_dim, not h: a tensor-parallel rank holds
+        # num_heads / tp of the heads
+        return self.out(ctx.reshape(b, s, self.num_heads * self.head_dim))
 
 
 class ErnieLayer(nn.Module):

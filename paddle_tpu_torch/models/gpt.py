@@ -29,11 +29,32 @@ the table-overflow position, whose output is never read back, and
 `F.embedding` on the card would stop the stream on an out-of-range index.
 (The reference's `jnp.take` returns NaN rows there instead.)
 
-Not ported: `tensor_parallel=True` (fleet's `VocabParallelEmbedding` and
-column / row parallel layers, ROADMAP queue 1 item 5), the pipeline stages
-`GPTEmbeddingPipe` / `GPTHeadPipe`, `gpt_pipe_layers` and
-`gpt_spmd_pipeline_fn` (fleet). Tensor-parallel serving does not need the
-first: it shards an ordinary model (serving/tp.py).
+`tensor_parallel=True` (reference :50-60, :113-123, :141-204) builds the
+Megatron blocks of fleet's mp layers over the mp group of the fleet
+topology: `VocabParallelEmbedding` for the tokens, the fused QKV a
+`ColumnParallelLinear` that keeps its output split by head (each rank runs
+K1-K3 on its heads / mp heads; the full weight laid out (mp, 3, heads /
+mp, hd) as `serving/tp.py`'s `interleave_qkv`, so a contiguous 1 / mp is
+one rank's (3, heads / mp, hd) block), the attention output and
+`ffn_out` `RowParallelLinear`, `ffn_in` a `ColumnParallelLinear`. The
+output is the function of the reference's `gather_output=True` QKV. The
+hidden dropout draws from the generator passed in (the same stream on
+every mp rank; without one, the tracker's "global_seed" stream), the
+attention dropout from the tracker's "model-parallel-rng" stream
+(`fleet.meta_parallel.model_parallel_random_seed`). Weights are drawn
+whole from the seeded generator in the dense model's order and cut, so a
+tensor-parallel model built from a seed holds exactly the slices of the
+dense model built from that seed. Tensor-parallel serving does not use
+the flag: it shards an ordinary model (serving/tp.py).
+
+The pipeline stages (reference :205-258): `GPTEmbeddingPipe` (token and
+position embeddings), `GPTBlock` and `GPTHeadPipe` (final norm and an
+untied LM head), listed by `gpt_pipe_layers` for fleet's `PipelineLayer`;
+layer i of the list draws its weights from its own generator seeded
+`seed + i`, so the list built at tp 1 on one rank and at any mp / pp
+degree hold the same weights. `gpt_spmd_pipeline_fn` (reference
+:306-384) runs the blocks through fleet's SPMD collective pipeline, one
+stage's blocks a rank.
 """
 from __future__ import annotations
 
@@ -48,7 +69,8 @@ from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm, Linear
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTModel",
-           "GPTForCausalLM", "GPTPretrainingCriterion"]
+           "GPTForCausalLM", "GPTPretrainingCriterion", "GPTEmbeddingPipe",
+           "GPTHeadPipe", "gpt_pipe_layers", "gpt_spmd_pipeline_fn"]
 
 
 @dataclasses.dataclass
@@ -79,14 +101,33 @@ class GPTConfig:
                    max_position_embeddings=128)
 
 
+def _mp():
+    from ..distributed.fleet import meta_parallel
+
+    return meta_parallel
+
+
 class GPTAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, tensor_parallel: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         fk = {"device": device, "dtype": dtype}
+        h = cfg.hidden_size
         self.num_heads = cfg.num_attention_heads
-        self.head_dim = cfg.hidden_size // cfg.num_attention_heads
-        self.qkv = Linear(cfg.hidden_size, 3 * cfg.hidden_size, **fk)
-        self.out = Linear(cfg.hidden_size, cfg.hidden_size, **fk)
+        self.head_dim = h // cfg.num_attention_heads
+        self.tensor_parallel = tensor_parallel
+        if tensor_parallel:
+            mp = _mp()
+            self.qkv = mp.ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                               **fk)
+            # the full weight's output dim is laid out (mp, 3, heads/mp, hd)
+            self.qkv.interleave_heads = self.num_heads
+            self.out = mp.RowParallelLinear(h, h, input_is_parallel=True,
+                                            **fk)
+            self.num_heads //= self.qkv.mp_size
+        else:
+            self.qkv = Linear(h, 3 * h, **fk)
+            self.out = Linear(h, h, **fk)
         self.dropout_p = cfg.attention_probs_dropout_prob
 
     def forward(self, x, cache=None, start_pos=0, generator=None):
@@ -96,6 +137,9 @@ class GPTAttention(nn.Module):
                                       self.head_dim).unbind(2)
         if cache is not None:  # KV-cache decode (inference only)
             return self.attend(q, k, v, b, s, cache, start_pos)
+        if self.tensor_parallel and self.training and self.dropout_p > 0:
+            generator = _mp().get_rng_state_tracker().generator(
+                "model-parallel-rng")
         ctx = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
             dropout_p=self.dropout_p if self.training else 0.0,
@@ -113,22 +157,34 @@ class GPTAttention(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
+    def __init__(self, cfg: GPTConfig, tensor_parallel: bool = False,
+                 device=None, dtype=None, seed: Optional[int] = None):
         super().__init__()
         fk = {"device": device, "dtype": dtype}
-        eps = cfg.layer_norm_eps
-        self.ln1 = LayerNorm(cfg.hidden_size, eps, **fk)
-        self.attn = GPTAttention(cfg, **fk)
-        self.ln2 = LayerNorm(cfg.hidden_size, eps, **fk)
-        self.ffn_in = Linear(cfg.hidden_size, cfg.intermediate_size, **fk)
-        self.ffn_out = Linear(cfg.intermediate_size, cfg.hidden_size, **fk)
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.tensor_parallel = tensor_parallel
+        self.ln1 = LayerNorm(h, eps, **fk)
+        self.attn = GPTAttention(cfg, tensor_parallel, **fk)
+        self.ln2 = LayerNorm(h, eps, **fk)
+        if tensor_parallel:
+            mp = _mp()
+            self.ffn_in = mp.ColumnParallelLinear(
+                h, cfg.intermediate_size, gather_output=False, **fk)
+            self.ffn_out = mp.RowParallelLinear(
+                cfg.intermediate_size, h, input_is_parallel=True, **fk)
+        else:
+            self.ffn_in = Linear(h, cfg.intermediate_size, **fk)
+            self.ffn_out = Linear(cfg.intermediate_size, h, **fk)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
+        if seed is not None:
+            init_gpt_weights(self, seed)
 
     def _ffn(self, x, generator):
         return self.dropout(self.ffn_out(F.gelu(self.ffn_in(self.ln2(x)))),
                             generator)
 
     def forward(self, x, cache=None, start_pos=0, generator=None):
+        generator = _hidden_stream(self, generator)
         if cache is None:
             x = F.add(x, self.dropout(self.attn(self.ln1(x),
                                                 generator=generator),
@@ -139,42 +195,82 @@ class GPTBlock(nn.Module):
         return x + self._ffn(x, generator), cache
 
 
+def _hidden_stream(module, generator):
+    """The hidden dropout's generator: the one passed in, else (tensor
+    parallel, training, dropout on) the tracker's "global_seed" stream."""
+    if (generator is None and getattr(module, "tensor_parallel", False)
+            and module.training and module.dropout.p > 0):
+        return _mp().get_rng_state_tracker().generator("global_seed")
+    return generator
+
+
+def _embed_tokens(wte, ids):
+    """The token lookup: fleet's VocabParallelEmbedding, or the port's
+    `F.embedding` over a dense table."""
+    if isinstance(wte, nn.Embedding):
+        return F.embedding(ids, wte.weight)
+    return wte(ids)
+
+
+@torch.no_grad()
+def init_gpt_weights(module: nn.Module, seed: int) -> None:
+    """Redraw every weight of `module` from `seed` on its device, in
+    `modules()` order: N(0, 0.02) for every Linear and Embedding weight (a
+    tensor-parallel layer draws the whole weight, in the QKV's interleaved
+    layout, and keeps its part), biases zero, LayerNorm ones and zeros."""
+    from ..serving.tp import interleave_qkv
+
+    mp = _mp().parallel_layers
+    first = next(module.parameters())
+    gen = torch.Generator(device=first.device)
+    gen.manual_seed(int(seed))
+    for mod in module.modules():
+        if isinstance(mod, (nn.Linear, nn.Embedding)):
+            mod.weight.normal_(0.0, 0.02, generator=gen)
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, mp._MPLayer):
+            w = mod.weight
+            shape = list(w.shape)
+            if w.split_axis is not None:
+                shape[w.split_axis] *= mod.mp_size
+            full = torch.empty(shape, device=w.device, dtype=w.dtype)
+            full.normal_(0.0, 0.02, generator=gen)
+            heads = getattr(mod, "interleave_heads", None)
+            if heads is not None:
+                full = interleave_qkv(full, heads, mod.mp_size)
+            w.copy_(mod.shard_of("weight", full))
+            if getattr(mod, "bias", None) is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+
+
 class GPTModel(nn.Module):
     def __init__(self, cfg: Optional[GPTConfig] = None,
                  tensor_parallel: bool = False, *, device=None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if tensor_parallel:
-            raise NotImplementedError(
-                "GPTModel(tensor_parallel=True) is not ported yet (ROADMAP "
-                "queue 1 item 5; S5's tensor-parallel serving shards an "
-                "ordinary model through ServingEngine(tp_size=N) and never "
-                "sets it: the flag belongs to fleet's VocabParallelEmbedding "
-                "and parallel layers)")
         self.config = cfg = cfg or GPTConfig()
+        self.tensor_parallel = tensor_parallel
         fk = {"device": resolve_device(device), "dtype": dtype}
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
+        if tensor_parallel:
+            self.wte = _mp().VocabParallelEmbedding(cfg.vocab_size,
+                                                    cfg.hidden_size, **fk)
+        else:
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
                                 **fk)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
-        self.blocks = nn.ModuleList([GPTBlock(cfg, **fk)
+        self.blocks = nn.ModuleList([GPTBlock(cfg, tensor_parallel, **fk)
                                      for _ in range(cfg.num_hidden_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **fk)
         self.init_weights(seed)
 
-    @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         """Redraw every weight from `seed` on the model's device."""
-        gen = torch.Generator(device=self.wte.weight.device)
-        gen.manual_seed(int(seed))
-        for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, 0.02, generator=gen)
-            if isinstance(mod, nn.Linear):
-                mod.bias.zero_()
-            elif isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+        init_gpt_weights(self, seed)
 
     def _positions(self, s, caches, start_pos, device):
         """(1 or b, s) positions: 0..s-1 without caches; with caches,
@@ -202,9 +298,9 @@ class GPTModel(nn.Module):
                                            input_ids.device)
         position_ids = position_ids.clamp(
             0, self.config.max_position_embeddings - 1)
-        x = self.dropout(F.add(F.embedding(input_ids, self.wte.weight),
+        x = self.dropout(F.add(_embed_tokens(self.wte, input_ids),
                                F.embedding(position_ids, self.wpe.weight)),
-                         generator)
+                         _hidden_stream(self, generator))
         if caches is None:
             for blk in self.blocks:
                 x = blk(x, generator=generator)
@@ -267,3 +363,127 @@ class GPTForCausalLM(nn.Module):
 
     def loss(self, logits, labels):
         return _shifted_ce(logits, labels)
+
+
+class GPTEmbeddingPipe(nn.Module):
+    """The first pipeline stage: token and position embeddings, then the
+    hidden dropout."""
+
+    def __init__(self, cfg: GPTConfig, tensor_parallel: bool = False, *,
+                 device=None, dtype: torch.dtype = torch.float32,
+                 seed: Optional[int] = None):
+        super().__init__()
+        fk = {"device": resolve_device(device), "dtype": dtype}
+        self.config = cfg
+        self.tensor_parallel = tensor_parallel
+        if tensor_parallel:
+            self.wte = _mp().VocabParallelEmbedding(cfg.vocab_size,
+                                                    cfg.hidden_size, **fk)
+        else:
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **fk)
+        self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
+                                **fk)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
+        if seed is not None:
+            init_gpt_weights(self, seed)
+
+    def forward(self, input_ids, generator=None):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, dtype=torch.int64, device=input_ids.device)
+        pos = pos.clamp(0, self.config.max_position_embeddings - 1)[None]
+        return self.dropout(F.add(_embed_tokens(self.wte, input_ids),
+                                  F.embedding(pos, self.wpe.weight)),
+                            _hidden_stream(self, generator))
+
+
+class GPTHeadPipe(nn.Module):
+    """The last pipeline stage: the final LayerNorm and an untied LM head
+    (column-parallel over the vocabulary, its output gathered, under
+    tensor parallelism)."""
+
+    def __init__(self, cfg: GPTConfig, tensor_parallel: bool = False, *,
+                 device=None, dtype: torch.dtype = torch.float32,
+                 seed: Optional[int] = None):
+        super().__init__()
+        fk = {"device": resolve_device(device), "dtype": dtype}
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, **fk)
+        if tensor_parallel:
+            self.head = _mp().ColumnParallelLinear(
+                cfg.hidden_size, cfg.vocab_size, has_bias=False, **fk)
+        else:
+            self.head = Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
+                               **fk)
+        if seed is not None:
+            init_gpt_weights(self, seed)
+
+    def forward(self, x):
+        return self.head(self.ln_f(x))
+
+
+def gpt_pipe_layers(cfg: GPTConfig, tensor_parallel: bool = False, *,
+                    device=None, dtype: torch.dtype = torch.float32,
+                    seed: int = 0):
+    """The `LayerDesc` list of fleet's `PipelineLayer`: the embeddings,
+    the blocks, the head (the GPTForCausalLMPipe shape of the reference);
+    layer i draws its weights from `seed + i`."""
+    LayerDesc = _mp().LayerDesc
+    fk = {"device": device, "dtype": dtype}
+    descs = [LayerDesc(GPTEmbeddingPipe, cfg, tensor_parallel, seed=seed,
+                       **fk)]
+    descs += [LayerDesc(GPTBlock, cfg, tensor_parallel, seed=seed + 1 + i,
+                        **fk) for i in range(cfg.num_hidden_layers)]
+    descs.append(LayerDesc(GPTHeadPipe, cfg, tensor_parallel,
+                           seed=seed + 1 + cfg.num_hidden_layers, **fk))
+    return descs
+
+
+def gpt_spmd_pipeline_fn(model: GPTModel, group=None, *, num_stages: int,
+                         num_micro: int, data_group=None):
+    """The blocks of `model` pipelined over the stage ranks of `group`
+    (default: the fleet topology's pp group) by fleet's SPMD collective
+    pipeline: this rank's stage runs blocks [s * n / S, (s + 1) * n / S);
+    embeddings, the final norm and the tied head run replicated on every
+    rank. Returns (fn, stage_params, embed_params), fn(stage_params,
+    embed_params, input_ids) -> logits; gradients reach both parameter
+    dicts. The blocks run in eval mode, as the reference's."""
+    from torch.func import functional_call
+
+    from ..distributed.fleet.meta_parallel.spmd_pipeline import (
+        _pp_group, make_spmd_pipeline_fn)
+
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    if n_layers % num_stages:
+        raise ValueError(f"{n_layers} blocks do not split over "
+                         f"{num_stages} stages")
+    per = n_layers // num_stages
+    g = _pp_group(group)
+    stage = g.rank if g is not None else 0
+    blocks = list(model.blocks[stage * per:(stage + 1) * per])
+    names = [[n for n, _ in blk.named_parameters()] for blk in blocks]
+    stage_params = {f"{i}.{n}": p for i, blk in enumerate(blocks)
+                    for n, p in blk.named_parameters()}
+    model.eval()
+
+    def stage_fn(params, x):
+        for i, blk in enumerate(blocks):
+            x = functional_call(blk, {n: params[f"{i}.{n}"]
+                                      for n in names[i]}, (x,))
+        return x
+
+    pipe = make_spmd_pipeline_fn(stage_fn, g, num_stages=num_stages,
+                                 num_micro=num_micro, data_group=data_group)
+    embed_params = {"wte": model.wte.weight, "wpe": model.wpe.weight,
+                    "g": model.ln_f.weight, "b": model.ln_f.bias}
+
+    def fn(stage_params, embed_params, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, dtype=torch.int64, device=input_ids.device)
+        h = F.add(F.embedding(input_ids, embed_params["wte"]),
+                  F.embedding(pos[None], embed_params["wpe"]))
+        h = pipe(stage_params, h)
+        h = F.layer_norm(h, cfg.hidden_size, embed_params["g"],
+                         embed_params["b"], cfg.layer_norm_eps)
+        return F.matmul(h, embed_params["wte"], transpose_y=True)
+
+    return fn, stage_params, embed_params

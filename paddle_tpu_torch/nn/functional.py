@@ -5,7 +5,8 @@ ops.yaml ops they dispatch to).
 `rms_norm` and `layer_norm` reach the fused norm kernels (K4 forward, K5
 backward) and `scaled_dot_product_attention` the flash-attention kernels
 (K1 forward with dropout, K2 / K3 backward), as their JAX counterparts
-reach the Pallas kernels; `linear`, `matmul`, `embedding`, `gelu`, `relu`,
+reach the Pallas kernels; `embedding` takes a backward that sums in a
+fixed order (`ops.embedding`); `linear`, `matmul`, `gelu`, `relu`,
 `silu`, `tanh`, `add`, `multiply`, `dropout` and `mse_loss` (:536) are
 PyTorch's own arithmetic, and the two cross-entropies live in
 `ops.cross_entropy`. Every op asks `amp.cast_inputs` for its inputs' types
@@ -27,6 +28,7 @@ import torch.nn.functional as _tF
 
 from .. import amp
 from ..ops import cross_entropy as _ce
+from ..ops.embedding import embedding as _embedding
 from ..ops.flash_attention import attention as _attention
 from ..ops.norm import layer_norm as _layer_norm
 from ..ops.norm import rms_norm as _rms_norm
@@ -52,8 +54,10 @@ def matmul(x: torch.Tensor, y: torch.Tensor,
 
 
 def embedding(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The lookup; its weight gradient sums each row's contributions in a
+    fixed order (`ops.embedding`), so two runs give the same bits."""
     (weight,) = amp.cast_inputs("embedding", weight)
-    return _tF.embedding(x, weight)
+    return _embedding(x, weight)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

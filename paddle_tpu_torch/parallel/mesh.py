@@ -24,12 +24,24 @@ then the same order on this rank's chunk), the ring forms over
 `ring_shift`, the in-flight forms the overlapped ZeRO schedule starts
 early (`start_ordered_psum_scatter`, `start_all_gather`) and
 `ring_pipeline`. NCCL's all-reduce does not fix its order, so no gradient
-goes through `all_reduce`. The tensor-parallel region helpers of the
-reference (`tp_dim_spec`, `local_shape`, `copy_to_tp_region`,
-`reduce_from_tp_region`) wait for fleet (ROADMAP queue 1 item 5).
+goes through `all_reduce`.
+
+The tensor-parallel region helpers (reference :117-160, :319-353): a spec
+is a tuple with one entry a dimension, each None or an axis name (`"tp"`,
+`"dp"`, or fleet's `"mp"`) or a tuple of them; `tp_dim_spec` finds the
+dimension a spec shards over the tp axis and `local_shape` a shard's
+shape. Megatron's region boundaries are autograd Functions over the ranks
+of a tp group: `copy_to_tp_region` (identity forward, the gradient summed
+over the group in rank order) and `reduce_from_tp_region` (the forward
+summed in rank order, identity backward), with `gather_from_tp_region` /
+`scatter_to_tp_region` for the last dimension. Each takes its group
+explicitly, or the group `tp_scope` put in scope (what `shard_map` gives
+the reference's axis name); with neither, or a one-rank group, each is
+the identity.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -39,7 +51,13 @@ __all__ = ["device_order", "carve_submeshes", "chunk_bounds",
            "ordered_psum", "collected_shard_sum", "ordered_psum_scatter",
            "start_ordered_psum_scatter", "start_all_gather", "ring_collect",
            "ring_ordered_psum", "ring_ordered_psum_scatter",
-           "ring_pipeline"]
+           "ring_pipeline", "DP_AXIS", "TP_AXIS", "tp_dim_spec",
+           "local_shape", "tp_scope", "copy_to_tp_region",
+           "reduce_from_tp_region", "gather_from_tp_region",
+           "scatter_to_tp_region", "gather_dim", "split_dim"]
+
+DP_AXIS = "dp"
+TP_AXIS = "tp"
 
 
 def _key(dev: torch.device) -> Tuple[str, int]:
@@ -222,3 +240,151 @@ def ring_pipeline(items: Sequence, transport, reduce, consume) -> None:
         nxt = transport(items[idx + 1]) if idx + 1 < len(items) else None
         consume(idx, reduce(moved))
         moved = nxt
+
+
+# --------------------------------------------- Megatron tp region boundaries
+def tp_dim_spec(spec, axis: str = TP_AXIS) -> Optional[int]:
+    """Index of the dimension `spec` shards over `axis`, or None when the
+    spec is replicated with respect to it. A spec sharding one dimension
+    over several axes, or `axis` over two dimensions, is refused."""
+    if spec is None:
+        return None
+    hit = None
+    for dim, entry in enumerate(tuple(spec)):
+        entries = entry if isinstance(entry, tuple) else (entry,)
+        if axis in entries:
+            if len(entries) > 1:
+                raise ValueError(
+                    f"spec {spec} shards one dim over multiple axes; "
+                    f"only single-axis {axis!r} sharding is supported")
+            if hit is not None:
+                raise ValueError(f"spec {spec} shards {axis!r} over two dims")
+            hit = dim
+    return hit
+
+
+def local_shape(shape: Sequence[int], spec, sizes: Dict[str, int]
+                ) -> Tuple[int, ...]:
+    """A shard's shape of a global `shape` placed under `spec` on axes of
+    sizes `sizes` (e.g. {"dp": 2, "tp": 2})."""
+    out = [int(d) for d in shape]
+    if spec is None:
+        return tuple(out)
+    for dim, entry in enumerate(tuple(spec)):
+        entries = entry if isinstance(entry, tuple) else (entry,)
+        for ax in entries:
+            if ax is None:
+                continue
+            n = sizes.get(ax, 1)
+            if out[dim] % n:
+                raise ValueError(
+                    f"dim {dim} of shape {tuple(shape)} not divisible by "
+                    f"axis {ax!r} size {n}")
+            out[dim] //= n
+    return tuple(out)
+
+
+_TP_SCOPE: List = []
+
+
+@contextlib.contextmanager
+def tp_scope(group):
+    """Put `group` in scope as the tp group of the region helpers called
+    without one (the ZeRO step enters it around its loss function)."""
+    _TP_SCOPE.append(group)
+    try:
+        yield group
+    finally:
+        _TP_SCOPE.pop()
+
+
+def _tp_group(group):
+    if group is None and _TP_SCOPE:
+        group = _TP_SCOPE[-1]
+    return group if group is not None and group.nranks > 1 else None
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ordered_psum(g.contiguous(), ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group):
+        return ordered_psum(y.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim` in rank order."""
+    from ..distributed.communication import all_gather
+
+    return torch.cat(all_gather(None, x.contiguous(), group), dim=dim)
+
+
+def split_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n of `x` along `dim`, as its own tensor."""
+    n = x.shape[dim] // group.nranks
+    return x.narrow(dim, group.rank * n, n).contiguous()
+
+
+class _GatherFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return gather_dim(x, -1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, -1, ctx.group), None
+
+
+class _ScatterToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return split_dim(x, -1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, -1, ctx.group), None
+
+
+def copy_to_tp_region(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's `f`: the identity into a tensor-parallel region; the
+    gradient (each rank's partial input gradient) summed over the group in
+    rank order."""
+    g = _tp_group(group)
+    return x if g is None else _CopyToTp.apply(x, g)
+
+
+def reduce_from_tp_region(y: torch.Tensor, group=None) -> torch.Tensor:
+    """Megatron's `g`: the partial sums leaving a tensor-parallel region
+    summed over the group in rank order; the gradient passes as it is (it
+    is already the same on every rank)."""
+    g = _tp_group(group)
+    return y if g is None else _ReduceFromTp.apply(y, g)
+
+
+def gather_from_tp_region(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's last-dimension slice concatenated in rank order; the
+    gradient's own slice goes back."""
+    g = _tp_group(group)
+    return x if g is None else _GatherFromTp.apply(x, g)
+
+
+def scatter_to_tp_region(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's 1/n of the last dimension of a replicated tensor; the
+    gradient gathered back."""
+    g = _tp_group(group)
+    return x if g is None else _ScatterToTp.apply(x, g)

@@ -60,12 +60,37 @@ halves the scale, `scale_growth_interval` good steps double it (within
 [1, 2^24]). No host read. The dp sums run in bf16, so bf16 is a bounded-
 error mode: no stage parity is claimed there.
 
-**Refused**, with the reference's messages: stage 3; `grad_clip` (a
-clip over a slice would use the slice's norm); the whole-tensor rules
-Lamb and LBFGS; a batch that dp x grad_accum does not divide; bucket_bytes
-/ overlap at stage 0. `tp > 1` and the GroupSharded surface (the
-reference's sharding annotations over the mp / pp topology) raise
-NotImplementedError naming ROADMAP queue 1 item 5 (fleet).
+**Tensor parallelism** (`tp > 1` with `param_specs`, reference
+:553-584 and its TP composition from :585): a spec names the dimension a
+parameter is split along over the tp axis (`("tp", None)`, or fleet's
+"mp"; `parallel.mesh.tp_dim_spec`). `init_state` takes the full logical
+parameters and keeps this rank's tp part; the dp machinery then slices
+each part's TP-LOCAL flat, so dp x tp compose with no special case. The
+ranks of `group` are laid out dp-major (rank = d * tp + t, the
+reference's mesh order) and the step makes its dp and tp groups from it,
+or takes them from the caller (`group` the dp group, `tp_group` the tp
+group, as fleet's `HybridParallelOptimizer.zero_train_step` passes). The
+loss function runs under `mesh.tp_scope(tp_group)`: the Megatron region
+helpers (`copy_to_tp_region`, `reduce_from_tp_region`) find their group
+there. The checkpoint's full logical state is the tp parts gathered along
+their split dimension, so it restores at any (dp, tp).
+
+**The GroupSharded surface** (reference :1319-1514): `GroupShardedStage2`
+and `GroupShardedOptimizerStage2` are stages 1 / 2 in the eager style
+(`loss.backward()`, `opt.step()`) over this module's update functions;
+`GroupShardedStage3` keeps each parameter as this rank's flat (chunk,)
+slice, gathers it on use in the forward (and again in the backward: the
+autograd graph keeps a token, not the gathered tensor) and
+reduce-scatters its gradient in rank order, so its update equals stage
+0's bit for bit. `offload=True` keeps the optimizer slots in host memory
+(pinned when there is a card) and brings them to the device for the
+update. `group_sharded_parallel(level="os" | "os_g" | "p_g_os")` and
+`save_group_sharded_model` are the entry points.
+
+**Refused**, with the reference's messages: stage 3 of `ZeroTrainStep`
+(that is `GroupShardedStage3`); `grad_clip` (a clip over a slice would
+use the slice's norm); the whole-tensor rules Lamb and LBFGS; a batch
+that dp x grad_accum does not divide; bucket_bytes / overlap at stage 0.
 
 **Observability** (opt-in, `telemetry=` / `enable_telemetry=True`, which
 import `observability.training` lazily): every health number of a step
@@ -83,9 +108,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .mesh import (fixed_order_sum, ordered_psum, ordered_psum_scatter,
-                   ring_pipeline, start_all_gather,
-                   start_ordered_psum_scatter)
+from .mesh import (TP_AXIS, fixed_order_sum, gather_dim, ordered_psum,
+                   ordered_psum_scatter, ring_pipeline, start_all_gather,
+                   start_ordered_psum_scatter, tp_dim_spec, tp_scope)
 
 __all__ = [
     "ZeroTrainStep", "zero_train_step", "model_loss",
@@ -104,8 +129,6 @@ _SCALE_BACKOFF = 0.5
 _SCALE_GROWTH = 2.0
 _SCALE_MIN = 1.0
 _SCALE_MAX = 2.0 ** 24
-_FLEET = ("is not ported yet (ROADMAP queue 1 item 5: fleet, the mp / pp "
-          "topology and its sharding annotations)")
 
 
 def model_loss(model, criterion=None):
@@ -203,7 +226,7 @@ def _accumulated_grads(ctx, params, batch, scale=None):
             for b, split in zip(batch, ctx._row_split))
         leaves = {n: params[n].detach().requires_grad_(
             params[n].is_floating_point()) for n in names}
-        with torch.enable_grad():
+        with torch.enable_grad(), tp_scope(ctx.tp_group):
             loss = ctx.loss_fn(leaves, *micro)
             target = loss if scale is None else loss * scale
             wrt = [leaves[n] for n in names if leaves[n].requires_grad]
@@ -412,6 +435,30 @@ def _overlapped_update(ctx, params, grads, state, lr, t, scale=None):
     return new_params, new_state, aux
 
 
+def _carve(group, tp: int):
+    """(this rank's dp group, its tp group) of a group laid out dp-major
+    (rank = d * tp + t). Every rank of the world makes every group, in
+    the same order."""
+    from ..distributed.group import new_group
+
+    if group.nranks % tp:
+        raise ValueError(f"a group of {group.nranks} ranks does not split "
+                         f"into tp={tp}")
+    dp = group.nranks // tp
+    me = group.ranks[group.rank] if group.rank >= 0 else None
+    mine = {}
+    for kind, lists in (
+            ("dp", [[group.ranks[d * tp + t] for d in range(dp)]
+                    for t in range(tp)]),
+            ("tp", [[group.ranks[d * tp + t] for t in range(tp)]
+                    for d in range(dp)])):
+        for ranks in lists:
+            g = new_group(ranks)
+            if me in ranks:
+                mine[kind] = g
+    return mine["dp"], mine["tp"]
+
+
 # ------------------------------------------------------------ the step
 def _timed(fn, dev, trials: int) -> List[float]:
     """Host-clock seconds of `fn()` per trial, the card synchronized
@@ -439,7 +486,7 @@ class ZeroTrainStep:
     def __init__(self, model, optimizer, loss_fn=None, *, criterion=None,
                  dp: Optional[int] = None, tp: int = 1, stage: int = 1,
                  param_specs=None, batch_specs: Optional[Sequence] = None,
-                 grad_accum: int = 1, group=None,
+                 grad_accum: int = 1, group=None, tp_group=None,
                  bucket_bytes: Optional[int] = None, overlap: bool = False,
                  param_dtype: Optional[str] = None,
                  loss_scale: float = 2.0 ** 15,
@@ -451,9 +498,7 @@ class ZeroTrainStep:
             raise ValueError(
                 f"stage must be 0 (replicated baseline), 1 (ZeRO-1) or 2 "
                 f"(ZeRO-2); got {stage} — stage 3 (param sharding) is the "
-                "GSPMD GroupSharded surface (level='p_g_os')")
-        if int(tp) != 1 or param_specs:
-            raise NotImplementedError(f"ZeroTrainStep with tp > 1 {_FLEET}")
+                "GroupSharded surface (level='p_g_os')")
         opt_name = type(optimizer).__name__
         if opt_name in _NON_ELEMENTWISE:
             raise NotImplementedError(
@@ -470,9 +515,22 @@ class ZeroTrainStep:
         self.optimizer = optimizer
         self.loss_fn = (loss_fn if loss_fn is not None
                         else model_loss(model, criterion))
-        self.group = group if group is not None else _default()
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        self.param_specs = dict(param_specs or {})
+        group = group if group is not None else _default()
+        self.tp_group = None
+        if self.tp > 1:
+            if tp_group is None:
+                group, tp_group = _carve(group, self.tp)
+            if tp_group.nranks != self.tp:
+                raise ValueError(f"tp={self.tp} but the tp group has "
+                                 f"{tp_group.nranks} ranks")
+            self.tp_group = tp_group
+        self.group = group
         self.rank = self.group.rank
-        self.tp = 1
+        self.tp_rank = self.tp_group.rank if self.tp_group is not None else 0
         self.dp = int(dp) if dp is not None else self.group.nranks
         if self.dp != self.group.nranks:
             raise ValueError(f"dp={self.dp} but the group has "
@@ -526,6 +584,8 @@ class ZeroTrainStep:
         self._buckets: List[Dict] = []
         self._overlap_fraction: Optional[float] = None
         self._shapes: Dict[str, Tuple[int, ...]] = {}
+        self._full_shapes: Dict[str, Tuple[int, ...]] = {}
+        self._spec_dim: Dict[str, Optional[int]] = {}
         self._sizes: Dict[str, int] = {}
         self._chunks: Dict[str, int] = {}
         self._row_split: Tuple[bool, ...] = ()
@@ -547,8 +607,43 @@ class ZeroTrainStep:
 
         return all_gather(None, x, self.group)
 
+    def _tp_dim(self, name: str) -> Optional[int]:
+        spec = self.param_specs.get(name)
+        dim = tp_dim_spec(spec, TP_AXIS)
+        return dim if dim is not None else tp_dim_spec(spec, "mp")
+
+    def _tp_part(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's tp part of a full logical tensor of parameter
+        `name` (the whole tensor when it is not split, or 0-d)."""
+        dim = self._spec_dim.get(name)
+        if self.tp == 1 or dim is None or full.dim() == 0:
+            return full
+        if full.shape[dim] % self.tp:
+            raise ValueError(f"{name}: dim {dim} of {tuple(full.shape)} "
+                             f"does not split over tp={self.tp}")
+        n = full.shape[dim] // self.tp
+        return full.narrow(dim, self.tp_rank * n, n)
+
+    def _tp_whole(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The full logical tensor from every tp rank's part (a collective
+        over the tp group)."""
+        dim = self._spec_dim.get(name)
+        if self.tp == 1 or dim is None or part.dim() == 0:
+            return part
+        return gather_dim(part, dim, self.tp_group)
+
+    def full_params(self, params: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """The full logical parameters from this step's tp parts (a
+        collective over the tp group; the parts themselves when tp is
+        1)."""
+        return {k: self._tp_whole(k, v) for k, v in params.items()}
+
     def _record_geometry(self, params: Dict[str, torch.Tensor]) -> None:
         for name, arr in params.items():
+            self._full_shapes[name] = tuple(arr.shape)
+            self._spec_dim[name] = self._tp_dim(name)
+            arr = self._tp_part(name, arr)
             self._shapes[name] = tuple(arr.shape)
             self._sizes[name] = max(arr.numel(), 1)
             self._chunks[name] = max(math.ceil(self._sizes[name] / self.dp),
@@ -572,31 +667,38 @@ class ZeroTrainStep:
     # -------------------------------------------------------- placement
     def init_state(self, params: Optional[Dict[str, torch.Tensor]] = None):
         """The step's parameters (a dict of tensors of their own, in the
-        working type) and optimizer state (sharded per stage) from `params`
-        (default: the model's), full logical tensors on every rank."""
+        working type; this rank's tp parts) and optimizer state (sharded
+        per stage) from `params` (default: the model's), full logical
+        tensors on every rank."""
         if params is None:
             params = {n: p.detach() for n, p in self.model.named_parameters()}
         params = {k: torch.as_tensor(v) for k, v in params.items()}
         self.device = next(iter(params.values())).device
         self._record_geometry(params)
+        params = {k: self._tp_part(k, v) for k, v in params.items()}
         work = {k: (v.to(self._param_dtype) if self._param_dtype is not None
                     and v.is_floating_point() else v).detach().clone()
                 for k, v in params.items()}
         host = self.optimizer.functional_state(work)
+        if self.tp > 1:
+            # the host form is full logical: each slot's tp parts gathered
+            host = {k: {s: self._tp_whole(k, v) for s, v in acc.items()}
+                    for k, acc in host.items()}
         if self._param_dtype is not None:
             for k, v in params.items():
                 if "master_weight" in host.get(k, {}):
                     # the master from the ORIGINAL fp32 value, not the
                     # bf16 round trip
-                    host[k]["master_weight"] = v.detach().float().clone()
+                    host[k]["master_weight"] = self._tp_whole(
+                        k, v.detach().float().clone())
             host[_SCALER_KEY] = {
                 "scale": torch.tensor(self.loss_scale, dtype=torch.float32),
                 "good_steps": torch.tensor(0.0, dtype=torch.float32)}
         return work, self.load_optimizer_state(host)
 
     def load_optimizer_state(self, host_state):
-        """Full logical state (any device, saved at any dp) -> this rank's
-        state for this (dp, stage)."""
+        """Full logical state (any device, saved at any dp or tp) -> this
+        rank's state for this (dp, tp, stage)."""
         if not self._shapes:
             raise RuntimeError(
                 "call init_state() (or pass params to it) before "
@@ -606,6 +708,8 @@ class ZeroTrainStep:
             slots = {}
             for slot, arr in acc.items():
                 arr = torch.as_tensor(arr).to(self.device)
+                if name != _SCALER_KEY:
+                    arr = self._tp_part(name, arr)
                 if name != _SCALER_KEY and self._is_sharded_slot(name, arr):
                     chunk = self._chunks[name]
                     arr = _pad_flat(arr, self.dp * chunk)[
@@ -616,13 +720,16 @@ class ZeroTrainStep:
 
     def save_optimizer_state(self, opt_state):
         """This rank's state -> full logical CPU tensors, restorable at any
-        dp by `load_optimizer_state` (every rank calls it: it gathers)."""
+        dp or tp by `load_optimizer_state` (every rank calls it: it
+        gathers)."""
         out = {}
         for name, acc in opt_state.items():
             slots = {}
             for slot, arr in acc.items():
                 if name != _SCALER_KEY and self._sharded and arr.dim() >= 1:
                     arr = _gather_leaf(self, name, arr)
+                if name != _SCALER_KEY:
+                    arr = self._tp_whole(name, arr)
                 slots[slot] = arr.detach().cpu().clone()
             out[name] = slots
         return out
@@ -954,29 +1061,296 @@ def load_optimizer_state(step: ZeroTrainStep, host_state):
 
 
 # ------------------------------------------- the GroupSharded surface
-class _NotPorted:
-    """The reference's GroupSharded wrappers are sharding annotations over
-    fleet's mp / pp topology (paddle_tpu/parallel/zero.py:1319-1514)."""
+def _sharding_group(group, hcg):
+    from ..distributed.group import _default
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__} {_FLEET}")
-
-
-class GroupShardedStage2(_NotPorted):
-    pass
+    if hcg is not None and hcg.get_sharding_parallel_world_size() > 1:
+        return hcg.get_sharding_parallel_group()
+    return group if group is not None else _default()
 
 
-class GroupShardedStage3(_NotPorted):
-    pass
+def _host_slots(state, offload: bool):
+    """The optimizer slots moved to host memory (pinned when a card is
+    there) under offload, else as they are."""
+    if not offload:
+        return state
+    pin = torch.cuda.is_available()
+    return {k: {s: (v.detach().to("cpu").pin_memory() if pin
+                    else v.detach().to("cpu"))
+                for s, v in acc.items()} for k, acc in state.items()}
 
 
-class GroupShardedOptimizerStage2(_NotPorted):
-    pass
+class _Gather(torch.autograd.Function):
+    """A stage-3 parameter's full value from every rank's (chunk,) slice;
+    the gradient reduce-scattered back in rank order."""
+
+    @staticmethod
+    def forward(ctx, piece, group, size, shape):
+        ctx.group = group
+        return _gathered(piece, group, size, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.group.nranks
+        flat = _pad_flat(g.contiguous(), n * ((g.numel() + n - 1) // n))
+        return ordered_psum_scatter(flat, ctx.group), None, None, None
 
 
-def group_sharded_parallel(*args, **kwargs):
-    raise NotImplementedError(f"group_sharded_parallel {_FLEET}")
+def _gathered(piece, group, size, shape):
+    from ..distributed.communication import all_gather
+
+    return torch.cat(all_gather(None, piece.detach(), group))[:size].reshape(
+        shape)
 
 
-def save_group_sharded_model(*args, **kwargs):
-    raise NotImplementedError(f"save_group_sharded_model {_FLEET}")
+class _ShardedBase(torch.nn.Module):
+    """The wrapped model over the sharding group (the topology's sharding
+    group, else `group`, else the world)."""
+
+    stage = None
+    _shard_params = False
+
+    def __init__(self, layer, optimizer=None, group=None,
+                 sync_buffers: bool = False, device: str = "gpu",
+                 segment_size: int = 2 ** 20, offload: bool = False,
+                 hcg=None, **kwargs):
+        super().__init__()
+        self._layers = layer
+        self._optimizer = optimizer
+        self.offload = offload
+        self.group = _sharding_group(group, hcg)
+        self._full: Dict[str, Tuple[Tuple[int, ...], int]] = {}
+        if self._shard_params:
+            self._shard()
+
+    def forward(self, *inputs, **kwargs):
+        return self._layers(*inputs, **kwargs)
+
+    def zero_train_step(self, loss_fn=None, criterion=None,
+                        **kwargs) -> ZeroTrainStep:
+        """The functional ZeRO step for this wrapper's model and optimizer
+        at dp = the sharding group's size (stages 1 / 2 only: stage 3 is
+        this wrapper's own eager step)."""
+        if self.stage >= 3:
+            raise NotImplementedError(
+                "stage 3 (p_g_os) shards the parameters themselves: train "
+                "it through the wrapper (loss.backward(), opt.step()); the "
+                "functional ZeroTrainStep covers stages 1/2")
+        return ZeroTrainStep(self._layers, self._optimizer, loss_fn,
+                             criterion=criterion, group=self.group,
+                             stage=self.stage, **kwargs)
+
+    def parameters(self, *a, **k):
+        return self._layers.parameters(*a, **k)
+
+    def named_parameters(self, *a, **k):
+        return self._layers.named_parameters(*a, **k)
+
+    def state_dict(self, *a, **k):
+        return self._layers.state_dict(*a, **k)
+
+    def set_state_dict(self, sd, *a, **k):
+        out = self._layers.load_state_dict(sd, *a, **k)
+        if self._shard_params:
+            self._shard()
+        return out
+
+    def get_all_parameters(self, convert2cpu: bool = False):
+        """The full parameters (stage 3: gathered from every rank's slices,
+        a collective); the model's own for stages 1 / 2."""
+        if not self._shard_params:
+            return list(self._layers.parameters())
+        out = []
+        for name, p in self._layers.named_parameters():
+            shape, size = self._full[name]
+            full = _gathered(p, self.group, size, shape)
+            out.append(full.cpu() if convert2cpu else full)
+        return out
+
+
+class GroupShardedStage2(_ShardedBase):
+    stage = 2
+    _shard_params = False
+
+
+class GroupShardedStage3(_ShardedBase):
+    """Each parameter held as this rank's flat (chunk,) slice; the forward
+    runs the model on gathered parameters (`torch.func.functional_call`)."""
+
+    stage = 3
+    _shard_params = True
+
+    @torch.no_grad()
+    def _shard(self):
+        n, i = self.group.nranks, self.group.rank
+        for mod in self._layers.modules():
+            for name, p in list(mod._parameters.items()):
+                if p is None or getattr(p, "_zero3", False):
+                    continue
+                chunk = max((p.numel() + n - 1) // n, 1)
+                piece = torch.nn.Parameter(
+                    _pad_flat(p.detach(), n * chunk)[i * chunk:(i + 1) * chunk]
+                    .clone(), requires_grad=p.requires_grad)
+                piece._zero3 = True
+                piece._full = (tuple(p.shape), p.numel())
+                mod._parameters[name] = piece
+        self._full = {name: p._full
+                      for name, p in self._layers.named_parameters()}
+
+    def forward(self, *inputs, **kwargs):
+        from torch.func import functional_call
+
+        group = self.group
+        full = {}
+        for name, p in self._layers.named_parameters():
+            shape, size = self._full[name]
+            full[name] = _Gather.apply(p, group, size, shape)
+        if not torch.is_grad_enabled():
+            return functional_call(self._layers, full, inputs, kwargs)
+        # the backward keeps a token for a gathered parameter (or a view
+        # of it) and gathers it again when it needs the values
+        storages = {t.untyped_storage().data_ptr(): name
+                    for name, t in full.items()}
+        pieces = dict(self._layers.named_parameters())
+
+        def pack(t):
+            name = storages.get(t.untyped_storage().data_ptr())
+            if name is None:
+                return t
+            return (name, t.size(), t.stride(), t.storage_offset())
+
+        def unpack(saved):
+            if isinstance(saved, torch.Tensor):
+                return saved
+            name, size, stride, offset = saved
+            shape, n = self._full[name]
+            base = _gathered(pieces[name], group, n, shape)
+            return base.as_strided(size, stride, offset)
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            return functional_call(self._layers, full, inputs, kwargs)
+
+
+class GroupShardedOptimizerStage2:
+    """The optimizer side: `step()` runs the sharded update of the
+    wrapper's stage over the sharding group, through this module's
+    update functions (stage 1 / 2: `_sharded_update` on the full
+    parameters and their local gradients; stage 3: the optimizer's rule on
+    the slices, whose gradients arrive reduce-scattered)."""
+
+    def __init__(self, params, optim, group=None, offload: bool = False,
+                 device: str = "gpu", stage: int = 2, **kwargs):
+        from ..distributed.group import _default
+
+        self._optim = optim
+        self._params = list(params)
+        self.offload = offload
+        self.group = group if group is not None else _default()
+        self.stage = int(stage)
+        self._names = [str(i) for i in range(len(self._params))]
+        self._engine = None
+        self._state = None
+
+    def __getattr__(self, name):
+        return getattr(self._optim, name)
+
+    def _build(self):
+        live = {k: p.detach() for k, p in zip(self._names, self._params)}
+        if self.stage >= 3:
+            self._state = self._optim.functional_state(live)
+        else:
+            self._engine = ZeroTrainStep(None, self._optim, lambda *a: None,
+                                         stage=self.stage, group=self.group)
+            _, self._state = self._engine.init_state(live)
+        self._state = _host_slots(self._state, self.offload)
+
+    @torch.no_grad()
+    def step(self):
+        if self._state is None:
+            self._build()
+        opt = self._optim
+        opt._step_count += 1
+        lr, t = float(opt.get_lr()), opt._step_count
+        params = {k: p.detach() for k, p in zip(self._names, self._params)}
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in zip(self._names, self._params)}
+        dev = self._params[0].device
+        state = ({k: {s: v.to(dev, non_blocking=True) for s, v in
+                      acc.items()} for k, acc in self._state.items()}
+                 if self.offload else self._state)
+        if self.stage >= 3:
+            inv = 1.0 / self.group.nranks
+            new_p, new_s = opt.functional_step(
+                params, {k: g * inv for k, g in grads.items()}, state, lr, t)
+        else:
+            new_p, new_s, _ = _sharded_update(self._engine, params, grads,
+                                              state, lr, t)
+        for k, p in zip(self._names, self._params):
+            p.copy_(new_p[k])
+        if self.offload:
+            for k, acc in new_s.items():
+                for s, v in acc.items():
+                    self._state[k][s].copy_(v)
+        else:
+            self._state = new_s
+
+    def clear_grad(self, set_to_zero: bool = True):
+        for p in self._params:
+            if p.grad is not None:
+                if set_to_zero:
+                    p.grad.zero_()
+                else:
+                    p.grad = None
+
+    def minimize(self, loss, *a, **k):
+        loss.backward()
+        self.step()
+
+    def state_bytes(self) -> int:
+        """Bytes of optimizer state this rank holds (device or host)."""
+        if self._state is None:
+            return 0
+        return ZeroTrainStep.bytes_per_chip(self._state)
+
+
+def group_sharded_parallel(model, optimizer, level: str = "p_g_os",
+                           scaler=None, group=None, offload: bool = False,
+                           sync_buffers: bool = False, buffer_max_size=2 ** 23,
+                           segment_size=2 ** 20, sync_comm: bool = False,
+                           dp_group=None, exclude_layer=None):
+    """paddle.distributed.sharding.group_sharded_parallel: level 'os'
+    (stage 1), 'os_g' (stage 2) or 'p_g_os' (stage 3). Returns (model,
+    optimizer[, scaler]); every rank of the sharding group calls it."""
+    if level not in ("os", "os_g", "p_g_os"):
+        raise ValueError(
+            f"group_sharded_parallel level must be 'os' (ZeRO-1), 'os_g' "
+            f"(ZeRO-2) or 'p_g_os' (ZeRO-3); got {level!r}")
+    if level == "p_g_os":
+        wrapped = GroupShardedStage3(model, optimizer=optimizer, group=group,
+                                     offload=offload)
+    else:
+        wrapped = GroupShardedStage2(model, optimizer=optimizer, group=group,
+                                     offload=offload)
+        wrapped.stage = 1 if level == "os" else 2
+    opt = GroupShardedOptimizerStage2(list(wrapped.parameters()), optimizer,
+                                      group=wrapped.group, offload=offload,
+                                      stage=wrapped.stage)
+    if scaler is not None:
+        return wrapped, opt, scaler
+    return wrapped, opt
+
+
+def save_group_sharded_model(model, output, optimizer=None):
+    """The full parameters (gathered: every rank calls it) saved by rank 0
+    of the group to `output + ".pdparams"`, and the optimizer's state dict
+    to `output + ".pdopt"`."""
+    names = [n for n, _ in model.named_parameters()]
+    full = (model.get_all_parameters(convert2cpu=True)
+            if hasattr(model, "get_all_parameters")
+            else [p.detach().cpu() for p in model.parameters()])
+    group = getattr(model, "group", None)
+    if group is None or group.rank == 0:
+        torch.save(dict(zip(names, full)), str(output) + ".pdparams")
+        if optimizer is not None:
+            inner = getattr(optimizer, "_optim", optimizer)
+            torch.save(inner.state_dict(), str(output) + ".pdopt")

@@ -5,8 +5,18 @@
 `named_parameters()` names, with values as numpy arrays (or anything
 `np.asarray` takes), and copies it into the port's model in place.
 Paddle's `Linear.weight` is (in, out) and PyTorch's is (out, in), so
-Linear weights are transposed; Embedding and RMSNorm weights cross as they
-are. A missing or extra key, or a shape that does not match, raises.
+Linear weights are transposed (fleet's column / row parallel layers',
+sequence-parallel ones included); Embedding and norm weights cross as they are. A missing or extra
+key, or a shape that does not match, raises.
+
+A tensor-parallel model or a pipeline stage loads its shard of the full
+parameters. Each of fleet's mp layers knows its mp rank: a
+column-parallel weight (and bias) takes its rows of the port's (out, in)
+layout, a row-parallel weight its columns, a vocab-parallel embedding its
+rows, and GPT's fused QKV goes through `serving.tp.interleave_qkv` first,
+so a rank's rows are its (3, heads / mp, hd) block. A `PipelineLayer`
+holding one stage takes the entries of its own layers (named `i.` by
+their index in the whole list, as the reference's) and leaves the others.
 """
 from __future__ import annotations
 
@@ -22,20 +32,37 @@ __all__ = ["load_reference_state"]
 @torch.no_grad()
 def load_reference_state(model: nn.Module, params: Mapping[str, object]
                          ) -> None:
+    from .distributed.fleet.meta_parallel.parallel_layers import (
+        VocabParallelEmbedding, _MPLayer)
+    from .serving.tp import interleave_qkv
+
     own = dict(model.named_parameters())
     missing = sorted(own.keys() - params.keys())
     extra = sorted(params.keys() - own.keys())
+    if getattr(model, "_stage_id", None) is not None:
+        extra = []      # the other stages' layers
     if missing or extra:
         raise KeyError(f"reference state does not match the model: missing "
                        f"{missing}, unexpected {extra}")
-    linear = {f"{name}.weight" for name, mod in model.named_modules()
-              if isinstance(mod, nn.Linear)}
+    owner = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            owner[f"{mname}.{pname}" if mname else pname] = (mod, pname)
     for name, p in own.items():
+        mod, pname = owner[name]
         # via fp32: numpy has no bfloat16, and the copy casts to p's type
         arr = np.asarray(params[name], dtype=np.float32)
-        if name in linear:
+        if pname == "weight" and (isinstance(mod, nn.Linear) or (
+                isinstance(mod, _MPLayer)
+                and not isinstance(mod, VocabParallelEmbedding))):
             arr = arr.T
-        if arr.shape != tuple(p.shape):
-            raise ValueError(f"{name}: reference shape {arr.shape} does not "
-                             f"match the port's {tuple(p.shape)}")
-        p.copy_(torch.tensor(arr))
+        full = torch.tensor(arr)
+        if isinstance(mod, _MPLayer):
+            heads = getattr(mod, "interleave_heads", None)
+            if heads is not None:
+                full = interleave_qkv(full, heads, mod.mp_size)
+            full = mod.shard_of(pname, full)
+        if tuple(full.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {tuple(full.shape)} "
+                             f"does not match the port's {tuple(p.shape)}")
+        p.copy_(full)

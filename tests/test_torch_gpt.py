@@ -13,7 +13,7 @@ differ).
 - O1 bf16 on both sides: the loss within 2e-2 relative and the cosine of
   every gradient above 0.99, fused and unfused;
 - causality, `start_pos` in its three forms, positions past the table,
-  and `tensor_parallel=True` refused naming its ROADMAP items.
+  and `tensor_parallel=True` on one rank equal to the dense model.
 """
 import contextlib
 import functools
@@ -291,8 +291,25 @@ def test_positions_past_the_table_take_its_last_row():
 
 
 def test_tensor_parallel_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*S5.*fleet"):
-        GPTModel(GPTConfig.tiny(), tensor_parallel=True, device="cpu")
+    """Ported with fleet: outside an mp group, `tensor_parallel=True`
+    builds fleet's mp layers at mp 1, the dense model's function and its
+    weights from the same seed (the mp 2 cases are in
+    tests/test_torch_fleet.py)."""
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+
+    tp = GPTModel(GPTConfig.tiny(), tensor_parallel=True, device="cpu",
+                  seed=4)
+    dense = GPTModel(GPTConfig.tiny(), device="cpu", seed=4)
+    assert isinstance(tp.wte, mpl.VocabParallelEmbedding)
+    assert isinstance(tp.blocks[0].attn.qkv, mpl.ColumnParallelLinear)
+    assert isinstance(tp.blocks[0].ffn_out, mpl.RowParallelLinear)
+    for (n, a), b in zip(tp.named_parameters(), dense.parameters()):
+        assert torch.equal(a, b), n
+    ids = torch.from_numpy(_batch()[0])
+    tp.eval()
+    dense.eval()
+    with torch.no_grad():
+        assert torch.equal(tp(ids), dense(ids))
 
 
 def test_seeded_init_and_default_device():

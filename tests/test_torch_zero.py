@@ -274,17 +274,29 @@ class TestValidation:
                 Z.zero_train_step(net, Adam(parameters=net.parameters()),
                                   stage=0, **kw)
 
-    def test_tp_and_group_sharded_name_fleet(self):
+    def test_tp_and_group_sharded_name_fleet(self, tmp_path):
+        """Ported with fleet: tp 2 needs a group of dp x tp ranks, which a
+        world of one is not; the GroupSharded surface wraps and trains a
+        model on the one-rank world (the four-rank cases are in
+        tests/test_torch_fleet.py and tests/test_torch_group_sharded.py)."""
         net = _mlp()
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        with pytest.raises(ValueError, match="does not split into tp=2"):
             Z.zero_train_step(net, Adam(parameters=net.parameters()), tp=2)
-        for cls in (Z.GroupShardedStage2, Z.GroupShardedStage3,
-                    Z.GroupShardedOptimizerStage2):
-            with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-                cls(net)
-        for fn in (Z.group_sharded_parallel, Z.save_group_sharded_model):
-            with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-                fn(net)
+        wrapped, opt = Z.group_sharded_parallel(
+            net, Adam(learning_rate=ranks.LR, parameters=net.parameters()),
+            level="p_g_os")
+        assert isinstance(wrapped, Z.GroupShardedStage3)
+        assert isinstance(opt, Z.GroupShardedOptimizerStage2)
+        before = [p.detach().clone() for p in wrapped.get_all_parameters()]
+        loss = torch.mean((wrapped(torch.from_numpy(X))
+                           - torch.from_numpy(Y)) ** 2)
+        loss.backward()
+        opt.step()
+        after = wrapped.get_all_parameters()
+        assert all(not torch.equal(a, b) for a, b in zip(before, after))
+        Z.save_group_sharded_model(wrapped, tmp_path / "m", opt)
+        saved = torch.load(tmp_path / "m.pdparams")
+        assert saved["0.weight"].shape == (HID, 16)
 
     def test_one_rank_world_runs_the_stage0_step(self):
         """Without a process group dp is 1 and stage 2 is stage 0."""
