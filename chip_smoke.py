@@ -380,6 +380,27 @@ without the final result line:
    0 with a quarter of its parameter bytes; ZeroTrainStep dp 2 x tp 2 on
    ERNIE-1.0 base within fp32 rounding of tp 1. PyTorch's default
    algorithms in every rank.
+46. train_dp (last): the rest of distributed through the port's own
+   launcher: `python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 4` runs this script's `--dp-worker` mode on 4 ranks
+   (gloo on one card, NCCL with a card a rank), each joining with
+   `init_parallel_env()` and no arguments. ERNIE-1.0 base at dp 4 through
+   fleet.init and fleet.distributed_model (a DataParallel), fed by
+   DistributedBatchSampler and DataLoader (32 x 512, 8 a rank), O1 bf16,
+   dropout 0, Adam 1e-4, 1 + 2 steps under PyTorch's deterministic
+   algorithms: loss and every parameter bit for bit ZeroTrainStep(stage=0)
+   on the same global batches; broadcast, reduce, reduce_scatter, scatter,
+   alltoall, isend / irecv and the object collectives on CUDA tensors
+   against their definitions; an async checkpoint of the model and the
+   optimizer (one more step while it is written, then wait_save), loaded
+   here at world 1 into a fresh model and optimizer, every tensor bit for
+   bit rank 0's snapshot; the Engine on GPT-3 1.3B's widths at 2 layers
+   over ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"]), 2 SGD steps against
+   the dense model's 2 eager steps, and Adam on a ["sharding", "mp"] mesh
+   against the dp mesh (losses within 1e-5, optimizer bytes a rank at
+   half). Prints step ms, tokens/s/chip, staged bytes a step and peak
+   memory a rank, the checkpoint's bytes and save / wait / load seconds,
+   the Engine legs' walls and K1-K5 launches a rank.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -7497,6 +7518,547 @@ def phase_train_fleet(seed, dev):
                 per_rank=[r["legs"] for r in ranks], launches=launches)
 
 
+# ---------------------------------------------- train_dp (fleetrun, DP)
+DP_RANKS = 4
+# the Train ERNIE ZeRO cell's global batch: 8 x 512 a rank
+DP_BATCH = (32, 512)
+# warm-up + timed DataParallel steps (as ZERO_STEPS), then one more step
+# while the async checkpoint is written
+DP_STEPS = (1, 2)
+DP_LR = 1e-4
+DP_TIMEOUT = 600
+# the Engine leg: GPT-3 1.3B's widths, ENGINE_LAYERS deep, fp32, a batch
+# of 4 x 512 over ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"]); 2 SGD steps
+# held to the dense single-rank model's 2 eager steps within the
+# reference test's limits (tests/test_auto_parallel_engine.py:70-96)
+ENGINE_LAYERS = 2
+ENGINE_BATCH = (4, 512)
+ENGINE_LR = 0.1
+ENGINE_RTOL, ENGINE_ATOL = 2e-4, 1e-5
+# the ["sharding", "mp"] mesh's Adam losses against the dp mesh's
+ENGINE_LOSS_RTOL = 1e-5
+
+
+def _dp_dataset(seed, cfg, steps):
+    """The seeded token dataset: enough rows of DP_BATCH[1] tokens for
+    `steps` global batches (ids and MLM labels, on the host)."""
+    from paddle_tpu_torch.io import Dataset
+
+    rng = np.random.RandomState(seed)
+    n = DP_BATCH[0] * steps
+    ids = rng.randint(0, cfg.vocab_size, (n, DP_BATCH[1])).astype(np.int64)
+    labels = rng.randint(0, cfg.vocab_size, (n, DP_BATCH[1])
+                         ).astype(np.int64)
+
+    class Tokens(Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return ids[i], labels[i]
+
+    return Tokens(), ids, labels
+
+
+def dp_collectives(g, dev):
+    """The new collectives on CUDA tensors over `g`, each against its
+    definition on seeded inputs (every rank computes every rank's input):
+    {name: max abs error} (0 where exact) and {name: ok} of the object and
+    point-to-point ones."""
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.parallel.mesh import fixed_order_sum
+
+    n, me = g.nranks, g.rank
+
+    def x(r, shape=(1000,)):
+        gen = torch.Generator().manual_seed(1000 + r)
+        return torch.randn(shape, generator=gen).to(dev)
+
+    xs = [x(r) for r in range(n)]
+    errs = {}
+    t = xs[me].clone()
+    ptd.broadcast(t, src=2, group=g)
+    errs["broadcast"] = max_err(t, xs[2])
+    t = xs[me].clone()
+    ptd.reduce(t, dst=1, group=g)
+    errs["reduce"] = max_err(t, fixed_order_sum(xs) if me == 1 else xs[me])
+    parts = [[x(10 * r + j, (250,)) for j in range(n)] for r in range(n)]
+    t = torch.empty(250, device=dev)
+    ptd.reduce_scatter(t, parts[me], group=g)
+    errs["reduce_scatter"] = max_err(
+        t, fixed_order_sum([parts[r][me] for r in range(n)]))
+    t = torch.empty(250, device=dev)
+    ptd.scatter(t, parts[0] if me == 0 else None, src=0, group=g)
+    errs["scatter"] = max_err(t, parts[0][me])
+    got = ptd.alltoall([], parts[me], group=g)
+    errs["alltoall"] = max(max_err(got[j], parts[j][me]) for j in range(n))
+    recv_t = torch.empty(1000, device=dev)
+    # even ranks send first, odd ranks receive first: NCCL makes a pair's
+    # communicator at the pair's first exchange, and every rank sending
+    # first around the ring would wait on its neighbour forever
+    if me % 2 == 0:
+        reqs = [ptd.isend(xs[me], (me + 1) % n, g),
+                ptd.irecv(recv_t, (me - 1) % n, g)]
+    else:
+        reqs = [ptd.irecv(recv_t, (me - 1) % n, g),
+                ptd.isend(xs[me], (me + 1) % n, g)]
+    for r in reqs:
+        ptd.wait(r)
+    errs["isend_irecv"] = max_err(recv_t, xs[(me - 1) % n])
+    objs = ptd.all_gather_object([], {"rank": me}, g)
+    lst = [me, "r" * me]
+    ptd.broadcast_object_list(lst, src=3, group=g)
+    mine = ptd.scatter_object_list(
+        [], [f"o{j}" for j in range(n)] if me == 0 else None, 0, g)
+    ok = {"all_gather_object": objs == [{"rank": r} for r in range(n)],
+          "broadcast_object_list": lst == [3, "rrr"],
+          "scatter_object_list": mine == [f"o{me}"],
+          "backend": ptd.get_backend(g) == g.backend.upper()}
+    return errs, ok
+
+
+def _engine_cfg():
+    from paddle_tpu_torch.models import GPTConfig
+
+    cfg = GPTConfig.gpt3_1p3b()
+    cfg.num_hidden_layers = ENGINE_LAYERS
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    return cfg
+
+
+def _engine_data(seed, dev, cfg):
+    g = torch.Generator(device="cpu").manual_seed(seed + 17)
+    ids = torch.randint(0, cfg.vocab_size, ENGINE_BATCH, generator=g)
+    target = torch.randn(*ENGINE_BATCH, cfg.hidden_size, generator=g)
+    return ids.to(dev), target.to(dev)
+
+
+def _mse(out, target):
+    return torch.mean((out - target) ** 2)
+
+
+def dp_engine_legs(seed, dev, counters):
+    """The Engine legs of a train_dp rank: GPT-3 1.3B's widths at
+    ENGINE_LAYERS, built dense, then partitioned over dp 2 x mp 2 (2 SGD
+    steps; rank 0 holds the gathered parameters to the dense model's 2
+    eager steps); then Adam on the dp mesh and on a ["sharding", "mp"]
+    mesh (ZeRO-1)."""
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_full_parameters
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.optimizer import SGD, Adam
+
+    cfg = _engine_cfg()
+    ids, target = _engine_data(seed, dev, cfg)
+    ds = TensorDataset([ids, target])
+    mesh = ptd.ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"])
+    out = {}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    model = GPTModel(cfg, tensor_parallel=True, device=dev, seed=seed)
+    eng = ptd.Engine(model, loss=_mse, optimizer=SGD(
+        learning_rate=ENGINE_LR, parameters=model.parameters()), mesh=mesh)
+    hist = eng.fit(ds, epochs=2, batch_size=ENGINE_BATCH[0])
+    torch.cuda.synchronize(dev)
+    out["sgd"] = dict(losses=list(hist["loss"]),
+                      wall_s=time.perf_counter() - t0,
+                      launches={k: fn.launches for k, fn in
+                                counters.items()},
+                      local_params=sum(p.numel()
+                                       for p in model.parameters()))
+    full = mp_full_parameters(model)
+    if ptd.get_rank() == 0:
+        dense = GPTModel(cfg, tensor_parallel=True, device=dev, seed=seed)
+        opt = SGD(learning_rate=ENGINE_LR, parameters=dense.parameters())
+        ref_losses = []
+        for _ in range(2):
+            loss = _mse(dense(ids), target)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            ref_losses.append(float(loss))
+        worst, worst_name = 0.0, None
+        for name, p in dense.named_parameters():
+            got, ref = full[name].float(), p.detach().float()
+            # the excess over the reference test's allclose limit
+            over = float(((got - ref).abs() - ENGINE_RTOL * ref.abs()).max())
+            if over > worst or worst_name is None:
+                worst, worst_name = over, name
+        out["sgd"].update(ref_losses=ref_losses, worst_excess=worst,
+                          worst_name=worst_name,
+                          n_params=sum(p.numel()
+                                       for p in dense.parameters()))
+        del dense, opt
+    del model, eng, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    for axes in (("dp", "mp"), ("sharding", "mp")):
+        t0 = time.perf_counter()
+        m = mesh if axes[0] == "dp" else ptd.ProcessMesh(
+            [[0, 1], [2, 3]], list(axes))
+        model = GPTModel(cfg, tensor_parallel=True, device=dev, seed=seed)
+        eng = ptd.Engine(model, loss=_mse, optimizer=Adam(
+            learning_rate=1e-4, parameters=model.parameters()), mesh=m)
+        hist = eng.fit(ds, epochs=2, batch_size=ENGINE_BATCH[0])
+        torch.cuda.synchronize(dev)
+        out[axes[0]] = dict(losses=list(hist["loss"]),
+                            opt_bytes=eng.optimizer_state_bytes(),
+                            wall_s=time.perf_counter() - t0)
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker(out_dir, seed):
+    """One rank of phase_train_dp, started by the port's launcher
+    (`python -m paddle_tpu_torch.distributed.launch ... chip_smoke.py
+    --dp-worker DIR`): joins the launcher's world with
+    `init_parallel_env()`, runs every leg and writes its readings to
+    DIR/rank<r>.json (rank 0 also DIR/snapshot.json, the digests of the
+    checkpointed tensors)."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed import group as ptd_group
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.io import DataLoader, DistributedBatchSampler
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import zero as Z
+    from paddle_tpu_torch.parallel.mesh import ordered_psum
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("train_dp rank: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = ptd.init_parallel_env()
+    dev, me = world.device, world.rank
+    deterministic_library_ops().__enter__()     # this rank's process only
+    count = torch.cuda.device_count()
+    cards = len({r % count for r in range(world.nranks)})
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": world.nranks}
+    # the NSP head and the pooler take no part in the MLM loss
+    strategy.find_unused_parameters = True
+    fleet.init(is_collective=True, strategy=strategy)
+    out = {"rank": me, "backend": world.backend, "device": str(dev),
+           "env": {k: os.environ.get(k) for k in (
+               "PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM", "PADDLE_MASTER",
+               "PADDLE_LOCAL_RANK")}}
+    counters = train_counters()
+
+    cfg = ErnieConfig.ernie_base()
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    cfg.fused_mlm_loss = True
+    steps = sum(DP_STEPS) + 1
+    ds, ids_all, labels_all = _dp_dataset(seed, cfg, steps)
+    per = DP_BATCH[0] // world.nranks
+    loader = DataLoader(ds, batch_sampler=DistributedBatchSampler(
+        ds, batch_size=per, shuffle=True), places=dev)
+    # the global batches the ranks' samplers make, in rank order
+    samplers = [DistributedBatchSampler(ds, per, num_replicas=world.nranks,
+                                        rank=r, shuffle=True)
+                for r in range(world.nranks)]
+    order = [sum(b, []) for b in zip(*samplers)]
+    model = ErnieForPretraining(cfg, device=dev, seed=seed)
+    model.train()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    # the reference: ZeroTrainStep(stage=0) on the same global batches
+    def loss_fn(params, ids_, labels_):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return functional_call(model, params, (ids_,), {
+                "masked_lm_labels": labels_, "generator": gen})[0]
+
+    zstep = Z.zero_train_step(model, Adam(learning_rate=DP_LR,
+                                          parameters=model.parameters()),
+                              loss_fn, stage=0, group=world)
+    zp, zst = zstep.init_state(init)
+    z_losses = []
+    for t in range(1, sum(DP_STEPS) + 1):
+        idx = order[t - 1]
+        batch = (torch.from_numpy(ids_all[idx]).to(dev),
+                 torch.from_numpy(labels_all[idx]).to(dev))
+        loss, zp, zst = zstep(zp, zst, batch, DP_LR, t)
+        z_losses.append(float(loss))
+    del zst, zstep
+    torch.cuda.synchronize(dev)
+    log(f"[train_dp rank {me}] ZeroTrainStep(stage=0) reference done")
+
+    # DataParallel through fleet, fed by DistributedBatchSampler
+    dp = fleet.distributed_model(model)
+    opt = Adam(learning_rate=DP_LR, parameters=model.parameters())
+    batches = iter(loader)
+
+    def dp_step():
+        x, y = next(batches)
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = dp(x, masked_lm_labels=y, generator=gen)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return float(ordered_psum(loss.detach().float().reshape(1),
+                                  dp.group)[0] * (1.0 / dp.group.nranks))
+
+    warm, timed = DP_STEPS
+    losses = [dp_step() for _ in range(warm)]
+    torch.cuda.synchronize(dev)
+    ptd.barrier(world)
+    staged0 = _staged(ptd_group)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses += [dp_step() for _ in range(timed)]
+    torch.cuda.synchronize(dev)
+    ptd.barrier(world)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    differ = [n for n, p in model.named_parameters()
+              if not torch.equal(p.detach(), zp[n])]
+    tokens = DP_BATCH[0] * DP_BATCH[1]
+    out["dp"] = dict(losses=losses, zero_losses=z_losses, differ=differ,
+                     step_ms=wall / timed * 1e3,
+                     tokens_per_s_chip=tokens * timed / wall / cards,
+                     staged_bytes_per_step=(_staged(ptd_group) - staged0)
+                     / timed,
+                     peak_bytes=torch.cuda.max_memory_allocated(dev),
+                     launches=launches, buckets=len(dp._buckets),
+                     group=list(dp.group.ranks))
+    del zp
+    log(f"[train_dp rank {me}] DataParallel steps done")
+
+    # the collectives on CUDA tensors
+    out["collectives"] = dp_collectives(world, dev)
+    log(f"[train_dp rank {me}] collectives done")
+
+    # the async checkpoint: saved at dp 4, one more step while it is
+    # written, then wait_save; the parent loads it at world 1
+    ckpt = os.path.join(out_dir, "ckpt")
+    state = {"model": dp.state_dict(), "opt": opt.state_dict()}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ck.save_state_dict(state, ckpt, async_save=True)
+    save_s = time.perf_counter() - t0
+    if me == 0:
+        snap = {k: digest(v) if isinstance(v, torch.Tensor) else v
+                for k, v in _flat_state(state).items()}
+        with open(os.path.join(out_dir, "snapshot.json"), "w") as f:
+            json.dump(snap, f)
+    losses.append(dp_step())
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    ck.wait_save()
+    out["checkpoint"] = dict(save_s=save_s,
+                             wait_s=time.perf_counter() - t0)
+    log(f"[train_dp rank {me}] checkpoint done")
+    del state, dp, opt, model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["engine"] = dp_engine_legs(seed, dev, counters)
+    log(f"[train_dp rank {me}] Engine legs done")
+    with open(os.path.join(out_dir, f"rank{me}.json"), "w") as f:
+        json.dump(out, f)
+    ptd.barrier(world)
+    ptd.destroy_process_group()
+    return 0
+
+
+def _flat_state(state, prefix=""):
+    """A nested state dict as {dotted name: value}."""
+    out = {}
+    for k, v in state.items():
+        key = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flat_state(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _tails(log_dir, n=3000):
+    """The last `n` characters of each rank's log."""
+    out = []
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            out.append(f"--- {name}:\n{f.read()[-n:]}")
+    return "\n".join(out)
+
+
+def phase_train_dp(seed, dev):
+    """ERNIE-1.0 base trained data-parallel through the port's own
+    launcher (ROADMAP queue 1 item 5b): `python -m
+    paddle_tpu_torch.distributed.launch --nproc_per_node DP_RANKS` runs
+    this script's `--dp-worker` mode (dp_worker) on every rank: fleet.init
+    at dp 4, DistributedBatchSampler + DataLoader, fleet.distributed_model
+    (a DataParallel), O1 Adam at dropout 0, bit for bit against
+    ZeroTrainStep(stage=0) on the same global batches; the new collectives
+    on CUDA tensors; an async dp-4 checkpoint of the model and the
+    optimizer, loaded here at world 1 into a fresh model and optimizer,
+    every tensor bit for bit rank 0's snapshot; the Engine legs. A rank
+    that fails fails the phase (its log's tail in the error)."""
+    import socket
+    import tempfile
+
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.optimizer import Adam
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ptt_dp_") as tmp:
+        logs = os.path.join(tmp, "logs")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nproc_per_node", str(DP_RANKS), "--master",
+               f"127.0.0.1:{port}", "--log_dir", logs,
+               os.path.join(here, "chip_smoke.py"), "--dp-worker", tmp,
+               "--seed", str(seed)]
+        try:
+            proc = subprocess.run(cmd, env=env, cwd=here, timeout=DP_TIMEOUT,
+                                  capture_output=True, text=True)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"train_dp: the launcher passed {DP_TIMEOUT} "
+                               f"s\n{_tails(logs)}") from None
+        if proc.returncode != 0:
+            raise RuntimeError(f"train_dp: fleetrun exited "
+                               f"{proc.returncode}\n{proc.stderr[-2000:]}\n"
+                               f"{_tails(logs)}")
+        launch_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(tmp, "snapshot.json")) as f:
+            snap = json.load(f)
+        ckpt = os.path.join(tmp, "ckpt")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, n))
+                         for n in os.listdir(ckpt))
+        # world 1: a fresh model (another seed) and optimizer, its slots
+        # made by one step over zero gradients, filled from the checkpoint
+        cfg = ErnieConfig.ernie_base()
+        model = ErnieForPretraining(cfg, device=dev, seed=seed + 1)
+        opt = Adam(learning_rate=DP_LR, parameters=model.parameters())
+        opt.step()
+        target = {"model": model.state_dict(), "opt": opt.state_dict()}
+        t1 = time.perf_counter()
+        ck.load_state_dict(target, ckpt)
+        opt.set_state_dict(target["opt"])
+        torch.cuda.synchronize(dev)
+        load_s = time.perf_counter() - t1
+        loaded = {k: digest(v) if isinstance(v, torch.Tensor) else v
+                  for k, v in _flat_state(target).items()}
+        del model, opt, target
+    wall = time.perf_counter() - t0
+    fails = []
+    r0 = ranks[0]
+    d0 = r0["dp"]
+    shared = len({r["device"] for r in ranks}) < DP_RANKS
+    log(f"[train_dp] ERNIE-1.0 base through fleetrun: {DP_RANKS} ranks on "
+        f"{[r['device'] for r in ranks]} over {r0['backend']} "
+        f"({'ranks share the card' if shared else 'a card a rank'}), "
+        f"launcher env {r0['env']}; global batch {DP_BATCH[0]} x "
+        f"{DP_BATCH[1]} ({DP_BATCH[0] // DP_RANKS} a rank from "
+        f"DistributedBatchSampler), O1 bf16, dropout 0, Adam {DP_LR}, "
+        f"{DP_STEPS[0]} + {DP_STEPS[1]} steps; fleetrun {launch_s:.1f} s, "
+        f"phase {wall:.1f} s")
+    for r in ranks:
+        d = r["dp"]
+        if d["differ"] or d["losses"][:sum(DP_STEPS)] != d["zero_losses"]:
+            fails.append(f"rank {r['rank']}: DataParallel differs from "
+                         f"ZeroTrainStep(stage=0) at {d['differ'][:3]}, "
+                         f"losses {d['losses']} vs {d['zero_losses']}")
+        if any(n <= 0 for n in d["launches"].values()):
+            fails.append(f"rank {r['rank']}: a kernel did not launch: "
+                         f"{d['launches']}")
+        if not all(np.isfinite(d["losses"])):
+            fails.append(f"rank {r['rank']}: non-finite loss")
+        log(f"[train_dp]   rank {r['rank']} on {r['device']}: step "
+            f"{d['step_ms']:.1f} ms, staged "
+            f"{d['staged_bytes_per_step'] / 2**20:.1f} MiB a step, peak "
+            f"{d['peak_bytes'] / 2**30:.2f} GiB, launches {d['launches']} "
+            f"({DP_STEPS[1]} steps), {d['buckets']} buckets over "
+            f"{d['group']}")
+    log(f"[train_dp] DataParallel: loss "
+        + ", ".join(f"{x:.6f}" for x in d0["losses"])
+        + f"; ZeroTrainStep(stage=0) "
+        + ", ".join(f"{x:.6f}" for x in d0["zero_losses"])
+        + f"; parameters {'bit-identical' if not d0['differ'] else 'DIFFER'}"
+        f"; step {d0['step_ms']:.1f} ms, "
+        f"{d0['tokens_per_s_chip']:.1f} tokens/s/chip")
+    for r in ranks:
+        errs, ok = r["collectives"]
+        bad = [k for k, e in errs.items() if not e <= 1e-6] + \
+            [k for k, v in ok.items() if not v]
+        if bad:
+            fails.append(f"rank {r['rank']}: collectives {bad}: {errs} {ok}")
+    log(f"[train_dp] collectives on CUDA tensors (rank 0, max abs error "
+        f"against the definition): {r0['collectives'][0]}; objects and "
+        f"backend {r0['collectives'][1]}")
+    differ = sorted(k for k in snap if loaded.get(k) != snap[k])
+    c = r0["checkpoint"]
+    log(f"[train_dp] async checkpoint at dp {DP_RANKS}: "
+        f"{ckpt_bytes / 2**30:.3f} GiB ({len(snap)} entries), save "
+        f"{c['save_s']:.3f} s (the snapshot), wait {c['wait_s']:.3f} s "
+        f"after one more step; loaded at world 1 in {load_s:.3f} s: "
+        f"{'every tensor bit-identical to rank 0' if not differ else 'DIFFER'}")
+    if differ:
+        fails.append(f"checkpoint loaded at world 1 differs at {differ[:3]}")
+    e = r0["engine"]
+    s = e["sgd"]
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(s["losses"],
+                                                   s["ref_losses"]))
+    log(f"[train_dp] Engine, GPT-3 1.3B widths at {ENGINE_LAYERS} layers "
+        f"({s['n_params'] / 1e6:.1f} M parameters, {s['local_params'] / 1e6:.1f}"
+        f" M a rank), fp32, {ENGINE_BATCH[0]} x {ENGINE_BATCH[1]} over dp 2 x "
+        f"mp 2: 2 SGD steps, loss "
+        + ", ".join(f"{x:.6f}" for x in s["losses"]) + " against the dense "
+        + ", ".join(f"{x:.6f}" for x in s["ref_losses"])
+        + f" (rel {lrel:.3g}); worst parameter {s['worst_name']} past "
+        f"rtol {ENGINE_RTOL} by {s['worst_excess']:.3g} (atol {ENGINE_ATOL})"
+        f"; {s['wall_s']:.1f} s, launches {s['launches']}")
+    if not s["worst_excess"] <= ENGINE_ATOL:
+        fails.append(f"Engine parameters past the limits: {s['worst_name']}"
+                     f" {s['worst_excess']}")
+    if not lrel <= ENGINE_RTOL:
+        fails.append(f"Engine losses {s['losses']} vs {s['ref_losses']}")
+    sh, dpm = e["sharding"], e["dp"]
+    srel = max(abs(a - b) / abs(b) for a, b in zip(sh["losses"],
+                                                   dpm["losses"]))
+    log(f"[train_dp] Engine Adam on ['sharding', 'mp'] (ZeRO-1): loss "
+        + ", ".join(f"{x:.6f}" for x in sh["losses"]) + " against ['dp', "
+        "'mp'] " + ", ".join(f"{x:.6f}" for x in dpm["losses"])
+        + f" (rel {srel:.3g}, tol {ENGINE_LOSS_RTOL}); optimizer "
+        f"{sh['opt_bytes'] / 2**20:.1f} against {dpm['opt_bytes'] / 2**20:.1f}"
+        f" MiB a rank; {sh['wall_s']:.1f} / {dpm['wall_s']:.1f} s")
+    if not srel <= ENGINE_LOSS_RTOL:
+        fails.append(f"sharding mesh losses {sh['losses']} vs "
+                     f"{dpm['losses']}")
+    if not dpm["opt_bytes"] / 2 <= sh["opt_bytes"] <= dpm["opt_bytes"] / 2 \
+            * 1.001:
+        fails.append(f"sharding mesh optimizer bytes {sh['opt_bytes']} vs "
+                     f"{dpm['opt_bytes']} / 2")
+    if fails:
+        raise AssertionError("train_dp: " + "; ".join(fails))
+    launches = {k: sum(r["dp"]["launches"][k] + r["engine"]["sgd"][
+        "launches"][k] for r in ranks) for k in TRAIN_LAUNCHES}
+    return dict(backend=r0["backend"], shared_card=shared, wall_s=wall,
+                launch_s=launch_s, ckpt_bytes=ckpt_bytes, load_s=load_s,
+                per_rank=ranks, launches=launches)
+
+
 KERNELS = {
     "K1": dict(name="flash_attention_forward", route="cuda",
                source="paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -7645,7 +8207,13 @@ def main(argv=None):
                          "serve, two speculative blocks, one ERNIE, one "
                          "recomputed ERNIE, one T5, one GPT (O1 and O2) "
                          "and one MoE train step with torch.profiler")
+    ap.add_argument("--dp-worker", default=None, metavar="DIR",
+                    help="run one rank of the train_dp phase (the phase "
+                         "starts it through the port's launcher) and write "
+                         "its readings to DIR")
     args = ap.parse_args(argv)
+    if args.dp_worker:
+        return dp_worker(args.dp_worker, args.seed)
     t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -7809,12 +8377,15 @@ def main(argv=None):
     result["train_fleet"] = r = phase_train_fleet(args.seed, dev)
     launches["train_fleet"] = r["launches"]
     release()
+    result["train_dp"] = r = phase_train_dp(args.seed, dev)
+    launches["train_dp"] = r["launches"]
+    release()
     result["seconds"] = time.perf_counter() - t_start
     result["summary"] = summarize(main_rows, launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(result, f, indent=1)
-    log(f"[done] {result['seconds']:.1f} s in all")
+    log(f"[done] {result['seconds']:.1f} s in all on {smi}")
     print(json.dumps(result["summary"]), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

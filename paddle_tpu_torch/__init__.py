@@ -27,11 +27,24 @@ and later slices serving, generation and tensor parallelism (ROADMAP.md)
 and the training plane: the optimizer family (`optimizer`, `optimizer.lr`,
 `nn.clip`), amp O2 with the `GradScaler`, recompute
 (`distributed.fleet.recompute`), ZeRO data parallelism (`parallel.zero`)
-and its telemetry (`observability.training`).
+and its telemetry (`observability.training`); fleet hybrid parallelism
+(`distributed.fleet`); and the rest of `distributed` (the launcher
+`distributed.launch`, `DataParallel`, the resharding checkpoint,
+`auto_parallel` and its `Engine`, the host services) with `io` and
+`metric`.
 
 The kernels are CUDA C++ (`csrc/`, built by `_build`) except K4 / K5,
 which are Triton (`ops.norm`).
+
+The package's names resolve at first use, so the host-only modules (the
+launcher, TCPStore, rpc, elastic) start without importing torch.
 """
-from .device import get_device, resolve_device, set_device
+import importlib
 
 __all__ = ["get_device", "resolve_device", "set_device"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        return getattr(importlib.import_module(".device", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -10,6 +10,10 @@ and the CUDA stream cross as `c_void_p`, and each C entry point returns
 `cudaGetLastError()` after its launch, which `check()` turns into an
 exception.
 
+Host C++ sources (`HOST_SOURCES`, `csrc/<name>.cc`: the TCPStore of
+`distributed.tcp_store`) are built the same way by the host compiler
+(`g++`), which both machines have, through `load_host`.
+
 Nothing here runs at import time: the CPU-only test machines import every
 module of the port and have no `nvcc`.
 """
@@ -24,14 +28,16 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load", "check",
-           "nvcc_path"]
+__all__ = ["SOURCES", "HOST_SOURCES", "BUILD_DIR", "build_all", "load",
+           "load_host", "check", "nvcc_path"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "paddle_tpu_torch"
 SOURCES = ("flash_fwd", "flash_bwd", "paged_decode", "ragged_paged",
            "gather_rows")
+HOST_SOURCES = ("tcp_store",)
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -127,6 +133,35 @@ def load(name: str) -> ctypes.CDLL:
                 _compile([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
             _LIBS[name] = lib
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library for the host source `csrc/<name>.cc`, built by
+    `g++` into BUILD_DIR first when it is missing or older than its
+    source (to a temporary name, renamed into place)."""
+    key = f"host:{name}"
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(key)
+        if lib is None:
+            src, so = CSRC / f"{name}.cc", _lib_path(name)
+            if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
+                proc = subprocess.run(
+                    ["g++", *HOST_FLAGS, str(src), "-o", str(tmp)],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"g++ failed for {name}.cc (exit "
+                                       f"{proc.returncode}):\n"
+                                       f"{proc.stderr[-4000:]}")
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(str(so))
+            _LIBS[key] = lib
     return lib
 
 

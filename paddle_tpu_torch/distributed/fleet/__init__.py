@@ -2,12 +2,15 @@
 paddle_tpu/distributed/fleet/__init__.py:29-134): `init` builds the
 hybrid topology's process groups (`topology.HybridCommunicateGroup`) from
 a `DistributedStrategy`; `distributed_model` wraps a `PipelineLayer` in
-the pipeline engine; `distributed_optimizer` wraps an optimizer in
+the pipeline engine and a model at pure data parallelism in
+`DataParallel`; `distributed_optimizer` wraps an optimizer in
 `HybridParallelOptimizer` (the hybrid global-norm clip and the ZeRO
 bridge). `meta_parallel` holds the mp layers, the pipeline, the
 GroupSharded facade, sequence parallelism, the SPMD pipeline and ring /
-Ulysses attention. `recompute` (activation recompute) is the module, not
-re-exported here, so that `fleet.recompute` names it.
+Ulysses attention, `utils` `fused_allreduce_gradients`,
+`sequence_parallel_utils` and `recompute`. `recompute` (activation
+recompute) is the module, not re-exported here, so that `fleet.recompute`
+names it.
 
 `init` takes the world from `distributed.get_world_size()` (the
 launcher's world, which every rank joined first); where every degree is 1
@@ -77,8 +80,10 @@ def get_strategy() -> Optional[DistributedStrategy]:
 
 def distributed_model(model):
     """The model as the HCG runs it: a `PipelineLayer` becomes the
-    `PipelineParallel` engine when pp > 1; the mp layers shard themselves;
-    the pure data-parallel wrapper (`DataParallel`) is not ported."""
+    `PipelineParallel` engine when pp > 1; at pure data parallelism the
+    model is wrapped in `DataParallel` over the dp group (buckets of the
+    strategy's `fuse_grad_size_in_MB`, its `find_unused_parameters`), as
+    Paddle's does; the mp layers shard themselves."""
     hcg = _STATE["hcg"]
     if hcg is None:
         raise RuntimeError("call fleet.init() first")
@@ -88,10 +93,12 @@ def distributed_model(model):
         return PipelineParallel(model, hcg, _STATE["strategy"])
     if hcg.get_data_parallel_world_size() > 1 and \
             hcg.get_parallel_mode() == "data":
-        raise NotImplementedError(
-            "fleet.distributed_model for pure data parallelism needs "
-            "DataParallel, which is not ported yet (ROADMAP queue 1 item "
-            "5b: the rest of distributed/)")
+        from ..parallel import DataParallel
+
+        s = _STATE["strategy"]
+        return DataParallel(
+            model, comm_buffer_size=s.fuse_grad_size_in_MB,
+            find_unused_parameters=s.find_unused_parameters, hcg=hcg)
     return model
 
 

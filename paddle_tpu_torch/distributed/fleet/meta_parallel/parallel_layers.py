@@ -24,9 +24,11 @@ Every mp sum runs in rank order (`parallel.mesh.ordered_psum` under
 bits every time. The mp group is the layer's `mp_group`, else the group of
 the fleet topology (`fleet.init`), else none: on one rank each layer is
 its dense counterpart. A sharded parameter carries `is_distributed = True`
-and `split_axis` (the dimension of the port's layout it is split along);
-`shard_of(name, full)` cuts this rank's part of a full tensor, which is
-how weights built or loaded whole reach a shard.
+and `split_axis` (the dimension of the port's layout it is split along),
+with `mp_rank` / `mp_size`; `shard_of(name, full)` cuts this rank's part
+of a full tensor, which is how weights built or loaded whole reach a
+shard, and `bind_mp_group(model, group)` cuts a model built whole (the
+auto-parallel Engine's partitioner).
 
 Parameters are drawn whole (Xavier-normal for weights, as the reference,
 from PyTorch's default generator on the layer's device; zero biases) and
@@ -58,6 +60,7 @@ __all__ = [
     "VocabParallelEmbedding", "ColumnParallelLinear", "RowParallelLinear",
     "ParallelCrossEntropy", "RNGStatesTracker", "get_rng_state_tracker",
     "model_parallel_random_seed", "mp_shardings", "mp_full_parameters",
+    "bind_mp_group",
 ]
 
 
@@ -100,9 +103,17 @@ class _MPLayer(nn.Module):
             else:
                 nn.init.xavier_normal_(full)
         p = nn.Parameter(self._cut(full, axis))
+        self._mark(p, axis)
+        return p
+
+    def _mark(self, p: torch.Tensor, axis: Optional[int]) -> None:
+        """The placement a parameter carries (what the checkpoint and
+        the hybrid clip read): its split dimension, whether it is split,
+        and this rank's place in the mp group."""
         p.split_axis = axis
         p.is_distributed = axis is not None and self.mp_size > 1
-        return p
+        p.mp_rank = self.mp_rank
+        p.mp_size = self.mp_size
 
     def shard_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's part of the full tensor of parameter `name`."""
@@ -241,6 +252,38 @@ class ParallelCrossEntropy(nn.Module):
         loss = _VocabParallelCE.apply(input, lab, self.group, start,
                                       self.ignore_index)
         return loss.reshape(label.shape)
+
+
+@torch.no_grad()
+def bind_mp_group(model: nn.Module, group) -> None:
+    """Every mp layer of `model` built whole (no mp group: each holds the
+    dense parameters) cut to this rank's part over `group`, in place: the
+    parameters keep their objects and names and take this rank's slice
+    (GPT's fused QKV through the interleaved (mp, 3, heads / mp, hd)
+    layout first), and the layers issue their collectives over `group`
+    from then on. A layer already split over a group of `group`'s size is
+    left as it is; one split otherwise raises. A one-rank `group` (or
+    None) leaves the model dense."""
+    from ....serving.tp import interleave_qkv
+
+    n = group.nranks if group is not None else 1
+    for mod in model.modules():
+        if not isinstance(mod, _MPLayer) or mod.mp_size == n:
+            continue
+        if mod.mp_size != 1:
+            raise ValueError(f"{type(mod).__name__} is split over mp="
+                             f"{mod.mp_size}; cannot bind it to {n} ranks")
+        mod._setup(group)
+        for p in mod.parameters(recurse=False):
+            axis = p.split_axis
+            full = p.data
+            heads = getattr(mod, "interleave_heads", None)
+            if heads is not None and axis is not None:
+                full = interleave_qkv(full, heads, n)
+            p.data = mod._cut(full, axis)
+            mod._mark(p, axis)
+        if isinstance(mod, VocabParallelEmbedding):
+            mod.vocab_start = mod.mp_rank * mod.weight.shape[0]
 
 
 def mp_shardings(layer: nn.Module) -> Dict[str, tuple]:

@@ -24,13 +24,14 @@ Without a process group the world is one rank: `get_world_size()` is 1 and
 from __future__ import annotations
 
 import datetime
-import os
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from .env import (_env_int, device_index, is_initialized,
+                  set_master_from_env)
 
 __all__ = ["Group", "init_parallel_env", "new_group", "get_group",
            "get_rank", "get_world_size", "is_initialized",
@@ -79,17 +80,6 @@ _DEFAULT: List[Optional[Group]] = [None]
 _GROUPS = {}
 
 
-def is_initialized() -> bool:
-    return dist.is_available() and dist.is_initialized()
-
-
-def _env_int(names, default=None):
-    for name in names:
-        if os.environ.get(name):
-            return int(os.environ[name])
-    return default
-
-
 def init_parallel_env(rank: Optional[int] = None,
                       world_size: Optional[int] = None,
                       init_method: Optional[str] = None, device=None,
@@ -97,10 +87,12 @@ def init_parallel_env(rank: Optional[int] = None,
     """Join the world as `rank` of `world_size` (default: the launcher's
     PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM, else RANK / WORLD_SIZE)
     through `init_method` (a `file://` or `tcp://` URL; default "env://",
-    which reads MASTER_ADDR / MASTER_PORT). `device` is the card by default
-    ('cpu' to run on the CPU); the backend follows the world as the module
-    says. Collectives that wait longer than `timeout` seconds raise.
-    Returns the default group."""
+    which reads MASTER_ADDR / MASTER_PORT, taken from the launcher's
+    PADDLE_MASTER or endpoints where unset: `env.set_master_from_env`).
+    `device` is the card by default ('cpu' to run on the CPU), card
+    `env.device_index` of this machine's; the backend follows the world
+    as the module says. Collectives that wait longer than `timeout`
+    seconds raise. Returns the default group."""
     if is_initialized():
         raise RuntimeError("init_parallel_env: this process already joined "
                            "a process group")
@@ -114,10 +106,12 @@ def init_parallel_env(rank: Optional[int] = None,
     backend = "gloo"
     if dev.type == "cuda":
         count = torch.cuda.device_count()
-        dev = torch.device("cuda", rank % count)
+        dev = torch.device("cuda", device_index(count, rank))
         torch.cuda.set_device(dev)
         if count >= world_size:
             backend = "nccl"
+    if init_method is None:
+        set_master_from_env()
     dist.init_process_group(
         backend, init_method=init_method or "env://", rank=rank,
         world_size=world_size, timeout=datetime.timedelta(seconds=timeout))

@@ -6,8 +6,11 @@ returns their results in rank order. The processes start with the `spawn`
 method, never `fork` (the caller may hold threads, a CUDA context or JAX),
 so `fn` must be importable by name and its module must import cleanly.
 The ranks meet through a `file://` store in a temporary directory, so no
-TCP port is chosen and two worlds on one machine cannot collide. On the
-CPU each rank runs PyTorch with one thread.
+TCP port is chosen and two worlds on one machine cannot collide; `args`
+travel through a file there too (the spawn method hands a process its
+arguments through a pipe that holds 64 KiB, so larger arguments would
+start the ranks one after another, each waiting for the last to finish
+its imports). On the CPU each rank runs PyTorch with one thread.
 
 A rank that raises makes `spawn` raise with that rank's traceback and
 stops the other ranks; ranks that have not finished when `timeout` seconds
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import multiprocessing
 import os
+import pickle
 import queue as queue_mod
 import tempfile
 import time
@@ -26,10 +30,14 @@ from typing import Any, Callable, List, Sequence
 __all__ = ["spawn"]
 
 
-def _worker(fn, rank, nprocs, args, init_method, device, timeout, results):
+def _worker(fn, rank, nprocs, args_file, init_method, device, timeout,
+            results):
     import torch
 
     from .group import destroy_process_group, init_parallel_env
+
+    with open(args_file, "rb") as f:
+        args = pickle.load(f)
 
     os.environ["PADDLE_TRAINER_ID"] = str(rank)
     os.environ["PADDLE_TRAINERS_NUM"] = str(nprocs)
@@ -69,8 +77,11 @@ def spawn(fn: Callable[..., Any], args: Sequence = (), nprocs: int = 1,
     done = {}
     with tempfile.TemporaryDirectory(prefix="ptt_world_") as tmp:
         init_method = "file://" + os.path.join(tmp, "store")
+        args_file = os.path.join(tmp, "args.pkl")
+        with open(args_file, "wb") as f:
+            pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
         procs = [ctx.Process(target=_worker,
-                             args=(fn, r, nprocs, tuple(args), init_method,
+                             args=(fn, r, nprocs, args_file, init_method,
                                    device, timeout, results))
                  for r in range(nprocs)]
         for p in procs:

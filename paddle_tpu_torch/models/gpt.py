@@ -113,7 +113,7 @@ class GPTAttention(nn.Module):
         super().__init__()
         fk = {"device": device, "dtype": dtype}
         h = cfg.hidden_size
-        self.num_heads = cfg.num_attention_heads
+        self._heads = cfg.num_attention_heads
         self.head_dim = h // cfg.num_attention_heads
         self.tensor_parallel = tensor_parallel
         if tensor_parallel:
@@ -121,14 +121,27 @@ class GPTAttention(nn.Module):
             self.qkv = mp.ColumnParallelLinear(h, 3 * h, gather_output=False,
                                                **fk)
             # the full weight's output dim is laid out (mp, 3, heads/mp, hd)
-            self.qkv.interleave_heads = self.num_heads
+            self.qkv.interleave_heads = self._heads
             self.out = mp.RowParallelLinear(h, h, input_is_parallel=True,
                                             **fk)
-            self.num_heads //= self.qkv.mp_size
         else:
             self.qkv = Linear(h, 3 * h, **fk)
             self.out = Linear(h, h, **fk)
         self.dropout_p = cfg.attention_probs_dropout_prob
+
+    @property
+    def num_heads(self) -> int:
+        """The heads this module runs: all of them, or heads / mp under
+        tensor parallelism (read from the QKV's mp group, so a model
+        bound to a group later follows it)."""
+        if self.tensor_parallel:
+            return self._heads // self.qkv.mp_size
+        return self._heads
+
+    @num_heads.setter
+    def num_heads(self, value: int) -> None:
+        self._heads = value * (self.qkv.mp_size if self.tensor_parallel
+                               else 1)
 
     def forward(self, x, cache=None, start_pos=0, generator=None):
         b, s, _ = x.shape

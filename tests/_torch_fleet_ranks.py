@@ -227,13 +227,12 @@ def fleet_rank(data):
     out.update(_clip_legs(data))
     out.update(_gpt_tp_legs(data))
     out.update(_zero_tp_legs(data))
-    # pure data parallelism asks for DataParallel (item 5b)
-    _init(dp=4)
-    try:
-        fleet.distributed_model(torch.nn.Linear(2, 2))
-        out["dp_refusal"] = None
-    except NotImplementedError as e:
-        out["dp_refusal"] = str(e)
+    # pure data parallelism: distributed_model wraps in DataParallel over
+    # the hcg's dp group
+    _, hcg = _init(dp=4)
+    model = fleet.distributed_model(torch.nn.Linear(2, 2))
+    out["dp_branch"] = (type(model).__name__,
+                        model.group is hcg.get_data_parallel_group())
     return out
 
 

@@ -260,7 +260,9 @@ def test_fleet_init_takes_the_world_and_checks_the_degrees():
 
 
 def test_distributed_model_data_branch_names_item_5b(world):
-    assert "item 5b" in world["dp_refusal"]
+    """The branch item 5b brought: pure data parallelism returns a
+    DataParallel over the hcg's dp group (it was refused before)."""
+    assert world["dp_branch"] == ("DataParallel", True)
 
 
 def test_strategy_fields_match_the_reference():

@@ -41,4 +41,6 @@ def test_kernel_sources_are_in_the_checkout():
 
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
+    for name in _build.HOST_SOURCES:      # the TCPStore's g++ source
+        assert (_build.CSRC / f"{name}.cc").is_file()
     assert not any(_build.CSRC.glob("*.so"))   # built into build/, not here
