@@ -4702,27 +4702,30 @@ def gpt_kernel_cases(rows, dev):
     return main
 
 
-def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt"):
-    """K1, K2 and K3 at `shape` (causal, dropout 0.1), bf16 at its batch
-    and (`fp32`) fp32 at batch 1; the bf16 rows under `"K1 <key>"`..."""
+def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt",
+                        causal=True, p=TRAIN_DROPOUT, forms=None, label=None):
+    """K1, K2 and K3 at `shape` (`causal`, dropout `p`), bf16 at its batch
+    and (`fp32`) fp32 at batch 1, or `forms` ((dtype, batch), ...); the
+    first form's rows under `"K1 <key>"`..."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(11)
     b0, s, h, d = shape
-    p = TRAIN_DROPOUT
     seed = torch.tensor([9001], dtype=torch.int32, device=dev)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     main = {}
-    for dtype, b in ((torch.bfloat16, b0),) + (
-            ((torch.float32, 1),) if fp32 else ()):
+    if forms is None:
+        forms = ((torch.bfloat16, b0),) + (((torch.float32, 1),) if fp32
+                                           else ())
+    for dtype, b in forms:
         q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
                          .to(dtype) for _ in range(4))
-        out, lse = fa.flash_attention(q, k, v, None, True, True, p, seed)
+        out, lse = fa.flash_attention(q, k, v, None, causal, True, p, seed)
         torch.cuda.synchronize()
-        e1, t1, e_lse = check_k1(out, lse, q, k, v, dtype, None, True, p,
+        e1, t1, e_lse = check_k1(out, lse, q, k, v, dtype, None, causal, p,
                                  seed)
         delta = fa.attention_delta(out, dout)
-        args = (q, k, v, dout, lse, delta, None, True, p, seed)
+        args = (q, k, v, dout, lse, delta, None, causal, p, seed)
         dq = fa.flash_attention_dq(*args)
         dk, dv = fa.flash_attention_dkv(*args)
         rdq, rdk, rdv = fa.flash_attention_backward_reference(*args)
@@ -4732,33 +4735,35 @@ def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt"):
                  check_rel("K3", dv, rdv, dtype),
                  key=lambda et: et[0] / et[1])
         del dq, dk, dv, rdq, rdk, rdv
-        ms1 = time_ms(lambda: fa.flash_attention(q, k, v, None, True, True,
-                                                 p, seed))
+        ms1 = time_ms(lambda: fa.flash_attention(q, k, v, None, causal,
+                                                 True, p, seed))
         ms2 = time_ms(lambda: fa.flash_attention_dq(*args))
         ms3 = time_ms(lambda: fa.flash_attention_dkv(*args))
         plain1 = time_ms(lambda: fa.flash_attention_reference(
-            q, k, v, None, True, True, p, seed), 3, 1)
+            q, k, v, None, causal, True, p, seed), 3, 1)
         plain_b = time_ms(
             lambda: fa.flash_attention_backward_reference(*args), 3, 1)
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
         with torch.no_grad():
             lib1 = time_ms(lambda: sdpa(qt, kt, vt, dropout_p=p,
-                                        is_causal=True))
-        lib_out = sdpa(qt, kt, vt, dropout_p=p, is_causal=True)
+                                        is_causal=causal))
+        lib_out = sdpa(qt, kt, vt, dropout_p=p, is_causal=causal)
         dout_t = dout.transpose(1, 2)
         lib_b = time_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dout_t, retain_graph=True))
-        pairs = s * (s + 1) // 2
+        pairs = s * (s + 1) // 2 if causal else s * s
         io_in = nbytes(q, k, v, dout, lse, delta)
         b1 = bound(nbytes(q, k, v, out, lse), 4 * b * h * d * pairs, dtype)
         b2 = bound(io_in + nbytes(q), 6 * b * h * d * pairs, dtype)
         b3 = bound(io_in + nbytes(k, v), 8 * b * h * d * pairs, dtype)
-        case = (f"GPT {'fleet rank ' if key != 'gpt' else ''}causal "
-                f"({b}, {s}, {h}, {d}), dropout {p}")
+        case = (f"{label or 'GPT ' + ('fleet rank ' if key != 'gpt' else '')}"
+                f"{'causal' if causal else 'no mask'} ({b}, {s}, {h}, {d}), "
+                f"dropout {p}")
         note = "sdpa backward, dQ+dK+dV together"
         r1 = _row(dtype, case, e1, t1, ms1, plain1, lib1, *b1, lse_err=e_lse,
-                  dropout_p=p, library_note="sdpa forward, is_causal")
+                  dropout_p=p, library_note="sdpa forward"
+                  + (", is_causal" if causal else ""))
         r2 = _row(dtype, case, *e2, ms2, plain_b, lib_b, *b2,
                   library_note=note)
         r3 = _row(dtype, case, *e3, ms3, plain_b, lib_b, *b3,
@@ -4766,7 +4771,7 @@ def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt"):
         for name, r in (("K1", r1), ("K2", r2), ("K3", r3)):
             _log_row(name, r)
             rows.append((name, r))
-        if dtype == torch.bfloat16:
+        if not main:
             main = {f"K1 {key}": r1, f"K2 {key}": r2, f"K3 {key}": r3}
         del q, k, v, dout, out, lib_out, qt, kt, vt
     return main
@@ -6918,6 +6923,31 @@ def fleet_kernel_cases(rows, dev):
     return main
 
 
+def dp_kernel_cases(rows, dev):
+    """The train_dp phase's kernel forms, against their plain versions:
+    K1, K2, K3 at a DataParallel rank's ERNIE-1.0 base micro-batch (8 of
+    DP_BATCH's 32, bf16, no mask, dropout 0: its own sm90 instances) and
+    at an Engine rank's GPT-3 1.3B block (ENGINE_BATCH's rows over dp 2,
+    heads over mp 2: fp32, causal, dropout 0), and K4 / K5 in LayerNorm
+    mode at the Engine rank's rows (fp32). ERNIE's norms at the dp rank's
+    4096 x 768 fp32 rows are plane_kernel_cases' zero-rank case."""
+    dp_b = DP_BATCH[0] // DP_RANKS
+    main = gpt_attention_cases(
+        rows, dev, (dp_b, DP_BATCH[1]) + TRAIN_ATTN[2:], key="dp",
+        causal=False, p=0.0, forms=((torch.bfloat16, dp_b),),
+        label="ERNIE dp rank ")
+    eng_b = ENGINE_BATCH[0] // 2
+    main.update(gpt_attention_cases(
+        rows, dev, (eng_b, ENGINE_BATCH[1], GPT_ATTN[2] // 2, GPT_ATTN[3]),
+        key="engine", p=0.0, forms=((torch.float32, eng_b),),
+        label="GPT Engine rank "))
+    main.update(gpt_norm_cases(
+        rows, dev, ((torch.float32, eng_b * ENGINE_BATCH[1], True),),
+        key="engine"))
+    main["K4 engine"] = main.pop("K4 engine float32")
+    return main
+
+
 def embedding_determinism(seed, dev):
     """F4 on the card: two identical ERNIE-1.0 base O1 steps (dropout 0.1,
     32 x 512, the same weights and generator) under PyTorch's defaults
@@ -8143,6 +8173,10 @@ def summarize(main_rows, launches_by_path):
         if f"{k} fleet" in main_rows:
             entry["fleet_rank"] = {x: main_rows[f"{k} fleet"][x]
                                    for x in gpt_keys}
+        for tag in ("dp", "engine"):
+            if f"{k} {tag}" in main_rows:
+                entry[f"{tag}_rank"] = {x: main_rows[f"{k} {tag}"][x]
+                                        for x in gpt_keys}
         if k in ("K4", "K5"):
             entry["gpt_layer_norm"] = [
                 {x: row[x] for x in gpt_keys} for key, row in
@@ -8238,6 +8272,7 @@ def main(argv=None):
     main_rows.update(t5_kernel_cases(rows, dev))
     main_rows.update(gpt_kernel_cases(rows, dev))
     main_rows.update(fleet_kernel_cases(rows, dev))
+    main_rows.update(dp_kernel_cases(rows, dev))
     main_rows.update(plane_kernel_cases(rows, dev))
     main_rows.update(k9_cases(rows, dev, args.seed))
     main_rows.update(phase_ring_kernels(rows, dev))

@@ -12,11 +12,19 @@ dimension) and the files that hold them.
 A tensor's shard comes from its placement: a `shard_tensor` result (its
 `process_mesh` / `placements` / `global_shape`), or a split parameter of
 fleet's mp layers (`is_distributed`, `split_axis`, `mp_rank`, `mp_size`:
-pass `model.state_dict(keep_vars=True)` so the tensors carry them); any
-other tensor is whole. A block that several ranks hold (a replicated
-tensor, a data-parallel copy) is written once, by the lowest rank that
-holds it, which one small object all-gather settles at each save; scalars
-are written by rank 0. The merged metadata is the reference's,
+pass `model.state_dict(keep_vars=True)` so the tensors carry them; GPT's
+fused QKV, split by head, also `interleave_heads`: its rank's q, k and v
+rows are three blocks of the whole tensor in the dense layout, so that
+checkpoint too loads at any mp degree); any other tensor is whole. The
+port's optimizers give a slot of its parameter's shape the parameter's
+placement. A block that several ranks hold (a replicated tensor, a
+data-parallel copy) is written once, by the lowest rank that holds it,
+which one small object all-gather settles at each save; scalars are
+written by rank 0. The ranks that hold one block must hold the same
+values: each sends a digest of its blocks with their ranges, and the
+save raises where two differ (a split tensor that lost its placement, as
+`state_dict()` without `keep_vars` loses it, would otherwise be written
+as rank 0's part alone). The merged metadata is the reference's,
 deduplicated.
 
 `load_state_dict` fills the target's tensors in place: it assembles each
@@ -76,8 +84,10 @@ def _flatten(d, prefix="") -> Dict[str, Tuple[dict, str]]:
 
 
 def _placement(t: torch.Tensor):
-    """(global shape, placement fn rank -> [start, stop) ranges or None)
-    of a tensor, from what it carries."""
+    """(global shape, blocks) of a tensor, from what it carries: each
+    block ([start, stop) ranges of the global tensor, the local slices
+    that hold it or None for the whole local tensor). No blocks: this
+    rank holds none of it."""
     from .auto_parallel import block_ranges
 
     mesh = getattr(t, "process_mesh", None)
@@ -86,16 +96,30 @@ def _placement(t: torch.Tensor):
             raise ValueError("reshard a Partial tensor to Replicate before "
                              "saving it")
         gshape = tuple(t.global_shape)
-        return gshape, block_ranges(mesh, t.placements, gshape, _rank())
+        ranges = block_ranges(mesh, t.placements, gshape, _rank())
+        return gshape, [] if ranges is None else [(ranges, None)]
     axis = getattr(t, "split_axis", None)
     if getattr(t, "is_distributed", False) is True and axis is not None:
-        n, r = int(t.mp_size), int(t.mp_rank)
+        n, r, size = int(t.mp_size), int(t.mp_rank), t.shape[axis]
         gshape = list(t.shape)
         gshape[axis] *= n
-        ranges = [[0, d] for d in gshape]
-        ranges[axis] = [r * t.shape[axis], (r + 1) * t.shape[axis]]
-        return tuple(gshape), ranges
-    return tuple(t.shape), [[0, int(d)] for d in t.shape]
+        whole = [[0, d] for d in gshape]
+        if getattr(t, "interleave_heads", None) is None:
+            whole[axis] = [r * size, (r + 1) * size]
+            return tuple(gshape), [(whole, None)]
+        # GPT's fused QKV split by head: the local rows are (3, heads / n,
+        # hd), its q, k and v rows three blocks of the whole (3, heads,
+        # hd) rows, so the checkpoint holds the whole at any degree
+        per, blocks = size // 3, []
+        for j in range(3):
+            ranges = [list(x) for x in whole]
+            lo = j * per * n + r * per
+            ranges[axis] = [lo, lo + per]
+            local = [slice(None)] * t.dim()
+            local[axis] = slice(j * per, (j + 1) * per)
+            blocks.append((ranges, tuple(local)))
+        return tuple(gshape), blocks
+    return tuple(t.shape), [([[0, int(d)] for d in t.shape], None)]
 
 
 def _group(process_group):
@@ -135,6 +159,34 @@ def _host_snapshot(tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
                    else b).numpy() for name, b in host.items()}
 
 
+_DIGEST_WORDS = 1 << 24
+
+
+def _digests(tensors) -> List[List[int]]:
+    """A digest of each tensor's bytes, exact and independent of the
+    order of summation: the sums of the 16-bit halves of its 32-bit words,
+    plain and weighted by position (no sum overflows int64). Equal
+    tensors give equal digests; one host read for them all."""
+    out = []
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        if b.numel() % 4:
+            b = torch.nn.functional.pad(b, (0, 4 - b.numel() % 4))
+        w = b.view(torch.int32)
+        acc = torch.zeros(4, dtype=torch.int64, device=w.device)
+        for i in range(0, w.numel(), _DIGEST_WORDS):
+            c = w[i:i + _DIGEST_WORDS].to(torch.int64)
+            pos = torch.arange(i, i + c.numel(), dtype=torch.int64,
+                               device=c.device) % 65521 + 1
+            lo, hi = c & 0xFFFF, (c >> 16) & 0xFFFF
+            acc += torch.stack([lo.sum(), hi.sum(), (lo * pos).sum(),
+                                (hi * pos).sum()])
+        out.append(acc)
+    if not out:
+        return []
+    return torch.stack([a.cpu() for a in out]).tolist()
+
+
 def _index_key(name: str, ranges) -> str:
     return f"{name}@{tuple(slice(a, b, None) for a, b in ranges)}"
 
@@ -155,29 +207,50 @@ def save_state_dict(state_dict: Dict, path: str, process_group=None,
     for name, (holder, key) in _flatten(state_dict).items():
         val = holder[key]
         if isinstance(val, torch.Tensor):
-            gshape, ranges = _placement(val)
-            if ranges is not None:
-                tensors[name] = (val, gshape, ranges)
-                blocks[name] = json.dumps(ranges)
+            gshape, held = _placement(val)
+            if held:
+                tensors[name] = (val, gshape, held)
+                blocks[name] = json.dumps([ranges for ranges, _ in held])
         else:
             scalars[name] = val
-    # the lowest rank holding a block writes it
-    seen = all_gather_object([], blocks, g) if world > 1 else [blocks]
-    mine = {name for name, b in blocks.items()
-            if min(r for r in range(world) if seen[r].get(name) == b)
-            == pid}
+    # the lowest rank holding a block writes it; the others hold the same
+    names = sorted(blocks)
+    digests = (_digests([tensors[n][0] for n in names]) if world > 1
+               else [None] * len(names))
+    marks = {n: (blocks[n], d) for n, d in zip(names, digests)}
+    seen = all_gather_object([], marks, g) if world > 1 else [marks]
+    # every rank reads every rank's marks, so all raise together
+    mine = set()
+    for name in sorted(set().union(*seen)):
+        holders = {}
+        for r in range(world):
+            if name in seen[r]:
+                b, digest = seen[r][name]
+                holders.setdefault(b, []).append((r, digest))
+        for b, held in holders.items():
+            if len({str(d) for _, d in held}) > 1:
+                raise ValueError(
+                    f"save_state_dict: ranks {[r for r, _ in held]} hold "
+                    f"block {b} of {name!r} with different values; give "
+                    "a split tensor its placement (state_dict("
+                    "keep_vars=True) keeps an mp layer's)")
+            if held[0][0] == pid:
+                mine.add(name)
     shard_file = f"shard_{pid}.pkl"
     meta = {"version": 1, "tensors": {}, "world": world}
     payload = _host_snapshot({n: tensors[n][0] for n in mine})
     keyed = {}
     for name in sorted(mine):
-        val, gshape, ranges = tensors[name]
-        key = _index_key(name, ranges)
-        keyed[key] = payload[name]
+        val, gshape, held = tensors[name]
+        shards = []
+        for ranges, local in held:
+            key = _index_key(name, ranges)
+            keyed[key] = (payload[name] if local is None
+                          else np.ascontiguousarray(payload[name][local]))
+            shards.append({"key": key, "index": ranges})
         meta["tensors"][name] = {"shape": list(gshape),
                                  "dtype": _np_dtype_name(val),
-                                 "shards": [{"key": key, "index": ranges}],
-                                 "file": shard_file}
+                                 "shards": shards, "file": shard_file}
     if pid == 0:
         for name, val in scalars.items():
             keyed[name] = val
@@ -287,13 +360,12 @@ def load_state_dict(state_dict: Dict, path: str, process_group=None,
         if not isinstance(cur, torch.Tensor):
             holder[key] = full
             continue
-        gshape, ranges = _placement(cur)
+        gshape, held = _placement(cur)
         if list(gshape) != list(info["shape"]):
             raise ValueError(f"{name}: checkpoint shape {info['shape']} does "
                              f"not match the target's {list(gshape)}")
-        if ranges is None:
-            continue
-        part = full[tuple(slice(a, b) for a, b in ranges)]
         with torch.no_grad():
-            cur.copy_(part)
+            for ranges, local in held:
+                part = full[tuple(slice(a, b) for a, b in ranges)]
+                (cur if local is None else cur[local]).copy_(part)
     return state_dict

@@ -12,15 +12,20 @@ wrapper reduces the gradients itself, as Paddle's Reducer does:
   a bucket holds one dtype on one device;
 - a bucket is launched when its last gradient has been accumulated
   (`register_post_accumulate_grad_hook`): its gradients flattened and
-  put in flight to every rank (an all-gather), buckets strictly in
-  index order, so every rank issues the same collectives in the same
-  order;
+  put in flight as an ordered reduce-scatter (`parallel.mesh.
+  start_ordered_psum_scatter`: an all-to-all hands each rank every
+  rank's copy of its 1/n of the bucket), buckets strictly in index
+  order, so every rank issues the same collectives in the same order;
 - before `backward()` returns (an autograd engine callback), each bucket
-  is waited on, the ranks' parts are summed in rank order and multiplied
-  by `1 / nranks` (`parallel.mesh.fixed_order_sum`, then the one multiply
-  of `parallel/zero.py`'s stage 0), and written back into `.grad`. So
-  `opt.step()` needs no extra call, and a step is bit-identical to
-  `ZeroTrainStep(stage=0)` on the same rows.
+  is waited on, its 1/n summed over the ranks in rank order and
+  multiplied by `1 / nranks` (`fixed_order_sum`, then the one multiply
+  of `parallel/zero.py`'s stage 0), the parts all-gathered and written
+  back into `.grad`. The sum is elementwise, so this is the bits of
+  summing whole copies, and `opt.step()` needs no extra call: a step is
+  bit-identical to `ZeroTrainStep(stage=0)` on the same rows. A rank
+  receives about 2 (n - 1) / n times the gradient bytes and holds about
+  twice them in flight, whatever n (an all-gather of whole gradients
+  would hold n times them).
 
 `no_sync()` skips the reduction: gradients accumulate locally and the
 next synced backward reduces their sum. A parameter that got no gradient
@@ -124,7 +129,7 @@ class _Bucket:
     def __init__(self, params: List[nn.Parameter]):
         self.params = params
         self.ready = 0
-        self.pending = None     # the all-gather in flight
+        self.pending = None     # the reduce-scatter in flight
 
 
 def _assign_buckets(params: List[nn.Parameter], first_cap: int,
@@ -165,26 +170,45 @@ def _write_back(params, flat: torch.Tensor) -> None:
         off += n
 
 
-def _finish_sum(pending, nranks: int) -> torch.Tensor:
-    from ..parallel.mesh import fixed_order_sum
+def _start_sum(params, group):
+    """The bucket's flat gradients (zeros to a multiple of n) put in
+    flight as an ordered reduce-scatter."""
+    from ..parallel.mesh import start_ordered_psum_scatter
 
-    return fixed_order_sum(pending.wait()) * (1.0 / nranks)
+    flat = _flat_grads(params)
+    pad = -flat.numel() % group.nranks
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return start_ordered_psum_scatter(flat, group)
+
+
+def _finish_sums(buckets, group) -> None:
+    """Each bucket's reduce-scatter waited on in order, its part scaled by
+    `1 / nranks` and all-gathered (all in flight together), then the
+    whole written back into `.grad`."""
+    from .communication import all_gather
+
+    gathers = []
+    for b in buckets:
+        part = b.pending.wait() * (1.0 / group.nranks)
+        b.pending = None        # its buffers go now
+        gathers.append(all_gather(None, part, group, async_op=True))
+    for b, work in zip(buckets, gathers):
+        _write_back(b.params, torch.cat(work.wait()))
 
 
 def reduce_gradients(params, group) -> None:
     """Every parameter's `.grad` summed over `group` in rank order and
     multiplied by `1 / nranks`, in place (a missing gradient counts as
-    zeros); one all-gather a (dtype, device) bucket. Every rank of the
-    group calls it with the same parameters."""
-    from .communication import all_gather
-
+    zeros); one reduce-scatter and all-gather a (dtype, device) bucket.
+    Every rank of the group calls it with the same parameters."""
     params = [p for p in params if p.requires_grad]
     if group is None or group.nranks == 1 or not params:
         return
-    for b in _assign_buckets(params, 1 << 62, 1 << 62):
-        pending = all_gather(None, _flat_grads(b.params), group,
-                             async_op=True)
-        _write_back(b.params, _finish_sum(pending, group.nranks))
+    buckets = _assign_buckets(params, 1 << 62, 1 << 62)
+    for b in buckets:
+        b.pending = _start_sum(b.params, group)
+    _finish_sums(buckets, group)
 
 
 class DataParallel(nn.Module):
@@ -242,10 +266,7 @@ class DataParallel(nn.Module):
         self._launch_ready()
 
     def _launch(self, b: _Bucket) -> None:
-        from .communication import all_gather
-
-        b.pending = all_gather(None, _flat_grads(b.params), self.group,
-                               async_op=True)
+        b.pending = _start_sum(b.params, self.group)
 
     def _launch_ready(self) -> None:
         while (self._next < len(self._buckets)
@@ -273,8 +294,7 @@ class DataParallel(nn.Module):
             for b in missing:
                 self._launch(b)
             self._next = len(self._buckets)
-            for b in self._buckets:
-                _write_back(b.params, _finish_sum(b.pending, self.nranks))
+            _finish_sums(self._buckets, self.group)
         finally:
             for b in self._buckets:
                 b.ready = 0

@@ -84,9 +84,11 @@ def spawn(fn: Callable[..., Any], args: Sequence = (), nprocs: int = 1,
                              args=(fn, r, nprocs, args_file, init_method,
                                    device, timeout, results))
                  for r in range(nprocs)]
+        # from before the first start: every rank's own `timeout` (its
+        # process group's) runs out after this one
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
         try:
             while len(done) < nprocs:
                 left = deadline - time.monotonic()

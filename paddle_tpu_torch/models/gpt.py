@@ -121,7 +121,10 @@ class GPTAttention(nn.Module):
             self.qkv = mp.ColumnParallelLinear(h, 3 * h, gather_output=False,
                                                **fk)
             # the full weight's output dim is laid out (mp, 3, heads/mp, hd)
+            # (the parameters carry it for the distributed checkpoint)
             self.qkv.interleave_heads = self._heads
+            for p in self.qkv.parameters():
+                p.interleave_heads = self._heads
             self.out = mp.RowParallelLinear(h, h, input_is_parallel=True,
                                             **fk)
         else:

@@ -58,6 +58,12 @@ __all__ = [
 
 lr = lr_mod
 
+# the attributes that place a tensor among the ranks (fleet's mp layers,
+# distributed.shard_tensor); distributed/checkpoint.py reads them
+_PLACEMENT = ("is_distributed", "split_axis", "mp_rank", "mp_size",
+              "interleave_heads", "process_mesh", "placements",
+              "global_shape")
+
 MASTER = "master_weight"
 
 
@@ -254,10 +260,17 @@ class Optimizer(torch.optim.Optimizer):
 
     def state_dict(self):
         """`{param}.{slot}` tensors, `@step_count` and, with a scheduler,
-        `LR_Scheduler` (the reference's keys)."""
+        `LR_Scheduler` (the reference's keys). A slot of its parameter's
+        shape carries the parameter's placement (an mp split, a
+        `shard_tensor` block), so a distributed checkpoint writes each
+        rank's part of it."""
         out = {}
         for p in self._parameter_list:
             for slot, v in self.state.get(p, {}).items():
+                if isinstance(v, torch.Tensor) and v.shape == p.shape:
+                    for attr in _PLACEMENT:
+                        if hasattr(p, attr):
+                            setattr(v, attr, getattr(p, attr))
                 out[f"{self._param_name(p)}.{slot}"] = v
         out["@step_count"] = self._step_count
         if isinstance(self._learning_rate, LRScheduler):

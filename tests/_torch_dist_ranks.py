@@ -360,7 +360,96 @@ def ckpt_rank(tmp, world1_dir, jax_dir, w, b):
     got = {"w": torch.zeros_like(wt)}
     ck.load_state_dict(got, os.path.join(tmp, "b"))
     out["async_b"] = _np(got["w"])
+    out["mp_adam"] = mp_adam_leg(tmp)
+    out["gpt"] = gpt_qkv_leg(tmp)
     out["rank"] = me
+    return out
+
+
+def _bound_gpt(seed):
+    """A tiny tensor-parallel GPT built whole from `seed`, then bound to
+    the world as its mp group (its fused QKV cut by head)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import bind_mp_group
+    from paddle_tpu_torch.models import GPTConfig, GPTModel
+
+    model = GPTModel(GPTConfig.tiny(), tensor_parallel=True, device="cpu",
+                     seed=seed)
+    bind_mp_group(model, ptd.get_group())
+    return model
+
+
+def gpt_qkv_leg(tmp):
+    """GPT's interleaved QKV across degrees: a bound model of seed 3
+    saved at mp 2 (tmp/gpt_mp2); the dense world-1 checkpoint of seed 7
+    (tmp/gpt_world1) loaded into a bound model of seed 5 must give the
+    bound model of seed 7, parameter for parameter."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+
+    ck.save_state_dict({"gpt": _bound_gpt(3).state_dict(keep_vars=True)},
+                       os.path.join(tmp, "gpt_mp2"))
+    got = _bound_gpt(5)
+    ck.load_state_dict({"gpt": got.state_dict(keep_vars=True)},
+                       os.path.join(tmp, "gpt_world1"))
+    want = dict(_bound_gpt(7).named_parameters())
+    return {"differ": [n for n, p in got.named_parameters()
+                       if not torch.equal(p, want[n])],
+            "qkv_rows": int(want["blocks.0.attn.qkv.weight"].shape[0])}
+
+
+def mp_adam_leg(tmp):
+    """Fleet's column and row layers at mp 2 with their Adam state after
+    one step: saved, then loaded into a fresh model and optimizer at mp 2;
+    the same model's `state_dict()` without `keep_vars` (its split
+    parameters stripped of their placement) refused."""
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+    from paddle_tpu_torch.optimizer import Adam
+
+    g = ptd.get_group()
+
+    def build(seed):
+        torch.manual_seed(seed)     # every rank draws the same whole
+        return torch.nn.Sequential(
+            mpl.ColumnParallelLinear(4, 8, gather_output=False, mp_group=g,
+                                     device="cpu"),
+            mpl.RowParallelLinear(8, 4, input_is_parallel=True, mp_group=g,
+                                  device="cpu"))
+
+    def flat(sd):
+        return {k: v for k, v in ck._flatten(sd).items()
+                if isinstance(v[0][v[1]], torch.Tensor)}
+
+    net = build(11)
+    opt = Adam(learning_rate=0.01, parameters=net.parameters())
+    net(torch.linspace(-1, 1, 12).reshape(3, 4)).square().sum().backward()
+    opt.step()
+    out = {}
+    try:
+        ck.save_state_dict({"model": net.state_dict()},
+                           os.path.join(tmp, "mp2_stripped"))
+    except ValueError as e:
+        out["refused"] = str(e)
+    path = os.path.join(tmp, "mp2_adam")
+    sd = {"model": net.state_dict(keep_vars=True), "opt": opt.state_dict()}
+    ck.save_state_dict(sd, path)
+    out["saved"], out["axis"] = {}, {}
+    for k, (holder, key) in flat(sd).items():
+        v = holder[key]
+        out["saved"][k] = _np(v)
+        out["axis"][k] = (v.split_axis if getattr(v, "is_distributed", False)
+                          is True else None)
+    fresh = build(12)
+    opt2 = Adam(learning_rate=0.01, parameters=fresh.parameters())
+    opt2.step()             # its slots, made by a step over zero gradients
+    tgt = {"model": fresh.state_dict(keep_vars=True),
+           "opt": opt2.state_dict()}
+    ck.load_state_dict(tgt, path)
+    opt2.set_state_dict(tgt["opt"])
+    again = {"model": fresh.state_dict(keep_vars=True),
+             "opt": opt2.state_dict()}
+    out["loaded"] = {k: _np(holder[key])
+                     for k, (holder, key) in flat(again).items()}
     return out
 
 

@@ -45,7 +45,15 @@ def dirs(tmp_path_factory):
     jdist.save_state_dict({"w": Tensor(sharded),
                            "b": Tensor(jnp.asarray(B * 5)), "step": 11},
                           jax_dir)
+    ck.save_state_dict({"gpt": _dense_gpt(7).state_dict()},
+                       os.path.join(tmp, "gpt_world1"))
     return tmp, world1, jax_dir
+
+
+def _dense_gpt(seed):
+    from paddle_tpu_torch.models import GPTConfig, GPTModel
+
+    return GPTModel(GPTConfig.tiny(), device="cpu", seed=seed)
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +99,67 @@ def test_mp_split_parameter_round_trips(world, dirs):
     np.testing.assert_array_equal(tgt["col"]["weight"].numpy(), whole)
     for s in world:
         np.testing.assert_array_equal(s["col_reloaded"], s["col_part"])
+
+
+def test_mp_adam_state_round_trips_at_mp2(world):
+    """Fleet mp layers and their Adam moments, saved at mp 2 and loaded
+    into a fresh model and optimizer at mp 2: every rank gets back its
+    own parts, moments included."""
+    for s in world:
+        leg = s["mp_adam"]
+        assert set(leg["loaded"]) == set(leg["saved"])
+        for k, v in leg["saved"].items():
+            np.testing.assert_array_equal(leg["loaded"][k], v, err_msg=k)
+    # the moments of a split parameter are split as it is
+    axes = world[0]["mp_adam"]["axis"]
+    assert {k for k, a in axes.items() if a is not None} >= {
+        "model.0.weight", "model.1.weight"}
+    assert sum(a is not None for k, a in axes.items()
+               if k.startswith("opt.")) >= 6
+
+
+def test_mp_adam_state_loads_whole_at_world1(world, dirs):
+    """The mp-2 checkpoint at world 1: each split tensor (a parameter or
+    a moment) is the ranks' parts side by side, a replicated one is any
+    rank's."""
+    path = os.path.join(dirs[0], "mp2_adam")
+    with open(os.path.join(path, "metadata.json")) as f:
+        meta = json.load(f)["tensors"]
+    legs = [s["mp_adam"] for s in world]
+    for k, axis in legs[0]["axis"].items():
+        top, rest = k.split(".", 1)
+        tgt = {top: {rest: torch.zeros(meta[k]["shape"])}}
+        ck.load_state_dict(tgt, path)
+        whole = tgt[top][rest].numpy()
+        want = (legs[0]["saved"][k] if axis is None else np.concatenate(
+            [leg["saved"][k] for leg in legs], axis=axis))
+        np.testing.assert_array_equal(whole, want, err_msg=k)
+
+
+def test_gpt_interleaved_qkv_reshards_across_degrees(world, dirs):
+    """GPT's fused QKV is split by head in the (mp, 3, heads / mp, hd)
+    layout; the checkpoint holds it in the dense (3, heads, hd) layout, so
+    an mp-2 checkpoint loads into the dense model and a dense one into
+    the mp-2 model (the seeded tensor-parallel model holds the slices of
+    the dense model of its seed)."""
+    for s in world:
+        assert s["gpt"]["differ"] == []
+        assert s["gpt"]["qkv_rows"] == 3 * 128 // 2
+    got = _dense_gpt(9)
+    ck.load_state_dict({"gpt": got.state_dict(keep_vars=True)},
+                       os.path.join(dirs[0], "gpt_mp2"))
+    want = dict(_dense_gpt(3).named_parameters())
+    assert [n for n, p in got.named_parameters()
+            if not torch.equal(p, want[n])] == []
+
+
+def test_stripped_split_parameters_are_refused(world):
+    """`state_dict()` without keep_vars drops the mp placement, so both
+    ranks claim one block with different values: the save raises on
+    every rank rather than write rank 0's part as the whole."""
+    for s in world:
+        assert "different values" in s["mp_adam"]["refused"]
+        assert "'model.0." in s["mp_adam"]["refused"]
 
 
 def test_world2_loads_at_world1(dirs, world):

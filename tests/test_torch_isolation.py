@@ -44,3 +44,26 @@ def test_kernel_sources_are_in_the_checkout():
     for name in _build.HOST_SOURCES:      # the TCPStore's g++ source
         assert (_build.CSRC / f"{name}.cc").is_file()
     assert not any(_build.CSRC.glob("*.so"))   # built into build/, not here
+
+
+def test_lazy_name_tables_match_the_modules():
+    """The package inits resolve names at first use from hand-kept
+    tables; each name must be in its module's `__all__` and resolve."""
+    import importlib
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch import device
+    from paddle_tpu_torch import distributed as ptd
+
+    assert set(paddle_tpu_torch.__all__) <= set(device.__all__)
+    for name in paddle_tpu_torch.__all__:
+        assert getattr(paddle_tpu_torch, name) is getattr(device, name)
+    for mod, names in ptd._NAMES.items():
+        module = importlib.import_module(f"paddle_tpu_torch.distributed."
+                                         f"{mod}")
+        assert set(names) <= set(module.__all__), mod
+        for name in names:
+            assert getattr(ptd, name) is getattr(module, name), name
+    for mod in ptd._SUBMODULES:
+        assert getattr(ptd, mod) is importlib.import_module(
+            f"paddle_tpu_torch.distributed.{mod}") or mod == "spawn"
