@@ -127,7 +127,7 @@ without the final result line:
    step, 24 of the K2 launches with d(mask); the loss must be finite and
    fall. Prints tokens/s/chip over source + target tokens, step ms, MFU
    (T5_FLOPS below) and peak memory;
-14. t5_step_check: a 2-layer T5 at full width, fp32, dropout 0, batch 2,
+14. t5_step_check: a 1-layer T5 at full width, fp32, dropout 0, batch 2,
    512 / 114: loss and every gradient (both bias tables included) on the
    card against the CPU, as step_check, with gated-GELU and with ReLU FFNs
    (the card's ReLU passes replay the CPU pass's ReLU masks);
@@ -271,10 +271,10 @@ without the final result line:
    beams, 32 new tokens, an eos id); prints the prefill ms, decode
    tokens/s, peak memory and K1's launches;
 30. generate_fp32 (after cluster_fp32): LLaMA-7B and GPT-3 1.3B widths at
-   2 layers, fp32: greedy and beam streams on the card identical to the
+   1 layer, fp32: greedy and beam streams on the card identical to the
    CPU's (the plain versions), seeded sampled streams identical or parted
    only where the two tokens' perturbed logits lie within
-   SAMPLED_FP32_TOL; T5-base at 2 + 2 layers, greedy, identical; a bf16
+   SAMPLED_FP32_TOL; T5-base at 1 + 1 layers, greedy, identical; a bf16
    LLaMA over an fp32 cache through the margin check;
 31. generate_t5: T5-base bf16, 8 x 512 source tokens, 64 new tokens,
    greedy; the stream held to the uncached decoder's argmax where its
@@ -293,10 +293,10 @@ without the final result line:
    K1-K5 exactly 24, 24, 24, 49, 49 a step; the loss finite and falling;
    prints tokens/s/chip, step ms, MFU (bench.py's FLOPs per token) and
    peak memory (--profile adds one profiled step);
-34. gpt_step_check: GPT-3 1.3B widths at 2 layers, fp32, dropout 0, batch
+34. gpt_step_check: GPT-3 1.3B widths at 1 layer, fp32, dropout 0, batch
    2 x 256, the fused LM loss: loss, every gradient (GRAD_RTOL) and one
    Adam update (ADAM_ATOL, both fed the CPU's gradients) card against
-   CPU; LLaMA-7B widths at 2 layers with `labels=`, unfused and fused,
+   CPU; LLaMA-7B widths at 1 layer with `labels=`, unfused and fused,
    the same without the update; one O1 step of the GPT with the fused
    head against the unfused (O1_LOSS_RTOL, O1_GRAD_COS);
 35. tp_kernels (run with the other kernel phases): K1 (the serve prefill
@@ -317,10 +317,10 @@ without the final result line:
    (a norm a device). Prints
    tokens/s, `serving_tp_collective_seconds`, `overlap_fraction`, pool
    bytes a shard, peak memory and launches;
-37. serve_tp_fp32 (after cluster_fp32): tp=2 at fp32 on 2 layers of full
+37. serve_tp_fp32 (after cluster_fp32): tp=2 at fp32 on 1 layer of full
    width, card streams identical to the CPU's; a tp=2 snapshot restored
    onto tp=4, every request exactly once;
-38. cluster_tp (after serve_tp_fp32): 2 replicas of tp=2 (fp32, 2 layers)
+38. cluster_tp (after serve_tp_fp32): 2 replicas of tp=2 (fp32, 1 layer)
    carved from the one card, replica 1 killed mid-decode, its requests
    migrated, every request exactly once and every stream identical to
    the run without the kill; serve_gpt adds serve_gpt_tp, its unchunked
@@ -343,15 +343,15 @@ without the final result line:
    falling, K1-K5 as in train_gpt; tokens/s/chip, MFU and peak memory
    beside O1's; then 2 layers at full width in fp32, three AdamW + clip
    + schedule updates card against CPU within ADAM_ATOL;
-42. train_zero (last): ZeRO data parallelism of ERNIE-1.0 base at the
-   Train ERNIE step (a global 32 x 512, O1, dropout 0.1, the fused MLM
-   loss, Adam 1e-4) over 4 ranks spawned once (gloo on one card, NCCL
+42. train_zero (last): ZeRO data parallelism of ERNIE-1.0 base's widths
+   at 6 of its 12 layers (ZERO_LAYERS) at the Train ERNIE step (a global
+   32 x 512, O1, dropout 0.1, the fused MLM loss, Adam 1e-4) over 4 ranks spawned once (gloo on one card, NCCL
    with a card a rank; PyTorch's deterministic algorithms in each rank),
    each rank's generator from (seed, rank), each leg
-   1 + 2 steps: stage 0 twice (run-to-run identity), stages 1 and 2,
+   1 + 1 steps: stage 0 twice (run-to-run identity), stages 1 and 2,
    stage 2 bucketed (25 MiB) serial and overlapped, grad_accum 2, bf16
    with fp32 masters and a planted non-finite step (skipped, the scale
-   halved), telemetry off / on / on / off; stage 1 / 2 / bucketed /
+   halved), telemetry off / on; stage 1 / 2 / bucketed /
    overlapped and telemetry on bit-identical to their references,
    optimizer bytes a rank a quarter of stage 0's; then a second world of
    2 ranks restores the dp-4 checkpoint at stage 2 and stage 0, which
@@ -378,16 +378,17 @@ without the final result line:
    pp 2 x dp 2 and its interleaved form at fp32 bit for bit the
    single-rank step; GroupSharded p_g_os bit for bit ZeroTrainStep stage
    0 with a quarter of its parameter bytes; ZeroTrainStep dp 2 x tp 2 on
-   ERNIE-1.0 base within fp32 rounding of tp 1. PyTorch's default
+   ERNIE-1.0 base's widths at ZERO_LAYERS within fp32 rounding of tp 1. PyTorch's default
    algorithms in every rank.
 46. train_dp (last): the rest of distributed through the port's own
    launcher: `python -m paddle_tpu_torch.distributed.launch
    --nproc_per_node 4` runs this script's `--dp-worker` mode on 4 ranks
    (gloo on one card, NCCL with a card a rank), each joining with
-   `init_parallel_env()` and no arguments. ERNIE-1.0 base at dp 4 through
+   `init_parallel_env()` and no arguments. ERNIE-1.0 base's widths at
+   ZERO_LAYERS at dp 4 through
    fleet.init and fleet.distributed_model (a DataParallel), fed by
    DistributedBatchSampler and DataLoader (32 x 512, 8 a rank), O1 bf16,
-   dropout 0, Adam 1e-4, 1 + 2 steps under PyTorch's deterministic
+   dropout 0, Adam 1e-4, 1 + 1 steps under PyTorch's deterministic
    algorithms: loss and every parameter bit for bit ZeroTrainStep(stage=0)
    on the same global batches; broadcast, reduce, reduce_scatter, scatter,
    alltoall, isend / irecv and the object collectives on CUDA tensors
@@ -402,11 +403,30 @@ without the final result line:
    memory a rank, the checkpoint's bytes and save / wait / load seconds,
    the Engine legs' walls and K1-K5 launches a rank.
 
+47. dygraph (after step_check): the Paddle dygraph surface on the card,
+   `import paddle_tpu_torch as paddle`: a plain dygraph network at
+   ERNIE-1.0 base widths (three nn.Embedding, nn.LayerNorm(eps 1e-12),
+   nn.Dropout(0.1), an nn.TransformerEncoder of 12 post-LN GELU layers,
+   nn.Linear(768, 18000); 113.1 M parameters, random weights from --seed)
+   trained at 32 x 512 under paddle.amp.auto_cast O1 bf16 with
+   nn.CrossEntropyLoss over every token and paddle.optimizer.AdamW(1e-4)
+   (loss.backward(), opt.step(), opt.clear_grad()): 2 warm-up and 5 timed
+   steps, the loss finite and falling, K1-K5 exactly 12 / 12 / 12 / 25 /
+   25 launches a step (the counters zeroed before the timed steps); an
+   eval forward under paddle.no_grad(), finite, of the logits' shape;
+   tokens/s/chip, step ms, MFU, peak memory beside the torch-native Train
+   ERNIE step of the same call, the Tensors the surface wraps a step and
+   its host cost an op, the busy share under --profile; then the network
+   at 2 of its 12 layers, fp32, dropout 0, 2 x 512: one step on the card
+   against the CPU from the same weights, the loss and every gradient
+   under check_grads, one AdamW update of each within ADAM_ATOL.
+
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
 paddle_tpu; the card machine has neither.
 """
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -471,6 +491,11 @@ TOL_LSE = 1e-5
 # largest gradient error read on an H100 (1.51e-6, PERF.md, PR 2)
 LOSS_RTOL = 2e-5
 GRAD_RTOL = 2e-5
+# the depth of the full-width card-against-CPU checks of t5_step_check
+# (T5-base, encoder and decoder), gpt_step_check (GPT-3 1.3B, LLaMA-7B),
+# generate_fp32 and tp_fp32_model (serve_tp_fp32, cluster_tp): 1 since PR
+# 18, 2 before (the CPU's side of each check set most of its time)
+CHECK_LAYERS = 1
 # the T5 step check's gradient limit (both FFNs; ReLU with the CPU's masks):
 # T5 at init is worse conditioned than ERNIE, and the plain versions run on
 # the card already read 2.51e-5 against the CPU with gated-GELU (the kernels
@@ -2335,7 +2360,7 @@ class shared_relu_masks:
     whole token's share."""
 
     def __enter__(self):
-        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.nn import torch_functional as F
 
         self._F, self._relu = F, F.relu
         self.masks, self._i, self._mode = [], 0, None
@@ -2367,7 +2392,7 @@ class plain_versions:
     even on CUDA tensors: the card's own reference for a whole step."""
 
     def __enter__(self):
-        from paddle_tpu_torch.nn import functional as F
+        from paddle_tpu_torch.nn import torch_functional as F
         from paddle_tpu_torch.ops import flash_attention as fa
         from paddle_tpu_torch.ops import norm
 
@@ -2386,7 +2411,7 @@ class plain_versions:
 
 
 def phase_t5_step_check(seed, dev):
-    """A 2-layer T5 at full width (2 encoder + 2 decoder layers), fp32,
+    """T5 at full width and CHECK_LAYERS encoder + decoder layers, fp32,
     dropout 0, batch 2, 512 source / 114 target tokens: loss and every
     gradient on the card, through the kernels (d(mask) included) and again
     through the plain versions on the card, against the CPU (plain
@@ -2404,7 +2429,7 @@ def phase_t5_step_check(seed, dev):
     out = {}
     for ff in ("gated-gelu", "relu"):
         cfg = T5Config.t5_base()
-        cfg.num_layers = 2
+        cfg.num_layers = CHECK_LAYERS
         cfg.dropout_rate = 0.0
         cfg.feed_forward_proj = ff
         card = T5ForConditionalGeneration(cfg, device=dev, seed=seed)
@@ -2453,7 +2478,8 @@ def phase_t5_step_check(seed, dev):
         held = f"every gradient within {T5_GRAD_RTOL} x max|cpu grad|"
         if ff == "relu":
             held += f" ({len(relu.masks)} ReLU masks from the CPU pass)"
-        log(f"[t5_step_check] {ff}, 2 + 2 layers full width fp32, 512 / "
+        log(f"[t5_step_check] {ff}, {CHECK_LAYERS} + {CHECK_LAYERS} layers "
+            f"full width fp32, 512 / "
             f"114: loss card {loss_card!r} cpu {loss_cpu!r} (plain on the "
             f"card {loss_plain!r}); {held}: kernels worst {worst[0]:.3g} "
             f"({worst[1]}), plain versions on the card worst "
@@ -2485,7 +2511,7 @@ def moe_layer(kind, dev, seed, act=torch.nn.ReLU):
     """MoELayer at Switch-Base-8's widths: MOE_E experts of Linear(768,
     3072), `act`, Linear(3072, 768) with the port's Linear (cast by O1)."""
     from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
-    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.layers import Linear
 
     experts = [torch.nn.Sequential(Linear(MOE_D, MOE_FF, device=dev), act(),
                                    Linear(MOE_FF, MOE_D, device=dev))
@@ -2672,7 +2698,7 @@ def phase_moe_step_check(seed, dev):
     where about half the (token, choice) pairs are dropped, so the capacity
     mask, the renormalized gates and the combine's empty slots are held
     too."""
-    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import torch_functional as F
     from paddle_tpu_torch.ops import moe_dispatch as md
 
     card = moe_layer("gshard", dev, seed, act=torch.nn.GELU)
@@ -5073,9 +5099,10 @@ def generate_card_vs_cpu(tag, card, cpu, vocab, seed, dev):
 
 
 def phase_generate_fp32(seed, dev):
-    """`generate` at fp32 on 2 layers of full width, card against CPU:
-    LLaMA-7B and GPT-3 1.3B (greedy, beam, sampled), and T5-base's greedy
-    `generate` at 2 + 2 layers; then a bf16 LLaMA over an fp32 cache (the
+    """`generate` at fp32 on CHECK_LAYERS layers of full width, card
+    against CPU: LLaMA-7B and GPT-3 1.3B (greedy, beam, sampled), and
+    T5-base's greedy `generate` at CHECK_LAYERS + CHECK_LAYERS layers;
+    then a bf16 LLaMA over an fp32 cache (the
     static attention's type rule), through the margin check."""
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          LlamaConfig, LlamaForCausalLM,
@@ -5086,9 +5113,9 @@ def phase_generate_fp32(seed, dev):
 
     out = {}
     lcfg = LlamaConfig.llama7b()
-    lcfg.num_hidden_layers = 2
+    lcfg.num_hidden_layers = CHECK_LAYERS
     gcfg = GPTConfig.gpt3_1p3b()
-    gcfg.num_hidden_layers = 2
+    gcfg.num_hidden_layers = CHECK_LAYERS
     gcfg.hidden_dropout_prob = gcfg.attention_probs_dropout_prob = 0.0
     for tag, cls, cfg in (("llama", LlamaForCausalLM, lcfg),
                           ("gpt", GPTForCausalLM, gcfg)):
@@ -5123,7 +5150,7 @@ def phase_generate_fp32(seed, dev):
         gc.collect()
         torch.cuda.empty_cache()
     tcfg = T5Config.t5_base()
-    tcfg.num_layers = 2
+    tcfg.num_layers = CHECK_LAYERS
     card = T5ForConditionalGeneration(tcfg, device=dev, seed=seed)
     cpu = T5ForConditionalGeneration(tcfg, device="cpu", seed=seed)
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
@@ -5353,9 +5380,10 @@ def o1_fused_vs_unfused(card, ids, dev):
 
 
 def phase_gpt_step_check(seed, dev):
-    """GPT-3 1.3B's widths at 2 layers, fp32, dropout 0, batch 2 x 256: the
-    fused LM loss, every gradient and one Adam update on the card against
-    the CPU; the same at LLaMA-7B's widths (2 layers, batch 2 x 64) with
+    """GPT-3 1.3B's widths at CHECK_LAYERS layers, fp32, dropout 0, batch
+    2 x 256: the fused LM loss, every gradient and one Adam update on the
+    card against the CPU; the same at LLaMA-7B's widths (CHECK_LAYERS
+    layers, batch 2 x 64) with
     `labels=`, unfused and fused; then an O1 step of the GPT with the fused
     head against the unfused."""
     import dataclasses
@@ -5365,7 +5393,7 @@ def phase_gpt_step_check(seed, dev):
 
     out = {}
     cfg = GPTConfig.gpt3_1p3b()
-    cfg.num_hidden_layers = 2
+    cfg.num_hidden_layers = CHECK_LAYERS
     cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
     cfg.fused_lm_loss = True
     card = GPTForCausalLM(cfg, device=dev, seed=seed)
@@ -5373,8 +5401,8 @@ def phase_gpt_step_check(seed, dev):
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
         0, cfg.vocab_size, (2, 256)))
-    out["gpt"] = step_card_vs_cpu("GPT 2-layer fused loss", card, cpu, ids,
-                                  ids, dev, adam=True)
+    out["gpt"] = step_card_vs_cpu(f"GPT {CHECK_LAYERS}-layer fused loss",
+                                  card, cpu, ids, ids, dev, adam=True)
     del cpu
     out["gpt_o1"] = o1_fused_vs_unfused(card, ids, dev)
     del card
@@ -5382,7 +5410,7 @@ def phase_gpt_step_check(seed, dev):
     torch.cuda.empty_cache()
     for fused in (False, True):
         lcfg = LlamaConfig.llama7b()
-        lcfg.num_hidden_layers = 2
+        lcfg.num_hidden_layers = CHECK_LAYERS
         lcfg.fused_lm_loss = fused
         card = LlamaForCausalLM(lcfg, device=dev, seed=seed)
         cpu = LlamaForCausalLM(lcfg, device="cpu", seed=seed)
@@ -5390,7 +5418,7 @@ def phase_gpt_step_check(seed, dev):
                              card.state_dict().items()})
         ids = torch.from_numpy(np.random.RandomState(seed + 3).randint(
             0, lcfg.vocab_size, (2, 64)))
-        tag = f"LLaMA 2-layer labels{', fused' if fused else ''}"
+        tag = f"LLaMA {CHECK_LAYERS}-layer labels{', fused' if fused else ''}"
         out["llama_fused" if fused else "llama"] = step_card_vs_cpu(
             tag, card, cpu, ids, ids, dev)
         del card, cpu
@@ -5828,13 +5856,14 @@ def phase_serve_tp(model, seed, dev):
 
 
 def tp_fp32_model(seed, dev):
-    """LLaMA-7B's widths cut to 2 layers, fp32 weights from the seed, on
-    `dev` (no gradients)."""
+    """LLaMA-7B's widths cut to CHECK_LAYERS layers, fp32 weights from the
+    seed, on `dev` (no gradients)."""
     import dataclasses
 
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = dataclasses.replace(LlamaConfig.llama7b(), num_hidden_layers=2)
+    cfg = dataclasses.replace(LlamaConfig.llama7b(),
+                              num_hidden_layers=CHECK_LAYERS)
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32,
                              seed=seed)
     for p in model.parameters():
@@ -5849,7 +5878,7 @@ def tp_fp32_prompts(seed, vocab):
 
 
 def phase_serve_tp_fp32(seed, dev):
-    """The tp=2 engine at fp32 on 2 layers of full width, without bf16's
+    """The tp=2 engine at fp32 on 1 layer of full width, without bf16's
     near-ties: its 8 greedy streams (TP_NEW new tokens, two late) on the
     card must be identical to the same TP engine's on the CPU (two CPU
     shards, the plain versions). Then a tp=2 engine with a journal, all 8
@@ -5936,7 +5965,7 @@ def phase_serve_tp_fp32(seed, dev):
 
 
 def phase_cluster_tp(seed, dev):
-    """A ServingCluster of 2 replicas of tp=2 (fp32, 2 layers of full width)
+    """A ServingCluster of 2 replicas of tp=2 (fp32, 1 layer of full width)
     carved from the one card listed 4 times (and from 4 distinct cards
     where the machine has them: replica 1's group then excludes the card
     that holds the model, its embedding and head); replica 1 is killed by
@@ -6087,8 +6116,13 @@ def phase_profile(model, prompts, dev, out_dir):
 # 1e-4) over ZERO_RANKS ranks, each leg ZERO_STEPS = (warm-up, timed) steps
 ZERO_RANKS = 4
 ZERO_BATCH = (32, 512)
-# (1 + 2: the whole run keeps to its time limit beside the fleet phase)
-ZERO_STEPS = (1, 2)
+# (1 + 1 since PR 18, 1 + 2 before: two steps still hold every leg's bits
+# through an update; the run keeps to its time limit beside the fleet and
+# dygraph phases)
+ZERO_STEPS = (1, 1)
+# the legs' model: ERNIE-1.0 base's widths at ZERO_LAYERS of its 12 layers
+# (12 until PR 18; the fleet phase's ZeroTrainStep dp 2 x tp 2 leg too)
+ZERO_LAYERS = 6
 ZERO_BUCKET = 25 * 2 ** 20
 ZERO_LR = 1e-4
 # the bf16 leg's loss against the fp32 stage-2 leg's, step by step: bf16
@@ -6239,6 +6273,7 @@ def _zero_world(seed, dev):
     from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
 
     cfg = ErnieConfig.ernie_base()
+    cfg.num_hidden_layers = ZERO_LAYERS
     cfg.fused_mlm_loss = True
     model = ErnieForPretraining(cfg, device=dev, seed=seed)
     model.train()
@@ -6450,8 +6485,8 @@ def zero_world_rank(seed, ckpt):
         scale_before=scale,
         scale_after=float(st_after[Z._SCALER_KEY]["scale"]))
     del p16, st16, s16, p_after, st_after
-    # telemetry off / on / on / off (A B B A); on must equal off
-    for i, on in enumerate((False, True, True, False)):
+    # telemetry off / on (A B; A B B A until PR 18); on must equal off
+    for i, on in enumerate((False, True)):
         name = f"telemetry {'on' if on else 'off'} {'AB'[i in (1, 2)]}{i}"
         kw = {}
         tele = None
@@ -6545,7 +6580,8 @@ def phase_train_zero(seed, dev):
     backend = r0["backend"]
     legs = r0["legs"]
     opt0 = legs["stage0"]["opt_bytes"]
-    log(f"[train_zero] ERNIE-1.0 base, global batch {ZERO_BATCH[0]} x "
+    log(f"[train_zero] ERNIE-1.0 base's widths at {ZERO_LAYERS} layers, "
+        f"global batch {ZERO_BATCH[0]} x "
         f"{ZERO_BATCH[1]}, O1 bf16, dropout 0.1, fused MLM loss, Adam "
         f"{ZERO_LR}, dp {ZERO_RANKS} on {[r['device'] for r in ranks]} over "
         f"{backend} ({'ranks share the card' if shared else 'a card a rank'})"
@@ -6898,7 +6934,7 @@ FLEET_LOSS_RTOL, FLEET_NORM_RTOL = 5e-3, 2e-2
 # reference's work (the GroupSharded leg's stage 0 keeps four whole
 # replicas with Adam state on the one card)
 FLEET_PP_LAYERS = 2
-FLEET_ZERO3_LAYERS = 4
+FLEET_ZERO3_LAYERS = 2          # 4 until PR 18
 # ZeroTrainStep at dp 2 x tp 2 on ERNIE-1.0 base (fp32, dropout 0, SGD so
 # that an update is its gradient times lr): each parameter's update within
 # this relative L2 error of tp 1's (a LayerNorm weight's gradient is a sum
@@ -6948,6 +6984,270 @@ def dp_kernel_cases(rows, dev):
     return main
 
 
+# ------------------------------------------------- the dygraph surface
+# ERNIE-1.0 base's widths (bench.py:1146: vocab 18000, 12 layers, hidden
+# 768, 12 heads, FFN 3072, 512 positions, 2 token types) as a plain
+# Paddle dygraph network: three nn.Embedding, nn.LayerNorm(eps 1e-12),
+# nn.Dropout, a post-LN nn.TransformerEncoder of GELU layers and an
+# nn.Linear vocabulary head, trained at the Train ERNIE cell's batch
+DYG_VOCAB, DYG_LAYERS, DYG_HIDDEN, DYG_HEADS, DYG_FFN = 18000, 12, 768, 12, \
+    3072
+DYG_BATCH, DYG_SEQ, DYG_DROPOUT, DYG_LR = 32, 512, 0.1, 1e-4
+DYG_STEPS = (2, 5)          # warm-up, timed
+# K1-K3 once a layer; K4 / K5 for the embedding norm and two a layer
+DYG_LAUNCHES = {"K1": 12, "K2": 12, "K3": 12, "K4": 25, "K5": 25}
+
+
+def dygraph_net(paddle, layers=DYG_LAYERS, dropout=DYG_DROPOUT):
+    nn = paddle.nn
+
+    class ErnieShaped(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(DYG_VOCAB, DYG_HIDDEN)
+            self.pos = nn.Embedding(512, DYG_HIDDEN)
+            self.type = nn.Embedding(2, DYG_HIDDEN)
+            self.norm = nn.LayerNorm(DYG_HIDDEN, epsilon=1e-12)
+            self.drop = nn.Dropout(dropout)
+            self.encoder = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+                DYG_HIDDEN, DYG_HEADS, DYG_FFN, dropout=dropout,
+                activation="gelu"), layers)
+            self.head = nn.Linear(DYG_HIDDEN, DYG_VOCAB)
+
+        def forward(self, ids, types):
+            pos = paddle.arange(ids.shape[1]).unsqueeze(0)
+            h = self.word(ids) + self.pos(pos) + self.type(types)
+            return self.head(self.encoder(self.drop(self.norm(h))))
+
+    return ErnieShaped()
+
+
+def dygraph_batch(paddle, seed, batch=None):
+    rng = np.random.RandomState(seed + 60)
+    return [paddle.to_tensor(rng.randint(0, hi, (batch or DYG_BATCH,
+                                                 DYG_SEQ)))
+            for hi in (DYG_VOCAB, 2, DYG_VOCAB)]
+
+
+def dygraph_step(paddle, net, opt, ids, types, labels, o1=True):
+    ctx = paddle.amp.auto_cast(level="O1", dtype="bfloat16") if o1 \
+        else contextlib.nullcontext()
+    with ctx:
+        logits = net(ids, types)
+        loss = paddle.nn.CrossEntropyLoss()(logits, labels)
+    loss.backward()
+    if opt is not None:
+        opt.step()
+        opt.clear_grad()
+    return loss
+
+
+def dygraph_wrapper_cost(paddle, net, opt, batch):
+    """The Paddle surface's host cost: the Tensors one step wraps (its
+    ops at the Paddle level, counted by patching `Tensor._wrap`) and the
+    host time one wrapped op adds over the same torch op (2000 adds of
+    two 1 x 8 tensors on the card, Paddle against torch, each issued
+    back to back)."""
+    from paddle_tpu_torch.core import tensor as ct
+
+    counted = [0]
+    wrap = ct.Tensor.__dict__["_wrap"]
+
+    def counting(cls, t):
+        counted[0] += 1
+        return wrap.__func__(cls, t)
+
+    ct.Tensor._wrap = classmethod(counting)
+    try:
+        dygraph_step(paddle, net, opt, *batch)
+    finally:
+        ct.Tensor._wrap = wrap
+    a, b = paddle.ones([1, 8]), paddle.ones([1, 8])
+    ta, tb = a._t, b._t
+    times = {}
+    for name, fn in (("paddle", lambda: a + b), ("torch", lambda: ta + tb)):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        times[name] = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    extra = times["paddle"] - times["torch"]
+    return dict(wrapped_tensors_per_step=counted[0],
+                paddle_add_us=times["paddle"], torch_add_us=times["torch"],
+                extra_us_per_op=extra,
+                est_wrapper_ms_per_step=counted[0] * extra / 1e3)
+
+
+def dygraph_card_vs_cpu(paddle, seed):
+    """The network at 2 of its 12 layers, fp32, dropout 0, 2 x 512 tokens:
+    one step on the card (kernels) against the CPU (plain versions) from
+    the card's weights: the loss and every gradient under check_grads,
+    then one AdamW update of each, fed the CPU's gradients, every weight
+    within ADAM_ATOL."""
+    from paddle_tpu_torch.core.rng import seed as reseed
+
+    reseed(seed)
+    card = dygraph_net(paddle, layers=2, dropout=0.0)
+    counters = train_counters()
+    before = {k: fn.launches for k, fn in counters.items()}
+    losses = {}
+    # each network runs with its device as the default one (its forward
+    # makes the position ids there)
+    try:
+        for name in ("cpu", "card"):
+            paddle.set_device("cpu" if name == "cpu" else "cuda")
+            if name == "cpu":
+                cpu = dygraph_net(paddle, layers=2, dropout=0.0)
+                cpu.set_state_dict({k: v._t.cpu() for k, v in
+                                    card.state_dict().items()})
+                batch = dygraph_batch(paddle, seed + 1, batch=2)
+                m = cpu
+            else:
+                batch, m = [t.cuda() for t in batch], card
+            m.train()
+            losses[name] = float(dygraph_step(paddle, m, None, *batch,
+                                              o1=False))
+    finally:
+        paddle.set_device("cuda")
+    ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+    if any(n <= 0 for n in ran.values()):
+        raise AssertionError(f"dygraph check: the card's step skipped a "
+                             f"kernel: {ran}")
+    cpu_params = dict(cpu.named_parameters())
+    errs = {}
+    for name, p in card.named_parameters():
+        g, gr = p._t.grad, cpu_params[name]._t.grad
+        errs[name] = (float((g.cpu() - gr).abs().max()),
+                      float(gr.abs().max()))
+    # the key projections' bias takes a zero gradient in exact arithmetic
+    # (it shifts every score of a row alike), so both sides hold rounding
+    # noise (~1e-10 on an H100): it is held to the largest gradient's scale
+    top = max(scale for _, scale in errs.values())
+    for name in errs:
+        if name.endswith("self_attn.k_proj.bias"):
+            errs[name] = (errs[name][0], top)
+    worst, worst_name = check_grads(errs, losses, "dygraph check", GRAD_RTOL)
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            p._t.grad.copy_(cpu_params[name]._t.grad)
+    for m in (card, cpu):
+        paddle.optimizer.AdamW(DYG_LR, parameters=m.parameters()).step()
+    err = max(max_err(p._t.cpu(), cpu_params[n]._t)
+              for n, p in card.named_parameters())
+    if not err <= ADAM_ATOL:
+        raise AssertionError(f"dygraph check: AdamW update max abs error "
+                             f"{err}")
+    log(f"[dygraph] 2-layer card vs CPU, fp32, dropout 0, 2 x {DYG_SEQ}: "
+        f"loss card {losses['card']!r} cpu {losses['cpu']!r}; every "
+        f"gradient within {GRAD_RTOL} x max|cpu grad|, worst {worst:.3g} "
+        f"({worst_name}); one AdamW update within {err:.3g} (tol "
+        f"{ADAM_ATOL}); kernels launched {ran}")
+    return dict(loss_card=losses["card"], loss_cpu=losses["cpu"],
+                worst_grad_rel=worst, worst_grad=worst_name,
+                adamw_max_abs_err=err, launches=ran)
+
+
+def phase_dygraph(seed, dev, native=None, profile=False, out_dir=None):
+    """The Paddle dygraph surface on the card: `import paddle_tpu_torch as
+    paddle`, the ERNIE-1.0-base-width network above trained with
+    loss.backward(), AdamW.step() and clear_grad() under auto_cast O1 bf16
+    (DYG_STEPS warm-up and timed steps, the launch counters zeroed just
+    before the timed steps and read after), then an eval forward under
+    no_grad; the wrapper's host cost; the 2-layer card-vs-CPU step. The
+    torch-native Train ERNIE step of this call (`native`) is printed
+    beside it."""
+    import paddle_tpu_torch as paddle
+
+    t_phase = time.perf_counter()
+    paddle.set_device("cuda")
+    paddle.seed(seed)
+    held = torch.cuda.memory_allocated()
+    net = dygraph_net(paddle)
+    net.train()
+    opt = paddle.optimizer.AdamW(DYG_LR, parameters=net.parameters())
+    n_params = sum(p.numel() for p in net.parameters())
+    batch = dygraph_batch(paddle, seed)
+    log(f"[dygraph] Paddle dygraph network at ERNIE-1.0 base widths "
+        f"({DYG_LAYERS} layers, hidden {DYG_HIDDEN}, {DYG_HEADS} heads, "
+        f"FFN {DYG_FFN}, vocab {DYG_VOCAB}, {n_params / 1e6:.2f} M params), "
+        f"batch {DYG_BATCH} x {DYG_SEQ}, O1 bf16, dropout {DYG_DROPOUT}, "
+        f"CrossEntropyLoss over every token, AdamW {DYG_LR}")
+    warm, timed = DYG_STEPS
+    losses = [float(dygraph_step(paddle, net, opt, *batch))
+              for _ in range(warm)]
+    torch.cuda.synchronize()
+    counters = train_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    step_losses = [dygraph_step(paddle, net, opt, *batch)
+                   for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(x) for x in step_losses]
+    tokens = DYG_BATCH * DYG_SEQ
+    tps = tokens * timed / wall
+    fpt = 6 * n_params + 12 * DYG_LAYERS * DYG_HIDDEN * DYG_SEQ
+    mfu = tps * fpt / PEAK_FLOPS[torch.bfloat16]
+    net.eval()
+    with paddle.no_grad():
+        logits = net(*batch[:2])
+    torch.cuda.synchronize()
+    if not (logits.stop_gradient and logits.shape == [DYG_BATCH, DYG_SEQ,
+                                                        DYG_VOCAB]
+            and bool(paddle.isfinite(logits).all())):
+        raise AssertionError("dygraph: the eval forward gave "
+                             f"{logits.shape}, finite / no grad expected")
+    net.train()
+    log(f"[dygraph] {timed} timed steps {wall:.3f} s: {tps:.1f} "
+        f"tokens/s/chip, step {wall / timed * 1e3:.2f} ms, MFU {mfu:.4f} "
+        f"({fpt / 1e6:.1f} MFLOP/token over 989 TFLOP/s), peak memory "
+        f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before)")
+    if native is not None:
+        log(f"[dygraph] beside it in this call, the torch-native Train "
+            f"ERNIE step (ErnieForPretraining, fused MLM loss, Adam): "
+            f"{native['tokens_per_s']:.1f} tokens/s/chip, step "
+            f"{native['step_ms']:.2f} ms")
+    log("[dygraph] loss by step: " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"[dygraph] launches in the {timed} timed steps: {launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dygraph: loss not finite and falling: "
+                             f"{losses}")
+    wrong = {k: n for k, n in launches.items()
+             if n != DYG_LAUNCHES[k] * timed}
+    if wrong:
+        raise AssertionError(f"dygraph: launches {wrong} over {timed} "
+                             f"steps != {DYG_LAUNCHES} a step")
+    cost = dygraph_wrapper_cost(paddle, net, opt, batch)
+    log(f"[dygraph] wrapper: {cost['wrapped_tensors_per_step']} Tensors "
+        f"wrapped a step; a Paddle add {cost['paddle_add_us']:.2f} us "
+        f"against torch's {cost['torch_add_us']:.2f} us on the host, so "
+        f"~{cost['est_wrapper_ms_per_step']:.2f} ms a step of host time")
+    prof = None
+    if profile:
+        prof = profile_window("dygraph_step", lambda: dygraph_step(
+            paddle, net, opt, *batch), out_dir)
+    del net, opt, batch, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = dygraph_card_vs_cpu(paddle, seed)
+    out = dict(launches=launches, tokens_per_s=tps, step_ms=wall / timed *
+               1e3, mfu=mfu, flops_per_token=fpt, n_params=n_params,
+               peak_bytes=peak, held_bytes=held, losses=losses, wall_s=wall,
+               wrapper=cost, profile=prof, card_vs_cpu=check,
+               native_tokens_per_s=None if native is None
+               else native["tokens_per_s"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dygraph] the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def embedding_determinism(seed, dev):
     """F4 on the card: two identical ERNIE-1.0 base O1 steps (dropout 0.1,
     32 x 512, the same weights and generator) under PyTorch's defaults
@@ -6955,7 +7255,7 @@ def embedding_determinism(seed, dev):
     `F.embedding` sums each row in a fixed order; then each of ERNIE's
     three lookups' backward timed (CUDA events): the port's, PyTorch's
     default and PyTorch's deterministic form."""
-    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import torch_functional as F
 
     if torch.are_deterministic_algorithms_enabled():
         raise AssertionError("deterministic algorithms are on: the check "
@@ -7365,6 +7665,7 @@ def fleet_world_rank(seed, refs):
     # 5. ZeroTrainStep(tp=2) on ERNIE-1.0 base against tp 1 (dp 2 on
     # the pairs {0, 1} and {2, 3}, which compute the same)
     ecfg = ErnieConfig.ernie_base()
+    ecfg.num_hidden_layers = ZERO_LAYERS
     ecfg.hidden_dropout_prob = ecfg.attention_probs_dropout_prob = 0.0
     heads = ecfg.num_attention_heads
     eids = torch.from_numpy(np.random.RandomState(seed).randint(
@@ -7523,7 +7824,8 @@ def phase_train_fleet(seed, dev):
     worst_name, worst = e["worst_update"]
     lerr = max(abs(a - b) / abs(b) for a, b in zip(e["losses"],
                                                      e["tp1_losses"]))
-    log(f"[train_fleet] ZeroTrainStep dp 2 x tp 2 on ERNIE-1.0 base (fp32, "
+    log(f"[train_fleet] ZeroTrainStep dp 2 x tp 2 on ERNIE-1.0 base's widths "
+        f"at {ZERO_LAYERS} layers (fp32, "
         f"SGD {FLEET_TP_LR}, {ZERO_BATCH[0]} x {ZERO_BATCH[1]}): loss "
         + ", ".join(f"{x:.6f}" for x in e["losses"]) + " against tp 1's "
         + ", ".join(f"{x:.6f}" for x in e["tp1_losses"])
@@ -7554,7 +7856,7 @@ DP_RANKS = 4
 DP_BATCH = (32, 512)
 # warm-up + timed DataParallel steps (as ZERO_STEPS), then one more step
 # while the async checkpoint is written
-DP_STEPS = (1, 2)
+DP_STEPS = (1, 1)            # (1, 2) until PR 18
 DP_LR = 1e-4
 DP_TIMEOUT = 600
 # the Engine leg: GPT-3 1.3B's widths, ENGINE_LAYERS deep, fp32, a batch
@@ -7784,6 +8086,7 @@ def dp_worker(out_dir, seed):
     counters = train_counters()
 
     cfg = ErnieConfig.ernie_base()
+    cfg.num_hidden_layers = ZERO_LAYERS
     cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
     cfg.fused_mlm_loss = True
     steps = sum(DP_STEPS) + 1
@@ -7924,8 +8227,8 @@ def _tails(log_dir, n=3000):
 
 
 def phase_train_dp(seed, dev):
-    """ERNIE-1.0 base trained data-parallel through the port's own
-    launcher (ROADMAP queue 1 item 5b): `python -m
+    """ERNIE-1.0 base's widths (ZERO_LAYERS deep) trained data-parallel
+    through the port's own launcher (ROADMAP queue 1 item 5b): `python -m
     paddle_tpu_torch.distributed.launch --nproc_per_node DP_RANKS` runs
     this script's `--dp-worker` mode (dp_worker) on every rank: fleet.init
     at dp 4, DistributedBatchSampler + DataLoader, fleet.distributed_model
@@ -7979,6 +8282,7 @@ def phase_train_dp(seed, dev):
         # world 1: a fresh model (another seed) and optimizer, its slots
         # made by one step over zero gradients, filled from the checkpoint
         cfg = ErnieConfig.ernie_base()
+        cfg.num_hidden_layers = ZERO_LAYERS       # the dp worker's model
         model = ErnieForPretraining(cfg, device=dev, seed=seed + 1)
         opt = Adam(learning_rate=DP_LR, parameters=model.parameters())
         opt.step()
@@ -7996,7 +8300,8 @@ def phase_train_dp(seed, dev):
     r0 = ranks[0]
     d0 = r0["dp"]
     shared = len({r["device"] for r in ranks}) < DP_RANKS
-    log(f"[train_dp] ERNIE-1.0 base through fleetrun: {DP_RANKS} ranks on "
+    log(f"[train_dp] ERNIE-1.0 base's widths at {ZERO_LAYERS} layers "
+        f"through fleetrun: {DP_RANKS} ranks on "
         f"{[r['device'] for r in ranks]} over {r0['backend']} "
         f"({'ranks share the card' if shared else 'a card a rank'}), "
         f"launcher env {r0['env']}; global batch {DP_BATCH[0]} x "
@@ -8364,6 +8669,10 @@ def main(argv=None):
     launches["train"] = result["train"]["launches"]
     release()
     result["step_check"] = phase_step_check(args.seed, dev)
+    release()
+    result["dygraph"] = r = phase_dygraph(args.seed, dev, result["train"],
+                                          args.profile, args.out)
+    launches["dygraph"] = r["launches"]
     release()
     result["embedding_determinism"] = embedding_determinism(args.seed, dev)
     release()

@@ -3,10 +3,19 @@ Hopper (H100).
 
 The JAX package `paddle_tpu` stays the reference; this package imports
 `torch` and never `jax` or anything of `paddle_tpu`. Its entry points run
-on the card ("cuda") unless the caller passes device="cpu", where every
-hand-written kernel gives way to its plain PyTorch version.
+on the card ("cuda") unless the caller asks for the CPU
+(`paddle.set_device("cpu")`, or device="cpu"), where every hand-written
+kernel gives way to its plain PyTorch version.
 
-What is ported, slice by slice:
+`import paddle_tpu_torch as paddle` runs a Paddle dygraph script:
+`paddle.to_tensor`, the `paddle.*` ops and the Tensor methods and
+operators (`core`, `ops`, `tensor`), `backward` / `paddle.grad` /
+`paddle.no_grad` over torch autograd, `paddle.nn` (Layer, the common,
+norm, activation, loss and transformer layers, `nn.functional`,
+`nn.initializer`), `paddle.optimizer`, `paddle.amp` and
+`paddle.seed`.
+
+What is ported, slice by slice (ROADMAP.md):
 
 1. LLaMA served through the paged-KV `serving.ServingEngine`, with
    flash-attention forward (K1), fused RMSNorm (K4) and paged decode (K6);
@@ -23,28 +32,70 @@ What is ported, slice by slice:
    `training.make_moe_train_step`), its dispatch and combine through the
    row gather K9 (`ops.moe_dispatch`);
 
-and later slices serving, generation and tensor parallelism (ROADMAP.md)
-and the training plane: the optimizer family (`optimizer`, `optimizer.lr`,
+and later slices serving, generation and tensor parallelism and the
+training plane: the optimizer family (`optimizer`, `optimizer.lr`,
 `nn.clip`), amp O2 with the `GradScaler`, recompute
 (`distributed.fleet.recompute`), ZeRO data parallelism (`parallel.zero`)
 and its telemetry (`observability.training`); fleet hybrid parallelism
-(`distributed.fleet`); and the rest of `distributed` (the launcher
+(`distributed.fleet`); the rest of `distributed` (the launcher
 `distributed.launch`, `DataParallel`, the resharding checkpoint,
 `auto_parallel` and its `Engine`, the host services) with `io` and
-`metric`.
+`metric`; and the Paddle dygraph surface above.
 
 The kernels are CUDA C++ (`csrc/`, built by `_build`) except K4 / K5,
 which are Triton (`ops.norm`).
 
 The package's names resolve at first use, so the host-only modules (the
-launcher, TCPStore, rpc, elastic) start without importing torch.
+launcher, TCPStore, rpc, elastic) start without importing torch. A name
+not in the tables below is looked up in the op namespace (`tensor`:
+`paddle.add`, `paddle.matmul`, `paddle.to_tensor`, ...).
 """
 import importlib
 
-__all__ = ["get_device", "resolve_device", "set_device"]
+_SUBMODULES = ("amp", "autograd", "core", "device", "distributed",
+               "incubate", "io", "metric", "models", "nn", "observability",
+               "ops", "optimizer", "parallel", "profiler", "serving",
+               "tensor", "training", "weights")
+
+_NAMES = {
+    "amp": ("autocast",),
+    "core": ("bfloat16", "bool_", "complex64", "complex128", "finfo",
+             "float16", "float32", "float64", "get_default_dtype", "iinfo",
+             "int8", "int16", "int32", "int64", "set_default_dtype",
+             "uint8", "get_flags", "set_flags", "CPUPlace",
+             "CUDAPinnedPlace", "CUDAPlace", "Place", "device_count",
+             "Generator", "get_rng_state", "seed", "set_rng_state",
+             "enable_grad", "grad", "is_grad_enabled", "no_grad",
+             "set_grad_enabled", "Parameter", "Tensor", "create_parameter",
+             "get_cuda_rng_state", "set_cuda_rng_state", "LazyGuard",
+             "disable_signal_handler"),
+    "device": ("get_device", "resolve_device", "set_device"),
+    "distributed": ("DataParallel",),
+    "nn": ("ParamAttr",),
+}
+_HOME = {name: mod for mod, names in _NAMES.items() for name in names}
+
+__all__ = sorted(_HOME) + list(_SUBMODULES)
 
 
 def __getattr__(name):
-    if name in __all__:
-        return getattr(importlib.import_module(".device", __name__), name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if name.startswith("__"):
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    if name in _HOME:
+        value = getattr(importlib.import_module(f".{_HOME[name]}",
+                                                __name__), name)
+    elif name in _SUBMODULES:
+        value = importlib.import_module(f".{name}", __name__)
+    else:
+        ops = importlib.import_module(".tensor", __name__)
+        if name not in ops.__all__:
+            raise AttributeError(f"module {__name__!r} has no attribute "
+                                 f"{name!r}")
+        value = getattr(ops, name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_HOME) | set(_SUBMODULES))

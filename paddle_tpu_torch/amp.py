@@ -14,10 +14,10 @@ paddle_tpu/ops/ops.yaml (never read at run time):
            (:2197), fused_linear_cross_entropy (:2126)
     black: layer_norm (:2062), rms_norm (:2068), cross_entropy (:2120)
 
-The port's functional layer (`nn.functional`) asks `cast_inputs(op, ...)`
-before each of its ops: the listed ones above and `embedding`, `gelu`,
-`relu`, `silu`, `tanh`, `dropout`, `mse_loss`, `add` and `multiply`, which
-are on no list. So under O1 the residual stream and every norm stay fp32
+The port's functional layer (`nn.torch_functional`) asks
+`cast_inputs(op, ...)` before each of its ops: the listed ones above and
+`embedding`, `gelu`, `relu`, `silu`, `tanh`, `dropout`, `mse_loss`, `add`
+and `multiply`, which are on no list. So under O1 the residual stream and every norm stay fp32
 while the products and attention run in bf16; under O2 (parameters made
 bf16 by `decorate`, fp32 master weights in the optimizer) everything but
 the black list runs in bf16, the norms take fp32 inputs, and the residual
@@ -53,7 +53,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["auto_cast", "amp_guard", "cast_inputs", "decorate",
+__all__ = ["auto_cast", "autocast", "amp_guard", "cast_inputs", "decorate",
            "GradScaler", "is_auto_cast_enabled", "get_amp_dtype",
            "is_float16_supported", "is_bfloat16_supported",
            "WHITE_LIST", "BLACK_LIST", "NAME_WHITE_LIST", "NAME_BLACK_LIST"]
@@ -127,6 +127,7 @@ class auto_cast:
 
 
 amp_guard = auto_cast  # the legacy name (paddle.fluid.dygraph.amp_guard)
+autocast = auto_cast   # paddle 3.x's top-level alias
 
 
 def is_auto_cast_enabled() -> bool:
@@ -137,23 +138,27 @@ def get_amp_dtype() -> torch.dtype:
     return _STATE["dtype"] if _STATE["enabled"] else torch.float32
 
 
-def _target(op: str) -> Optional[torch.dtype]:
-    if op in _STATE["black"] or op in BLACK_LIST:
+def _target(op: str, declared: Optional[str]) -> Optional[torch.dtype]:
+    if op in _STATE["black"] or op in BLACK_LIST or declared == "black":
         return torch.float32
     if (_STATE["level"] == "O2" or op in _STATE["white"]
-            or op in WHITE_LIST):
+            or op in WHITE_LIST or declared == "white"):
         return _STATE["dtype"]
     return None
 
 
-def cast_inputs(op: str, *tensors: Optional[torch.Tensor]
+def cast_inputs(op: str, *tensors: Optional[torch.Tensor],
+                amp_list: Optional[str] = None
                 ) -> Tuple[Optional[torch.Tensor], ...]:
     """`tensors` cast as the active policy casts op `op`'s inputs: floating
     tensors to the amp type or to fp32 (see the module docstring); None,
-    integer tensors and ops the policy leaves alone pass through."""
+    integer tensors and ops the policy leaves alone pass through.
+    `amp_list` is the op's own declaration ('white' / 'black', the ops.yaml
+    `amp:` field) for the ops of the op table (`ops.registry`), which the
+    Paddle Tensor surface dispatches."""
     if not _STATE["enabled"]:
         return tensors
-    target = _target(op)
+    target = _target(op, amp_list)
     if target is None:
         return tensors
     return tuple(t.to(target) if t is not None and t.is_floating_point()

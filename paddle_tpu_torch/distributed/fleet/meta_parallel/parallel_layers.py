@@ -51,7 +51,7 @@ import torch
 from torch import nn
 
 from ....device import resolve_device
-from ....nn import functional as F
+from ....nn import torch_functional as F
 from ....parallel.mesh import (copy_to_tp_region, gather_dim,
                                gather_from_tp_region, ordered_psum,
                                reduce_from_tp_region, scatter_to_tp_region)

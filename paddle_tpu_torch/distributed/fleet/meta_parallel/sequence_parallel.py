@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ....nn import functional as F
+from ....nn import torch_functional as F
 from ....parallel.mesh import gather_dim, ordered_psum, split_dim
 from .parallel_layers import _MPLayer, mp_group_of
 

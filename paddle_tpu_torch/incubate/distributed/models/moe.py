@@ -19,7 +19,7 @@ TPU: K9 on the card, its plain version on the CPU. (The reference's one-hot
 einsum branch computes the same function; the tests hold this one against
 both.) The routing is fp32 whatever the amp state, as the reference's raw
 `@` inside `apply_callable` is: the gate product is a plain `@`, not the
-amp-casting `nn.functional.matmul`.
+amp-casting `nn.torch_functional.matmul`.
 
 `expert_parallel_forward(x, group)` is the reference's expert parallelism
 (:208-287) over the ranks of a `distributed.Group`: each rank routes its

@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import functional as F
+from ..nn import torch_functional as F
 from ..nn.layers import Dropout, LayerNorm, Linear
 
 __all__ = ["ErnieConfig", "ErnieSelfAttention", "ErnieLayer",

@@ -38,7 +38,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from ..nn import functional as F
+from ..nn import torch_functional as F
 from ..serving.sampling import hashed_uniforms
 
 __all__ = ["generate", "attend_with_cache", "init_caches"]

@@ -65,7 +65,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import functional as F
+from ..nn import torch_functional as F
 from ..nn.layers import Dropout, LayerNorm, Linear
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTModel",

@@ -32,7 +32,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import functional as F
+from ..nn import torch_functional as F
 from ..nn.layers import Linear, RMSNorm
 from ..ops.rope import apply_rope, rope_tables
 

@@ -46,7 +46,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import functional as F
+from ..nn import torch_functional as F
 from ..nn.layers import Dropout, Linear, RMSNorm
 
 __all__ = ["T5Config", "T5Attention", "T5LayerFF", "T5EncoderLayer",

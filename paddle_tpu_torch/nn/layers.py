@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from . import functional as F
+from . import torch_functional as F
 
 __all__ = ["RMSNorm", "LayerNorm", "Linear", "Dropout"]
 

@@ -38,7 +38,7 @@ give the same bits:
     p -= lr / (1 - beta1^t) * m1 / (sqrt(m2) / sqrt(1 - beta2^t) + eps)
 
 which is the reference's `lr * m1_hat / (sqrt(m2_hat) + eps)` up to
-rounding. LBFGS is not ported (ROADMAP queue 1 item 6).
+rounding. LBFGS is not ported (ROADMAP queue 1 item 6d).
 """
 from __future__ import annotations
 
@@ -77,6 +77,12 @@ class L1Decay:
         self.coeff = float(coeff)
 
 
+def _torch_param(p):
+    """A paddle Parameter's torch tensor; a torch tensor or a group dict
+    as it is."""
+    return getattr(p, "_t", p)
+
+
 def _low_precision(t: torch.Tensor) -> bool:
     return t.is_floating_point() and t.dtype != torch.float32
 
@@ -95,9 +101,11 @@ class Optimizer(torch.optim.Optimizer):
         if parameters is None:
             raise ValueError("parameters is required in dygraph mode "
                              "(pass model.parameters())")
-        parameters = list(parameters)
+        # paddle Parameters (core.tensor) take part as their torch tensors
+        parameters = [_torch_param(p) for p in parameters]
         if parameters and isinstance(parameters[0], dict):
-            groups = [dict(g, params=list(g["params"])) for g in parameters]
+            groups = [dict(g, params=[_torch_param(p) for p in g["params"]])
+                      for g in parameters]
         else:
             groups = [{"params": parameters}]
         super().__init__(groups, {})
@@ -252,7 +260,9 @@ class Optimizer(torch.optim.Optimizer):
     def _param_name(self, p: torch.Tensor) -> str:
         key = id(p)
         if key not in self._names:
-            name = getattr(p, "name", None) or f"param_{len(self._names)}"
+            name = (getattr(p, "paddle_name", None)
+                    or getattr(p, "name", None)
+                    or f"param_{len(self._names)}")
             if name in self._names.values():
                 name = f"{name}_{len(self._names)}"
             self._names[key] = name

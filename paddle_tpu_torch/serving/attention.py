@@ -39,7 +39,7 @@ import math
 import torch
 
 from .. import _build
-from ..nn import functional as F
+from ..nn import torch_functional as F
 from .kv_cache import NULL_PAGE, PagedLayerCache, overflow_position
 
 __all__ = ["paged_attend", "paged_decode_attention",

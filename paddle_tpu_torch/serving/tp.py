@@ -59,7 +59,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..nn import functional as F
+from ..nn import torch_functional as F
 from ..ops.rope import rope_tables
 from ..parallel.mesh import device_order, distinct, ordered_allreduce
 

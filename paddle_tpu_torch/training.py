@@ -43,7 +43,7 @@ from typing import Callable
 import torch
 
 from . import amp
-from .nn import functional as F
+from .nn import torch_functional as F
 
 __all__ = ["make_train_step", "make_seq2seq_train_step",
            "make_causal_lm_train_step", "make_moe_train_step"]

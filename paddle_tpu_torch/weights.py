@@ -9,6 +9,12 @@ Linear weights are transposed (fleet's column / row parallel layers',
 sequence-parallel ones included); Embedding and norm weights cross as they are. A missing or extra
 key, or a shape that does not match, raises.
 
+`load_reference_layer(layer, state)` is the same for the Paddle dygraph
+surface: it takes a JAX `Layer`'s `state_dict()` (or any mapping of its
+names to arrays) into the port's `nn.Layer` of the same structure. The
+layouts agree there (paddle's (in, out) Linear on both sides), so nothing
+is transposed; every name and shape is checked.
+
 A tensor-parallel model or a pipeline stage loads its shard of the full
 parameters. Each of fleet's mp layers knows its mp rank: a
 column-parallel weight (and bias) takes its rows of the port's (out, in)
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_reference_state"]
+__all__ = ["load_reference_state", "load_reference_layer"]
 
 
 @torch.no_grad()
@@ -66,3 +72,24 @@ def load_reference_state(model: nn.Module, params: Mapping[str, object]
             raise ValueError(f"{name}: reference shape {tuple(full.shape)} "
                              f"does not match the port's {tuple(p.shape)}")
         p.copy_(full)
+
+
+def load_reference_layer(layer, state: Mapping[str, object]) -> None:
+    """Copy a JAX Layer's state dict into the port's paddle `nn.Layer` of
+    the same structure, name by name and in place; a missing or extra
+    name, or another shape, raises."""
+    own = layer.state_dict()
+    missing = sorted(own.keys() - state.keys())
+    extra = sorted(state.keys() - own.keys())
+    if missing or extra:
+        raise KeyError(f"reference state does not match the layer: missing "
+                       f"{missing}, unexpected {extra}")
+    arrays = {}
+    for name, t in own.items():
+        arr = np.asarray(state[name], dtype=np.float32) if np.asarray(
+            state[name]).dtype.kind == "f" else np.asarray(state[name])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: reference shape {tuple(arr.shape)} "
+                             f"does not match the port's {tuple(t.shape)}")
+        arrays[name] = arr
+    layer.set_state_dict(arrays)

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import distributed as ptd
-from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import torch_functional as F
 
 
 def _np(t):

@@ -111,7 +111,7 @@ def sleep_on(slow_rank, seconds):
 
 def _ep_layer(state, num_experts, d_model, d_ff, gate, capacity_factor):
     from paddle_tpu_torch.incubate.distributed.models import moe
-    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.layers import Linear
     from paddle_tpu_torch.weights import load_reference_state
 
     experts = [torch.nn.Sequential(Linear(d_model, d_ff), torch.nn.GELU(),

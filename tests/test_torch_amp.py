@@ -28,7 +28,7 @@ from paddle_tpu.models.ernie import ErnieForPretraining as JErnie
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.models import (ErnieConfig, ErnieForPretraining,
                                      GPTConfig, GPTForCausalLM)
-from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import torch_functional as F
 from paddle_tpu_torch.optimizer import SGD, AdamW
 from paddle_tpu_torch.training import make_causal_lm_train_step
 from paddle_tpu_torch.weights import load_reference_state
@@ -348,7 +348,7 @@ def _jax_o2(family):
                     kwargs={"labels": jnp.asarray(ids)}, training=True)
         return loss.astype(jnp.float32)
 
-    loss, grads = jax.value_and_grad(loss_of)(p16)
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(p16)
     return float(loss), {k: np.asarray(g.astype(jnp.float32))
                          for k, g in grads.items()}, params32
 

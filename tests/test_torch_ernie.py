@@ -32,7 +32,7 @@ from paddle_tpu.models.ernie import ErnieForPretraining as JErnie
 
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
-from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import torch_functional as F
 from paddle_tpu_torch.ops import cross_entropy as tce
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.training import make_train_step
@@ -95,11 +95,12 @@ def _jax_step(fused, with_mask, o1):
                                            training=True)
         return loss
 
-    loss, grads = jax.value_and_grad(loss_of)(params)
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(params)
     opt = paddle.optimizer.Adam(learning_rate=LR,
                                 parameters=model.parameters())
-    new, _ = opt.functional_step(params, grads, opt.functional_state(params),
-                                 jnp.float32(LR), jnp.int32(1))
+    new, _ = jax.jit(lambda p, g: opt.functional_step(
+        p, g, opt.functional_state(p), jnp.float32(LR), jnp.int32(1)))(
+            params, grads)
     as_np = functools.partial(jax.tree_util.tree_map, np.asarray)
     return float(loss), as_np(grads), as_np(new), as_np(params)
 

@@ -52,7 +52,7 @@ from paddle_tpu.parallel.mesh import (TP_AXIS, copy_to_tp_region,
 from paddle_tpu_torch import distributed as ptd
 from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
-from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import torch_functional as F
 from paddle_tpu_torch.ops import embedding as E
 
 RTOL, ATOL = 1e-5, 1e-6

@@ -52,12 +52,19 @@ def test_lazy_name_tables_match_the_modules():
     import importlib
 
     import paddle_tpu_torch
-    from paddle_tpu_torch import device
     from paddle_tpu_torch import distributed as ptd
 
-    assert set(paddle_tpu_torch.__all__) <= set(device.__all__)
-    for name in paddle_tpu_torch.__all__:
-        assert getattr(paddle_tpu_torch, name) is getattr(device, name)
+    for mod, names in paddle_tpu_torch._NAMES.items():
+        module = importlib.import_module(f"paddle_tpu_torch.{mod}")
+        assert set(names) <= set(module.__all__), mod
+        for name in names:
+            assert getattr(paddle_tpu_torch, name) is getattr(module, name)
+    for mod in paddle_tpu_torch._SUBMODULES:
+        assert getattr(paddle_tpu_torch, mod) is importlib.import_module(
+            f"paddle_tpu_torch.{mod}")
+    ops = importlib.import_module("paddle_tpu_torch.tensor")
+    for name in ("add", "matmul", "to_tensor", "randn", "einsum"):
+        assert getattr(paddle_tpu_torch, name) is getattr(ops, name)
     for mod, names in ptd._NAMES.items():
         module = importlib.import_module(f"paddle_tpu_torch.distributed."
                                          f"{mod}")

@@ -56,8 +56,8 @@ import _torch_ranks as ranks
 from paddle_tpu_torch import amp
 from paddle_tpu_torch import distributed as ptd
 from paddle_tpu_torch.incubate.distributed.models import moe
-from paddle_tpu_torch.nn import Linear
-from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layers import Linear
+from paddle_tpu_torch.nn import torch_functional as F
 from paddle_tpu_torch.ops import moe_dispatch as md
 from paddle_tpu_torch.optimizer import Adam
 from paddle_tpu_torch.training import make_moe_train_step
@@ -503,18 +503,28 @@ def _jax_ep():
     aux_loss."""
     from jax.sharding import Mesh
 
+    from paddle_tpu.core import tape
+    from paddle_tpu.jit.functional import bind_state
+
     layer = _ep_ref_layer()
-    state = {n: np.asarray(v) for n, v in extract_state(layer)[0].items()}
+    params, buffers = extract_state(layer)
+    state = {n: np.asarray(v) for n, v in params.items()}
     x, ct = _ep_data()
     mesh = Mesh(np.asarray(jax.devices()[:EP_W]), ("ep",))
-    xt = paddle.to_tensor(x)
-    xt.stop_gradient = False
-    y = layer.expert_parallel_forward(xt, mesh, ep_axis="ep")
-    ((y * paddle.to_tensor(ct)).sum() + layer.aux_loss).backward()
-    grads = {n: np.asarray(p.grad.numpy())
-             for n, p in layer.named_parameters() if p.grad is not None}
-    return (state, y.numpy().reshape(-1, D), float(layer.aux_loss.numpy()),
-            xt.grad.numpy(), grads)
+
+    def loss_of(p, xd):
+        # the layer as a function of its weights and x, jitted
+        with bind_state(layer, p, buffers), tape.no_grad():
+            y = layer.expert_parallel_forward(paddle.Tensor(xd), mesh,
+                                              ep_axis="ep")._data
+            aux = layer.aux_loss._data
+        return jnp.sum(y * ct) + aux, (y, aux)
+
+    (_, (y, aux)), (g_p, g_x) = jax.jit(jax.value_and_grad(
+        loss_of, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+    grads = {n: np.asarray(g) for n, g in g_p.items()}
+    return (state, np.asarray(y).reshape(-1, D), float(aux), np.asarray(g_x),
+            grads)
 
 
 def _ep_port_layer(state):

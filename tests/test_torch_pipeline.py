@@ -51,7 +51,7 @@ from paddle_tpu.models.gpt import gpt_pipe_layers as jgpt_pipe_layers
 from paddle_tpu_torch import distributed as ptd
 from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
-from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import torch_functional as F
 from paddle_tpu_torch.optimizer import SGD
 from paddle_tpu_torch.weights import load_reference_state
 

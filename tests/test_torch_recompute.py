@@ -28,7 +28,7 @@ from paddle_tpu.models.ernie import ErnieForPretraining as JErnie
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.distributed.fleet import recompute as rc
 from paddle_tpu_torch.models import ErnieConfig, ErnieForPretraining
-from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import torch_functional as F
 from paddle_tpu_torch.weights import load_reference_state
 
 B, S = 2, 32

@@ -115,13 +115,15 @@ def _jax_step(case, o1):
             jnp.asarray(labels).reshape(-1), ignore_index=-100)
         return loss, logits
 
-    (loss, logits), grads = jax.value_and_grad(loss_of, has_aux=True)(params)
-    (enc, _), _ = call_functional(model, params, buffers, (args[0],),
-                                  training=True)
+    (loss, logits), grads = jax.jit(jax.value_and_grad(
+        loss_of, has_aux=True))(params)
+    enc, _ = jax.jit(lambda p: call_functional(
+        model, p, buffers, (args[0],), training=True)[0])(params)
     opt = paddle.optimizer.Adam(learning_rate=LR,
                                 parameters=model.parameters())
-    new, _ = opt.functional_step(params, grads, opt.functional_state(params),
-                                 jnp.float32(LR), jnp.int32(1))
+    new, _ = jax.jit(lambda p, g: opt.functional_step(
+        p, g, opt.functional_state(p), jnp.float32(LR), jnp.int32(1)))(
+            params, grads)
     as_np = functools.partial(jax.tree_util.tree_map, np.asarray)
     return (float(loss), as_np(grads), as_np(new), as_np(params),
             np.asarray(logits.astype(jnp.float32)), np.asarray(enc))
