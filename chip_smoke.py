@@ -421,6 +421,35 @@ without the final result line:
    against the CPU from the same weights, the loss and every gradient
    under check_grads, one AdamW update of each within ADAM_ATOL.
 
+48. vision (after dygraph): `paddle.Model`, `paddle.vision` and `nn` in
+   full on the card. ResNet-50 at full width (`vision.models.resnet50()`,
+   25.56 M parameters, 224 x 224, 1000 classes) through
+   `Model.prepare(Momentum(0.1, 0.9, L2Decay(1e-4)), CrossEntropyLoss,
+   Accuracy, amp_configs="O2")` on a seeded batch of 256 held on the card:
+   2 warm-up and 5 timed `train_batch` steps (images/s/chip, step ms, MFU
+   over 989 TFLOP/s with 3x the forward's convolution and linear FLOPs,
+   peak memory), then one `Model.fit` epoch of 4 batches of a seeded
+   in-memory dataset and an `evaluate` on the running statistics. LeNet
+   through `Model.fit` on the seeded synthetic MNIST (ToTensor, Adam,
+   Accuracy, batch 64, drop_last, 2 epochs): the loss falls and the
+   accuracy rises; `Model.save` / `load` round-trips on the card.
+   Transformer-base (Vaswani et al.: d_model 512, 8 heads of 64, 6 + 6
+   post-LN ReLU layers, FFN 2048, dropout 0.1; a shared seeded
+   `nn.Embedding(37000, 512)` (N(0, 512^-1/2), scaled by sqrt(512)) with
+   sinusoidal positions, `nn.Transformer`
+   with the decoder's float causal mask from
+   `generate_square_subsequent_mask`, `nn.Linear(512, 37000)`,
+   CrossEntropyLoss) at 96 x 256 source and target tokens through
+   `Model.train_batch` at O1: 1 + 3 steps, K1-K5 exactly 18 / 18 / 18 / 30
+   / 30 launches a step. Card against CPU at fp32 (cuDNN's TF32 off): a
+   `ResNet(BottleneckBlock, 50, num_classes=10)` step at 2 x 3 x 64 x 64
+   (loss, every gradient and the running statistics under VIS_GRAD_RTOL,
+   one Momentum update within ADAM_ATOL) and a 1 + 1-layer Transformer
+   step (GRAD_RTOL, one Adam update within ADAM_ATOL), ReLU masks shared.
+   The kernels at the Transformer's shapes (K1-K3 for encoder self and
+   cross attention, one launch shape, and decoder self with the float
+   mask; K4 / K5 at 24576 x 512) are held to their plain versions with the other kernel cases.
+
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
 paddle_tpu; the card machine has neither.
@@ -2361,10 +2390,15 @@ class shared_relu_masks:
 
     def __enter__(self):
         from paddle_tpu_torch.nn import torch_functional as F
+        from paddle_tpu_torch.ops.registry import get_op
 
         self._F, self._relu = F, F.relu
+        # the Paddle surface's relu (nn.ReLU, F.relu) is the op table's
+        self._op = get_op("relu")
+        self._op_fn = self._op.fn
         self.masks, self._i, self._mode = [], 0, None
         F.relu = self._call
+        self._op.fn = self._call
         return self
 
     def record(self):
@@ -2383,6 +2417,7 @@ class shared_relu_masks:
 
     def __exit__(self, *exc):
         self._F.relu = self._relu
+        self._op.fn = self._op_fn
         return False
 
 
@@ -4729,8 +4764,10 @@ def gpt_kernel_cases(rows, dev):
 
 
 def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt",
-                        causal=True, p=TRAIN_DROPOUT, forms=None, label=None):
-    """K1, K2 and K3 at `shape` (`causal`, dropout `p`), bf16 at its batch
+                        causal=True, p=TRAIN_DROPOUT, forms=None, label=None,
+                        mask=None):
+    """K1, K2 and K3 at `shape` (`causal`, dropout `p`, an additive float
+    `mask` broadcast over batch and heads), bf16 at its batch
     and (`fp32`) fp32 at batch 1, or `forms` ((dtype, batch), ...); the
     first form's rows under `"K1 <key>"`..."""
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -4746,12 +4783,13 @@ def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt",
     for dtype, b in forms:
         q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device=dev)
                          .to(dtype) for _ in range(4))
-        out, lse = fa.flash_attention(q, k, v, None, causal, True, p, seed)
+        m = None if mask is None else mask.to(dtype)
+        out, lse = fa.flash_attention(q, k, v, m, causal, True, p, seed)
         torch.cuda.synchronize()
-        e1, t1, e_lse = check_k1(out, lse, q, k, v, dtype, None, causal, p,
+        e1, t1, e_lse = check_k1(out, lse, q, k, v, dtype, m, causal, p,
                                  seed)
         delta = fa.attention_delta(out, dout)
-        args = (q, k, v, dout, lse, delta, None, causal, p, seed)
+        args = (q, k, v, dout, lse, delta, m, causal, p, seed)
         dq = fa.flash_attention_dq(*args)
         dk, dv = fa.flash_attention_dkv(*args)
         rdq, rdk, rdv = fa.flash_attention_backward_reference(*args)
@@ -4761,35 +4799,42 @@ def gpt_attention_cases(rows, dev, shape=GPT_ATTN, fp32=True, key="gpt",
                  check_rel("K3", dv, rdv, dtype),
                  key=lambda et: et[0] / et[1])
         del dq, dk, dv, rdq, rdk, rdv
-        ms1 = time_ms(lambda: fa.flash_attention(q, k, v, None, causal,
+        ms1 = time_ms(lambda: fa.flash_attention(q, k, v, m, causal,
                                                  True, p, seed))
         ms2 = time_ms(lambda: fa.flash_attention_dq(*args))
         ms3 = time_ms(lambda: fa.flash_attention_dkv(*args))
         plain1 = time_ms(lambda: fa.flash_attention_reference(
-            q, k, v, None, causal, True, p, seed), 3, 1)
+            q, k, v, m, causal, True, p, seed), 3, 1)
         plain_b = time_ms(
             lambda: fa.flash_attention_backward_reference(*args), 3, 1)
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
         with torch.no_grad():
-            lib1 = time_ms(lambda: sdpa(qt, kt, vt, dropout_p=p,
-                                        is_causal=causal))
-        lib_out = sdpa(qt, kt, vt, dropout_p=p, is_causal=causal)
+            lib1 = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=m,
+                                        dropout_p=p, is_causal=causal))
+        lib_out = sdpa(qt, kt, vt, attn_mask=m, dropout_p=p,
+                       is_causal=causal)
         dout_t = dout.transpose(1, 2)
         lib_b = time_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dout_t, retain_graph=True))
         pairs = s * (s + 1) // 2 if causal else s * s
-        io_in = nbytes(q, k, v, dout, lse, delta)
-        b1 = bound(nbytes(q, k, v, out, lse), 4 * b * h * d * pairs, dtype)
+        if m is not None:       # the pairs the mask leaves finite
+            pairs = int(torch.isfinite(m).sum()) // (m.numel() // (s * s))
+        extra = () if m is None else (m,)
+        io_in = nbytes(q, k, v, dout, lse, delta, *extra)
+        b1 = bound(nbytes(q, k, v, out, lse, *extra),
+                   4 * b * h * d * pairs, dtype)
         b2 = bound(io_in + nbytes(q), 6 * b * h * d * pairs, dtype)
         b3 = bound(io_in + nbytes(k, v), 8 * b * h * d * pairs, dtype)
+        kind = ("causal" if causal else "no mask") if m is None else \
+            f"float mask {tuple(m.shape)}"
         case = (f"{label or 'GPT ' + ('fleet rank ' if key != 'gpt' else '')}"
-                f"{'causal' if causal else 'no mask'} ({b}, {s}, {h}, {d}), "
-                f"dropout {p}")
+                f"{kind} ({b}, {s}, {h}, {d}), dropout {p}")
         note = "sdpa backward, dQ+dK+dV together"
         r1 = _row(dtype, case, e1, t1, ms1, plain1, lib1, *b1, lse_err=e_lse,
                   dropout_p=p, library_note="sdpa forward"
-                  + (", is_causal" if causal else ""))
+                  + (", is_causal" if causal else "")
+                  + ("" if m is None else ", the same float mask"))
         r2 = _row(dtype, case, *e2, ms2, plain_b, lib_b, *b2,
                   library_note=note)
         r3 = _row(dtype, case, *e3, ms3, plain_b, lib_b, *b3,
@@ -4852,7 +4897,7 @@ def static_decode_cases(rows, dev):
     return main
 
 
-def gpt_norm_cases(rows, dev, forms=None, key="gpt"):
+def gpt_norm_cases(rows, dev, forms=None, key="gpt", hidden=None):
     """K4 and K5 in LayerNorm mode (eps 1e-5) at GPT-3 1.3B's width: the
     Train GPT step's 16384 rows in fp32 (O1's type), and K4 in bf16 at 512
     rows (the Serve GPT prefill), or `forms` ((dtype, rows, with the
@@ -4860,7 +4905,7 @@ def gpt_norm_cases(rows, dev, forms=None, key="gpt"):
     from paddle_tpu_torch.ops import norm
 
     g = torch.Generator(device=dev).manual_seed(13)
-    hd, eps, tF = GPT_HIDDEN, 1e-5, torch.nn.functional
+    hd, eps, tF = hidden or GPT_HIDDEN, 1e-5, torch.nn.functional
     main = {}
     if forms is None:
         forms = ((torch.float32, GPT_ATTN[0] * GPT_ATTN[1], True),
@@ -7248,6 +7293,533 @@ def phase_dygraph(seed, dev, native=None, profile=False, out_dir=None):
     return out
 
 
+# ------------------------------------------------ nn, hapi and vision
+# ResNet-50 (He et al. 2016) at full width through paddle.Model at O2, at
+# Goyal et al.'s 256 images a card (lr 0.1); LeNet on MNIST; Transformer-
+# base (Vaswani et al. 2017) at its paper's ~25k tokens a batch
+VIS_BATCH, VIS_RES, VIS_LR, VIS_DECAY = 256, 224, 0.1, 1e-4
+VIS_STEPS = (2, 5)          # warm-up, timed
+VIS_FIT_BATCHES = 4
+LENET_BATCH, LENET_EPOCHS = 64, 2
+TFB_VOCAB, TFB_MODEL, TFB_HEADS, TFB_LAYERS, TFB_FFN = 37000, 512, 8, 6, 2048
+TFB_BATCH, TFB_SEQ, TFB_DROPOUT, TFB_LR = 96, 256, 0.1, 1e-4
+TFB_STEPS = (1, 3)
+# K1-K3 for each layer's attentions (6 encoder self, 6 decoder self, 6
+# cross); K4 / K5 for two norms an encoder layer and three a decoder layer
+TFB_LAUNCHES = {"K1": 18, "K2": 18, "K3": 18, "K4": 30, "K5": 30}
+# the card-vs-CPU ResNet step at 64 x 64 and batch 2: layer4's BatchNorm
+# sees 8 values a channel, which magnifies fp32 rounding: at seed 0 one
+# fp32 step of this network sits up to 6.3e-4 of a tensor's largest
+# gradient from a float64 step on the CPU, 6.5e-4 on the card, and the card
+# up to 7.7e-4 from the CPU's fp32 step (one H100, tools/resnet_rounding.py,
+# PERF.md). Each gradient, each running statistic and the eval forward's
+# logits are held to 1e-3 of their own largest CPU value
+VIS_GRAD_RTOL = 1e-3
+
+
+def conv_linear_flops(paddle, net, shape):
+    """The forward's FLOPs for one input of `shape` (batch 1): 2 x MACs of
+    every Conv2D and Linear, from the shapes a forward hook sees."""
+    total = [0]
+
+    def hook(layer, inputs, out):
+        if isinstance(layer, paddle.nn.Conv2D):
+            w = layer.weight.shape
+            total[0] += 2 * out.numel() * w[1] * w[2] * w[3]
+        else:
+            total[0] += 2 * layer.weight.shape[0] * layer.weight.shape[1]
+
+    hooks = [m.register_forward_post_hook(hook) for m in net.sublayers()
+             if isinstance(m, (paddle.nn.Conv2D, paddle.nn.Linear))]
+    was = net.training
+    net.eval()
+    with paddle.no_grad():
+        net(paddle.zeros([1] + list(shape)))
+    net.train(was)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def vision_batch(paddle, seed, n, dev, classes=1000, res=VIS_RES):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, 3, res, res, generator=g, device=dev)
+    y = torch.randint(0, classes, (n, 1), generator=g, device=dev)
+    return paddle.Tensor._wrap(x), paddle.Tensor._wrap(y)
+
+
+def resnet_model(paddle, net):
+    model = paddle.Model(net)
+    opt = paddle.optimizer.Momentum(
+        VIS_LR, 0.9, parameters=net.parameters(),
+        weight_decay=paddle.optimizer.L2Decay(VIS_DECAY))
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                  paddle.metric.Accuracy(), amp_configs="O2")
+    return model
+
+
+def vision_resnet50(paddle, seed, dev):
+    """ResNet-50 through Model.train_batch at O2, then Model.fit and
+    evaluate."""
+    paddle.seed(seed)
+    net = paddle.vision.models.resnet50()
+    n_params = sum(p.numel() for p in net.parameters())
+    model = resnet_model(paddle, net)
+    x, y = vision_batch(paddle, seed, VIS_BATCH, dev)
+    fwd = conv_linear_flops(paddle, net, (3, VIS_RES, VIS_RES))
+    step_flops = 3 * fwd * VIS_BATCH
+    warm, timed = VIS_STEPS
+    losses = [float(model.train_batch([x], [y])[0][0]) for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [model.train_batch([x], [y]) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(o[0][0]) for o in outs]
+    ips = VIS_BATCH * timed / wall
+    mfu = step_flops * timed / wall / PEAK_FLOPS[torch.bfloat16]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"vision: ResNet-50 losses {losses}")
+    log(f"[vision] ResNet-50 ({n_params / 1e6:.2f} M params) via "
+        f"paddle.Model O2, {VIS_BATCH} x 3 x {VIS_RES} x {VIS_RES}, "
+        f"Momentum({VIS_LR}, 0.9, L2Decay({VIS_DECAY})): {timed} timed "
+        f"steps {wall:.3f} s, {ips:.1f} images/s/chip, step "
+        f"{wall / timed * 1e3:.2f} ms, MFU {mfu:.4f} ({fwd / 1e9:.3f} GFLOP "
+        f"forward an image, {step_flops / 1e12:.3f} TFLOP a step), peak "
+        f"memory {peak / 2**30:.2f} GiB; losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    # one fit epoch over an in-memory dataset on the card, then evaluate
+    dx, dy = vision_batch(paddle, seed + 1, VIS_FIT_BATCHES * VIS_BATCH, dev)
+    data = paddle.io.TensorDataset([dx, dy])
+    seen = []
+
+    class Record(paddle.hapi.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            seen.append(logs["loss"][0])
+
+    t0 = time.perf_counter()
+    model.fit(data, batch_size=VIS_BATCH, epochs=1, shuffle=False,
+              verbose=0, callbacks=[Record()])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    # what evaluate's BatchNorm meets: each channel's variance over the
+    # eval batch against its running variance, at the first and last norm
+    spread = {}
+
+    def watch(name):
+        def hook(layer, inputs):
+            var = inputs[0]._t.float().var(dim=(0, 2, 3), unbiased=False)
+            spread.setdefault(name, []).append(
+                float((var / layer._variance._t).median()))
+        return hook
+    hooks = [bn.register_forward_pre_hook(watch(name)) for name, bn in
+             (("bn1", net.bn1), ("layer4.2.bn3", net.layer4[-1].bn3))]
+    t0 = time.perf_counter()
+    ev = model.evaluate(data, batch_size=VIS_BATCH, verbose=0)
+    eval_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    spread = {k: float(np.median(v)) for k, v in spread.items()}
+    bn = net.bn1
+    stats = torch.cat([bn._mean._t, bn._variance._t])
+    if not (len(seen) == VIS_FIT_BATCHES and np.isfinite(seen).all()
+            and np.isfinite(ev["loss"]).all() and 0 <= ev["acc"] <= 1
+            and bool(torch.isfinite(stats).all())
+            and float(bn._mean._t.abs().max()) > 0):
+        raise AssertionError(f"vision: fit losses {seen}, evaluate {ev}")
+    log(f"[vision] Model.fit: {VIS_FIT_BATCHES} batches in {fit_s:.2f} s, "
+        f"losses " + ", ".join(f"{v:.4f}" for v in seen) + f"; evaluate on "
+        f"the running statistics in {eval_s:.2f} s: {ev}; the eval "
+        f"batch's variance over the running variance, median over channels "
+        f"and batches: " + ", ".join(f"{k} {v:.4g}" for k, v in
+                                     spread.items()))
+    return dict(images_per_s=ips, step_ms=wall / timed * 1e3, mfu=mfu,
+                forward_flops_per_image=fwd, step_flops=step_flops,
+                peak_bytes=peak, n_params=n_params, losses=losses,
+                fit_losses=seen, fit_s=fit_s, evaluate=ev, eval_s=eval_s,
+                eval_var_over_running=spread)
+
+
+def vision_lenet(paddle, seed, out_dir):
+    """LeNet through Model.fit on the synthetic MNIST, then Model.save /
+    load on the card."""
+    import tempfile
+    import warnings
+
+    T = paddle.vision.transforms
+    paddle.seed(seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        data = paddle.vision.datasets.MNIST(mode="train",
+                                            transform=T.ToTensor())
+    net = paddle.vision.LeNet()
+
+    def make(network):
+        m = paddle.Model(network)
+        m.prepare(paddle.optimizer.Adam(1e-3,
+                                        parameters=network.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        return m
+
+    model = make(net)
+    epochs = []
+
+    class Record(paddle.hapi.callbacks.Callback):
+        def on_epoch_end(self, epoch, logs=None):
+            epochs.append((logs["loss"][0], logs["acc"]))
+
+    first = {}
+
+    class First(paddle.hapi.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            first.setdefault("loss", logs["loss"][0])
+
+    t0 = time.perf_counter()
+    model.fit(data, batch_size=LENET_BATCH, epochs=LENET_EPOCHS,
+              drop_last=True, verbose=0, callbacks=[Record(), First()])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = LENET_EPOCHS * (len(data) // LENET_BATCH)
+    if not (epochs[-1][0] < first["loss"] and epochs[-1][1] > epochs[0][1]
+            and epochs[-1][1] > 0.5):
+        raise AssertionError(f"vision: LeNet epochs (loss, acc) {epochs}, "
+                             f"first loss {first}")
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        path = os.path.join(tmp, "lenet")
+        model.save(path)
+        other = make(paddle.vision.LeNet())
+        other.load(path)
+    x = paddle.Tensor._wrap(torch.stack([data[i][0]._t for i in range(8)]))
+    same = all(torch.equal(a._t, b._t) for a, b in zip(
+        model.parameters(), other.parameters())) and np.array_equal(
+        model.predict_batch([x])[0], other.predict_batch([x])[0])
+    if not (same and other._optimizer._step_count == steps):
+        raise AssertionError("vision: LeNet Model.save / load did not "
+                             "round-trip on the card")
+    log(f"[vision] LeNet Model.fit on synthetic MNIST: {steps} steps of "
+        f"{LENET_BATCH} in {fit_s:.2f} s; first batch loss "
+        f"{first['loss']:.4f}; epochs (loss, acc) "
+        + ", ".join(f"({l_:.4f}, {a:.4f})" for l_, a in epochs)
+        + "; Model.save / load round-tripped")
+    return dict(fit_s=fit_s, steps=steps, first_loss=first["loss"],
+                epochs=epochs)
+
+
+def transformer_base(paddle, layers=TFB_LAYERS, dropout=TFB_DROPOUT,
+                     seq=TFB_SEQ):
+    nn = paddle.nn
+
+    class TransformerBase(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            # N(0, d^-1/2), so the sqrt(d)-scaled lookups have unit
+            # variance (paddle's default N(0, 1) would saturate every
+            # softmax of the random network)
+            self.embed = nn.Embedding(
+                TFB_VOCAB, TFB_MODEL, weight_attr=paddle.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0,
+                                                      TFB_MODEL ** -0.5)))
+            pos = np.arange(seq)[:, None] / np.power(
+                10000.0, np.arange(0, TFB_MODEL, 2) / TFB_MODEL)
+            table = np.zeros((seq, TFB_MODEL), np.float32)
+            table[:, 0::2], table[:, 1::2] = np.sin(pos), np.cos(pos)
+            self.register_buffer("pos", paddle.to_tensor(table),
+                                 persistable=False)
+            self.drop = nn.Dropout(dropout)
+            self.transformer = nn.Transformer(
+                TFB_MODEL, TFB_HEADS, layers, layers, TFB_FFN, dropout)
+            self.head = nn.Linear(TFB_MODEL, TFB_VOCAB)
+            self.tgt_mask = nn.Transformer.generate_square_subsequent_mask(
+                seq)
+
+        def embedding(self, ids):
+            return self.drop(self.embed(ids) * TFB_MODEL ** 0.5
+                             + self.pos[:ids.shape[1]])
+
+        def forward(self, src, tgt):
+            h = self.transformer(self.embedding(src), self.embedding(tgt),
+                                 tgt_mask=self.tgt_mask)
+            return self.head(h)
+
+    return TransformerBase()
+
+
+def tfb_batch(paddle, seed, batch, seq=TFB_SEQ):
+    rng = np.random.RandomState(seed + 70)
+    return [paddle.to_tensor(rng.randint(0, TFB_VOCAB, (batch, seq)))
+            for _ in range(3)]
+
+
+def tfb_model(paddle, net, o1=True):
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Adam(TFB_LR, beta2=0.98, epsilon=1e-9,
+                                        parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss(),
+                  amp_configs="O1" if o1 else None)
+    return model
+
+
+def vision_transformer(paddle, seed, dev):
+    """Transformer-base through Model.train_batch at O1, the launches of
+    the timed steps counted."""
+    paddle.seed(seed)
+    net = transformer_base(paddle)
+    n_params = sum(p.numel() for p in net.parameters())
+    model = tfb_model(paddle, net)
+    src, tgt, labels = tfb_batch(paddle, seed, TFB_BATCH)
+    warm, timed = TFB_STEPS
+    losses = [float(model.train_batch([src, tgt], [labels])[0])
+              for _ in range(warm)]
+    torch.cuda.synchronize()
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [model.train_batch([src, tgt], [labels]) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(o[0]) for o in outs]
+    tokens = 2 * TFB_BATCH * TFB_SEQ
+    log(f"[vision] Transformer-base ({n_params / 1e6:.2f} M params) via "
+        f"paddle.Model O1, {TFB_BATCH} x {TFB_SEQ} source and target "
+        f"tokens, dropout {TFB_DROPOUT}: {timed} timed steps {wall:.3f} s, "
+        f"step {wall / timed * 1e3:.2f} ms, {tokens * timed / wall:.1f} "
+        f"tokens/s/chip (source + target), peak {peak / 2**30:.2f} GiB; "
+        f"losses " + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; launches {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"vision: Transformer losses {losses}")
+    wrong = {k: n for k, n in launches.items()
+             if n != TFB_LAUNCHES[k] * timed}
+    if wrong:
+        raise AssertionError(f"vision: Transformer launches {wrong} over "
+                             f"{timed} steps != {TFB_LAUNCHES} a step")
+    return dict(launches=launches, step_ms=wall / timed * 1e3,
+                tokens_per_s=tokens * timed / wall, peak_bytes=peak,
+                n_params=n_params, losses=losses)
+
+
+def layer_grad_errors(card, cpu):
+    """grad_errors for two Paddle Layers: {name: (max abs error, max |CPU
+    grad|)}."""
+    ref = dict(cpu.named_parameters())
+    return {n: (max_err(p._t.grad.cpu(), ref[n]._t.grad),
+                float(ref[n]._t.grad.abs().max()))
+            for n, p in card.named_parameters()}
+
+
+def _card_and_cpu(paddle, build):
+    """`build()` on the card and on the CPU with the card's weights."""
+    paddle.set_device("cuda")
+    card = build()
+    paddle.set_device("cpu")
+    try:
+        cpu = build()
+        cpu.set_state_dict({k: v._t.cpu() for k, v in
+                            card.state_dict().items()})
+    finally:
+        paddle.set_device("cuda")
+    return card, cpu
+
+
+def vision_card_vs_cpu(paddle, seed):
+    """fp32 steps on the card against the CPU from the same weights, ReLU
+    masks shared: the BottleneckBlock ResNet-50 at 2 x 3 x 64 x 64 (loss,
+    every gradient and every BatchNorm running statistic within
+    VIS_GRAD_RTOL of its own largest CPU value, then one Momentum update
+    fed the CPU's gradients within ADAM_ATOL, then an eval forward on the
+    running statistics whose logits are within VIS_GRAD_RTOL of the
+    largest CPU logit and which leaves the statistics as they were), and
+    Transformer-base at 1 + 1 layers, dropout 0, 2 x 64 tokens
+    (check_grads at GRAD_RTOL, one Adam update within ADAM_ATOL). cuDNN's
+    TF32 is off inside."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        paddle.seed(seed)
+        M = paddle.vision.models
+        card, cpu = _card_and_cpu(paddle, lambda: M.ResNet(
+            M.resnet.BottleneckBlock, 50, num_classes=10))
+        g = np.random.RandomState(seed + 80)
+        x = g.randn(2, 3, 64, 64).astype(np.float32)
+        y = g.randint(0, 10, (2, 1))
+        losses, nets = {}, {"card": card, "cpu": cpu}
+        with shared_relu_masks() as masks:
+            for name in ("cpu", "card"):
+                masks.record() if name == "cpu" else masks.replay()
+                net = nets[name]
+                net.train()
+                place = "cpu" if name == "cpu" else "cuda"
+                loss = paddle.nn.CrossEntropyLoss()(
+                    net(paddle.to_tensor(x, place=place)),
+                    paddle.to_tensor(y, place=place))
+                loss.backward()
+                losses[name] = float(loss)
+            errs = layer_grad_errors(card, cpu)
+            worst, worst_name = check_grads(errs, losses,
+                                            "vision ResNet check",
+                                            VIS_GRAD_RTOL)
+            cpu_bufs = dict(cpu.named_buffers())
+            buf_err = max(max_err(b._t.cpu(), cpu_bufs[n]._t) / float(
+                cpu_bufs[n]._t.abs().max()) for n, b in card.named_buffers())
+            if not buf_err <= VIS_GRAD_RTOL:
+                raise AssertionError(f"vision ResNet check: running "
+                                     f"statistics {buf_err} of their "
+                                     f"largest value")
+            cpu_params = dict(cpu.named_parameters())
+            with torch.no_grad():
+                for n, p in card.named_parameters():
+                    p._t.grad.copy_(cpu_params[n]._t.grad)
+            for net in nets.values():
+                paddle.optimizer.Momentum(
+                    VIS_LR, 0.9, parameters=net.parameters(),
+                    weight_decay=paddle.optimizer.L2Decay(VIS_DECAY)).step()
+            upd = max(max_err(p._t.cpu(), cpu_params[n]._t)
+                      for n, p in card.named_parameters())
+            if not upd <= ADAM_ATOL:
+                raise AssertionError(f"vision ResNet check: Momentum update "
+                                     f"{upd}")
+            # eval: BatchNorm on the running statistics (batch_norm_infer)
+            stats = {n: b._t.clone() for n, b in card.named_buffers()}
+            logits = {}
+            for name in ("cpu", "card"):
+                masks.record() if name == "cpu" else masks.replay()
+                nets[name].eval()
+                place = "cpu" if name == "cpu" else "cuda"
+                with paddle.no_grad():
+                    logits[name] = nets[name](
+                        paddle.to_tensor(x, place=place))._t.cpu()
+        top_logit = float(logits["cpu"].abs().max())
+        eval_err = max_err(logits["card"], logits["cpu"]) / top_logit
+        if not (eval_err <= VIS_GRAD_RTOL and all(
+                torch.equal(stats[n], b._t)
+                for n, b in card.named_buffers())):
+            raise AssertionError(f"vision ResNet check: eval logits "
+                                 f"{eval_err} of the largest, or eval moved "
+                                 f"the running statistics")
+        log(f"[vision] ResNet-50 (10 classes) card vs CPU, fp32, 2 x 3 x 64 x "
+            f"64: loss card {losses['card']!r} cpu {losses['cpu']!r}; worst "
+            f"gradient {worst:.3g} of its own largest ({worst_name}), "
+            f"running statistics {buf_err:.3g} (tol {VIS_GRAD_RTOL}); one "
+            f"Momentum update within {upd:.3g} (tol {ADAM_ATOL}); eval "
+            f"logits {eval_err:.3g} of the largest, {top_logit:.3g} (tol "
+            f"{VIS_GRAD_RTOL})")
+        out["resnet"] = dict(loss_card=losses["card"],
+                             loss_cpu=losses["cpu"], worst_grad_rel=worst,
+                             worst_grad=worst_name, buffers_rel=buf_err,
+                             momentum_max_abs_err=upd, eval_rel=eval_err,
+                             eval_top_logit=top_logit)
+        del card, cpu, nets
+        # Transformer-base at 1 + 1 layers
+        paddle.seed(seed + 1)
+        card, cpu = _card_and_cpu(paddle, lambda: transformer_base(
+            paddle, layers=1, dropout=0.0, seq=64))
+        src, tgt, labels = tfb_batch(paddle, seed + 1, 2, seq=64)
+        counters = train_counters()
+        before = {k: fn.launches for k, fn in counters.items()}
+        losses, nets = {}, {"card": card, "cpu": cpu}
+        with shared_relu_masks() as masks:
+            for name in ("cpu", "card"):
+                masks.record() if name == "cpu" else masks.replay()
+                net = nets[name]
+                net.train()
+                args = [t.cpu() if name == "cpu" else t
+                        for t in (src, tgt, labels)]
+                loss = paddle.nn.CrossEntropyLoss()(net(*args[:2]), args[2])
+                loss.backward()
+                losses[name] = float(loss)
+        ran = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if any(n <= 0 for n in ran.values()):
+            raise AssertionError(f"vision Transformer check: the card's "
+                                 f"step skipped a kernel: {ran}")
+        errs = layer_grad_errors(card, cpu)
+        top = max(scale for _, scale in errs.values())
+        for name in errs:      # zero in exact arithmetic, as dygraph's
+            if name.endswith("k_proj.bias"):
+                errs[name] = (errs[name][0], top)
+        worst_t, worst_t_name = check_grads(errs, losses,
+                                            "vision Transformer check",
+                                            GRAD_RTOL)
+        cpu_params = dict(cpu.named_parameters())
+        with torch.no_grad():
+            for n, p in card.named_parameters():
+                p._t.grad.copy_(cpu_params[n]._t.grad)
+        for net in (card, cpu):
+            paddle.optimizer.Adam(TFB_LR, beta2=0.98, epsilon=1e-9,
+                                  parameters=net.parameters()).step()
+        upd_t = max(max_err(p._t.cpu(), cpu_params[n]._t)
+                    for n, p in card.named_parameters())
+        if not upd_t <= ADAM_ATOL:
+            raise AssertionError(f"vision Transformer check: Adam update "
+                                 f"{upd_t}")
+        log(f"[vision] Transformer-base 1 + 1 layers card vs CPU, fp32, "
+            f"dropout 0, 2 x 64: loss card {losses['card']!r} cpu "
+            f"{losses['cpu']!r}; worst gradient {worst_t:.3g} "
+            f"({worst_t_name}, tol {GRAD_RTOL}); one Adam update within "
+            f"{upd_t:.3g}; kernels launched {ran}")
+        out["transformer"] = dict(loss_card=losses["card"],
+                                  loss_cpu=losses["cpu"],
+                                  worst_grad_rel=worst_t,
+                                  worst_grad=worst_t_name,
+                                  adam_max_abs_err=upd_t, launches=ran)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+        paddle.set_device("cuda")
+    return out
+
+
+def vision_kernel_cases(rows, dev):
+    """K1, K2 and K3 at Transformer-base's attention shapes (96, 256, 8,
+    64) in bf16 (O1's type): encoder self-attention (no mask, dropout
+    0.1), which is also the cross attention's launch (256 target queries
+    over 256 source keys, no mask, the same dropout and type), and
+    decoder self-attention under the (1, 1, 256, 256) float causal mask
+    of generate_square_subsequent_mask; K4 / K5 in LayerNorm mode at its
+    24576 x 512 rows in fp32."""
+    shape = (TFB_BATCH, TFB_SEQ, TFB_HEADS, TFB_MODEL // TFB_HEADS)
+    forms = ((torch.bfloat16, TFB_BATCH),)
+    causal = torch.triu(torch.full((TFB_SEQ, TFB_SEQ), float("-inf"),
+                                   device=dev), 1)[None, None]
+    main = gpt_attention_cases(rows, dev, shape, key="tfb enc", causal=False,
+                               p=TFB_DROPOUT, forms=forms,
+                               label="Transformer-base encoder and cross ")
+    main.update(gpt_attention_cases(
+        rows, dev, shape, key="tfb dec", causal=False, p=TFB_DROPOUT,
+        forms=forms, label="Transformer-base decoder self ", mask=causal))
+    main.update(gpt_norm_cases(
+        rows, dev, ((torch.float32, TFB_BATCH * TFB_SEQ, True),),
+        key="tfb", hidden=TFB_MODEL))
+    main["K4 tfb"] = main.pop("K4 tfb float32")
+    return main
+
+
+def phase_vision(seed, dev, out_dir=None):
+    """nn in full, hapi and vision on the card (see the module
+    docstring's phase 48)."""
+    import paddle_tpu_torch as paddle
+
+    t_phase = time.perf_counter()
+    paddle.set_device("cuda")
+    out = dict(resnet50=vision_resnet50(paddle, seed, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lenet"] = vision_lenet(paddle, seed, out_dir)
+    out["transformer"] = vision_transformer(paddle, seed, dev)
+    out["launches"] = out["transformer"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = vision_card_vs_cpu(paddle, seed)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[vision] the phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def embedding_determinism(seed, dev):
     """F4 on the card: two identical ERNIE-1.0 base O1 steps (dropout 0.1,
     32 x 512, the same weights and generator) under PyTorch's defaults
@@ -8482,6 +9054,11 @@ def summarize(main_rows, launches_by_path):
             if f"{k} {tag}" in main_rows:
                 entry[f"{tag}_rank"] = {x: main_rows[f"{k} {tag}"][x]
                                         for x in gpt_keys}
+        tfb = {key[len(k) + 5:] or "rows": {x: row[x] for x in gpt_keys}
+               for key, row in main_rows.items()
+               if key.startswith(f"{k} tfb")}
+        if tfb:
+            entry["transformer_base"] = tfb
         if k in ("K4", "K5"):
             entry["gpt_layer_norm"] = [
                 {x: row[x] for x in gpt_keys} for key, row in
@@ -8578,6 +9155,7 @@ def main(argv=None):
     main_rows.update(gpt_kernel_cases(rows, dev))
     main_rows.update(fleet_kernel_cases(rows, dev))
     main_rows.update(dp_kernel_cases(rows, dev))
+    main_rows.update(vision_kernel_cases(rows, dev))
     main_rows.update(plane_kernel_cases(rows, dev))
     main_rows.update(k9_cases(rows, dev, args.seed))
     main_rows.update(phase_ring_kernels(rows, dev))
@@ -8673,6 +9251,9 @@ def main(argv=None):
     result["dygraph"] = r = phase_dygraph(args.seed, dev, result["train"],
                                           args.profile, args.out)
     launches["dygraph"] = r["launches"]
+    release()
+    result["vision"] = r = phase_vision(args.seed, dev, args.out)
+    launches["vision"] = r["launches"]
     release()
     result["embedding_determinism"] = embedding_determinism(args.seed, dev)
     release()

@@ -12,8 +12,10 @@ kernel gives way to its plain PyTorch version.
 operators (`core`, `ops`, `tensor`), `backward` / `paddle.grad` /
 `paddle.no_grad` over torch autograd, `paddle.nn` (Layer, the common,
 norm, activation, loss and transformer layers, `nn.functional`,
-`nn.initializer`), `paddle.optimizer`, `paddle.amp` and
-`paddle.seed`.
+`nn.initializer`, `nn.utils`), `paddle.optimizer`, `paddle.amp`,
+`paddle.seed`, `paddle.save` / `paddle.load` (`framework`), hapi's
+`paddle.Model`, `paddle.summary` and `paddle.flops` (`hapi`) and
+`paddle.vision` (transforms, datasets, LeNet and the ResNets).
 
 What is ported, slice by slice (ROADMAP.md):
 
@@ -40,7 +42,9 @@ and its telemetry (`observability.training`); fleet hybrid parallelism
 (`distributed.fleet`); the rest of `distributed` (the launcher
 `distributed.launch`, `DataParallel`, the resharding checkpoint,
 `auto_parallel` and its `Engine`, the host services) with `io` and
-`metric`; and the Paddle dygraph surface above.
+`metric`; the Paddle dygraph surface above; and `nn` in full (the
+convolutions, pools, norms, losses and recurrent layers over the op
+table's nn ops), `framework`, `hapi` and `vision`.
 
 The kernels are CUDA C++ (`csrc/`, built by `_build`) except K4 / K5,
 which are Triton (`ops.norm`).
@@ -53,9 +57,10 @@ not in the tables below is looked up in the op namespace (`tensor`:
 import importlib
 
 _SUBMODULES = ("amp", "autograd", "core", "device", "distributed",
-               "incubate", "io", "metric", "models", "nn", "observability",
-               "ops", "optimizer", "parallel", "profiler", "serving",
-               "tensor", "training", "weights")
+               "framework", "hapi", "incubate", "io", "metric", "models",
+               "nn", "observability", "ops", "optimizer", "parallel",
+               "profiler", "serving", "tensor", "training", "vision",
+               "weights")
 
 _NAMES = {
     "amp": ("autocast",),
@@ -71,6 +76,8 @@ _NAMES = {
              "disable_signal_handler"),
     "device": ("get_device", "resolve_device", "set_device"),
     "distributed": ("DataParallel",),
+    "framework": ("save", "load"),
+    "hapi": ("Model", "summary", "flops"),
     "nn": ("ParamAttr",),
 }
 _HOME = {name: mod for mod, names in _NAMES.items() for name in names}

@@ -11,8 +11,8 @@ Its rank and world come from the port's `distributed` (the joined world,
 else the launcher's variables). `random_split` draws its permutation from
 an explicit `torch.Generator` (the reference draws from `jax.random`).
 
-Batches are torch tensors: `default_collate_fn` stacks samples (tensors,
-numpy arrays, ints as int64, floats as float32, lists, tuples and dicts
+Batches are torch tensors: `default_collate_fn` stacks samples (Paddle
+and torch tensors, numpy arrays, ints as int64, floats as float32, lists, tuples and dicts
 recursively), and `DataLoader` moves each batch to the device the port
 resolves: the card by default, `places` (or 'cpu') when the caller names
 one.
@@ -298,7 +298,11 @@ class DistributedBatchSampler(BatchSampler):
 def default_collate_fn(batch):
     """A list of samples as one batch of torch tensors (see the module
     docstring)."""
+    from ..core.tensor import Tensor
+
     sample = batch[0]
+    if isinstance(sample, Tensor):
+        return torch.stack([s._t for s in batch])
     if isinstance(sample, torch.Tensor):
         return torch.stack(batch)
     if isinstance(sample, np.ndarray):

@@ -19,6 +19,8 @@ __all__ = ["Metric", "Accuracy", "Precision", "Recall", "Auc", "accuracy"]
 
 def _to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:       # numpy has no bfloat16
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

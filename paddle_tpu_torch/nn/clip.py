@@ -104,9 +104,11 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     """Scale the parameters' gradients in place so that their total
     `norm_type` norm is at most `max_norm`; returns the total norm (a
     device tensor)."""
-    if isinstance(parameters, torch.Tensor):
+    if isinstance(parameters, torch.Tensor) or hasattr(parameters, "_t"):
         parameters = [parameters]
-    params = [p for p in parameters if p.grad is not None]
+    # Paddle Parameters take part as their torch tensors
+    params = [getattr(p, "_t", p) for p in parameters]
+    params = [p for p in params if p.grad is not None]
     if not params:
         return torch.zeros(())
     grads = [p.grad for p in params]

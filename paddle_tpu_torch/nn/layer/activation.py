@@ -1,7 +1,6 @@
 """Activation layers over the op table's activations (counterparts of
-paddle_tpu/nn/layer/activation.py). Softplus, PReLU, RReLU and Maxout,
-whose functionals are ops of paddle_tpu/ops/nn_ops.py, are queue 1 item
-6b."""
+paddle_tpu/nn/layer/activation.py); Softplus, PReLU, RReLU and Maxout
+over the nn ops (`ops.nn_ops`)."""
 from __future__ import annotations
 
 from .. import functional as F
@@ -11,7 +10,8 @@ __all__ = ["ReLU", "ReLU6", "GELU", "SiLU", "Silu", "Swish", "LeakyReLU",
            "ELU", "SELU", "CELU", "Sigmoid", "LogSigmoid", "Tanh",
            "Tanhshrink", "Hardswish", "Hardsigmoid", "Hardtanh",
            "Hardshrink", "Softshrink", "Mish", "Softsign", "Softmax",
-           "LogSoftmax", "GLU", "Softmax2D", "ThresholdedReLU"]
+           "LogSoftmax", "GLU", "Softmax2D", "ThresholdedReLU", "Softplus",
+           "PReLU", "RReLU", "Maxout"]
 
 
 def _simple(name, fn):
@@ -144,3 +144,47 @@ class ThresholdedReLU(Layer):
 
     def forward(self, x):
         return F.thresholded_relu(x, self.threshold, self.value)
+
+
+class Softplus(Layer):
+    def __init__(self, beta=1.0, threshold=20.0, name=None):
+        super().__init__()
+        self.beta, self.threshold = beta, threshold
+
+    def forward(self, x):
+        return F.softplus(x, self.beta, self.threshold)
+
+
+class PReLU(Layer):
+    def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        from .. import initializer as I
+
+        self.weight = self.create_parameter(
+            shape=[num_parameters], attr=weight_attr,
+            default_initializer=I.Constant(init))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight)
+
+
+class RReLU(Layer):
+    """The mean slope (lower + upper) / 2 on negatives, in training too,
+    as the reference's op."""
+
+    def __init__(self, lower=1.0 / 8.0, upper=1.0 / 3.0, name=None):
+        super().__init__()
+        self.lower, self.upper = lower, upper
+
+    def forward(self, x):
+        return F.rrelu(x, self.lower, self.upper, training=self.training)
+
+
+class Maxout(Layer):
+    def __init__(self, groups, axis=1, name=None):
+        super().__init__()
+        self.groups, self.axis = groups, axis
+
+    def forward(self, x):
+        return F.maxout(x, self.groups, self.axis)

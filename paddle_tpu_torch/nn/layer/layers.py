@@ -212,7 +212,7 @@ class Layer(torch.nn.Module):
     def state_dict(self, destination=None, include_sublayers=True,
                    structured_name_prefix="", use_hook=True, **torch_kw):
         """{structured name: Parameter / Tensor} of the parameters and
-        persistable buffers, sharing their storage. (Called by torch's own
+        persistable buffers, sharing their storage, each tensor once. (Called by torch's own
         recursion with `prefix=` / `keep_vars=`, it is torch's.)"""
         if torch_kw:
             return super().state_dict(destination=destination, **torch_kw)
@@ -220,12 +220,16 @@ class Layer(torch.nn.Module):
                                  keep_vars=True)
         out = destination if destination is not None else \
             collections.OrderedDict()
-        # the parameters first, then the buffers, as the reference's
+        # the parameters first, then the buffers, as the reference's; a
+        # tensor shared by two sublayers under its first name only
+        seen = set()
         for params in (True, False):
             for name, t in own.items():
                 if isinstance(t, torch.nn.Parameter) == params and (
                         include_sublayers or "." not in name[
-                            len(structured_name_prefix):]):
+                            len(structured_name_prefix):]) and (
+                        id(t) not in seen):
+                    seen.add(id(t))
                     out[name] = wrap_state(t)
         return out
 

@@ -1,11 +1,22 @@
-"""CrossEntropyLoss and MSELoss (counterparts of
-paddle_tpu/nn/layer/loss.py:8-33)."""
+"""The loss layers (counterparts of paddle_tpu/nn/layer/loss.py), thin
+layers over the loss functionals, and AdaptiveLogSoftmaxWithLoss (Grave
+et al.'s hierarchical head: a shortlist and tail clusters of
+down-projected classes, exact log-probabilities)."""
 from __future__ import annotations
 
+import torch
+
+from ...core.tensor import Tensor
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["CrossEntropyLoss", "MSELoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "CTCLoss",
+           "TripletMarginLoss", "SoftMarginLoss", "MultiLabelSoftMarginLoss",
+           "PoissonNLLLoss", "GaussianNLLLoss", "PairwiseDistance",
+           "RNNTLoss", "CosineEmbeddingLoss", "TripletMarginWithDistanceLoss",
+           "MultiMarginLoss", "AdaptiveLogSoftmaxWithLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -27,10 +38,282 @@ class CrossEntropyLoss(Layer):
                                label_smoothing=self.label_smoothing)
 
 
-class MSELoss(Layer):
-    def __init__(self, reduction="mean"):
+class _Reduced(Layer):
+    """A loss of (input, label) under `reduction` alone."""
+    _FN = None
+
+    def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
 
     def forward(self, input, label):
-        return F.mse_loss(input, label, reduction=self.reduction)
+        return self._FN(input, label, reduction=self.reduction)
+
+
+class MSELoss(_Reduced):
+    _FN = staticmethod(F.mse_loss)
+
+
+class L1Loss(_Reduced):
+    _FN = staticmethod(F.l1_loss)
+
+
+class SoftMarginLoss(_Reduced):
+    _FN = staticmethod(F.soft_margin_loss)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, weight=self.weight,
+                          ignore_index=self.ignore_index,
+                          reduction=self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, weight=self.weight,
+                                      reduction=self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, weight=self.weight, reduction=self.reduction,
+            pos_weight=self.pos_weight)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction = reduction
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, reduction=self.reduction,
+                                delta=self.delta)
+
+
+class KLDivLoss(Layer):
+    """`log_target` is kept and, as in the reference's layer, not passed
+    on."""
+
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction = reduction
+        self.log_target = log_target
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, reduction=self.reduction)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin = margin
+        self.reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)
+
+
+class RNNTLoss(Layer):
+    def __init__(self, blank=0, fastemit_lambda=0.0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.fastemit_lambda = fastemit_lambda
+        self.reduction = reduction
+
+    def forward(self, input, label, input_lengths, label_lengths):
+        return F.rnnt_loss(input, label, input_lengths, label_lengths,
+                           self.blank, self.fastemit_lambda, self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.p, self.epsilon = margin, p, epsilon
+        self.swap = swap
+        self.reduction = reduction
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, self.margin,
+                                     self.p, self.epsilon, self.swap,
+                                     self.reduction)
+
+
+class TripletMarginWithDistanceLoss(Layer):
+    def __init__(self, distance_function=None, margin=1.0, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.distance_function = distance_function
+        self.margin = margin
+        self.swap = swap
+        self.reduction = reduction
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_with_distance_loss(
+            input, positive, negative, self.distance_function, self.margin,
+            self.swap, self.reduction)
+
+
+class MultiLabelSoftMarginLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight = weight
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.multi_label_soft_margin_loss(input, label, self.weight,
+                                              self.reduction)
+
+
+class PoissonNLLLoss(Layer):
+    def __init__(self, log_input=True, full=False, epsilon=1e-8,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.log_input, self.full, self.epsilon = log_input, full, epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.poisson_nll_loss(input, label, self.log_input, self.full,
+                                  self.epsilon, self.reduction)
+
+
+class GaussianNLLLoss(Layer):
+    def __init__(self, full=False, epsilon=1e-6, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.full, self.epsilon = full, epsilon
+        self.reduction = reduction
+
+    def forward(self, input, label, variance):
+        return F.gaussian_nll_loss(input, label, variance, self.full,
+                                   self.epsilon, self.reduction)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class MultiMarginLoss(Layer):
+    def __init__(self, p=1, margin=1.0, weight=None, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.p, self.margin = p, margin
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):
+        return F.multi_margin_loss(input, label, self.p, self.margin,
+                                   self.weight, self.reduction)
+
+
+class AdaptiveLogSoftmaxWithLoss(Layer):
+    def __init__(self, in_features, n_classes, cutoffs, div_value=4.0,
+                 head_bias=False, name=None):
+        super().__init__()
+        from .common import Linear
+
+        cutoffs = list(cutoffs)
+        if (cutoffs != sorted(cutoffs) or min(cutoffs) <= 0
+                or max(cutoffs) > n_classes - 1
+                or len(set(cutoffs)) != len(cutoffs)):
+            raise ValueError("cutoffs must be unique, positive, increasing "
+                             "and < n_classes")
+        self.in_features = in_features
+        self.n_classes = n_classes
+        self.cutoffs = cutoffs + [n_classes]
+        self.div_value = div_value
+        self.shortlist_size = self.cutoffs[0]
+        self.n_clusters = len(self.cutoffs) - 1
+        self.head_size = self.shortlist_size + self.n_clusters
+        self.head = Linear(in_features, self.head_size,
+                           bias_attr=None if head_bias else False)
+        self.tail = []
+        for i in range(self.n_clusters):
+            hsz = max(int(in_features // (div_value ** (i + 1))), 1)
+            proj = Linear(in_features, hsz, bias_attr=False)
+            out = Linear(hsz, self.cutoffs[i + 1] - self.cutoffs[i],
+                         bias_attr=False)
+            self.add_sublayer(f"tail_proj_{i}", proj)
+            self.add_sublayer(f"tail_out_{i}", out)
+            self.tail.append((proj, out))
+
+    def log_prob(self, input):
+        """The full (N, n_classes) log-probabilities."""
+        head_lp = torch.log_softmax(self.head(input)._t, dim=-1)
+        parts = [head_lp[:, :self.shortlist_size]]
+        for i, (proj, out) in enumerate(self.tail):
+            cluster_lp = torch.log_softmax(out(proj(input))._t, dim=-1)
+            k = self.shortlist_size + i
+            parts.append(head_lp[:, k:k + 1] + cluster_lp)
+        return Tensor._wrap(torch.cat(parts, dim=-1))
+
+    def forward(self, input, label):
+        """(log p(label) a row, the loss -mean of it), paddle's contract."""
+        lp = self.log_prob(input)._t
+        lab = label._t.reshape(-1).long()
+        out = torch.gather(lp, 1, lab[:, None])[:, 0]
+        return Tensor._wrap(out), Tensor._wrap(-out.mean())
+
+    def predict(self, input):
+        return self.log_prob(input).argmax(axis=-1)

@@ -1,13 +1,16 @@
-"""MultiHeadAttention, TransformerEncoderLayer and TransformerEncoder
-(counterparts of paddle_tpu/nn/layer/transformer.py:14-114): the
+"""MultiHeadAttention, the encoder and decoder layers and stacks, and
+Transformer (counterparts of paddle_tpu/nn/layer/transformer.py): the
 attention runs through `F.scaled_dot_product_attention`, so on the card
-through the flash kernels K1 / K2 / K3, and the norms through K4 / K5.
-The encoder layer is post-LN unless `normalize_before`, its activation
-`getattr(F, activation)`; `TransformerEncoder` deep-copies its layer, each
-copy with its own parameters."""
+through the flash kernels K1 / K2 / K3 (the decoder's float causal mask
+from `generate_square_subsequent_mask` included), and the norms through
+K4 / K5. A layer is post-LN unless `normalize_before`, its activation
+`getattr(F, activation)`; a stack deep-copies its layer, each copy with
+its own parameters."""
 from __future__ import annotations
 
 import copy
+
+import numpy as np
 
 from .. import functional as F
 from .common import Dropout, Linear
@@ -16,7 +19,8 @@ from .layers import Layer
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder"]
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]
 
 
 class MultiHeadAttention(Layer):
@@ -95,12 +99,14 @@ class TransformerEncoderLayer(Layer):
         return src
 
 
+def _clones(layer, n):
+    return LayerList([layer] + [copy.deepcopy(layer) for _ in range(n - 1)])
+
+
 class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = LayerList(
-            [encoder_layer] +
-            [copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
+        self.layers = _clones(encoder_layer, num_layers)
         self.num_layers = num_layers
         self.norm = norm
 
@@ -111,3 +117,106 @@ class TransformerEncoder(Layer):
         if self.norm is not None:
             out = self.norm(out)
         return out
+
+
+class TransformerDecoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(d_model, nhead,
+                                            dropout=attn_dropout)
+        self.cross_attn = MultiHeadAttention(d_model, nhead,
+                                             dropout=attn_dropout)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.act_dropout = Dropout(act_dropout)
+        self.activation = activation
+
+    def _act(self, x):
+        return getattr(F, self.activation)(x)
+
+    def _sub(self, x, norm, drop, fn):
+        """One residual sublayer, pre- or post-LN."""
+        residual = x
+        if self.normalize_before:
+            x = norm(x)
+        x = residual + drop(fn(x))
+        return x if self.normalize_before else norm(x)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        tgt = self._sub(tgt, self.norm1, self.dropout1, lambda x:
+                        self.self_attn(x, x, x, attn_mask=tgt_mask))
+        tgt = self._sub(tgt, self.norm2, self.dropout2, lambda x:
+                        self.cross_attn(x, memory, memory,
+                                        attn_mask=memory_mask))
+        return self._sub(tgt, self.norm3, self.dropout3, lambda x:
+                         self.linear2(self.act_dropout(
+                             self._act(self.linear1(x)))))
+
+
+class TransformerDecoder(Layer):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(decoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+        out = tgt
+        for layer in self.layers:
+            out = layer(out, memory, tgt_mask=tgt_mask,
+                        memory_mask=memory_mask)
+        if self.norm is not None:
+            out = self.norm(out)
+        return out
+
+
+class Transformer(Layer):
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        self.d_model = d_model
+        self.nhead = nhead
+        args = (d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before)
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            self.encoder = TransformerEncoder(
+                TransformerEncoderLayer(*args), num_encoder_layers,
+                LayerNorm(d_model) if normalize_before else None)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            self.decoder = TransformerDecoder(
+                TransformerDecoderLayer(*args), num_decoder_layers,
+                LayerNorm(d_model) if normalize_before else None)
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask=src_mask)
+        return self.decoder(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length):
+        """The (length, length) float causal mask: 0 on and below the
+        diagonal, -inf above."""
+        from ...tensor.creation import to_tensor
+
+        return to_tensor(np.triu(np.full((length, length), -np.inf,
+                                         dtype="float32"), k=1))

@@ -6,7 +6,7 @@ the port's models, serving engine and training steps. Paddle's own
 paddle's layouts, is written over it.
 
 `rms_norm` and `layer_norm` reach the fused norm kernels (K4 forward, K5
-backward) and `scaled_dot_product_attention` the flash-attention kernels
+backward) over the last axis with a weight (the plain op otherwise) and `scaled_dot_product_attention` the flash-attention kernels
 (K1 forward with dropout, K2 / K3 backward), as their JAX counterparts
 reach the Pallas kernels; `embedding` takes a backward that sums in a
 fixed order (`ops.embedding`); `linear`, `matmul`, `gelu`, `relu`,
@@ -31,6 +31,7 @@ import torch.nn.functional as _tF
 
 from .. import amp
 from ..ops import cross_entropy as _ce
+from ..ops import nn_ops as _nn_ops
 from ..ops.embedding import embedding as _embedding
 from ..ops.flash_attention import attention as _attention
 from ..ops.norm import layer_norm as _layer_norm
@@ -126,25 +127,31 @@ def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
     return torch.where(keep, x * (1.0 / (1.0 - p)), 0.0)
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
              epsilon: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis through K4 / K5 (fp32 under O1)."""
+    """RMSNorm over the last axis (fp32 under O1): through K4 / K5 with a
+    weight, the plain op without one (the reference's routing,
+    nn/functional/__init__.py:261-271)."""
     x, weight = amp.cast_inputs("rms_norm", x, weight)
+    if weight is None:
+        return _nn_ops.rms_norm(x, None, epsilon)
     return _rms_norm(x, weight, epsilon)
 
 
-def layer_norm(x: torch.Tensor, normalized_shape, weight: torch.Tensor,
+def layer_norm(x: torch.Tensor, normalized_shape,
+               weight: Optional[torch.Tensor],
                bias: Optional[torch.Tensor] = None,
                epsilon: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis through K4 / K5 (fp32 under O1)."""
-    n = normalized_shape if isinstance(normalized_shape, int) else (
-        normalized_shape[0] if len(normalized_shape) == 1 else None)
-    if n != x.shape[-1] or weight is None:
-        raise NotImplementedError(
-            "layer_norm is ported over the last axis with a weight only "
-            "(ROADMAP queue 1 item 6b, T2)")
+    """LayerNorm over the trailing len(normalized_shape) axes (fp32 under
+    O1): through K4 / K5 over the last axis with a weight, the plain op
+    over more axes or without a weight (T2, the reference's routing,
+    nn/functional/__init__.py:236-258)."""
+    n_axes = 1 if isinstance(normalized_shape, int) else len(
+        normalized_shape)
     x, weight, bias = amp.cast_inputs("layer_norm", x, weight, bias)
-    return _layer_norm(x, weight, bias, epsilon)
+    if n_axes == 1 and weight is not None:
+        return _layer_norm(x, weight, bias, epsilon)
+    return _nn_ops.layer_norm(x, weight, bias, epsilon, x.dim() - n_axes)
 
 
 def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,

@@ -71,4 +71,4 @@ def _load():
     """Import the op bodies (once), which registers them."""
     if not _LOADED[0]:
         _LOADED[0] = True
-        from . import linalg, manipulation, math, reduction  # noqa: F401
+        from . import linalg, manipulation, math, nn_ops, reduction  # noqa: F401

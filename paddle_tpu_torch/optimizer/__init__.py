@@ -298,6 +298,7 @@ class Optimizer(torch.optim.Optimizer):
                 continue
             pname, slot = key.rsplit(".", 1)
             p = by_name[pname]
+            val = getattr(val, "_t", val)       # a Paddle Tensor's tensor
             self.state[p][slot] = torch.as_tensor(val).to(p.device).clone()
 
     load_state_dict = set_state_dict

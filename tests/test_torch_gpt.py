@@ -101,7 +101,7 @@ def _jax_step(fused, o1):
                                       training=True)
         return loss
 
-    loss, grads = jax.value_and_grad(loss_of)(params)
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(params)
     opt = paddle.optimizer.Adam(learning_rate=LR,
                                 parameters=model.parameters())
     new, _ = opt.functional_step(params, grads, opt.functional_state(params),

@@ -74,3 +74,42 @@ def test_lazy_name_tables_match_the_modules():
     for mod in ptd._SUBMODULES:
         assert getattr(ptd, mod) is importlib.import_module(
             f"paddle_tpu_torch.distributed.{mod}") or mod == "spawn"
+
+
+_NEW_SURFACE = """
+import sys
+import paddle_tpu_torch as paddle
+names = [paddle.Model, paddle.summary, paddle.flops, paddle.save,
+         paddle.load, paddle.vision.models.resnet50, paddle.vision.LeNet,
+         paddle.vision.transforms.ToTensor, paddle.vision.datasets.MNIST,
+         paddle.hapi.callbacks.ModelCheckpoint, paddle.framework.io.save,
+         paddle.nn.utils.weight_norm, paddle.nn.Conv2D, paddle.nn.LSTM,
+         paddle.nn.Transformer, paddle.nn.functional.conv2d]
+from paddle_tpu_torch.ops import registry
+registry._load()
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "triton")]
+print(len(registry.OPS), loaded)
+"""
+
+
+def test_framework_hapi_and_vision_stand_alone():
+    """The slice's packages (`framework`, `hapi`, `vision`, `nn.utils`,
+    the nn ops) and the top level's new names (`paddle.Model`, `summary`,
+    `flops`, `save`, `load`) resolve in a fresh interpreter without
+    `jax`, `paddle_tpu` or Triton, and the op table holds all 397 ops."""
+    import paddle_tpu_torch
+
+    assert {"framework", "hapi", "vision"} <= set(
+        paddle_tpu_torch._SUBMODULES)
+    assert paddle_tpu_torch._NAMES["hapi"] == ("Model", "summary", "flops")
+    assert paddle_tpu_torch._NAMES["framework"] == ("save", "load")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", _NEW_SURFACE], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    count, loaded = proc.stdout.split(" ", 1)
+    assert int(count) == 397, proc.stdout
+    assert loaded.strip() == "[]", proc.stdout

@@ -168,7 +168,7 @@ def _jax_loss_step(fused, o1, ids):
         return loss
 
     try:
-        loss, grads = jax.value_and_grad(loss_of)(params)
+        loss, grads = jax.jit(jax.value_and_grad(loss_of))(params)
     finally:
         model.llama.config.fused_lm_loss = False
     return float(loss), {k: np.asarray(v) for k, v in grads.items()}

@@ -222,8 +222,8 @@ def _ref_routed(gate, capacity, fused):
         return jnp.sum(y * ct) + aux, (y, aux)
 
     pdatas = [p._data for _, p in layer.named_parameters()]
-    (loss, (y, aux)), grads = jax.value_and_grad(
-        f, argnums=tuple(range(1 + len(names))), has_aux=True)(
+    (loss, (y, aux)), grads = jax.jit(jax.value_and_grad(
+        f, argnums=tuple(range(1 + len(names))), has_aux=True))(
         jnp.asarray(x), *pdatas)
     return ((np.asarray(y), float(aux), float(loss)),
             {"x": np.asarray(grads[0]),

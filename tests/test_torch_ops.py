@@ -1,8 +1,9 @@
 """The port's op table (`paddle_tpu_torch.ops.registry`) against the JAX
 registry, op by op, on the CPU.
 
-Every op of the JAX registry outside `ops/nn_ops.py` has a port
-counterpart of the same name and declaration. Each one runs on the first
+Every op of the JAX registry has a port counterpart of the same name;
+those outside `ops/nn_ops.py` are checked here (declaration, forward,
+VJP), the nn ops in `tests/test_torch_nn_ops.py`. Each one runs on the first
 input case `tests/test_op_harness.py` gives it (imported, not edited)
 through the port's dispatch on Paddle Tensors and through the reference's
 `get_op(name).fn`, jitted; a few ops the harness leaves out get their
@@ -218,7 +219,7 @@ def _close(got, want, tol, what):
 
 def test_every_reference_op_outside_nn_ops_is_ported():
     assert len(REFERENCE) == 325 and len(NN_OPS) == 72
-    assert sorted(OPS) == REFERENCE
+    assert sorted(OPS) == sorted(REFERENCE + NN_OPS)
     by_name = {s["op"]: s for s in _SPECS}
     for name in REFERENCE:
         spec, mine = by_name[name], OPS[name]

@@ -159,7 +159,7 @@ def _jax_recompute_step():
                                 jnp.asarray(labels)), training=True)
         return loss
 
-    loss, grads = jax.value_and_grad(loss_of)(params)
+    loss, grads = jax.jit(jax.value_and_grad(loss_of))(params)
     return (float(loss), {k: np.asarray(g) for k, g in grads.items()},
             {k: np.asarray(v) for k, v in params.items()})
 

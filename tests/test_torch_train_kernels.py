@@ -40,6 +40,16 @@ from paddle_tpu_torch.ops import norm as tnorm
 RTOL, ATOL = 1e-4, 1e-5
 
 
+def _vjp(f, args, ct):
+    """f(*args) and the VJP of `ct`, jitted as one program (interpret-mode
+    Pallas runs far faster traced once than op by op)."""
+    def run(*a):
+        out, vjp = jax.vjp(f, *a)
+        return out, vjp(ct)
+
+    return jax.jit(run)(*args)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """PyTorch's CPU ops would spread over every core; the suite runs in
@@ -103,8 +113,8 @@ def test_flash_backward_matches_pallas_vjp(case):
             q_, k_, v_, None if mask is None else jnp.asarray(mask),
             is_causal=causal, has_mask=mask is not None, interpret=True)
 
-    ref_out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    ref_grads = vjp(jnp.asarray(dout))
+    ref_out, ref_grads = _vjp(f, (jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v)), jnp.asarray(dout))
 
     qt, kt, vt = _t(q, True), _t(k, True), _t(v, True)
     out = tflash.attention(qt, kt, vt, None if mask is None else _t(mask),
@@ -193,8 +203,8 @@ def test_trainable_mask_gradient(case):
                 q_, k_, v_, m_, is_causal=causal, has_mask=True,
                 mask_needs_grad=True, interpret=True)
 
-        _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, mask)))
-        ref = vjp(jnp.asarray(dout))
+        _, ref = _vjp(f, tuple(jnp.asarray(x) for x in (q, k, v, mask)),
+                      jnp.asarray(dout))
         for name, got, want in zip(("dq", "dk", "dv", "dmask"),
                                    (qt.grad, kt.grad, vt.grad, mt.grad), ref):
             _close(got.numpy(), want, msg=name)
@@ -251,8 +261,8 @@ def test_grouped_dmask_matches_full_and_pallas(case, b):
             q_, k_, v_, m_, is_causal=causal, has_mask=True,
             mask_needs_grad=True, interpret=True)
 
-    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v, mask)))
-    ref = vjp(jnp.asarray(dout))
+    _, ref = _vjp(f, tuple(jnp.asarray(x) for x in (q, k, v, mask)),
+                  jnp.asarray(dout))
     _close(dq.numpy(), ref[0], msg="dq")
     _close(grouped.numpy(), ref[3], msg="dmask")
 
@@ -325,8 +335,8 @@ def test_norm_backward_matches_pallas_vjp(mode):
         return pk._fused_norm_data(x_, w_, b_ if with_bias else None, eps,
                                    subtract_mean=sub, interpret=True)
 
-    ref_y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-    rdx, rdw, rdb = vjp(jnp.asarray(dy))
+    ref_y, (rdx, rdw, rdb) = _vjp(f, (jnp.asarray(x), jnp.asarray(w),
+                                      jnp.asarray(b)), jnp.asarray(dy))
 
     xt, wt, bt = _t(x, True), _t(w, True), _t(b, True)
     if sub:
