@@ -344,7 +344,7 @@ without the final result line:
    beside O1's; then 2 layers at full width in fp32, three AdamW + clip
    + schedule updates card against CPU within ADAM_ATOL;
 42. train_zero (last): ZeRO data parallelism of ERNIE-1.0 base's widths
-   at 6 of its 12 layers (ZERO_LAYERS) at the Train ERNIE step (a global
+   at 4 of its 12 layers (ZERO_LAYERS) at the Train ERNIE step (a global
    32 x 512, O1, dropout 0.1, the fused MLM loss, Adam 1e-4) over 4 ranks spawned once (gloo on one card, NCCL
    with a card a rank; PyTorch's deterministic algorithms in each rank),
    each rank's generator from (seed, rank), each leg
@@ -371,8 +371,9 @@ without the final result line:
 45. train_fleet (last): fleet hybrid parallelism over 4 ranks spawned
    once, after the single-rank references: GPT-3 1.3B at pp 2 x mp 2
    through fleet.init, PipelineLayer(gpt_pipe_layers(tensor_parallel=
-   True)), distributed_model, distributed_optimizer and train_batch (2 O1
-   steps at dropout 0 against the single-rank accumulated step: loss and
+   True)), distributed_model, distributed_optimizer and train_batch
+   (FLEET_STEPS O1 steps at dropout 0 against the
+   single-rank accumulated step: loss and
    global gradient norm within the bf16 bounds; one step at GPT-3's
    recipe: tokens/s/chip, MFU, each rank's peak memory and staged bytes);
    pp 2 x dp 2 and its interleaved form at fp32 bit for bit the
@@ -449,6 +450,39 @@ without the final result line:
    The kernels at the Transformer's shapes (K1-K3 for encoder self and
    cross attention, one launch shape, and decoder self with the float
    mask; K4 / K5 at 24576 x 512) are held to their plain versions with the other kernel cases.
+   vision_zoo (the phase's last leg): AlexNet, VGG-16, SqueezeNet 1.0,
+   MobileNetV2, ShuffleNetV2 x1.0, DenseNet-121, GoogLeNet (with its two
+   aux heads' losses at 0.3) and InceptionV3 at their published inputs
+   (224 x 224; InceptionV3 299 x 299), 32 images, O2 through
+   `Model.train_batch` (1 + 2 steps: images/s/chip, step ms, peak
+   memory); each family's eval forward at 64 x 64 (InceptionV3 75 x 75) on
+   the card against the CPU from the same weights, the logits within
+   ZOO_LOGIT_RTOL of the largest CPU logit; every `vision.ops` function on
+   CUDA tensors against the same call on CPU tensors (floats within
+   OPS_RTOL of the largest CPU value, index lists exact) and
+   deform_conv2d's gradients (v2, groups 2, deformable groups 2). No
+   K-kernel runs here.
+
+49. vision_dp (after train_dp): ResNet-50 trained data-parallel through
+   `paddle.Model.fit`. The port's launcher (`python -m
+   paddle_tpu_torch.distributed.launch --nproc_per_node 4`) runs this
+   script's `--vision-dp-worker` mode on 4 ranks (gloo on one card; with 4
+   cards a second launch, a card a rank over NCCL). Every rank:
+   `fleet.init` at dp 4, `vision.models.resnet50()` (25,557,032
+   parameters) through `SyncBatchNorm.convert_sync_batchnorm` and
+   `fleet.distributed_model`, Momentum(0.1, 0.9, L2Decay(1e-4)),
+   `Model.prepare(CrossEntropyLoss, Accuracy, amp_configs="O2")`, then
+   `Model.fit` over a seeded ImageNet-shaped dataset held on the card (3 x
+   224 x 224, 1000 classes), 64 images a rank (global 256): 1 warm-up and
+   3 timed steps (step ms, images/s/chip, peak memory and MiB staged a
+   step a rank, every rank's (loss, accuracy) rows, which must be equal),
+   and one `evaluate` over 2 global batches (equal rows on every rank).
+   Before that, one fp32 step through `Model.train_batch` at 8 images a
+   rank from weights and 32 images this process wrote, on the ReLU masks
+   its single-rank step recorded (`shared_relu_masks`): rank 0's loss,
+   every gradient and every updated parameter within VIS_GRAD_RTOL of that
+   tensor's largest value, the running statistics within VDP_STAT_RTOL,
+   against ResNet-50 with BatchNorm over the same 32 images on the card.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. This script imports no JAX and nothing of
@@ -456,6 +490,7 @@ paddle_tpu; the card machine has neither.
 """
 import argparse
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -6166,8 +6201,10 @@ ZERO_BATCH = (32, 512)
 # dygraph phases)
 ZERO_STEPS = (1, 1)
 # the legs' model: ERNIE-1.0 base's widths at ZERO_LAYERS of its 12 layers
-# (12 until PR 18; the fleet phase's ZeroTrainStep dp 2 x tp 2 leg too)
-ZERO_LAYERS = 6
+# (cut from 12, then 6, to keep the run inside its time limit; the fleet
+# phase's ZeroTrainStep dp 2 x tp 2 leg and the train_dp phase's model
+# too)
+ZERO_LAYERS = 4
 ZERO_BUCKET = 25 * 2 ** 20
 ZERO_LR = 1e-4
 # the bf16 leg's loss against the fp32 stage-2 leg's, step by step: bf16
@@ -6968,7 +7005,7 @@ FLEET_BATCH = (8, 2048)
 FLEET_ACCUM = 4
 FLEET_ATTN = (2, 2048, 8, 128)
 FLEET_LR = 1e-4
-FLEET_STEPS = 2
+FLEET_STEPS = 1
 # the pp 2 x mp 2 bf16 steps against the single-rank bf16 step at dropout
 # 0: both round every product's output to bf16, but the mp split cuts the
 # row-parallel products' sums in two and gathers the head in parts, so
@@ -7799,6 +7836,245 @@ def vision_kernel_cases(rows, dev):
     return main
 
 
+# the zoo on the card: each family at its published input under O2 through
+# Model.train_batch (1 warm-up, 2 timed steps, ZOO_BATCH images), then the
+# eval forward at ZOO_SMALL on the card against the CPU (logits within
+# ZOO_LOGIT_RTOL of the largest CPU logit; cuDNN's TF32 off)
+ZOO_FAMILIES = (("alexnet", {}, 224), ("vgg16", {}, 224),
+                ("squeezenet1_0", {}, 224), ("mobilenet_v2", {}, 224),
+                ("shufflenet_v2_x1_0", {}, 224), ("densenet121", {}, 224),
+                ("googlenet", {}, 224), ("inception_v3", {}, 299))
+ZOO_BATCH, ZOO_STEPS, ZOO_SMALL = 32, (1, 2), 64
+ZOO_LOGIT_RTOL = 1e-4
+# vision.ops on CUDA tensors against the same call on CPU tensors: floats
+# within this of the largest CPU value; index lists exact
+OPS_RTOL = 1e-5
+
+
+def _zoo_loss(paddle):
+    """Cross entropy over the main logits, and GoogLeNet's two aux heads
+    at 0.3 each (its paper's weights)."""
+    ce = paddle.nn.CrossEntropyLoss()
+
+    def loss(*args):
+        *outs, label = args
+        total = ce(outs[0], label)
+        for aux in outs[1:]:
+            total = total + 0.3 * ce(aux, label)
+        return total
+    return loss
+
+
+def zoo_family(paddle, seed, dev, name, kw, res):
+    """One family through Model.train_batch at O2 on the card, then its
+    eval forward on the card against the CPU."""
+    M = paddle.vision.models
+    paddle.seed(seed)
+    net = getattr(M, name)(**kw)
+    n_params = sum(p.numel() for p in net.parameters())
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.Momentum(
+        VIS_LR, 0.9, parameters=net.parameters(),
+        weight_decay=paddle.optimizer.L2Decay(VIS_DECAY)),
+        _zoo_loss(paddle), amp_configs="O2")
+    x, y = vision_batch(paddle, seed, ZOO_BATCH, dev, res=res)
+    warm, timed = ZOO_STEPS
+    losses = [float(model.train_batch([x], [y])[0]) for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = [model.train_batch([x], [y]) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(o[0]) for o in outs]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"vision_zoo: {name} losses {losses}")
+    del model, net, x, y
+    _free()
+    # eval on the card against the CPU from the same weights
+    small = 75 if name == "inception_v3" else ZOO_SMALL
+    paddle.seed(seed + 1)
+    card = getattr(M, name)(**kw)
+    cpu = copy.deepcopy(card).to("cpu")
+    xs = np.random.RandomState(seed + 2).randn(2, 3, small, small).astype(
+        np.float32)
+    logits = {}
+    with no_tf32():
+        for tag, net in (("card", card), ("cpu", cpu)):
+            net.eval()
+            with paddle.no_grad():
+                out = net(paddle.to_tensor(xs, place=dev if tag == "card"
+                                           else "cpu"))
+            logits[tag] = [o._t.float().cpu() for o in (
+                out if isinstance(out, (tuple, list)) else [out])]
+    err = max(max_err(a, b) / float(b.abs().max())
+              for a, b in zip(logits["card"], logits["cpu"]))
+    if not err <= ZOO_LOGIT_RTOL:
+        raise AssertionError(f"vision_zoo: {name} eval logits on the card "
+                             f"{err} of the largest CPU logit")
+    ips = ZOO_BATCH * timed / wall
+    log(f"[vision_zoo] {name} ({n_params / 1e6:.2f} M params) O2, "
+        f"{ZOO_BATCH} x 3 x {res} x {res}: step {wall / timed * 1e3:.2f} ms,"
+        f" {ips:.1f} images/s/chip, peak {peak / 2**30:.2f} GiB; losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; eval {small} x "
+        f"{small} card vs CPU {err:.3g} of the largest logit")
+    return dict(n_params=n_params, step_ms=wall / timed * 1e3,
+                images_per_s=ips, peak_bytes=peak, losses=losses,
+                eval_rel=err)
+
+
+def _ops_cases(V, rng):
+    """(name, call(device) -> tensors or lists of them) for every
+    vision.ops function, on seeded inputs."""
+    def boxes(n, size=32.0):
+        xy = rng.uniform(0, size * 0.7, (n, 2))
+        wh = rng.uniform(2.0, size * 0.4, (n, 2))
+        return np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    b40, s40 = boxes(40), rng.rand(40).astype(np.float32)
+    cats = rng.randint(0, 3, 40)
+    x = rng.standard_normal((2, 8, 16, 16)).astype(np.float32)
+    rois = np.concatenate([boxes(2, 30.0), boxes(3, 30.0)])
+    num = np.array([2, 3])
+    yolo = rng.standard_normal((2, 3 * 9, 4, 5)).astype(np.float32)
+    img = np.array([[64, 80], [48, 60]])
+    anchors = [10, 13, 16, 30, 33, 23]
+    mboxes = np.stack([boxes(8), boxes(8)])
+    mscores = rng.rand(2, 3, 8).astype(np.float32)
+    side = rng.choice([8.0, 20.0, 60.0, 130.0, 300.0], 12)
+    xy = rng.uniform(0, 50, (12, 2))
+    fpn = np.concatenate([xy, xy + side[:, None]], 1).astype(np.float32)
+    pscores = rng.rand(2, 3, 5, 5).astype(np.float32)
+    pdeltas = (rng.standard_normal((2, 12, 5, 5)) * 0.2).astype(np.float32)
+    panchors = boxes(75, 48.0).reshape(5, 5, 3, 4)
+    gt = np.array([[[0.3, 0.4, 0.2, 0.3], [0.7, 0.6, 0.4, 0.2],
+                    [0, 0, 0, 0]]] * 2, np.float32)
+    glabel = np.array([[0, 2, 0]] * 2)
+    targets = boxes(3)
+
+    def t(a, d):
+        return torch.as_tensor(a).to(d)
+
+    return [
+        ("box_area", lambda d: V.box_area(t(b40, d))),
+        ("box_iou", lambda d: V.box_iou(t(b40, d), t(b40[:7], d))),
+        ("nms", lambda d: V.nms(t(b40, d), 0.3, t(s40, d),
+                                category_idxs=t(cats, d), top_k=9)),
+        ("roi_align", lambda d: V.RoIAlign(4, 0.5)(t(x, d), t(rois, d),
+                                                   t(num, d))),
+        ("roi_pool", lambda d: V.RoIPool((2, 3), 1.0)(t(x, d), t(rois, d),
+                                                      t(num, d))),
+        ("psroi_pool", lambda d: V.PSRoIPool(2, 0.5)(t(x, d), t(rois, d),
+                                                     t(num, d))),
+        ("yolo_box", lambda d: V.yolo_box(t(yolo, d), t(img, d), anchors,
+                                          4, 0.3, 16)),
+        ("prior_box", lambda d: V.prior_box(
+            t(x, d), t(np.zeros((1, 3, 32, 32), np.float32), d), [4.0, 8.0],
+            [8.0, 12.0], [2.0], flip=True, clip=True)),
+        ("box_coder", lambda d: V.box_coder(t(rois, d), None,
+                                            t(targets, d))),
+        ("matrix_nms", lambda d: V.matrix_nms(
+            t(mboxes, d), t(mscores, d), 0.2, 0.1, -1, -1,
+            return_index=True)),
+        ("distribute_fpn_proposals", lambda d: V.distribute_fpn_proposals(
+            t(fpn, d), 2, 5, 4, 224, rois_num=t(np.array([12]), d))),
+        ("generate_proposals", lambda d: V.generate_proposals(
+            t(pscores, d), t(pdeltas, d), t(np.array([[64.0, 64.0]] * 2),
+                                             d),
+            t(panchors, d), t(np.ones((5, 5, 3, 4), np.float32), d),
+            pre_nms_top_n=40, post_nms_top_n=10, min_size=1.0,
+            return_rois_num=True)),
+        ("yolo_loss", lambda d: V.yolo_loss(
+            t(yolo, d), t(gt, d), t(glabel, d), anchors, [0, 1, 2], 4, 0.5,
+            32)),
+    ]
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    return [] if out is None else [out._t.detach()]
+
+
+def vision_ops_cases(paddle, seed, dev):
+    """Every vision.ops function on CUDA tensors against the same call on
+    CPU tensors, and deform_conv2d's gradients (v2: x, offset, weight,
+    mask, bias) too: {name: max error over the largest CPU value}."""
+    V = paddle.vision.ops
+    errs = {}
+    for name, call in _ops_cases(V, np.random.RandomState(seed + 60)):
+        card, cpu = _flat(call(dev)), _flat(call(torch.device("cpu")))
+        if len(card) != len(cpu) or any(a.shape != b.shape
+                                        for a, b in zip(card, cpu)):
+            raise AssertionError(f"vision_ops: {name} shapes differ")
+        worst = 0.0
+        for a, b in zip(card, cpu):
+            if b.is_floating_point():
+                scale = max(float(b.abs().max()), 1e-30) if b.numel() else 1
+                worst = max(worst, max_err(a.cpu(), b) / scale
+                            if b.numel() else 0.0)
+            elif not torch.equal(a.cpu(), b):
+                raise AssertionError(f"vision_ops: {name} indices differ")
+        errs[name] = worst
+    rng = np.random.RandomState(seed + 61)
+    inputs = dict(x=rng.standard_normal((2, 4, 9, 9)),
+                  offset=rng.standard_normal((2, 36, 9, 9)) * 1.5,
+                  weight=rng.standard_normal((6, 2, 3, 3)),
+                  bias=rng.standard_normal(6),
+                  mask=rng.rand(2, 18, 9, 9))
+    cot = torch.from_numpy(rng.standard_normal((2, 6, 9, 9)).astype(
+        np.float32))
+    got = {}
+    for tag, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        leaves = {k: torch.tensor(v, dtype=torch.float32, device=d,
+                                  requires_grad=True)
+                  for k, v in inputs.items()}
+        out = V.deform_conv2d(leaves["x"], leaves["offset"],
+                              leaves["weight"], leaves["bias"], padding=1,
+                              deformable_groups=2, groups=2,
+                              mask=leaves["mask"])
+        (out._t * cot.to(d)).sum().backward()
+        got[tag] = [out._t.detach().cpu()] + [leaves[k].grad.cpu()
+                                              for k in inputs]
+    errs["deform_conv2d"] = max(max_err(a, b) / float(b.abs().max())
+                                for a, b in zip(got["card"], got["cpu"]))
+    bad = {k: v for k, v in errs.items() if not v <= OPS_RTOL}
+    log(f"[vision_zoo] vision.ops on the card against the CPU (max error "
+        f"over the largest CPU value; index lists exact): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    if bad:
+        raise AssertionError(f"vision_ops: past {OPS_RTOL}: {bad}")
+    return errs
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN's and cuBLAS's TF32 off inside (fp32 card-vs-CPU checks)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def vision_zoo(paddle, seed, dev):
+    """The eight families on the card, then vision.ops against the CPU."""
+    out = {}
+    try:
+        for name, kw, res in ZOO_FAMILIES:
+            out[name] = zoo_family(paddle, seed, dev, name, kw, res)
+            _free()
+        with no_tf32():
+            out["ops"] = vision_ops_cases(paddle, seed, dev)
+    finally:
+        paddle.set_device("cuda")
+    return out
+
+
 def phase_vision(seed, dev, out_dir=None):
     """nn in full, hapi and vision on the card (see the module
     docstring's phase 48)."""
@@ -7815,6 +8091,12 @@ def phase_vision(seed, dev, out_dir=None):
     gc.collect()
     torch.cuda.empty_cache()
     out["card_vs_cpu"] = vision_card_vs_cpu(paddle, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_zoo = time.perf_counter()
+    out["zoo"] = vision_zoo(paddle, seed, dev)
+    out["zoo_s"] = time.perf_counter() - t_zoo
+    log(f"[vision_zoo] the zoo and vision.ops took {out['zoo_s']:.1f} s")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[vision] the phase took {out['phase_s']:.1f} s")
     return out
@@ -8798,6 +9080,40 @@ def _tails(log_dir, n=3000):
     return "\n".join(out)
 
 
+def _fleetrun(tag, worker_flag, tmp, seed, nranks, timeout, env_extra=None):
+    """`python -m paddle_tpu_torch.distributed.launch --nproc_per_node
+    nranks` over this script's `worker_flag tmp` mode, the logs under
+    tmp/logs_<tag>; a rank that fails, or the timeout, raises with the
+    ranks' log tails. Then the ranks' readings, tmp/rank<r>.json."""
+    import socket
+
+    logs = os.path.join(tmp, f"logs_{tag}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **(env_extra or {}))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nranks), "--master", f"127.0.0.1:{port}",
+           "--log_dir", logs, os.path.join(here, "chip_smoke.py"),
+           worker_flag, tmp, "--seed", str(seed)]
+    try:
+        proc = subprocess.run(cmd, env=env, cwd=here, timeout=timeout,
+                              capture_output=True, text=True)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"{tag}: the launcher passed {timeout} s\n"
+                           f"{_tails(logs)}") from None
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag}: fleetrun exited {proc.returncode}\n"
+                           f"{proc.stderr[-2000:]}\n{_tails(logs)}")
+    ranks = []
+    for r in range(nranks):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
 def phase_train_dp(seed, dev):
     """ERNIE-1.0 base's widths (ZERO_LAYERS deep) trained data-parallel
     through the port's own launcher (ROADMAP queue 1 item 5b): `python -m
@@ -8810,7 +9126,6 @@ def phase_train_dp(seed, dev):
     optimizer, loaded here at world 1 into a fresh model and optimizer,
     every tensor bit for bit rank 0's snapshot; the Engine legs. A rank
     that fails fails the phase (its log's tail in the error)."""
-    import socket
     import tempfile
 
     from paddle_tpu_torch.distributed import checkpoint as ck
@@ -8819,33 +9134,9 @@ def phase_train_dp(seed, dev):
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="ptt_dp_") as tmp:
-        logs = os.path.join(tmp, "logs")
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        here = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-               "--nproc_per_node", str(DP_RANKS), "--master",
-               f"127.0.0.1:{port}", "--log_dir", logs,
-               os.path.join(here, "chip_smoke.py"), "--dp-worker", tmp,
-               "--seed", str(seed)]
-        try:
-            proc = subprocess.run(cmd, env=env, cwd=here, timeout=DP_TIMEOUT,
-                                  capture_output=True, text=True)
-        except subprocess.TimeoutExpired:
-            raise RuntimeError(f"train_dp: the launcher passed {DP_TIMEOUT} "
-                               f"s\n{_tails(logs)}") from None
-        if proc.returncode != 0:
-            raise RuntimeError(f"train_dp: fleetrun exited "
-                               f"{proc.returncode}\n{proc.stderr[-2000:]}\n"
-                               f"{_tails(logs)}")
+        ranks = _fleetrun("train_dp", "--dp-worker", tmp, seed, DP_RANKS,
+                          DP_TIMEOUT)
         launch_s = time.perf_counter() - t0
-        ranks = []
-        for r in range(DP_RANKS):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
         with open(os.path.join(tmp, "snapshot.json")) as f:
             snap = json.load(f)
         ckpt = os.path.join(tmp, "ckpt")
@@ -8964,6 +9255,289 @@ def phase_train_dp(seed, dev):
     return dict(backend=r0["backend"], shared_card=shared, wall_s=wall,
                 launch_s=launch_s, ckpt_bytes=ckpt_bytes, load_s=load_s,
                 per_rank=ranks, launches=launches)
+
+
+# ------------------------------------ vision_dp (Model.fit, DP, SyncBN)
+VDP_RANKS = 4
+VDP_LOCAL = 64             # images a rank: global 256, as the vision phase
+VDP_STEPS = (1, 3)         # warm-up, timed steps of Model.fit
+VDP_PARITY_LOCAL = 8       # the fp32 parity step: 32 images over 4 ranks
+VDP_EVAL_BATCHES = 2
+VDP_STAT_RTOL = 1e-4       # running statistics, of their largest value
+VDP_TIMEOUT = 420
+
+
+def vision_dp_worker(out_dir, seed):
+    """One rank of phase_vision_dp, started by the port's launcher
+    (`chip_smoke.py --vision-dp-worker DIR`): fleet.init at dp 4, then
+    ResNet-50 with SyncBatchNorm through `fleet.distributed_model` and
+    `paddle.Model`: the fp32 parity step (Model.train_batch on this rank's
+    8 of DIR/batch.pt's 32 images from DIR/init.pt's weights; rank 0 saves
+    its loss, gradients, updated parameters and running statistics), then
+    `Model.fit` at O2 (the same network, prepared anew) over the seeded
+    ImageNet-shaped dataset and one `evaluate`. Writes
+    DIR/rank<r>.json."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as ptd
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import group as ptd_group
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("vision_dp rank: no CUDA card")
+    world = ptd.init_parallel_env()
+    dev, me, n = world.device, world.rank, world.nranks
+    paddle.set_device(str(dev))
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": n}
+    fleet.init(is_collective=True, strategy=strategy)
+    count = torch.cuda.device_count()
+    cards = len({r % count for r in range(n)})
+    M = paddle.vision.models
+    out = {"rank": me, "backend": world.backend, "device": str(dev),
+           "cards": cards}
+
+    net = M.resnet50()
+    net.set_state_dict(torch.load(os.path.join(out_dir, "init.pt")))
+    net = paddle.nn.SyncBatchNorm.convert_sync_batchnorm(net)
+    model = paddle.Model(fleet.distributed_model(net))
+
+    # (b) the fp32 parity step through Model.train_batch, on the ReLU
+    # masks the reference recorded for this rank's rows
+    with no_tf32(), shared_relu_masks() as relu:
+        relu.masks = torch.load(os.path.join(out_dir, f"masks{me}.pt"))
+        relu.replay()
+        opt = paddle.optimizer.Momentum(
+            VIS_LR, 0.9, parameters=net.parameters(),
+            weight_decay=paddle.optimizer.L2Decay(VIS_DECAY))
+        model.prepare(opt, paddle.nn.CrossEntropyLoss())
+        grads = {}
+        step = opt.step
+
+        def step_keeping_grads():
+            grads.update({k: p._t.grad.detach().cpu().clone()
+                          for k, p in net.named_parameters()})
+            step()
+        opt.step = step_keeping_grads
+        x, y = torch.load(os.path.join(out_dir, "batch.pt"))
+        rows = slice(me * VDP_PARITY_LOCAL, (me + 1) * VDP_PARITY_LOCAL)
+        loss = model.train_batch([x[rows]], [y[rows]])[0]
+        torch.cuda.synchronize(dev)
+        if me == 0:
+            torch.save(dict(loss=float(loss), grads=grads, state={
+                k: v._t.detach().cpu() for k, v in net.state_dict().items()
+            }), os.path.join(out_dir, "parity.pt"))
+        out["parity"] = dict(loss=float(loss), digest=digest(torch.cat(
+            [p._t.detach().reshape(-1) for p in net.parameters()])))
+    del grads, x, y
+    _free()
+    log(f"[vision_dp rank {me}] fp32 parity step done")
+
+    # (a) Model.fit at O2 over the seeded ImageNet-shaped dataset, the same
+    # network and Model prepared anew
+    n_params = sum(p.numel() for p in net.parameters())
+    opt = paddle.optimizer.Momentum(
+        VIS_LR, 0.9, parameters=net.parameters(),
+        weight_decay=paddle.optimizer.L2Decay(VIS_DECAY))
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy(),
+                  amp_configs="O2")
+    total = VDP_LOCAL * n * sum(VDP_STEPS)
+    gen = torch.Generator(device=dev).manual_seed(seed + 90)
+    xs = torch.randn(total, 3, VIS_RES, VIS_RES, generator=gen, device=dev)
+    ys = torch.randint(0, 1000, (total, 1), generator=gen, device=dev)
+    data = paddle.io.TensorDataset([paddle.Tensor._wrap(xs),
+                                    paddle.Tensor._wrap(ys)])
+    warm, timed = VDP_STEPS
+    clock, seen = {}, []
+
+    class Clock(paddle.hapi.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            if step == warm:
+                torch.cuda.synchronize(dev)
+                ptd.barrier(world)
+                torch.cuda.reset_peak_memory_stats(dev)
+                clock["staged"] = _staged(ptd_group)
+                clock["t0"] = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            seen.append((float(logs["loss"][0]), float(logs["acc"])))
+
+    model.fit(data, batch_size=VDP_LOCAL, epochs=1, shuffle=False,
+              verbose=0, callbacks=[Clock()])
+    torch.cuda.synchronize(dev)
+    ptd.barrier(world)
+    wall = time.perf_counter() - clock["t0"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    staged = (_staged(ptd_group) - clock["staged"]) / timed
+    log(f"[vision_dp rank {me}] Model.fit done")
+
+    # (c) evaluate over VDP_EVAL_BATCHES global batches
+    first = VDP_LOCAL * n * VDP_EVAL_BATCHES
+    ev = model.evaluate(paddle.io.TensorDataset([
+        paddle.Tensor._wrap(xs[:first]), paddle.Tensor._wrap(ys[:first])]),
+        batch_size=VDP_LOCAL, verbose=0)
+    out["fit"] = dict(n_params=n_params, rows=seen,
+                      step_ms=wall / timed * 1e3,
+                      images_per_s_chip=VDP_LOCAL * n * timed / wall / cards,
+                      peak_bytes=peak, staged_bytes_per_step=staged,
+                      sync_norms=sum(type(m).__name__ == "SyncBatchNorm"
+                                     for m in net.sublayers()),
+                      evaluate={k: [float(v) for v in np.ravel(val)]
+                                for k, val in ev.items()})
+    with open(os.path.join(out_dir, f"rank{me}.json"), "w") as f:
+        json.dump(out, f)
+    ptd.barrier(world)
+    ptd.destroy_process_group()
+    return 0
+
+
+def _vision_dp_reference(paddle, state, x, y, dev):
+    """The parity step on one rank: the same 32 images through ResNet-50
+    with BatchNorm, fp32: loss, gradients, the state after Momentum."""
+    net = paddle.vision.models.resnet50()
+    net.set_state_dict(state)
+    net.train()
+    loss = paddle.nn.CrossEntropyLoss()(net(paddle.Tensor._wrap(
+        x.to(dev))), paddle.Tensor._wrap(y.to(dev)))
+    loss.backward()
+    grads = {k: p._t.grad.detach().cpu().clone()
+             for k, p in net.named_parameters()}
+    paddle.optimizer.Momentum(
+        VIS_LR, 0.9, parameters=net.parameters(),
+        weight_decay=paddle.optimizer.L2Decay(VIS_DECAY)).step()
+    state = {k: v._t.detach().cpu() for k, v in net.state_dict().items()}
+    return float(loss), grads, state
+
+
+def _vision_dp_check(ranks, parity, ref, tag, fails):
+    """The readings of one launch against each other and the reference."""
+    rows = [r["fit"]["rows"] for r in ranks]
+    evs = [r["fit"]["evaluate"] for r in ranks]
+    if any(x != rows[0] for x in rows) or any(e != evs[0] for e in evs):
+        fails.append(f"{tag}: loss / accuracy rows or evaluate differ "
+                     f"across ranks: {rows} {evs}")
+    flat = [v for row in rows[0] for v in row] + [
+        v for vals in evs[0].values() for v in vals]
+    if not (len(rows[0]) == sum(VDP_STEPS) and np.isfinite(flat).all()):
+        fails.append(f"{tag}: fit rows {rows[0]}, evaluate {evs[0]}")
+    if len({r["parity"]["digest"] for r in ranks}) != 1 or len(
+            {r["parity"]["loss"] for r in ranks}) != 1:
+        fails.append(f"{tag}: the parity step's parameters or loss differ "
+                     f"across ranks")
+    ref_loss, ref_grads, ref_state = ref
+    worst = {}
+    loss_rel = abs(parity["loss"] - ref_loss) / abs(ref_loss)
+    worst["loss"] = (loss_rel, "loss")
+    for kind, got, want, tol in (
+            ("grad", parity["grads"], ref_grads, VIS_GRAD_RTOL),
+            ("param", {k: v for k, v in parity["state"].items()
+                       if not k.endswith(("_mean", "_variance"))},
+             {k: v for k, v in ref_state.items()
+              if not k.endswith(("_mean", "_variance"))}, VIS_GRAD_RTOL),
+            ("stat", {k: v for k, v in parity["state"].items()
+                      if k.endswith(("_mean", "_variance"))},
+             {k: v for k, v in ref_state.items()
+              if k.endswith(("_mean", "_variance"))}, VDP_STAT_RTOL)):
+        if sorted(got) != sorted(want):
+            fails.append(f"{tag}: {kind} names differ")
+            continue
+        rel = {k: max_err(got[k], want[k]) / max(float(want[k].abs().max()),
+                                                 1e-30) for k in want}
+        name = max(rel, key=rel.get)
+        worst[kind] = (rel[name], name)
+        if not rel[name] <= tol:
+            fails.append(f"{tag}: {kind} {name} {rel[name]:.3g} of its "
+                         f"largest value (tol {tol})")
+    if not loss_rel <= VIS_GRAD_RTOL:
+        fails.append(f"{tag}: parity loss {parity['loss']} vs {ref_loss}")
+    return worst
+
+
+def phase_vision_dp(seed, dev):
+    """ResNet-50 trained data-parallel through `paddle.Model.fit` with
+    SyncBatchNorm at O2 (the module docstring's phase 49): the port's
+    launcher runs 4 ranks of `--vision-dp-worker` (gloo on one card; with
+    4 cards also a card a rank over NCCL); their fp32 parity step is held
+    here against the single-rank step on the same 32 images."""
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+
+    t0 = time.perf_counter()
+    paddle.set_device("cuda")
+    count = torch.cuda.device_count()
+    legs = [("gloo", {"CUDA_VISIBLE_DEVICES": "0"} if count >= 4 else {})]
+    if count >= VDP_RANKS:
+        legs.append(("nccl", {}))
+    out, fails = {}, []
+    with tempfile.TemporaryDirectory(prefix="ptt_vdp_") as tmp:
+        paddle.seed(seed + 3)
+        state = {k: v._t.detach().cpu() for k, v in
+                 paddle.vision.models.resnet50().state_dict().items()}
+        g = np.random.RandomState(seed + 91)
+        n = VDP_PARITY_LOCAL * VDP_RANKS
+        x = torch.from_numpy(g.randn(n, 3, VIS_RES, VIS_RES).astype(
+            np.float32))
+        y = torch.from_numpy(g.randint(0, 1000, (n, 1)))
+        torch.save(state, os.path.join(tmp, "init.pt"))
+        torch.save((x, y), os.path.join(tmp, "batch.pt"))
+        # the single-rank reference, its ReLU masks recorded and handed
+        # to each rank for its rows (an fp32 difference upstream must not
+        # flip a mask: shared_relu_masks)
+        with no_tf32(), shared_relu_masks() as relu:
+            relu.record()
+            ref = _vision_dp_reference(paddle, state, x, y, dev)
+        per = VDP_PARITY_LOCAL
+        for r in range(VDP_RANKS):
+            torch.save([m[r * per:(r + 1) * per].clone() for m in
+                        relu.masks], os.path.join(tmp, f"masks{r}.pt"))
+        del relu
+        _free()
+        for tag, env in legs:
+            t1 = time.perf_counter()
+            ranks = _fleetrun(f"vision_dp_{tag}", "--vision-dp-worker",
+                              tmp, seed, VDP_RANKS, VDP_TIMEOUT, env)
+            with open(os.path.join(tmp, "parity.pt"), "rb") as f:
+                parity = torch.load(f)
+            launch_s = time.perf_counter() - t1
+            worst = _vision_dp_check(ranks, parity, ref, tag, fails)
+            r0 = ranks[0]["fit"]
+            log(f"[vision_dp] ResNet-50 ({r0['n_params'] / 1e6:.2f} M "
+                f"params, {r0['sync_norms']} SyncBatchNorm) via "
+                f"fleet.distributed_model + paddle.Model.fit O2 over "
+                f"{tag} ({ranks[0]['cards']} card(s), ranks on "
+                f"{[r['device'] for r in ranks]}): {VDP_LOCAL} images a "
+                f"rank, global {VDP_LOCAL * VDP_RANKS}, "
+                f"Momentum({VIS_LR}, 0.9, L2Decay({VIS_DECAY})); "
+                f"{VDP_STEPS[0]} + {VDP_STEPS[1]} steps, step "
+                f"{r0['step_ms']:.1f} ms, {r0['images_per_s_chip']:.1f} "
+                f"images/s/chip; launcher {launch_s:.1f} s")
+            for r in ranks:
+                f = r["fit"]
+                log(f"[vision_dp]   rank {r['rank']} on {r['device']}: "
+                    f"step {f['step_ms']:.1f} ms, peak "
+                    f"{f['peak_bytes'] / 2**30:.2f} GiB, staged "
+                    f"{f['staged_bytes_per_step'] / 2**20:.1f} MiB a step; "
+                    f"(loss, acc) a step "
+                    + ", ".join(f"({l_:.4f}, {a:.4f})" for l_, a in f["rows"])
+                    + f"; evaluate {f['evaluate']}")
+            log(f"[vision_dp] fp32 parity step, {VDP_PARITY_LOCAL} images a "
+                f"rank against one rank's BatchNorm over the same "
+                f"{VDP_PARITY_LOCAL * VDP_RANKS}: worst "
+                + ", ".join(f"{k} {v:.3g} ({name})" for k, (v, name) in
+                            worst.items())
+                + f" (tol {VIS_GRAD_RTOL}; statistics {VDP_STAT_RTOL})")
+            out[tag] = dict(per_rank=[r["fit"] for r in ranks],
+                            parity_worst=worst, launch_s=launch_s,
+                            backend=ranks[0]["backend"],
+                            cards=ranks[0]["cards"])
+            for name in os.listdir(tmp):
+                if name.startswith(("rank", "parity")):
+                    os.remove(os.path.join(tmp, name))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[vision_dp] the phase took {out['phase_s']:.1f} s")
+    if fails:
+        raise AssertionError("vision_dp: " + "; ".join(fails))
+    return out
 
 
 KERNELS = {
@@ -9127,9 +9701,14 @@ def main(argv=None):
                     help="run one rank of the train_dp phase (the phase "
                          "starts it through the port's launcher) and write "
                          "its readings to DIR")
+    ap.add_argument("--vision-dp-worker", default=None, metavar="DIR",
+                    help="run one rank of the vision_dp phase (the phase "
+                         "starts it through the port's launcher)")
     args = ap.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker, args.seed)
+    if args.vision_dp_worker:
+        return vision_dp_worker(args.vision_dp_worker, args.seed)
     t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -9304,6 +9883,8 @@ def main(argv=None):
     release()
     result["train_dp"] = r = phase_train_dp(args.seed, dev)
     launches["train_dp"] = r["launches"]
+    release()
+    result["vision_dp"] = phase_vision_dp(args.seed, dev)
     release()
     result["seconds"] = time.perf_counter() - t_start
     result["summary"] = summarize(main_rows, launches)

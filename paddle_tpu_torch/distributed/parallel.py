@@ -33,10 +33,14 @@ contributes zeros with `find_unused_parameters=True`; without it the
 backward raises naming it (after waiting on the buckets in flight), so
 no rank is left waiting in a collective.
 
-The wrapped layer's parameters are broadcast from the group's first rank
-at construction (Paddle's `sync_params_buffers`). `state_dict` /
-`set_state_dict` are the wrapped layer's, without a `_layers.` prefix, so
-checkpoints of wrapped and bare models share names. `data_sharding()` /
+The wrapped layer's parameters and buffers (BatchNorm's running
+statistics among them) are broadcast from the group's first rank at
+construction (Paddle's `sync_params_buffers`). The reducer works on the
+registered torch tensors (`torch.nn.Module.named_parameters`), so a Paddle
+`nn.Layer`, whose `parameters()` gives Paddle wrappers, is reduced like
+any torch Module. `state_dict` / `set_state_dict` are the wrapped
+layer's, without a `_layers.` prefix, so checkpoints of wrapped and bare
+models share names. `data_sharding()` /
 `param_sharding()` describe the dp axes: the batch's dim 0 split over
 them, the parameters replicated.
 """
@@ -232,7 +236,8 @@ class DataParallel(nn.Module):
         self._buckets: List[_Bucket] = []
         if self.nranks > 1:
             self._sync_params()
-            params = [p for p in layers.parameters() if p.requires_grad]
+            params = [p for _, p in nn.Module.named_parameters(layers)
+                      if p.requires_grad]
             self._buckets = _assign_buckets(
                 params, int(last_comm_buffer_size * _MB),
                 int(comm_buffer_size * _MB))
@@ -248,8 +253,9 @@ class DataParallel(nn.Module):
     def _sync_params(self) -> None:
         from .communication import broadcast
 
-        for t in list(self._layers.parameters()) + list(
-                self._layers.buffers()):
+        layers = self._layers
+        for _, t in list(nn.Module.named_parameters(layers)) + list(
+                nn.Module.named_buffers(layers)):
             broadcast(t.data, self.group.ranks[0], self.group)
 
     # ---------------------------------------------------- the reducer
@@ -283,7 +289,7 @@ class DataParallel(nn.Module):
                 for b in self._buckets[:self._next]:
                     b.pending.wait()
                 names = {id(p): n for n, p in
-                         self._layers.named_parameters()}
+                         nn.Module.named_parameters(self._layers)}
                 lost = [names.get(id(p), "?") for b in missing
                         for p in b.params if id(p) not in self._ready]
                 raise RuntimeError(
@@ -339,6 +345,9 @@ class DataParallel(nn.Module):
         return self._layers.state_dict(*args, **kwargs)
 
     def set_state_dict(self, state_dict, *args, **kwargs):
+        own = getattr(self._layers, "set_state_dict", None)
+        if own is not None:     # a Paddle Layer
+            return own(state_dict, *args, **kwargs)
         return self._layers.load_state_dict(state_dict, *args, **kwargs)
 
     load_state_dict = set_state_dict

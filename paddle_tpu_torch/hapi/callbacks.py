@@ -162,7 +162,8 @@ class ModelCheckpoint(Callback):
     """Checkpoints every `save_freq` epochs and at the end: paddle.save
     files through Model.save, or with `use_dist_checkpoint` the network's
     state dict through the port's distributed checkpoint (a rank's shard
-    files, resharded on load); `async_save` writes in the background after
+    files, resharded on load; a GroupSharded stage 3 network's parameters
+    gathered whole first); `async_save` writes in the background after
     the host snapshot, joined at the next save or at the end."""
 
     def __init__(self, save_freq=1, save_dir=None,
@@ -179,7 +180,10 @@ class ModelCheckpoint(Callback):
             return
         from ..distributed import checkpoint as dck
 
-        sd = {k: v._t for k, v in self.model.network.state_dict().items()}
+        net = self.model.network
+        full = getattr(net, "full_state_dict", None)    # GroupSharded
+        sd = full() if full is not None else net.state_dict()
+        sd = {k: getattr(v, "_t", v) for k, v in sd.items()}
         dck.save_state_dict(sd, path, async_save=async_save)
 
     def on_epoch_end(self, epoch, logs=None):

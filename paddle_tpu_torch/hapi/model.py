@@ -1,7 +1,7 @@
 """paddle.Model for the port (counterpart of paddle_tpu/hapi/model.py):
 `prepare`, `train_batch` / `eval_batch` / `predict_batch`, `fit` /
-`evaluate` / `predict`, `save` / `load`, `parameters` and `summary`, in
-one process.
+`evaluate` / `predict`, `save` / `load`, `parameters` and `summary`, over
+a network in one process or data-parallel across ranks.
 
 The reference builds one jitted program a step (forward, loss,
 `jax.value_and_grad`, the optimizer's functional update). The port's
@@ -13,9 +13,34 @@ place during the forward. Metrics update on the host from the step's
 outputs and labels.
 
 Batches are Paddle Tensors, torch tensors or numpy arrays; they are put
-on the network's device (its parameters'). Multi-rank data parallelism
-(the reference's `_dp_shardings`, `_sharding_trees`, `_globalize_*`) is
-queue 1 item 6b2: a DataParallel network is refused.
+on the network's device (its parameters').
+
+Data parallelism. The reference runs one program whose batch XLA shards
+over the dp axis (`_dp_shardings`, the pinned step shardings, the
+multi-controller glue). Here every rank is a process that calls the same
+Model methods on its own rows, as under Paddle's launcher:
+
+- `Model(DataParallel(net))`, `Model(fleet.distributed_model(net))` at
+  pure dp and `Model` over `group_sharded_parallel`'s wrapper (levels os,
+  os_g, p_g_os) run the eager step on the rank's rows. DataParallel's
+  reducer averages the gradients over its group; a GroupSharded network
+  steps the wrapper's sharded optimizer (`sharded_optimizer`), whatever
+  optimizer `prepare` was given, and that update reduces them.
+- The losses returned are the global batch's: for equal shards the mean
+  over the group of the ranks' losses (summed in rank order, so every
+  rank reads the same bits), as the reference's replicated loss.
+- Metrics update from the outputs and labels all-gathered in rank order,
+  so every rank holds the global batch's metric state (the reference's
+  `gather_for_metrics`); `predict_batch` / `predict` return the gathered
+  outputs.
+- Unequal local batch sizes raise ValueError on every rank (the
+  reference's divisibility check).
+- `fit` / `evaluate` / `predict` given a Dataset load it through a
+  `DistributedBatchSampler` over the group with `batch_size` rows a rank,
+  as Paddle's hapi does (the reference's `batch_size` is the global
+  batch, sharded over the devices).
+- `save` writes on the group's first rank only (stage 3: the gathered
+  parameters), then every rank waits for it.
 """
 from __future__ import annotations
 
@@ -45,16 +70,30 @@ def _to_list(x):
     return [x]
 
 
+def _wrapped(network):
+    """(the layer the network runs, the group its batch is split over, the
+    sharded optimizer to step): the group and optimizer are None for a
+    network in one process."""
+    from ..distributed.parallel import DataParallel
+    from ..parallel.zero import _ShardedBase
+
+    if isinstance(network, DataParallel):
+        group, opt = network.group, None
+    elif isinstance(network, _ShardedBase):
+        group, opt = network.group, network.sharded_optimizer
+    else:
+        return network, None, None
+    if group.nranks == 1:
+        group = None
+    return network._layers, group, opt
+
+
 class Model:
     """A network with fit / evaluate / predict (paddle.Model)."""
 
     def __init__(self, network, inputs=None, labels=None):
-        if hasattr(network, "data_sharding") or type(
-                network).__name__ == "DataParallel":
-            raise NotImplementedError(
-                "paddle.Model over a data-parallel network is ROADMAP queue "
-                "1 item 6b2")
         self.network = network
+        self._layer, self._group, self._sharded_opt = _wrapped(network)
         self._inputs = _to_list(inputs) or None
         self._labels = _to_list(labels) or None
         self._optimizer = None
@@ -95,8 +134,8 @@ class Model:
 
     # ----------------------------------------------------------- batches
     def _device(self):
-        for p in self.network.parameters():
-            return p._t.device
+        for _, p in torch.nn.Module.named_parameters(self._layer):
+            return p.device
         from ..device import resolve_device
 
         return resolve_device(None)
@@ -133,16 +172,54 @@ class Model:
     def _losses(self, outs, labels):
         return _to_list(self._loss(*(outs + labels)))
 
+    def _gathered(self, ts):
+        """Each torch tensor's rows from every rank of the group, in rank
+        order (floating ones in fp32); `ts` themselves in one process."""
+        if self._group is None:
+            return ts
+        from ..distributed.communication import all_gather
+
+        return [torch.cat(all_gather(None, t.float().contiguous() if
+                                     t.is_floating_point() else
+                                     t.contiguous(), self._group))
+                for t in ts]
+
+    def _check_batch(self, inputs):
+        """ValueError on every rank unless the ranks' batches are equal."""
+        if self._group is None or not inputs:
+            return
+        from ..distributed.communication import all_gather
+
+        dev = self._device() if self._group.backend == "nccl" else "cpu"
+        mine = torch.tensor([inputs[0]._t.shape[0]], device=dev)
+        sizes = [int(t) for t in all_gather(None, mine, self._group)]
+        if len(set(sizes)) > 1:
+            raise ValueError(
+                f"data-parallel local batch sizes differ across the ranks "
+                f"{sizes}; use drop_last=True or a DistributedBatchSampler "
+                "so every rank gets an equal shard")
+
     def _update_metrics(self, outs, labels):
         results = []
+        if self._metrics:
+            ts = self._gathered([t._t.detach() for t in outs + labels])
         for m in self._metrics:
-            pre = m.compute(*[t._t.detach() for t in outs + labels])
+            pre = m.compute(*ts)
             results.append(m.update(*_to_list(pre)))
         return results
 
-    @staticmethod
-    def _numpy(losses):
-        return [l._t.detach().float().cpu().numpy() for l in losses]
+    def _numpy(self, losses):
+        """The losses as numpy arrays: across ranks the mean over the group
+        of each rank's, summed in rank order."""
+        ts = [l._t.detach().float() for l in losses]
+        if self._group is not None and ts:
+            from ..parallel.mesh import ordered_psum
+
+            flat = ordered_psum(torch.cat([t.reshape(-1) for t in ts]),
+                                self._group) * (1.0 / self._group.nranks)
+            ts = [part.reshape(t.shape) for part, t in zip(
+                flat.split([t.numel() for t in ts]), ts)]
+        return [t.cpu().numpy() for t in ts]
 
     def train_batch(self, inputs, labels=None, update=True):
         """One step: forward, loss, backward, the optimizer's step. Returns
@@ -155,12 +232,14 @@ class Model:
                 "reference")
         self.network.train()
         inputs, labels = self._tensors(inputs), self._tensors(labels)
+        self._check_batch(inputs)
         outs = self._forward(inputs)
         losses = self._losses(outs, labels)
         total = sum(l._t.float().sum() for l in losses)
         total.backward()
-        self._optimizer.step()
-        self._optimizer.clear_grad()
+        opt = self._sharded_opt or self._optimizer
+        opt.step()
+        opt.clear_grad()
         metrics = self._update_metrics(outs, labels)
         loss_np = self._numpy(losses)
         return (loss_np, metrics) if metrics else loss_np
@@ -168,6 +247,7 @@ class Model:
     def eval_batch(self, inputs, labels=None):
         self.network.eval()
         inputs, labels = self._tensors(inputs), self._tensors(labels)
+        self._check_batch(inputs)
         with torch.no_grad():
             outs = self._forward(inputs)
             losses = self._losses(outs, labels) if (
@@ -177,11 +257,16 @@ class Model:
         return (loss_np, metrics) if metrics else loss_np
 
     def predict_batch(self, inputs):
+        """The outputs as numpy arrays (across ranks: every rank's rows,
+        in rank order)."""
         self.network.eval()
+        inputs = self._tensors(inputs)
+        self._check_batch(inputs)
         with torch.no_grad():
-            outs = self._forward(self._tensors(inputs))
-        return [o._t.float().cpu().numpy() if o._t.is_floating_point()
-                else o._t.cpu().numpy() for o in outs]
+            outs = self._forward(inputs)
+        outs = self._gathered([o._t for o in outs])
+        return [o.float().cpu().numpy() if o.is_floating_point()
+                else o.cpu().numpy() for o in outs]
 
     # ---------------------------------------------------------------- fit
     def _make_loader(self, data, batch_size, shuffle, num_workers,
@@ -189,6 +274,16 @@ class Model:
         if data is None or isinstance(data, DataLoader):
             return data
         if isinstance(data, Dataset):
+            if self._group is not None:     # `batch_size` rows a rank
+                from ..io import DistributedBatchSampler
+
+                sampler = DistributedBatchSampler(
+                    data, batch_size, num_replicas=self._group.nranks,
+                    rank=self._group.rank, shuffle=shuffle,
+                    drop_last=drop_last)
+                return DataLoader(data, places=self._device(),
+                                  batch_sampler=sampler,
+                                  num_workers=num_workers)
             return DataLoader(data, places=self._device(),
                               batch_size=batch_size, shuffle=shuffle,
                               num_workers=num_workers, drop_last=drop_last)
@@ -199,7 +294,8 @@ class Model:
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
             accumulate_grad_batches=1, num_iters=None):
         """Train `epochs` epochs (or `num_iters` steps), evaluating every
-        `eval_freq` epochs."""
+        `eval_freq` epochs. Across ranks a Dataset is read `batch_size`
+        rows a rank (see the module docstring)."""
         assert train_data is not None, "train_data must be given"
         if accumulate_grad_batches != 1:
             raise NotImplementedError(
@@ -221,6 +317,9 @@ class Model:
         cbks.on_train_begin({})
         it, logs = 0, {}
         for epoch in range(epochs):
+            sampler = getattr(train_loader, "batch_sampler", None)
+            if hasattr(sampler, "set_epoch"):
+                sampler.set_epoch(epoch)
             cbks.on_epoch_begin(epoch, {})
             for m in self._metrics:
                 m.reset()
@@ -297,7 +396,7 @@ class Model:
         network}: the saved optimizer state is keyed by the latter, so a
         fresh model of the same structure loads it."""
         return {self._optimizer._param_name(p._t): n
-                for n, p in self.network.named_parameters()}
+                for n, p in self._layer.named_parameters()}
 
     @staticmethod
     def _renamed(state, names):
@@ -310,12 +409,21 @@ class Model:
     def save(self, path, training=True):
         """`path`.pdparams (the network's state dict) and, with
         `training`, `path`.pdopt (the optimizer's, keyed by the
-        parameters' structured names)."""
-        fw_save(self.network.state_dict(), str(path) + ".pdparams")
-        if training and self._optimizer is not None:
-            fw_save(self._renamed(self._optimizer.state_dict(),
-                                  self._slot_names()),
-                    str(path) + ".pdopt")
+        parameters' structured names). Across ranks the group's first rank
+        writes them (a GroupSharded stage 3 network: its gathered
+        parameters) and every rank waits."""
+        full = getattr(self.network, "full_state_dict", None)
+        state = full() if full is not None else self.network.state_dict()
+        if self._group is None or self._group.rank == 0:
+            fw_save(state, str(path) + ".pdparams")
+            if training and self._optimizer is not None:
+                fw_save(self._renamed(self._optimizer.state_dict(),
+                                      self._slot_names()),
+                        str(path) + ".pdopt")
+        if self._group is not None:
+            from ..distributed.communication import barrier
+
+            barrier(self._group)
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         dev = self._device()
@@ -330,7 +438,7 @@ class Model:
 
     # ------------------------------------------------------------- extras
     def parameters(self, *args, **kwargs):
-        return self.network.parameters(*args, **kwargs)
+        return self._layer.parameters(*args, **kwargs)
 
     def _metrics_name(self):
         names = ["loss"]

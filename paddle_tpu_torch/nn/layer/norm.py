@@ -8,9 +8,19 @@ BatchNorm keeps its running statistics in the buffers `_mean` and
 `_variance` (the reference's names, so state dicts cross by name); in
 training they are blended in place under no_grad with paddle's momentum
 (0.9) and the biased batch variance (`F.batch_norm`), in eval the layer
-normalizes by them. SyncBatchNorm is BatchNorm, as in the reference
-(whose batch statistics span the global batch through XLA's sharding);
-across ranks its statistics are queue 1 item 6b2 and refused.
+normalizes by them.
+
+SyncBatchNorm computes its training statistics over the global batch, as
+the reference's do (there XLA shards the batch axis, so every BatchNorm
+is global). Here every rank is a process: each rank's count, mean and
+sum of squared deviations a channel (fp32, also under O2) are
+all-gathered over the data-parallel group (fleet's dp group when fleet
+is initialised, else the world) and combined in rank order (Chan's
+parallel variance, in float64), so no `E[x^2] - E[x]^2` loses digits to
+a large mean; the backward all-reduces each channel's sum of dy and of
+dy * x_hat in one collective. In a world of one rank, and in eval, it is
+BatchNorm bit for bit. Plain BatchNorm under DataParallel normalizes by
+its own rank's batch, as Paddle's does.
 """
 from __future__ import annotations
 
@@ -119,18 +129,101 @@ class BatchNorm3D(_BatchNormBase):
     pass
 
 
+def _sync_group():
+    """fleet's data-parallel group when fleet is initialised, else the
+    world."""
+    from ...distributed.fleet import get_hybrid_communicate_group
+    from ...distributed.group import _default
+
+    hcg = get_hybrid_communicate_group()
+    return hcg.get_data_parallel_group() if hcg is not None else _default()
+
+
+class _SyncBatchNormFn(torch.autograd.Function):
+    """Batch normalization of a channel-first `x` (fp32 or float64) by the
+    statistics of every rank's batch in `group`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group, eps):
+        from ...distributed.communication import all_gather
+
+        dims = [0] + list(range(2, x.dim()))
+        count = x.numel() // x.shape[1]
+        var_l, mean_l = torch.var_mean(x, dim=dims, correction=0)
+        local = torch.cat([mean_l, var_l * count,
+                           mean_l.new_tensor([count])]).double()
+        parts = torch.stack(all_gather(None, local, group))   # rank order
+        c = x.shape[1]
+        n = parts[:, 2 * c:]
+        total = n.sum()
+        mean = (n * parts[:, :c]).sum(0) / total
+        m2 = parts[:, c:2 * c].sum(0) + (
+            n * (parts[:, :c] - mean) ** 2).sum(0)
+        mean, var = mean.to(x.dtype), (m2 / total).to(x.dtype)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        invstd = torch.rsqrt(var + eps)
+        out = (x - mean.reshape(shape)) * invstd.reshape(shape)
+        if weight is not None:
+            out = out * weight.reshape(shape)
+        if bias is not None:
+            out = out + bias.reshape(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.group, ctx.total = group, float(total)
+        ctx.has_bias = bias is not None
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        from ...distributed.communication import all_reduce
+
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+        shape = [1, c] + [1] * (x.dim() - 2)
+        dims = [0] + list(range(2, x.dim()))
+        xhat = (x - mean.reshape(shape)) * invstd.reshape(shape)
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        sums = all_reduce(local.clone(), group=ctx.group) / ctx.total
+        scale = invstd if weight is None else weight * invstd
+        dx = scale.reshape(shape) * (dy - sums[:c].reshape(shape)
+                                     - xhat * sums[c:].reshape(shape))
+        dw = local[c:] if weight is not None else None
+        db = local[:c] if ctx.has_bias else None
+        return dx, dw, db, None, None
+
+
 class SyncBatchNorm(_BatchNormBase):
-    """BatchNorm over this rank's batch (a world of 1); statistics across
-    ranks are queue 1 item 6b2 and raise."""
+    """BatchNorm whose training statistics span every rank's batch (see
+    the module docstring); BatchNorm itself in a world of one rank and in
+    eval."""
 
     def forward(self, x):
-        from ...distributed.group import get_world_size
+        group = _sync_group()
+        use_stats = (not self.training) if self.use_global_stats is None \
+            else self.use_global_stats
+        if use_stats or group.nranks == 1:
+            return super().forward(x)
+        from ... import amp
 
-        if self.training and get_world_size() > 1:
-            raise NotImplementedError(
-                "SyncBatchNorm's statistics across ranks are ROADMAP queue "
-                "1 item 6b2; in a world of 1 it is BatchNorm")
-        return super().forward(x)
+        t = x._t
+        out_dtype = amp.cast_inputs("batch_norm_train", t,
+                                    amp_list="black")[0].dtype
+        last = self.data_format[-1] == "C" and t.dim() > 2
+        x32 = (t.movedim(-1, 1) if last else t).contiguous()
+        if x32.dtype != torch.float64:      # statistics in at least fp32
+            x32 = x32.float()
+        w = None if self.weight is None else self.weight._t.to(x32.dtype)
+        b = None if self.bias is None else self.bias._t.to(x32.dtype)
+        out, mean, var = _SyncBatchNormFn.apply(x32, w, b, group,
+                                                self.epsilon)
+        with torch.no_grad():
+            for name, batch in (("_mean", mean), ("_variance", var)):
+                run = self._buffers[name]
+                run.copy_(self.momentum * run + (1.0 - self.momentum)
+                          * batch.to(run.dtype))
+        if last:
+            out = out.movedim(1, -1)
+        return Tensor._wrap(out.to(out_dtype))
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

@@ -508,12 +508,17 @@ def _channel_shape(x, data_format):
     return c_axis, shape
 
 
+def _wide(t):
+    """`t` in at least fp32 (float64 stays float64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 @op("batch_norm_infer", amp="black")
 def batch_norm_infer(x, running_mean, running_var, weight=None, bias=None,
                      epsilon=1e-5, data_format="NCHW"):
     _, shape = _channel_shape(x, data_format)
-    inv = torch.rsqrt(running_var.float() + epsilon).reshape(shape)
-    out = (x.float() - running_mean.reshape(shape)) * inv
+    inv = torch.rsqrt(_wide(running_var) + epsilon).reshape(shape)
+    out = (_wide(x) - running_mean.reshape(shape)) * inv
     if weight is not None:
         out = out * weight.reshape(shape)
     if bias is not None:
@@ -527,11 +532,11 @@ def batch_norm_train(x, weight=None, bias=None, epsilon=1e-5,
     """(out, batch mean, biased batch variance); the running-stat update
     is the layer's (F.batch_norm)."""
     c_axis, shape = _channel_shape(x, data_format)
-    x32 = x.float()
+    x32 = _wide(x)
     if c_axis != 1:
         x32 = _c_first(x32)
-    w = None if weight is None else weight.float()
-    b = None if bias is None else bias.float()
+    w = None if weight is None else _wide(weight)
+    b = None if bias is None else _wide(bias)
     out, mean, invstd = torch.native_batch_norm(x32, w, b, None, None, True,
                                                 0.0, epsilon)
     var = torch.reciprocal(torch.square(invstd)) - epsilon

@@ -1105,10 +1105,16 @@ def _gathered(piece, group, size, shape):
 
 class _ShardedBase(torch.nn.Module):
     """The wrapped model over the sharding group (the topology's sharding
-    group, else `group`, else the world)."""
+    group, else `group`, else the world). `sharded_optimizer` is the
+    `GroupShardedOptimizerStage2` that `group_sharded_parallel` made with
+    it (None for a wrapper built alone): the update `paddle.Model` steps.
+    The wrapper works on the registered torch tensors of the layer
+    (`torch.nn.Module.named_parameters`), so a Paddle `nn.Layer`, whose
+    `parameters()` gives Paddle wrappers, is sharded like any Module."""
 
     stage = None
     _shard_params = False
+    sharded_optimizer = None
 
     def __init__(self, layer, optimizer=None, group=None,
                  sync_buffers: bool = False, device: str = "gpu",
@@ -1146,6 +1152,9 @@ class _ShardedBase(torch.nn.Module):
     def named_parameters(self, *a, **k):
         return self._layers.named_parameters(*a, **k)
 
+    def _named_tensors(self):
+        return torch.nn.Module.named_parameters(self._layers)
+
     def state_dict(self, *a, **k):
         return self._layers.state_dict(*a, **k)
 
@@ -1159,13 +1168,24 @@ class _ShardedBase(torch.nn.Module):
         """The full parameters (stage 3: gathered from every rank's slices,
         a collective); the model's own for stages 1 / 2."""
         if not self._shard_params:
-            return list(self._layers.parameters())
+            return [p for _, p in self._named_tensors()]
         out = []
-        for name, p in self._layers.named_parameters():
+        for name, p in self._named_tensors():
             shape, size = self._full[name]
             full = _gathered(p, self.group, size, shape)
             out.append(full.cpu() if convert2cpu else full)
         return out
+
+    def full_state_dict(self):
+        """The layer's state dict with every parameter whole (stage 3:
+        gathered from every rank's slices, a collective every rank calls),
+        by the layer's own names."""
+        state = self._layers.state_dict()
+        if self._shard_params:
+            full = dict(zip([n for n, _ in self._named_tensors()],
+                            self.get_all_parameters()))
+            state = {k: full.get(k, v) for k, v in state.items()}
+        return state
 
 
 class GroupShardedStage2(_ShardedBase):
@@ -1194,15 +1214,14 @@ class GroupShardedStage3(_ShardedBase):
                 piece._zero3 = True
                 piece._full = (tuple(p.shape), p.numel())
                 mod._parameters[name] = piece
-        self._full = {name: p._full
-                      for name, p in self._layers.named_parameters()}
+        self._full = {name: p._full for name, p in self._named_tensors()}
 
     def forward(self, *inputs, **kwargs):
         from torch.func import functional_call
 
         group = self.group
         full = {}
-        for name, p in self._layers.named_parameters():
+        for name, p in self._named_tensors():
             shape, size = self._full[name]
             full[name] = _Gather.apply(p, group, size, shape)
         if not torch.is_grad_enabled():
@@ -1211,7 +1230,7 @@ class GroupShardedStage3(_ShardedBase):
         # of it) and gathers it again when it needs the values
         storages = {t.untyped_storage().data_ptr(): name
                     for name, t in full.items()}
-        pieces = dict(self._layers.named_parameters())
+        pieces = dict(self._named_tensors())
 
         def pack(t):
             name = storages.get(t.untyped_storage().data_ptr())
@@ -1332,9 +1351,10 @@ def group_sharded_parallel(model, optimizer, level: str = "p_g_os",
         wrapped = GroupShardedStage2(model, optimizer=optimizer, group=group,
                                      offload=offload)
         wrapped.stage = 1 if level == "os" else 2
-    opt = GroupShardedOptimizerStage2(list(wrapped.parameters()), optimizer,
-                                      group=wrapped.group, offload=offload,
-                                      stage=wrapped.stage)
+    opt = GroupShardedOptimizerStage2(
+        [p for _, p in wrapped._named_tensors()], optimizer,
+        group=wrapped.group, offload=offload, stage=wrapped.stage)
+    wrapped.sharded_optimizer = opt
     if scaler is not None:
         return wrapped, opt, scaler
     return wrapped, opt
@@ -1350,7 +1370,8 @@ def save_group_sharded_model(model, output, optimizer=None):
             else [p.detach().cpu() for p in model.parameters()])
     group = getattr(model, "group", None)
     if group is None or group.rank == 0:
-        torch.save(dict(zip(names, full)), str(output) + ".pdparams")
+        torch.save(dict(zip(names, (t.detach() for t in full))),
+                   str(output) + ".pdparams")
         if optimizer is not None:
             inner = getattr(optimizer, "_optim", optimizer)
             torch.save(inner.state_dict(), str(output) + ".pdopt")

@@ -1,13 +1,11 @@
 """paddle.vision for the port (counterpart of paddle_tpu/vision/):
-`datasets`, `transforms` and `models` (LeNet and the ResNets, exported
-here too). The detection ops (`vision.ops`) are ROADMAP queue 1 item 6b2
-and raise NotImplementedError, as do the other zoo models."""
-from . import datasets, models, transforms
+`datasets`, `transforms`, `models` (the zoo, exported here too) and
+`ops` (the detection ops)."""
+from . import datasets, models, ops, transforms
 from .models import *  # noqa: F401,F403
-from .models import LATER as _LATER
 from .models import __all__ as _models
 
-__all__ = ["datasets", "models", "transforms", "set_image_backend",
+__all__ = ["datasets", "models", "ops", "transforms", "set_image_backend",
            "get_image_backend", "image_load"] + _models
 
 _image_backend = ["numpy"]
@@ -28,9 +26,3 @@ def image_load(path, backend=None):
 
     return _default_loader(path)
 
-
-def __getattr__(name):
-    if name == "ops" or name in _LATER:
-        raise NotImplementedError(
-            f"paddle.vision.{name} is ROADMAP queue 1 item 6b2")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -132,9 +132,9 @@ def test_a_failing_rank_makes_spawn_raise_with_its_traceback():
 
 def test_spawn_raises_naming_the_ranks_past_its_timeout():
     with pytest.raises(TimeoutError, match=r"rank\(s\) \[.*1.*\] of 4 did "
-                                           "not finish within 20"):
+                                           "not finish within 8"):
         ptd.spawn(ranks.sleep_on, (1, 600), nprocs=N, device="cpu",
-                  timeout=20)
+                  timeout=8)
 
 
 def test_spawn_returns_the_ranks_results_in_order():

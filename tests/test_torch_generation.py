@@ -170,11 +170,16 @@ def test_bf16_llama_with_fp32_cache_against_reference():
     from paddle_tpu.jit.functional import call_functional
 
     jp, jb = extract_state(jm)
-    (ref, _), _ = call_functional(
-        jm, jp, jb, (Tensor(jnp.asarray(ids)),),
-        kwargs={"caches": jgen.init_caches(jm, 2, 12), "start_pos": 0},
-        training=False)
-    ref = np.asarray(ref, np.float32)
+
+    @jax.jit
+    def prefill(jp, jb, ids):
+        (logits, _), _ = call_functional(
+            jm, jp, jb, (Tensor(ids),),
+            kwargs={"caches": jgen.init_caches(jm, 2, 12), "start_pos": 0},
+            training=False)
+        return logits
+
+    ref = np.asarray(prefill(jp, jb, jnp.asarray(ids)), np.float32)
     with torch.no_grad():
         got, caches = pm(torch.from_numpy(ids),
                          caches=init_caches(pm, 2, 12, "float32"),
@@ -199,8 +204,12 @@ def test_prefill_matches_no_cache_forward(kind):
         cached, _ = pm(torch.from_numpy(ids), caches=init_caches(pm, 2, 16),
                        start_pos=0)
     np.testing.assert_allclose(cached.numpy(), full, rtol=0, atol=2e-5)
-    np.testing.assert_allclose(full, jm(paddle.to_tensor(ids)).numpy(),
-                               rtol=0, atol=1e-4)
+    from paddle_tpu.jit.functional import call_functional
+
+    forward = jax.jit(lambda p, b, x: call_functional(
+        jm, p, b, (Tensor(x),), training=False)[0])
+    ref = forward(*extract_state(jm), jnp.asarray(ids))
+    np.testing.assert_allclose(full, np.asarray(ref), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("kind", ["llama", "gpt"])

@@ -137,11 +137,9 @@ def test_parameter_names_match_the_reference():
 def test_logits_match_jax():
     ids, _ = _batch()
     jm = _jax_model(False)
-    jm.eval()
-    try:
-        ref = jm(paddle.to_tensor(ids)).numpy()
-    finally:
-        jm.train()
+    forward = jax.jit(lambda p, b, x: call_functional(
+        jm, p, b, (paddle.Tensor(x),), training=False)[0])
+    ref = np.asarray(forward(*extract_state(jm), jnp.asarray(ids)))
     with torch.no_grad():
         got = _port()(torch.from_numpy(ids)).numpy()
     assert got.shape == ref.shape == (B, S, 1024)

@@ -461,10 +461,10 @@ def test_vision_models_and_later_names():
     with pytest.raises(RuntimeError):
         tp.vision.models.resnet18(pretrained=True)
     for name in ("vgg16", "mobilenet_v2", "AlexNet"):
-        with pytest.raises(NotImplementedError, match="6b2"):
-            getattr(tp.vision.models, name)
-    with pytest.raises(NotImplementedError, match="6b2"):
-        tp.vision.ops
-    with pytest.raises(NotImplementedError, match="6b2"):
-        tp.Model(tp.DataParallel.__new__(tp.DataParallel))
+        assert callable(getattr(tp.vision.models, name))
+        assert getattr(tp.vision, name) is getattr(tp.vision.models, name)
+    assert callable(tp.vision.ops.nms)
+    net = tp.vision.LeNet()
+    model = tp.Model(tp.DataParallel(net))
+    assert model.network._layers is net and model._group is None
     assert isinstance(tp.vision.LeNet(), torch.nn.Module)

@@ -113,3 +113,39 @@ def test_framework_hapi_and_vision_stand_alone():
     count, loaded = proc.stdout.split(" ", 1)
     assert int(count) == 397, proc.stdout
     assert loaded.strip() == "[]", proc.stdout
+
+
+_VISION_DP = """
+import sys
+import paddle_tpu_torch as paddle
+paddle.set_device("cpu")
+M = paddle.vision.models
+names = [n for n in M.__all__ if callable(getattr(M, n))]
+ops = [getattr(paddle.vision.ops, n) for n in paddle.vision.ops.__all__]
+net = paddle.nn.SyncBatchNorm.convert_sync_batchnorm(M.mobilenet_v3_small(
+    scale=0.25, num_classes=4))
+model = paddle.Model(paddle.DataParallel(net))
+from paddle_tpu_torch.distributed import sharding
+wrapped, opt = sharding.group_sharded_parallel(
+    M.squeezenet1_1(num_classes=4), paddle.optimizer.Adam(
+        parameters=net.parameters()), level="os_g")
+assert paddle.Model(wrapped)._sharded_opt is opt
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu", "triton")]
+print(len(names), len(ops), loaded)
+"""
+
+
+def test_vision_zoo_ops_and_the_data_parallel_model_stand_alone():
+    """The zoo, `vision.ops`, SyncBatchNorm and `paddle.Model` over
+    DataParallel and GroupSharded build in a fresh interpreter without
+    `jax`, `paddle_tpu` or Triton."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", _VISION_DP], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n_models, n_ops, loaded = proc.stdout.split(" ", 2)
+    assert int(n_models) == 53 and int(n_ops) == 18, proc.stdout
+    assert loaded.strip() == "[]", proc.stdout

@@ -7,12 +7,14 @@ within atol 1e-4 (two backends, two summation orders, two layers deep).
 """
 import functools
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
-from paddle_tpu.jit.functional import extract_state
+from paddle_tpu.jit.functional import call_functional, extract_state
 from paddle_tpu.models import LlamaConfig as JLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JLlama
 
@@ -83,7 +85,10 @@ class TestWeights:
 class TestForward:
     def test_no_cache_logits_match_jax(self):
         ids = np.random.RandomState(0).randint(0, 512, (2, 13))
-        ref = _jax_llama()(paddle.to_tensor(ids)).numpy()
+        jm = _jax_llama()
+        forward = jax.jit(lambda p, b, x: call_functional(
+            jm, p, b, (paddle.Tensor(x),), training=False)[0])
+        ref = np.asarray(forward(*extract_state(jm), jnp.asarray(ids)))
         with torch.no_grad():
             got = _port_llama()(torch.from_numpy(ids)).numpy()
         assert got.shape == ref.shape == (2, 13, 512)

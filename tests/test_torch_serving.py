@@ -23,12 +23,14 @@ All on the CPU, where every kernel wrapper runs its plain version.
 """
 import functools
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
-from paddle_tpu.jit.functional import extract_state
+from paddle_tpu.jit.functional import call_functional, extract_state
 from paddle_tpu.models import GPTConfig as JGPTConfig
 from paddle_tpu.models import GPTForCausalLM as JGPT
 from paddle_tpu.models import LlamaConfig as JLlamaConfig
@@ -115,9 +117,12 @@ class TestAgainstJaxEngine:
             assert per["latency_s"] is not None and per["tokens"] == 6
         assert stats["latency"]["ttft"]["count"] == 4
         # the logits behind those tokens agree too
+        jm = _jax_llama()
+        forward = jax.jit(lambda p, b, x: call_functional(
+            jm, p, b, (paddle.Tensor(x),), training=False)[0])
         for seq in got:
             ids = np.asarray(seq)[None]
-            jl = _jax_llama()(paddle.to_tensor(ids)).numpy()
+            jl = np.asarray(forward(*extract_state(jm), jnp.asarray(ids)))
             with torch.no_grad():
                 tl = _port_llama()(torch.from_numpy(ids)).numpy()
             np.testing.assert_allclose(tl, jl, atol=1e-4)

@@ -13,8 +13,10 @@ directory, or `.`); its own package is imported and its kernels built
 first (`phase_device`, `phase_build`). A phase name is a `phase_<name>`
 function of that chip_smoke.py; it is called with (seed, dev) and, where
 its signature takes them, `profile`, `out_dir` and (the dygraph phase)
-`native`, the result of a `train` phase run before it. Each phase prints
-its own lines, then `[phase] <name>: <seconds> s`; the last line is one
+`native`, the result of a `train` phase run before it (`--phases
+vision_dp` trains ResNet-50 data-parallel through `paddle.Model.fit` on
+4 ranks; `--phases vision` includes the zoo and vision.ops). Each phase
+prints its own lines, then `[phase] <name>: <seconds> s`; the last line is one
 JSON object {"nvidia_smi": "<name, power limit>", "<name>": seconds,
 ...}.
 """
